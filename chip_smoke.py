@@ -9,18 +9,30 @@ Phases (each fails the run on any mismatch):
   2. classify kernel vs its plain PyTorch version, bitwise (lane state,
      emissions, stats), at full lane width from a carried state: the
      default band [20,100) and [2000,20000) (auto inner window, Brent);
-     threefry_bits vs its plain version at the default band's slot count.
+     threefry_bits vs its plain version at the default band's slot count;
+     classify_ext (df32) vs its plain version the same way, one pass of
+     the deep-zoom cell's geometry (4096 steps: eight flush windows with
+     refills, emissions and Brent saves) from a state carried 8 passes.
   3. deposit_ids vs index_add_ bitwise on random ids with sentinels at
      1000x1000 and 6000x4500; replay_deposit vs its plain version bitwise
-     on a compacted batch from phase 2.
-  4. The main path through cudabrot_tpu_torch.cli.main at 1000x1000, the
-     default band and [2000,20000): valid PGM, histogram sum equal to the
-     on-canvas points, overflow drops <= 1% of in-band samples, every
-     kernel of the path launched, no plain version run.
+     on a compacted batch from phase 2; replay_deposit_ext (df32) vs its
+     plain version on the batch compacted from phase 2's df32 emissions.
+  4. The main paths through cudabrot_tpu_torch.cli.main at 1000x1000: the
+     default band, [2000,20000), and the extended-precision deep zoom
+     (--precision extended, a 1e-5 window, band [500,20000)). Each: valid
+     PGM, histogram sum equal to the on-canvas points, overflow drops
+     <= 1% of in-band samples, every kernel of the path launched, no plain
+     version run. The deep-zoom window also renders through --engine
+     oracle (float64, 65,536 samples a pass), and the two must agree in
+     in-band fraction and orbit points per emission within 15%.
   5. Kernel times at each cell's main-path shapes (CUDA events) beside
      their bounds, and at the default cell beside their plain versions and
      torch.bincount of the replay's id stream; a torch.profiler profile of
      16 engine passes per cell (device ms per kernel, busy share).
+
+``--ext-budget-sweep`` instead builds and times deep-zoom engine passes at
+2^27..2^30 lane-steps per pass (the measurement behind keeping
+``cuda_engine.LANE_STEP_BUDGET`` at extended precision).
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
@@ -44,22 +56,48 @@ PEAK_OPS = 67e12
 PEAK_BYTES = 3.35e12
 #: 32-bit operations per unit of work, counted from csrc/*.cu: a refill
 #: draw (Threefry-2x32 + domain map + cull), a replayed orbit point (step
-#: + bin), a deposited id, a Threefry word. A classify inner step and
-#: window boundary cost INNER_STEP_OPS and BOUNDARY_OPS
-#: (engines/cuda_engine.py), the counts its window choice uses.
+#: + bin), a deposited id, a Threefry word. The df32 counts: a draw adds
+#: the two grid offsets and df32 sums; a replayed point is the df32 step
+#: (89 without |z|^2 and the survival count) plus the df32 bin offset and
+#: quantization (32). A classify inner step and window boundary cost
+#: INNER_STEP_OPS and BOUNDARY_OPS (EXT_* for df32; engines/cuda_engine.py),
+#: the counts its window choice uses.
 OPS_DRAW = 140
 OPS_REPLAY_POINT = 15
 OPS_DEPOSIT_ID = 3
 OPS_THREEFRY_WORD = 120
+OPS_DRAW_EXT = 160
+OPS_REPLAY_POINT_EXT = 121
 
-#: The kernels the render's main path launches.
-MAIN_PATH_KERNELS = ("classify", "threefry_bits", "replay_deposit")
-#: The main path's two cells at 1000x1000: name, CLI band arguments,
-#: passes, (min, max) escape band.
+ZOOM = ["-m", "20000", "-c", "500", "--precision", "extended", "--center",
+        "-0.743643887037151,0.131825904205330", "--span", "1e-5"]
+#: The main path's cells at 1000x1000: name, CLI arguments, passes.
 CELLS = (
-    ("default", [], 20, (20, 100)),
-    ("deep", ["-m", "20000", "-c", "2000"], 10, (2000, 20000)),
+    ("default", [], 20),
+    ("deep", ["-m", "20000", "-c", "2000"], 10),
+    ("zoom", ZOOM, 96),
 )
+#: Oracle passes over the zoom window (65,536 float64 samples each).
+ORACLE_PASSES = 2
+#: Every hand-written kernel: source, the TPU code it replaces, and the
+#: cell whose main-path run counts its launches and gives its shapes (None:
+#: no entry point launches it; its record comes from phase 3).
+KERNELS = {
+    "classify": ("cudabrot_tpu_torch/csrc/classify.cu",
+                 "cudabrot_tpu/ops/pallas_kernels.py:182", "default"),
+    "threefry_bits": ("cudabrot_tpu_torch/csrc/classify.cu",
+                      "cudabrot_tpu/engines/pallas_engine.py:1342",
+                      "default"),
+    "replay_deposit": ("cudabrot_tpu_torch/csrc/deposit.cu",
+                       "cudabrot_tpu/ops/binning.py:154", "default"),
+    "deposit_ids": ("cudabrot_tpu_torch/csrc/deposit.cu",
+                    "cudabrot_tpu/ops/binning.py:154", None),
+    "classify_ext": ("cudabrot_tpu_torch/csrc/classify_ext.cu",
+                     "cudabrot_tpu/ops/pallas_kernels_ext.py:134", "zoom"),
+    "replay_deposit_ext": ("cudabrot_tpu_torch/csrc/deposit_ext.cu",
+                           "cudabrot_tpu/engines/pallas_engine.py:786",
+                           "zoom"),
+}
 
 
 class SmokeFailure(Exception):
@@ -76,11 +114,12 @@ def check(cond: bool, what: str) -> None:
     log(f"  ok: {what}")
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean milliseconds per call over ``reps`` calls (CUDA events)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -105,10 +144,38 @@ def same_bits(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
-def clone_state(state):
-    from cudabrot_tpu_torch.ops.classify import LaneState
+def max_abs_err(pairs) -> float:
+    """Largest |kernel - plain| over pairs of output tensors (inf where
+    only one side is NaN)."""
+    import torch
 
-    return LaneState(*(t.clone() for t in state))
+    worst = 0.0
+    for a, b in pairs:
+        a, b = a.to(torch.float64), b.to(torch.float64)
+        d = torch.where(torch.isnan(a) & torch.isnan(b), 0.0, (a - b).abs())
+        d = torch.where(torch.isnan(d), float("inf"), d)
+        if d.numel():
+            worst = max(worst, float(d.max()))
+    return worst
+
+
+def clone_state(state):
+    return type(state)(*(t.clone() for t in state))
+
+
+def cell_config(name):
+    """The RenderConfig cli.main builds for a cell's arguments."""
+    from cudabrot_tpu_torch import cli
+
+    args = next(a for n, a, _ in CELLS if n == name)
+    return cli.parse_args(["-w", "1000", "-h", "1000", *args])[0]
+
+
+def path_kernels(name):
+    """The kernels a cell's main path launches."""
+    if cell_config(name).options.precision == "extended":
+        return ("classify_ext", "threefry_bits", "replay_deposit_ext")
+    return ("classify", "threefry_bits", "replay_deposit")
 
 
 # ----------------------------------------------------------------------
@@ -140,13 +207,23 @@ def classify_spec(cfg, steps, flush):
     ), tn
 
 
+def check_classify(tag, fields, ra, rb):
+    for name, x, y in zip(fields, ra.state, rb.state):
+        check(same_bits(x, y), f"{tag}: lane state {name} bitwise")
+    check(same_bits(ra.emit_c, rb.emit_c), f"{tag}: emit_c bitwise")
+    check(same_bits(ra.emit_it, rb.emit_it), f"{tag}: emit_it bitwise")
+    check(same_bits(ra.stats, rb.stats), f"{tag}: stats bitwise")
+    return max_abs_err([*zip(ra.state, rb.state), (ra.emit_c, rb.emit_c),
+                        (ra.emit_it, rb.emit_it), (ra.stats, rb.stats)])
+
+
 def phase_classify(dev):
     """Kernel vs plain version, bitwise, from a carried state."""
     from cudabrot_tpu_torch.config import IterationBand, RenderConfig
     from cudabrot_tpu_torch.ops import classify as cls
 
-    log("== phase 2: classify kernel vs plain, bitwise")
-    batches = {}
+    log("== phase 2: classify kernels vs plain, bitwise")
+    batches, errs = {}, {}
     for band, steps, warm in (((20, 100), 256, 2), ((2000, 20000), 256, 8)):
         cfg = RenderConfig(band=IterationBand(
             min_escape_iterations=band[0], max_escape_iterations=band[1]))
@@ -167,11 +244,8 @@ def phase_classify(dev):
         rb = cls.classify_pass_plain(b, *seed, None, **args)
         lanes = cfg.options.lane_rows * 128
         tag = f"band {band} U={tn.inner_unroll} lanes={lanes}"
-        for name, x, y in zip(cls.LaneState._fields, ra.state, rb.state):
-            check(same_bits(x, y), f"{tag}: lane state {name} bitwise")
-        check(same_bits(ra.emit_c, rb.emit_c), f"{tag}: emit_c bitwise")
-        check(same_bits(ra.emit_it, rb.emit_it), f"{tag}: emit_it bitwise")
-        check(same_bits(ra.stats, rb.stats), f"{tag}: stats bitwise")
+        err = check_classify(tag, cls.LaneState._fields, ra, rb)
+        errs["classify"] = max(errs.get("classify", 0.0), err)
         n_em = int((ra.emit_it >= 0).sum())
         cyc = int(ra.stats[cls.STAT_CYCLES].sum())
         log(f"  {tag}: {n_em} emissions, {cyc} Brent cycles in the pass")
@@ -182,9 +256,64 @@ def phase_classify(dev):
 
     n = 32 * 2048 * 128  # the default band's emission slots per pass
     key = prng.fold_in(prng.pass_key(1337, 0, 9), 0x7711)
-    check(same_bits(prng.bits(key, n, dev), prng.bits_plain(key, n, dev)),
-          f"threefry_bits: {n} words bitwise vs plain")
-    return batches
+    wk, wp = prng.bits(key, n, dev), prng.bits_plain(key, n, dev)
+    check(same_bits(wk, wp), f"threefry_bits: {n} words bitwise vs plain")
+    errs["threefry_bits"] = max_abs_err([(wk, wp)])
+    return batches, errs
+
+
+def phase_classify_ext(dev):
+    """The df32 classify kernel vs its plain version at the zoom cell's
+    geometry and full lane width, from a carried state. Returns the pass's
+    result, the tuning and the kernel's record (error and plain time)."""
+    import torch
+
+    from cudabrot_tpu_torch.engines.cuda_engine import Tuning
+    from cudabrot_tpu_torch.models.fractals import get_fractal
+    from cudabrot_tpu_torch.ops import classify as cls
+    from cudabrot_tpu_torch.ops import classify_ext as cx
+
+    cfg = cell_config("zoom")
+    tn = Tuning(cfg)
+    fr = get_fractal(cfg.fractal)
+    spec = dict(fractal=fr, min_it=tn.min_it, max_it=tn.max_it,
+                steps_per_pass=tn.steps_per_pass,
+                steps_per_flush=tn.steps_per_flush, cycle_detection=True,
+                inner_unroll=tn.inner_unroll,
+                sample_domain=cfg.sample_domain)
+    state = cx.init_ext_lane_state(cfg.options.lane_rows, dev)
+    for p in range(8):
+        cx.classify_pass_ext(state, (1337, p), **spec)
+    a, b = clone_state(state), clone_state(state)
+    seed = (0xC0FFEE, 0xBADF00D)
+    ra = cx.classify_pass_ext(a, seed, **spec)
+    args = dict(fractal=fr, min_it=tn.min_it, max_it=tn.max_it,
+                chunks=tn.steps_per_pass // tn.steps_per_flush,
+                windows=tn.steps_per_flush // tn.inner_unroll,
+                unroll=tn.inner_unroll, detect=True,
+                sample_domain=cfg.sample_domain, visit_window=None)
+    out = {}
+
+    def plain():
+        out["r"] = cx.classify_pass_ext_plain(b, *seed, None, **args)
+
+    plain_ms = time_ms(plain, 1, warm=False)
+    tag = (f"classify_ext band ({tn.min_it}, {tn.max_it}) "
+           f"U={tn.inner_unroll} steps={tn.steps_per_pass} "
+           f"lanes={tn.lanes}")
+    err = check_classify(tag, cx.ExtLaneState._fields, ra, out["r"])
+    for f, t in zip(cx.ExtLaneState._fields, ra.state):
+        if t.dtype == torch.float32:
+            check(bool(torch.isfinite(t).all()),
+                  f"{tag}: stored {f} holds no inf/NaN")
+    n_em = int((ra.emit_it >= 0).sum())
+    st = ra.stats.reshape(cls.STATS_ROWS, -1).sum(dim=1)
+    log(f"  {tag}: {n_em} emissions, {int(st[cls.STAT_DRAWN])} refills, "
+        f"{int(st[cls.STAT_CYCLES])} Brent cycles; plain version "
+        f"{plain_ms:.1f} ms")
+    check(n_em > 0 and int(st[cls.STAT_DRAWN]) > 0,
+          f"{tag}: pass refilled and emitted")
+    return ra, tn, cfg, dict(max_abs_err=err, plain_ms=plain_ms)
 
 
 def phase_deposit(dev, batches):
@@ -197,7 +326,7 @@ def phase_deposit(dev, batches):
 
     log("== phase 3: deposit kernels vs plain, bitwise")
     gen = torch.Generator(device=dev).manual_seed(7)
-    records = {}
+    records, errs = {}, {}
     n_ids = 1 << 24
     for w, h in ((1000, 1000), (6000, 4500)):
         nbins = w * h
@@ -211,12 +340,13 @@ def phase_deposit(dev, batches):
         check(torch.equal(hk, hp), f"deposit_ids {w}x{h}: bitwise vs index_add_")
         check(int(hk.to(torch.int64).sum()) == int((ids < nbins).sum()),
               f"deposit_ids {w}x{h}: every non-sentinel id counted")
+        err = max_abs_err([(hk, hp)])
         ms = time_ms(lambda: binning.deposit_ids(hk, ids), 20)
         plain = time_ms(lambda: binning.deposit_ids_plain(hp, ids), 5)
         lib = time_ms(lambda: torch.bincount(ids, minlength=nbins + 1), 5)
         b_ms, b_by = bound_ms(OPS_DEPOSIT_ID * n_ids, 4 * n_ids + 8 * nbins)
-        records[(w, h)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                               bound_ms=b_ms, bound_by=b_by)
+        records[(w, h)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                               bound_ms=b_ms, bound_by=b_by, library_ms=lib)
         log(f"  deposit_ids {w}x{h}, {n_ids} ids: kernel {ms:.4f} ms, "
             f"index_add_ {plain:.4f} ms, bincount {lib:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
@@ -235,9 +365,48 @@ def phase_deposit(dev, batches):
         check(torch.equal(hk, hp), f"replay_deposit band {band}: bitwise")
         check(int(hits_k) == int(hits_p) == int(hk.to(torch.int64).sum()),
               f"replay_deposit band {band}: hits == histogram mass")
+        errs["replay_deposit"] = max(
+            errs.get("replay_deposit", 0.0),
+            max_abs_err([(hk, hp), (hits_k, hits_p)]))
         log(f"  band {band}: {int((it >= 0).sum())} orbits, "
             f"{int(hits_k)} on-canvas points")
-    return records
+    return records, errs
+
+
+def phase_deposit_ext(dev, res, tn, cfg):
+    """The fused df32 replay-deposit kernel vs its plain version on the
+    batch compacted from phase 2's df32 emissions (the zoom cell's canvas
+    and capacity)."""
+    import torch
+
+    from cudabrot_tpu_torch.engines.cuda_engine import compact
+    from cudabrot_tpu_torch.models.fractals import get_fractal
+    from cudabrot_tpu_torch.ops import binning
+
+    kr, ki, it, _ = compact(res.emit_c, res.emit_it, (1, 2),
+                            tn.replay_capacity, tn.max_it)
+    kw = dict(canvas=cfg.canvas, fractal=get_fractal(cfg.fractal),
+              sample_domain=cfg.sample_domain)
+    hk = torch.zeros(cfg.canvas.num_pixels, dtype=torch.int32, device=dev)
+    hp = torch.zeros_like(hk)
+    hits_k = binning.replay_deposit_ext(hk, kr, ki, it, **kw)
+    out = {}
+
+    def plain():
+        out["hits"] = binning.replay_deposit_ext_plain(hp, kr, ki, it, **kw)
+
+    plain_ms = time_ms(plain, 1, warm=False)
+    hits_p = out["hits"]
+    check(torch.equal(hk, hp), "replay_deposit_ext: histogram bitwise")
+    check(int(hits_k) == int(hits_p) == int(hk.to(torch.int64).sum()) > 0,
+          "replay_deposit_ext: hits == histogram mass > 0")
+    orbits = int((it >= 0).sum())
+    points = int(torch.where(it >= 0, it + 1, 0).sum())
+    log(f"  replay_deposit_ext: {orbits} orbits (longest "
+        f"{int(it.max()) + 1} steps), {points} points, {int(hits_k)} on "
+        f"canvas; plain version {plain_ms:.1f} ms")
+    return dict(max_abs_err=max_abs_err([(hk, hp), (hits_k, hits_p)]),
+                plain_ms=plain_ms)
 
 
 def run_cli(args, stats_path):
@@ -259,18 +428,17 @@ def phase_main_path(dev):
     from cudabrot_tpu_torch.io import pgm
     from cudabrot_tpu_torch.ops import launches
 
-    log("== phase 4: main path through cudabrot_tpu_torch.cli.main")
+    log("== phase 4: main paths through cudabrot_tpu_torch.cli.main")
     os.makedirs(OUT, exist_ok=True)
     results = {}
-    for name, band_args, passes, _ in CELLS:
+    for name, cell_args, passes in CELLS:
         pgm_path = os.path.join(OUT, f"{name}.pgm")
         ckpt_path = os.path.join(OUT, f"{name}.ckpt")
         stats_path = os.path.join(OUT, f"{name}.json")
-        for p in (ckpt_path,):
-            if os.path.exists(p):
-                os.remove(p)
+        if os.path.exists(ckpt_path):
+            os.remove(ckpt_path)
         torch.cuda.reset_peak_memory_stats(dev)
-        args = ["-w", "1000", "-h", "1000", *band_args, "--passes",
+        args = ["-w", "1000", "-h", "1000", *cell_args, "--passes",
                 str(passes), "-t", "-1", "-o", pgm_path, "-s", ckpt_path,
                 "--stats-json", stats_path]
         stats, counts = run_cli(args, stats_path)
@@ -279,13 +447,13 @@ def phase_main_path(dev):
         check(img.shape == (1000, 1000) and img.dtype == np.uint16
               and int(img.max()) == 65535, f"{name}: valid 1000x1000 PGM")
         hist = np.load(ckpt_path)["hist"]
-        check(int(hist.sum(dtype=np.uint64)) == stats["on_canvas_points"],
+        check(int(hist.sum(dtype=np.uint64)) == stats["on_canvas_points"] > 0,
               f"{name}: histogram sum == on_canvas_points "
               f"({stats['on_canvas_points']})")
         check(stats["replay_dropped"] <= 0.01 * stats["in_band"],
               f"{name}: replay_dropped {stats['replay_dropped']} <= 1% of "
               f"in_band {stats['in_band']}")
-        for k in MAIN_PATH_KERNELS:
+        for k in path_kernels(name):
             check(counts[k] > 0, f"{name}: {k} kernel launched "
                   f"({counts[k]} times)")
         for k in launches.KERNELS:
@@ -303,9 +471,52 @@ def phase_main_path(dev):
     return results
 
 
+def phase_oracle(zoom_stats):
+    """The zoom window through --engine oracle (float64) on the card, and
+    its statistics against the df32 engine's: in-band fraction and orbit
+    points per emission. The persistent sampler counts each lane's initial
+    dummy draw as a sample, so the lane count is subtracted; samples still
+    in flight when the render ends are not counted at all, which the
+    tolerance absorbs."""
+    import numpy as np
+
+    from cudabrot_tpu_torch.io import pgm
+
+    log("== phase 4b: the zoom window through --engine oracle (float64)")
+    pgm_path = os.path.join(OUT, "zoom_oracle.pgm")
+    stats_path = os.path.join(OUT, "zoom_oracle.json")
+    args = ["-w", "1000", "-h", "1000", *ZOOM, "--engine", "oracle",
+            "--passes", str(ORACLE_PASSES), "-t", "-1", "-o", pgm_path,
+            "--stats-json", stats_path]
+    t0 = time.monotonic()
+    ostats, _ = run_cli(args, stats_path)
+    log(f"  oracle: {ORACLE_PASSES} passes in {time.monotonic() - t0:.1f} s; "
+        f"stats {json.dumps(ostats)}")
+    check(ostats["engine"] == "oracle" and ostats["device"].startswith("cuda"),
+          "oracle rendered on the card")
+    img = pgm.read_pgm(pgm_path)
+    check(img.shape == (1000, 1000) and img.dtype == np.uint16,
+          "oracle: valid 1000x1000 PGM")
+    lanes = cell_config("zoom").options.lane_rows * 128
+    e_band = zoom_stats["in_band"] / (zoom_stats["samples"] - lanes)
+    o_band = ostats["in_band"] / ostats["samples"]
+    e_mass = zoom_stats["orbit_points"] / max(zoom_stats["emitted"], 1)
+    o_mass = ostats["orbit_points"] / max(ostats["in_band"], 1)
+    log(f"  in-band fraction: df32 engine {e_band:.5f}, f64 oracle "
+        f"{o_band:.5f} (ratio {e_band / o_band:.4f}); orbit points per "
+        f"emission: {e_mass:.1f} vs {o_mass:.1f} (ratio "
+        f"{e_mass / o_mass:.4f})")
+    check(abs(e_band / o_band - 1) < 0.15,
+          "zoom: in-band fraction within 15% of the float64 oracle")
+    check(abs(e_mass / o_mass - 1) < 0.15,
+          "zoom: orbit points per emission within 15% of the oracle")
+
+
 #: Device-activity groups of the profile: kernel-name substring -> group.
-PROFILE_GROUPS = (("classify_kernel", "classify"),
+PROFILE_GROUPS = (("classify_ext_kernel", "classify_ext"),
+                  ("classify_kernel", "classify"),
                   ("threefry_bits", "threefry_bits"),
+                  ("replay_deposit_ext", "replay_deposit_ext"),
                   ("replay_deposit", "replay_deposit"))
 
 
@@ -376,76 +587,95 @@ def replay_ids(cr, ci, it, canvas, fractal):
     return torch.cat(out)
 
 
-def cell_times(dev, name, band, with_plain):
+def cell_times(dev, name, with_plain):
     """Each main-path kernel at one cell's main-path shapes (CUDA events,
-    from a lane state carried over 4 passes), a whole engine pass, and the
-    device's busy share. ``with_plain`` adds the plain versions and the
+    from a lane state carried over some passes), a whole engine pass, and
+    the device's busy share. ``with_plain`` adds the plain versions and the
     library calls (the default cell; they take seconds at full width)."""
     import itertools
 
     import torch
 
-    from cudabrot_tpu_torch.config import IterationBand, RenderConfig
-    from cudabrot_tpu_torch.engines.cuda_engine import (
-        BOUNDARY_OPS, INNER_STEP_OPS, CudaEngine, compact)
+    from cudabrot_tpu_torch.engines import cuda_engine as ce
     from cudabrot_tpu_torch.ops import binning, prng
     from cudabrot_tpu_torch.ops import classify as cls
+    from cudabrot_tpu_torch.ops import classify_ext as cx
 
     log(f"== kernel times at the {name} cell's main-path shapes")
-    cfg = RenderConfig(band=IterationBand(min_escape_iterations=band[0],
-                                          max_escape_iterations=band[1]))
-    eng = CudaEngine(cfg, device=dev)
-    tn = eng.tuning
+    cfg = cell_config(name)
+    eng = ce.CudaEngine(cfg, device=dev)
+    tn, ext = eng.tuning, eng.extended
     state = eng.init_state(None)
-    for p in range(4):
+    warm_passes = 8 if ext else 4
+    for p in range(warm_passes):
         eng.run_pass(state, p)
     spec = dict(
         fractal=eng.fractal, min_it=tn.min_it, max_it=tn.max_it,
         steps_per_pass=tn.steps_per_pass, steps_per_flush=tn.steps_per_flush,
         cycle_detection=True, inner_unroll=tn.inner_unroll,
-        thin_tracking=tn.thin_tracking,
+        sample_domain=cfg.sample_domain,
     )
+    if ext:
+        classify, k1, k2 = cx.classify_pass_ext, "classify_ext", \
+            "replay_deposit_ext"
+        c_inner, c_boundary, c_draw, c_point = (
+            ce.EXT_INNER_STEP_OPS, ce.EXT_BOUNDARY_OPS, OPS_DRAW_EXT,
+            OPS_REPLAY_POINT_EXT)
+    else:
+        classify, k1, k2 = cls.classify_pass, "classify", "replay_deposit"
+        spec["thin_tracking"] = tn.thin_tracking
+        c_inner, c_boundary, c_draw, c_point = (
+            ce.INNER_STEP_OPS, ce.BOUNDARY_OPS, OPS_DRAW, OPS_REPLAY_POINT)
     lanes = state["lanes"]
-    key = prng.pass_key(cfg.seed, 0, 5)
+    key = prng.pass_key(cfg.seed, 0, warm_passes + 1)
     seed = prng.bits_host(key, 2)
-    res = cls.classify_pass(clone_state(lanes), seed, **spec)
-    k1_ms = time_ms(lambda: cls.classify_pass(lanes, seed, **spec), 10)
+    res = classify(clone_state(lanes), seed, **spec)
+    k1_ms = time_ms(lambda: classify(lanes, seed, **spec), 10)
     n_lanes = eng.lanes
     lane_steps = tn.steps_per_pass * n_lanes
     windows = lane_steps // tn.inner_unroll
     draws = int(res.stats[cls.STAT_DRAWN].sum())
     slots = tn.emission_slots
+    state_words = len(lanes)
     k1_bound, k1_by = bound_ms(
-        INNER_STEP_OPS * lane_steps + BOUNDARY_OPS * windows
-        + OPS_DRAW * draws,
-        n_lanes * (2 * 40 + 20) + slots * 12,
+        c_inner * lane_steps + c_boundary * windows + c_draw * draws,
+        n_lanes * (2 * 4 * state_words + 20) + slots * 12,
     )
 
-    cr, ci, it, _ = compact(res.emit_c, res.emit_it, key,
-                            tn.replay_capacity, tn.max_it)
+    cr, ci, it, _ = ce.compact(res.emit_c, res.emit_it, key,
+                               tn.replay_capacity, tn.max_it)
     hist = torch.zeros(cfg.canvas.num_pixels, dtype=torch.int32, device=dev)
     fr = eng.fractal
-    k2_ms = time_ms(lambda: binning.replay_deposit(
-        hist, cr, ci, it, canvas=cfg.canvas, fractal=fr), 10)
+    if ext:
+        def replay(h=hist):
+            return binning.replay_deposit_ext(
+                h, cr, ci, it, canvas=cfg.canvas, fractal=fr,
+                sample_domain=cfg.sample_domain)
+    else:
+        def replay(h=hist):
+            return binning.replay_deposit(h, cr, ci, it, canvas=cfg.canvas,
+                                          fractal=fr)
+    k2_ms = time_ms(replay, 10)
     orbits = int((it >= 0).sum())
     points = int(torch.where(it >= 0, it + 1, 0).sum())
     k2_bound, k2_by = bound_ms(
-        OPS_REPLAY_POINT * points,
-        12 * cr.numel() + 8 * cfg.canvas.num_pixels,
-    )
+        c_point * points, 12 * cr.numel() + 8 * cfg.canvas.num_pixels)
 
     sel_key = prng.fold_in(key, 0x7711)
     k3_ms = time_ms(lambda: prng.bits(sel_key, slots, dev), 20)
     k3_bound, k3_by = bound_ms(OPS_THREEFRY_WORD * slots, 8 * slots)
-    t_compact = time_ms(lambda: compact(res.emit_c, res.emit_it, key,
-                                        tn.replay_capacity, tn.max_it), 5)
-    pass_ids = itertools.count(6)
+    t_compact = time_ms(lambda: ce.compact(res.emit_c, res.emit_it, key,
+                                           tn.replay_capacity, tn.max_it), 5)
+    pass_ids = itertools.count(warm_passes + 2)
     pass_ms = time_ms(lambda: eng.run_pass(state, next(pass_ids)), 10)
     busy, span, prof_ms = device_profile(eng, state, 100, 16)
 
-    log(f"  classify: {lane_steps} lane-steps, {draws} draws; kernel "
+    log(f"  geometry: {n_lanes} lanes, {tn.steps_per_pass} steps per pass, "
+        f"flush {tn.steps_per_flush}, U={tn.inner_unroll}, capacity "
+        f"{tn.replay_capacity}")
+    log(f"  {k1}: {lane_steps} lane-steps, {draws} draws; kernel "
         f"{k1_ms:.4f} ms, bound {k1_bound:.4f} ms ({k1_by})")
-    log(f"  replay_deposit: {orbits} orbits, {points} points; kernel "
+    log(f"  {k2}: {orbits} orbits, {points} points; kernel "
         f"{k2_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_by})")
     log(f"  threefry_bits: {slots} words; kernel {k3_ms:.4f} ms, bound "
         f"{k3_bound:.4f} ms ({k3_by}); whole compaction {t_compact:.4f} ms")
@@ -453,19 +683,19 @@ def cell_times(dev, name, band, with_plain):
     if busy is None:
         log(f"  {name} device profile: not measured ({span})")
     else:
-        parts = ", ".join(f"{g} {v:.4f}" for g, v in prof_ms.items())
+        parts = ", ".join(f"{g} {v:.4f}" for g, v in prof_ms.items() if v)
         log(f"  {name} device profile of 16 passes (torch.profiler): ms per "
             f"pass {parts}; busy {busy:.4f} of a {span:.3f} ms span "
             f"(idle {1 - busy:.4f})")
 
-    rec = dict(
-        classify=dict(ms=k1_ms, bound_ms=k1_bound, bound_by=k1_by,
-                      plain_ms=None, library_ms=None),
-        threefry_bits=dict(ms=k3_ms, bound_ms=k3_bound, bound_by=k3_by,
-                           plain_ms=None, library_ms=None),
-        replay_deposit=dict(ms=k2_ms, bound_ms=k2_bound, bound_by=k2_by,
-                            plain_ms=None, library_ms=None),
-    )
+    rec = {
+        k1: dict(ms=k1_ms, bound_ms=k1_bound, bound_by=k1_by,
+                 library_ms=None),
+        "threefry_bits": dict(ms=k3_ms, bound_ms=k3_bound, bound_by=k3_by,
+                              library_ms=None),
+        k2: dict(ms=k2_ms, bound_ms=k2_bound, bound_by=k2_by,
+                 library_ms=None),
+    }
     if not with_plain:
         return rec
     plain_state = clone_state(lanes)
@@ -476,15 +706,15 @@ def cell_times(dev, name, band, with_plain):
         unroll=tn.inner_unroll, thin=tn.thin_tracking, detect=True,
         sample_domain=cfg.sample_domain, visit_window=None,
     )
-    rec["classify"]["plain_ms"] = time_ms(
+    rec[k1]["plain_ms"] = time_ms(
         lambda: cls.classify_pass_plain(plain_state, *seed, None, **args), 1)
-    rec["replay_deposit"]["plain_ms"] = time_ms(
+    rec[k2]["plain_ms"] = time_ms(
         lambda: binning.replay_deposit_plain(
             hist, cr, ci, it, canvas=cfg.canvas, fractal=fr), 1)
     rec["threefry_bits"]["plain_ms"] = time_ms(
         lambda: prng.bits_plain(sel_key, slots, dev), 5)
-    log(f"  plain versions: classify {rec['classify']['plain_ms']:.4f} ms, "
-        f"replay_deposit {rec['replay_deposit']['plain_ms']:.4f} ms, "
+    log(f"  plain versions: classify {rec[k1]['plain_ms']:.4f} ms, "
+        f"replay_deposit {rec[k2]['plain_ms']:.4f} ms, "
         f"threefry_bits {rec['threefry_bits']['plain_ms']:.4f} ms")
 
     # The batch's id stream, materialized, through the library's counting
@@ -492,7 +722,7 @@ def cell_times(dev, name, band, with_plain):
     ids = replay_ids(cr, ci, it, cfg.canvas, fr)
     nbins = cfg.canvas.num_pixels
     hk = torch.zeros(nbins, dtype=torch.int32, device=dev)
-    binning.replay_deposit(hk, cr, ci, it, canvas=cfg.canvas, fractal=fr)
+    replay(hk)
     check(torch.equal(torch.bincount(ids, minlength=nbins),
                       hk.to(torch.int64)),
           f"{name}: bincount of the replay's id stream == replay_deposit")
@@ -504,26 +734,60 @@ def cell_times(dev, name, band, with_plain):
     return rec
 
 
-def phase_kernel_times(dev, main):
-    """Kernel records of the main path: times at the default cell's shapes
-    (the deep cell's are printed too), launches from the default run."""
-    times = {name: cell_times(dev, name, band, name == "default")
-             for name, _, _, band in CELLS}
-    sources = dict(
-        classify=("cudabrot_tpu_torch/csrc/classify.cu",
-                  "cudabrot_tpu/ops/pallas_kernels.py:182"),
-        threefry_bits=("cudabrot_tpu_torch/csrc/classify.cu",
-                       "cudabrot_tpu/engines/pallas_engine.py:1342"),
-        replay_deposit=("cudabrot_tpu_torch/csrc/deposit.cu",
-                        "cudabrot_tpu/ops/binning.py:154"),
-    )
-    launches_main = main["default"][1]
-    return [
-        dict(name=k, route="cuda", source=sources[k][0],
-             replaces=sources[k][1], launches=launches_main[k],
-             **times["default"][k])
-        for k in MAIN_PATH_KERNELS
-    ]
+def phase_kernel_times(dev, main_runs, errs, ext_records, deposit_ids):
+    """One record per hand-written kernel. Times are at the shapes of the
+    cell that KERNELS names (the other cells' are printed), launches from
+    that cell's main-path run; deposit_ids, which no entry point launches,
+    carries phase 3's record at 1000x1000 and 0 launches. plain_ms of the
+    two df32 kernels comes from phases 2 and 3, which ran their plain
+    versions at the zoom cell's shapes."""
+    times = {name: cell_times(dev, name, name == "default")
+             for name, _, _ in CELLS}
+    records = []
+    for k, (source, replaces, cell) in KERNELS.items():
+        if cell is None:
+            body = dict(launches=0, **deposit_ids[(1000, 1000)])
+        else:
+            body = dict(launches=main_runs[cell][1][k], **times[cell][k])
+            body.update(ext_records.get(k, {}))
+            body.setdefault("max_abs_err", errs.get(k))
+        records.append(dict(name=k, route="cuda", source=source,
+                            replaces=replaces, **body))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for r in records:
+        check(all(key in r for key in keys)
+              and all(r[key] is not None for key in keys[:-1]),
+              f"kernel record of {r['name']} is complete")
+    return [{key: r[key] for key in keys} for r in records]
+
+
+def ext_budget_sweep(dev):
+    """Deep-zoom engine passes at 2^27..2^30 lane-steps per pass: ms per
+    pass and lane-steps per second (CUDA events over 8 passes, after
+    2^15 warm-up steps at each length)."""
+    import dataclasses
+    import itertools
+
+    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
+
+    base = cell_config("zoom")
+    for log2 in (27, 28, 29, 30):
+        steps = (1 << log2) // (base.options.lane_rows * 128)
+        cfg = dataclasses.replace(base, options=dataclasses.replace(
+            base.options, steps_per_pass=steps))
+        eng = CudaEngine(cfg, device=dev)
+        state = eng.init_state(None)
+        warm = 32768 // steps
+        for p in range(warm):
+            eng.run_pass(state, p)
+        ids = itertools.count(warm)
+        ms = time_ms(lambda: eng.run_pass(state, next(ids)), 8)
+        st = eng.stats(state)
+        log(f"  2^{log2} lane-steps per pass ({steps} steps, capacity "
+            f"{eng.replay_capacity}): {ms:.3f} ms per pass, "
+            f"{(1 << log2) / ms * 1e3:.4e} lane-steps/s, dropped "
+            f"{st['replay_dropped']} of {st['in_band']} in band")
 
 
 def main() -> int:
@@ -545,29 +809,41 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    t0 = time.monotonic()
-    try:
-        phase_build()
-        batches = phase_classify(dev)
-        deposit = phase_deposit(dev, batches)
-        del batches
-        main_runs = phase_main_path(dev)
-        kernels = phase_kernel_times(dev, main_runs)
-    except SmokeFailure as e:
-        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-        return 1
-    log(f"deposit_ids (off the main path) records: "
-        f"{json.dumps({f'{w}x{h}': r for (w, h), r in deposit.items()})}")
-    log(f"main-path launches: default band "
-        f"{json.dumps(main_runs['default'][1])}, [2000,20000) "
-        f"{json.dumps(main_runs['deep'][1])}")
-    log(f"chip_smoke took {time.monotonic() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=False,
     ).stdout.strip().splitlines()
-    log(smi[0] if smi else "nvidia-smi: no output")
+    card = smi[0] if smi else "nvidia-smi: no output"
+    t0 = time.monotonic()
+    if sys.argv[1:] == ["--ext-budget-sweep"]:
+        phase_build()
+        ext_budget_sweep(dev)
+        log(card)
+        return 0
+    try:
+        phase_build()
+        batches, errs = phase_classify(dev)
+        ext_res, ext_tn, ext_cfg, ext_classify = phase_classify_ext(dev)
+        deposit, deposit_errs = phase_deposit(dev, batches)
+        errs.update(deposit_errs)
+        ext_replay = phase_deposit_ext(dev, ext_res, ext_tn, ext_cfg)
+        del batches, ext_res
+        main_runs = phase_main_path(dev)
+        phase_oracle(main_runs["zoom"][0])
+        kernels = phase_kernel_times(
+            dev, main_runs, errs,
+            dict(classify_ext=ext_classify, replay_deposit_ext=ext_replay),
+            deposit)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    log(f"deposit_ids records: "
+        f"{json.dumps({f'{w}x{h}': r for (w, h), r in deposit.items()})}")
+    log("main-path launches: " + ", ".join(
+        f"{name} {json.dumps(main_runs[name][1])}" for name, _, _ in CELLS))
+    log(f"chip_smoke took {time.monotonic() - t0:.1f} s")
+    log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

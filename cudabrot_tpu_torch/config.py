@@ -141,8 +141,9 @@ class EngineOptions:
     """
 
     #: Engine implementation: "cuda" (the hand-written CUDA kernels, with
-    #: their plain PyTorch versions on CPU tensors) or "auto" (= "cuda").
-    #: "oracle" is not yet ported; "pallas" names the TPU engine.
+    #: their plain PyTorch versions on CPU tensors), "auto" (= "cuda") or
+    #: "oracle" (plain PyTorch, float32/float64: the ground truth).
+    #: "pallas" names the TPU engine.
     engine: str = "auto"
     #: Number of persistent sampler lanes, expressed as rows of 128 lanes
     #: (lanes = rows * 128). 2048 rows = 262,144 lanes: one CUDA thread per
@@ -449,12 +450,7 @@ class EngineOptions:
 #: Options whose engines later slices of the port bring, as (what the
 #: message names, predicate on EngineOptions).
 _NOT_YET_PORTED = (
-    ("--engine oracle", lambda o: o.engine == "oracle"),
     ("--sampler mh", lambda o: o.sampler == "mh"),
-    (
-        "--precision extended/float64",
-        lambda o: o.precision != "float32",
-    ),
     ("--replay host", lambda o: o.replay == "host"),
     ("--replay-device-share", lambda o: o.replay_device_share >= 0),
     ("--hist-dtype uint64", lambda o: o.hist_dtype == "uint64"),

@@ -1,0 +1,155 @@
+// CPU build of the extended-precision kernels' per-lane functions.
+//
+// The df32 arithmetic (df32.cuh) and the lane and emission functions of
+// the classify_ext and replay_deposit_ext kernels (classify_ext.cuh) are
+// __host__ __device__; this file loops them over lanes on the CPU behind
+// the same C interface as the CUDA launchers, so a machine without a GPU
+// can hold them bitwise against the plain PyTorch versions. Build:
+//
+//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC
+//       -o libcb_host.so host_harness.cpp
+//
+// (-ffp-contract=off: every product and sum must round once, as
+// __fmul_rn/__fadd_rn do on the device.) Nothing in the package loads it;
+// tests/test_torch_df32.py builds it when g++ is present.
+#include "classify_ext.cuh"
+
+using cb::df::F2;
+
+extern "C" {
+
+// Elementwise df32 functions over n values; outputs are (hi, lo) arrays.
+void cbh_two_sum(const float* a, const float* b, int n, float* s, float* e) {
+  for (int i = 0; i < n; ++i) {
+    const F2 r = cb::df::two_sum(a[i], b[i]);
+    s[i] = r.hi;
+    e[i] = r.lo;
+  }
+}
+
+void cbh_quick_two_sum(const float* a, const float* b, int n, float* s,
+                       float* e) {
+  for (int i = 0; i < n; ++i) {
+    const F2 r = cb::df::quick_two_sum(a[i], b[i]);
+    s[i] = r.hi;
+    e[i] = r.lo;
+  }
+}
+
+void cbh_split(const float* a, int n, float* hi, float* lo) {
+  for (int i = 0; i < n; ++i) {
+    const F2 r = cb::df::split(a[i]);
+    hi[i] = r.hi;
+    lo[i] = r.lo;
+  }
+}
+
+void cbh_two_prod(const float* a, const float* b, int n, float* p, float* e) {
+  for (int i = 0; i < n; ++i) {
+    const F2 r = cb::df::two_prod(a[i], b[i]);
+    p[i] = r.hi;
+    e[i] = r.lo;
+  }
+}
+
+void cbh_two_prod_sqr(const float* a, int n, float* p, float* e) {
+  for (int i = 0; i < n; ++i) {
+    const F2 r = cb::df::two_prod_sqr(a[i]);
+    p[i] = r.hi;
+    e[i] = r.lo;
+  }
+}
+
+// op: 0 add, 1 sub, 2 mul over df pairs (ah, al) and (bh, bl).
+void cbh_binary(int op, const float* ah, const float* al, const float* bh,
+                const float* bl, int n, float* h, float* l) {
+  for (int i = 0; i < n; ++i) {
+    const F2 a{ah[i], al[i]}, b{bh[i], bl[i]};
+    const F2 r = op == 0 ? cb::df::add(a, b)
+                 : op == 1 ? cb::df::sub(a, b)
+                           : cb::df::mul(a, b);
+    h[i] = r.hi;
+    l[i] = r.lo;
+  }
+}
+
+// op: 0 sqr, 1 abs_ of a df pair; 2 add_f(a, bh).
+void cbh_unary(int op, const float* ah, const float* al, const float* bh,
+               int n, float* h, float* l) {
+  for (int i = 0; i < n; ++i) {
+    const F2 a{ah[i], al[i]};
+    const F2 r = op == 0 ? cb::df::sqr(a)
+                 : op == 1 ? cb::df::abs_(a)
+                           : cb::df::add_f(a, bh[i]);
+    h[i] = r.hi;
+    l[i] = r.lo;
+  }
+}
+
+// z and c as 4 arrays each (hi, lo, hi, lo); out: nzr, nzrl, nzi, nzil,
+// mag2, 5 arrays of n.
+void cbh_complex_sqr_add(int fold_abs, const float* const* z,
+                         const float* const* c, int n, float* const* out) {
+  for (int i = 0; i < n; ++i) {
+    F2 zr{z[0][i], z[1][i]}, zi{z[2][i], z[3][i]};
+    const F2 cr{c[0][i], c[1][i]}, ci{c[2][i], c[3][i]};
+    out[4][i] = fold_abs
+                    ? cb::df::complex_sqr_add<cb::kBurningShip>(zr, zi, cr, ci)
+                    : cb::df::complex_sqr_add<cb::kBuddhabrot>(zr, zi, cr, ci);
+    out[0][i] = zr.hi;
+    out[1][i] = zr.lo;
+    out[2][i] = zi.hi;
+    out[3][i] = zi.lo;
+  }
+}
+
+// The interface of cb_classify_ext, lanes looped on the CPU.
+int cbh_classify_ext(void** ptrs, const int* iargs, const float* fargs,
+                     uint32_t k0, uint32_t k1) {
+  const cb::ClassifyExtArgs a =
+      cb::classify_ext_args(ptrs, iargs, fargs, k0, k1);
+  const int fractal = iargs[0], visit = iargs[1];
+  for (int lane = 0; lane < a.lanes; ++lane) {
+    if (fractal == cb::kBuddhabrot) {
+      visit ? cb::classify_ext_lane<cb::kBuddhabrot, true>(a, lane)
+            : cb::classify_ext_lane<cb::kBuddhabrot, false>(a, lane);
+    } else if (fractal == cb::kBurningShip) {
+      visit ? cb::classify_ext_lane<cb::kBurningShip, true>(a, lane)
+            : cb::classify_ext_lane<cb::kBurningShip, false>(a, lane);
+    } else if (fractal == cb::kAntiBuddhabrot) {
+      visit ? cb::classify_ext_lane<cb::kAntiBuddhabrot, true>(a, lane)
+            : cb::classify_ext_lane<cb::kAntiBuddhabrot, false>(a, lane);
+    } else {
+      return 1;
+    }
+  }
+  return 0;
+}
+
+// The interface of cb_replay_deposit_ext, emissions looped on the CPU.
+int cbh_replay_deposit_ext(const void* kr, const void* ki, const void* iters,
+                           void* hist, const int* iargs, const float* fargs,
+                           void* hits) {
+  const cb::ReplayExtArgs a =
+      cb::replay_ext_args(kr, ki, iters, hist, iargs, fargs);
+  unsigned long long total = 0;
+  for (int i = 0; i < a.k; ++i) {
+    switch (iargs[0]) {
+      case cb::kBuddhabrot:
+        total += cb::replay_ext_one<cb::kBuddhabrot>(a, i);
+        break;
+      case cb::kBurningShip:
+        total += cb::replay_ext_one<cb::kBurningShip>(a, i);
+        break;
+      case cb::kAntiBuddhabrot:
+        total += cb::replay_ext_one<cb::kAntiBuddhabrot>(a, i);
+        break;
+      default:
+        return 1;
+    }
+  }
+  *static_cast<unsigned long long*>(hits) += total;
+  return 0;
+}
+
+}  // extern "C"

@@ -1,8 +1,9 @@
 """The render engine: classify kernel, compaction, fused replay-deposit.
 
-Port of the uniform float32 device-replay path of
+Port of the uniform device-replay paths of
 ``cudabrot_tpu/engines/pallas_engine.py`` (``Tuning``,
-``_classify_and_compact``, ``_device_replay``, ``core``). One pass:
+``_classify_and_compact``, ``_device_replay``, ``_blocked_replay_ext``,
+``core``), at float32 and at extended precision. One pass:
 
   1. ``ops.classify.classify_pass`` (``csrc/classify.cu``): T lane-steps of
      persistent sampling; lane state stays on the device across passes,
@@ -18,6 +19,13 @@ Port of the uniform float32 device-replay path of
      (materialized id stream + one scatter) and the blocked replay of the
      JAX engine: no id stream exists, and one kernel covers every band.
 
+At ``--precision extended`` (deep zoom) the same three steps run on
+double-float orbits: ``ops.classify_ext.classify_pass_ext``
+(``csrc/classify_ext.cu``) emits 24-bit grid indices instead of c values,
+``compact`` selects them through the same code, and
+``ops.binning.replay_deposit_ext`` (``csrc/deposit_ext.cu``) rebuilds c,
+replays in df32 and deposits.
+
 The pass key is ``fold_in(fold_in(key(seed), ordinal), pass)`` as in the
 JAX engine, so at equal geometry both engines draw the same samples.
 Nothing in a pass waits for the device: stats accumulate in int64 device
@@ -29,17 +37,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cudabrot_tpu_torch.config import SAMPLE_DOMAIN, RenderConfig
+from cudabrot_tpu_torch.config import (
+    SAMPLE_DOMAIN,
+    ConfigError,
+    RenderConfig,
+)
 from cudabrot_tpu_torch.models import fractals
-from cudabrot_tpu_torch.ops import binning, prng
+from cudabrot_tpu_torch.ops import binning, df32, prng
 from cudabrot_tpu_torch.ops import classify as cls
+from cudabrot_tpu_torch.ops import classify_ext as cls_ext
 from cudabrot_tpu_torch.utils import counters
 from cudabrot_tpu_torch.utils.device import resolve_device
 
 #: Fold-in word of the compaction's selection key (pallas_engine).
 _SELECT_FOLD = 0x7711
 #: Lane-steps per pass at auto geometry: 2^30 is 4096 steps at 262,144
-#: lanes — an emission buffer of ~100 MB at the default band.
+#: lanes — an emission buffer of ~100 MB at the default band. Extended
+#: precision keeps it: a deep-zoom pass pays ~3 ms for its longest
+#: replayed orbit whatever its length, and on an H100 passes of 2^27, 2^28,
+#: 2^29 and 2^30 lane-steps ran at 3.5, 5.5, 8.1 and 10.5e10 lane-steps/s
+#: (10 ms a pass at 2^30; chip_smoke.py --ext-budget-sweep).
 LANE_STEP_BUDGET = 1 << 30
 #: Largest auto replay capacity: 2^23 emissions (~100 MB of c/iters).
 MAX_REPLAY_CAPACITY = 1 << 23
@@ -49,6 +66,13 @@ MAX_REPLAY_CAPACITY = 1 << 23
 #: configuration alone, so CPU and CUDA runs tune alike.
 INNER_STEP_OPS = 9.0
 BOUNDARY_OPS = 40.0
+#: The same two counts for the extended-precision kernel, from
+#: csrc/df32.cuh and csrc/classify_ext.cuh: a df32 step is two squares
+#: (16 operations each), one product (20), three sums (11 each), two
+#: negations, the doubling (2), |z|^2 of the hi parts (3) and the survival
+#: count (2); the boundary is the f32 one plus the two lo-part moves.
+EXT_INNER_STEP_OPS = 94.0
+EXT_BOUNDARY_OPS = 42.0
 
 
 def _pow2(x: float) -> int:
@@ -109,6 +133,9 @@ class Tuning:
             np.clip(_pow2(0.25 / rate), 32, flush_cap)
         )
         self.thin_tracking = o.escape_tracking != "step"
+        #: Extended (df32) deep-zoom iteration; always thin tracking
+        #: (EngineOptions.validate).
+        self.extended = o.precision == "extended"
         if o.inner_unroll > 0:
             self.inner_unroll = o.inner_unroll
         elif rate > 1e-4:
@@ -120,8 +147,13 @@ class Tuning:
                 (1, 2, 4, 8, 16, 32) if self.thin_tracking else (1, 2, 4, 8)
             )
 
+            c_inner, c_boundary = (
+                (EXT_INNER_STEP_OPS, EXT_BOUNDARY_OPS) if self.extended
+                else (INNER_STEP_OPS, BOUNDARY_OPS)
+            )
+
             def score(u: int) -> float:
-                cost = INNER_STEP_OPS + BOUNDARY_OPS / u
+                cost = c_inner + c_boundary / u
                 return _window_useful_fraction(u, lifetime) / cost
 
             self.inner_unroll = max(candidates, key=score)
@@ -198,6 +230,13 @@ class CudaEngine:
 
     def __init__(self, cfg: RenderConfig, device=None):
         cfg.options.validate()
+        if cfg.options.precision == "float64":
+            raise ConfigError(
+                "float64 iteration is not supported by the cuda engine (its "
+                "kernels iterate in float32, or in double-float pairs at "
+                "--precision extended). Use --engine oracle for exact "
+                "double iteration."
+            )
         self.cfg = cfg
         self.device = resolve_device(device, cfg.device_index)
         self.fractal = fractals.get_fractal(cfg.fractal)
@@ -206,16 +245,27 @@ class CudaEngine:
         self.lanes = self.tuning.lanes
         self.steps_per_pass = self.tuning.steps_per_pass * self.lanes
         self.replay_capacity = self.tuning.replay_capacity
+        self.extended = self.tuning.extended
         # Canvas emit filter: emit only orbits that entered the canvas
         # window, inflated one pixel past the upper binning bounds so the
         # gate has no false negatives (the classify trajectory is the
-        # replay trajectory).
+        # replay trajectory). The df32 kernel tests hi parts only (~2^-24
+        # relative slop), so the extended window is padded on both sides
+        # by 4 pixels or the f32 quantum 2^-21, whichever is larger: false
+        # positives only.
         self.visit_window = None
         if cfg.options.emit_filter == "canvas":
             cv = cfg.canvas
+            if self.extended:
+                pad_r = max(4 * cv.delta_real, 2.0 ** -21)
+                pad_i = max(4 * cv.delta_imag, 2.0 ** -21)
+                lo_r, lo_i = pad_r, pad_i
+            else:
+                pad_r, pad_i = cv.delta_real, cv.delta_imag
+                lo_r = lo_i = 0.0
             self.visit_window = (
-                cv.min_real, cv.max_real + cv.delta_real,
-                cv.min_imag, cv.max_imag + cv.delta_imag,
+                cv.min_real - lo_r, cv.max_real + pad_r,
+                cv.min_imag - lo_i, cv.max_imag + pad_i,
             )
 
     # -- engine interface ---------------------------------------------------
@@ -227,10 +277,27 @@ class CudaEngine:
         else:
             h = np.ascontiguousarray(hist0, dtype=np.uint32).view(np.int32)
             hist = torch.from_numpy(h.copy()).to(self.device)
-        state = {
-            "hist": hist,
-            "lanes": cls.init_lane_state(self.lane_rows, self.device),
-        }
+        if self.extended:
+            c0r, c0i, _, _ = cls_ext.grid_params(self.cfg.sample_domain)
+            state = {
+                "hist": hist,
+                "lanes": cls_ext.init_ext_lane_state(self.lane_rows,
+                                                     self.device),
+                # The JAX engine's runtime-constant vector (sample-window
+                # centre, canvas minimum, sealing zero), kept so a state
+                # converts both ways; the kernels take these constants as
+                # arguments, computed from the configuration.
+                "dfc": torch.tensor(
+                    [*c0r, *c0i,
+                     *df32.from_float(self.cfg.canvas.min_real),
+                     *df32.from_float(self.cfg.canvas.min_imag), 0.0],
+                    dtype=torch.float32, device=self.device),
+            }
+        else:
+            state = {
+                "hist": hist,
+                "lanes": cls.init_lane_state(self.lane_rows, self.device),
+            }
         state.update(counters.zeros(self.device))
         return state
 
@@ -238,9 +305,7 @@ class CudaEngine:
         """One pass, entirely on the device; updates ``state`` in place."""
         cfg, tn = self.cfg, self.tuning
         key = prng.pass_key(cfg.seed, ordinal, pass_index)
-        result = cls.classify_pass(
-            state["lanes"],
-            prng.bits_host(key, 2),
+        spec = dict(
             fractal=self.fractal,
             min_it=tn.min_it,
             max_it=tn.max_it,
@@ -248,18 +313,31 @@ class CudaEngine:
             steps_per_flush=tn.steps_per_flush,
             cycle_detection=cfg.options.cycle_detection,
             inner_unroll=tn.inner_unroll,
-            thin_tracking=tn.thin_tracking,
             sample_domain=cfg.sample_domain,
             visit_window=self.visit_window,
         )
+        seed = prng.bits_host(key, 2)
+        if self.extended:
+            result = cls_ext.classify_pass_ext(state["lanes"], seed, **spec)
+        else:
+            result = cls.classify_pass(state["lanes"], seed,
+                                       thin_tracking=tn.thin_tracking, **spec)
+        # Extended emissions carry grid indices (kr, ki) where the f32 ones
+        # carry (cr, ci); the selection is the same.
         cr_c, ci_c, it_c, n_valid = compact(
             result.emit_c, result.emit_it, key, self.replay_capacity,
             tn.max_it,
         )
-        hits = binning.replay_deposit(
-            state["hist"].view(-1), cr_c, ci_c, it_c,
-            canvas=cfg.canvas, fractal=self.fractal,
-        )
+        if self.extended:
+            hits = binning.replay_deposit_ext(
+                state["hist"].view(-1), cr_c, ci_c, it_c, canvas=cfg.canvas,
+                fractal=self.fractal, sample_domain=cfg.sample_domain,
+            )
+        else:
+            hits = binning.replay_deposit(
+                state["hist"].view(-1), cr_c, ci_c, it_c,
+                canvas=cfg.canvas, fractal=self.fractal,
+            )
         st = result.stats.reshape(cls.STATS_ROWS, -1).sum(dim=1)
         wasted = st[cls.STAT_WASTED]
         emitted = torch.clamp(n_valid, max=self.replay_capacity)
@@ -282,7 +360,7 @@ class CudaEngine:
         return self.core(state, pass_index)
 
     def warmup(self, state: dict) -> None:
-        """Build the CUDA kernels before the timed loop (nvcc, both sources
+        """Build the CUDA kernels before the timed loop (nvcc, all sources
         at once), so the time box covers rendering only."""
         if self.device.type == "cuda":
             from cudabrot_tpu_torch.ops import _build
@@ -299,7 +377,8 @@ class CudaEngine:
         cv = self.cfg.canvas
         slots = self.tuning.emission_slots
         hist = cv.num_pixels * 4
-        lanes = self.lanes * (len(cls.LaneState._fields) + cls.STATS_ROWS) * 4
+        lane_cls = cls_ext.ExtLaneState if self.extended else cls.LaneState
+        lanes = self.lanes * (len(lane_cls._fields) + cls.STATS_ROWS) * 4
         emission = slots * 12
         # Compaction: int64 keys, sort output and indices per slot.
         sort = slots * 8 * 3

@@ -47,6 +47,11 @@ def step(fractal: FractalMap, zr, zi, cr, ci):
     return new_zr, new_zi
 
 
+def escaped(zr, zi):
+    """Escape test |z|^2 > 4 (cudabrot.cu:336, 363)."""
+    return zr * zr + zi * zi > 4.0
+
+
 def in_main_cardioid(cr, ci):
     """Closed-form main-cardioid membership (cudabrot.cu:284-290)."""
     imag_sq = ci * ci

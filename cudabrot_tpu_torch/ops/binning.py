@@ -1,8 +1,9 @@
 """Orbit-point -> histogram-bin math and the deposit kernels.
 
 Port of ``cudabrot_tpu/ops/binning.py`` (``points_to_bin_ids``,
-``scatter_xla``, ``scatter_pallas``) and of the replay semantics of
-``engines/pallas_engine.py`` (``_batched_replay``/``_blocked_replay``).
+``points_to_bin_ids_df``, ``scatter_xla``, ``scatter_pallas``) and of the
+replay semantics of ``engines/pallas_engine.py`` (``_batched_replay``/
+``_blocked_replay``, and ``_blocked_replay_ext`` for df32 orbits).
 
 Histograms are flat int32 tensors holding the JAX package's uint32 counts
 bit for bit (PyTorch's uint32 tensors lack ``index_add_``): two's-
@@ -10,24 +11,27 @@ complement adds wrap exactly as uint32 adds do, and the kernels add
 through ``uint32_t*``. Every deposit is exact integer addition, so any
 order of atomics gives the same histogram.
 
-``deposit_ids`` and ``replay_deposit`` launch ``csrc/deposit.cu`` for CUDA
-tensors and run their plain versions for CPU tensors.
+``deposit_ids`` and ``replay_deposit`` launch ``csrc/deposit.cu`` and
+``replay_deposit_ext`` launches ``csrc/deposit_ext.cu`` for CUDA tensors;
+each runs its plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from cudabrot_tpu_torch.config import Canvas
 from cudabrot_tpu_torch.models.fractals import FractalMap, step
-from cudabrot_tpu_torch.ops import _build, launches
+from cudabrot_tpu_torch.ops import _build, df32, launches
+from cudabrot_tpu_torch.ops.classify_ext import grid_params, grid_sample
 from cudabrot_tpu_torch.ops.prng import f32
 
 
 def points_to_bin_ids(canvas: Canvas, re, im, valid):
-    """Quantize f32 orbit points to flat int32 bin ids; off-canvas and
+    """Quantize orbit points to flat int32 bin ids; off-canvas and
     invalid points get the sentinel ``canvas.num_pixels``.
 
     Mirrors IncrementPixelCounter (cudabrot.cu:302-314) as the JAX
@@ -36,11 +40,39 @@ def points_to_bin_ids(canvas: Canvas, re, im, valid):
     float quotient (for x >= 0, trunc(x) < n iff x < n), so no out-of-range
     float is ever converted to int32.
     """
-    dev = re.device
-    min_re, min_im = f32(canvas.min_real, dev), f32(canvas.min_imag, dev)
+    def const(v):
+        # Rounded to the points' dtype (f32, or the oracle's f64) as a
+        # 0-dim tensor: tensor-tensor arithmetic is never rewritten.
+        return torch.tensor(v, dtype=re.dtype, device=re.device)
+
+    min_re, min_im = const(canvas.min_real), const(canvas.min_imag)
     ok = valid & (re >= min_re) & (im >= min_im)
-    colf = (re - min_re) / f32(canvas.delta_real, dev)
-    rowf = (im - min_im) / f32(canvas.delta_imag, dev)
+    colf = (re - min_re) / const(canvas.delta_real)
+    rowf = (im - min_im) / const(canvas.delta_imag)
+    ok = ok & (colf < canvas.width) & (rowf < canvas.height)
+    col = torch.where(ok, colf, 0.0).to(torch.int32)
+    row = torch.where(ok, rowf, 0.0).to(torch.int32)
+    flat = row * canvas.width + col
+    return torch.where(ok, flat, canvas.num_pixels).to(torch.int32)
+
+
+def points_to_bin_ids_df(canvas: Canvas, reh, rel, imh, iml, valid, mr, mi):
+    """``points_to_bin_ids`` for df32 orbit points: the offset from the
+    canvas minimum is taken in df32 (its hi part accurate to ~2^-48
+    absolute) and quantized in f32 — the offset is at most the canvas
+    span, so f32's 2^-24 relative resolution stays sub-pixel.
+
+    ``mr``/``mi`` are (hi, lo) pairs of 0-dim f32 tensors holding
+    ``canvas.min_real``/``min_imag``. The hi offset is multiplied by the
+    inverse pitch rounded to f32 (``float32(1 / delta)``, computed in
+    f64), as the JAX function does, not divided by the pitch.
+    """
+    dev = reh.device
+    dxh, _ = df32.add(reh, rel, -mr[0], -mr[1])
+    dyh, _ = df32.add(imh, iml, -mi[0], -mi[1])
+    ok = valid & (dxh >= 0.0) & (dyh >= 0.0)
+    colf = dxh * f32(1.0 / canvas.delta_real, dev)
+    rowf = dyh * f32(1.0 / canvas.delta_imag, dev)
     ok = ok & (colf < canvas.width) & (rowf < canvas.height)
     col = torch.where(ok, colf, 0.0).to(torch.int32)
     row = torch.where(ok, rowf, 0.0).to(torch.int32)
@@ -161,6 +193,115 @@ def replay_deposit_plain(hist_flat, cr, ci, iters, *, canvas: Canvas,
         )
         hits += keep.numel()
     return hits
+
+
+# ----------------------------------------------------------------------
+# replay_deposit_ext: the df32 replay fused with the deposit (deep zoom).
+
+
+def _canvas_df(canvas: Canvas):
+    """((min_re hi, lo), (min_im hi, lo), inv pitch re, inv pitch im) as
+    Python floats that are exact in float32."""
+    return (df32.from_float(canvas.min_real), df32.from_float(canvas.min_imag),
+            float(np.float32(1.0 / canvas.delta_real)),
+            float(np.float32(1.0 / canvas.delta_imag)))
+
+
+def replay_deposit_ext(
+    hist_flat: torch.Tensor,
+    kr: torch.Tensor,
+    ki: torch.Tensor,
+    iters: torch.Tensor,
+    *,
+    canvas: Canvas,
+    fractal: FractalMap,
+    sample_domain: tuple,
+) -> torch.Tensor:
+    """``replay_deposit`` for extended-precision emissions: ``kr``/``ki``
+    are the 24-bit grid indices (as f32) the df32 classify pass emitted
+    over ``sample_domain``. c is rebuilt as the pass drew it
+    (``classify_ext.grid_sample``), the orbit runs in df32 and every point
+    bins through ``points_to_bin_ids_df``. Returns the on-canvas point
+    count as a 0-dim int64 tensor on the histogram's device."""
+    _check_hist(hist_flat)
+    if hist_flat.numel() != canvas.num_pixels:
+        raise ValueError("histogram size does not match the canvas")
+    if kr.dtype != torch.float32 or ki.dtype != torch.float32:
+        raise ValueError("grid indices must be float32")
+    if iters.dtype != torch.int32:
+        raise ValueError("iters must be int32")
+    if hist_flat.device.type == "cpu":
+        return replay_deposit_ext_plain(
+            hist_flat, kr, ki, iters, canvas=canvas, fractal=fractal,
+            sample_domain=sample_domain)
+    dev = hist_flat.device
+    kr, ki, iters = (t.reshape(-1).contiguous() for t in (kr, ki, iters))
+    if not (kr.device == ki.device == iters.device == dev):
+        raise ValueError("replay inputs lie on different devices")
+    if not (kr.numel() == ki.numel() == iters.numel()):
+        raise ValueError("replay inputs differ in length")
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    c0r, c0i, step_r, step_i = grid_params(sample_domain)
+    mr, mi, inv_dr, inv_di = _canvas_df(canvas)
+    iargs = (ctypes.c_int * 4)(fractal.kernel_id, kr.numel(), canvas.width,
+                               canvas.height)
+    fargs = (ctypes.c_float * 12)(*c0r, *c0i, step_r, step_i, *mr, *mi,
+                                  inv_dr, inv_di)
+    lib = _lib_ext()
+    with torch.cuda.device(dev):
+        rc = lib.cb_replay_deposit_ext(
+            _build.ptr(kr), _build.ptr(ki), _build.ptr(iters),
+            _build.ptr(hist_flat), iargs, fargs, _build.ptr(hits),
+            _build.stream_of(hist_flat),
+        )
+        launches.COUNTS["replay_deposit_ext"] += 1
+    _build.check(rc, "replay_deposit_ext kernel")
+    return hits
+
+
+def replay_deposit_ext_plain(hist_flat, kr, ki, iters, *, canvas: Canvas,
+                             fractal: FractalMap,
+                             sample_domain: tuple) -> torch.Tensor:
+    """The df32 replay kernel's function step-major in plain PyTorch, as
+    ``replay_deposit_plain``: every emission advances one df32 step per
+    iteration (finished ones coast, unrecorded)."""
+    launches.COUNTS["replay_deposit_ext_plain"] += 1
+    kr, ki, iters = (t.reshape(-1) for t in (kr, ki, iters))
+    dev = hist_flat.device
+    c0r, c0i, step_r, step_i = grid_params(sample_domain)
+    mr, mi, _, _ = _canvas_df(canvas)
+    mr, mi = (tuple(f32(v, dev) for v in m) for m in (mr, mi))
+    crh, crl, _ = grid_sample(tuple(f32(v, dev) for v in c0r), kr,
+                              f32(step_r, dev))
+    cih, cil, _ = grid_sample(tuple(f32(v, dev) for v in c0i), ki,
+                              f32(step_i, dev))
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    n_steps = int(iters.max().item()) + 1 if iters.numel() else 0
+    zr, zrl, zi, zil = crh, crl, cih, cil
+    nbins = hist_flat.numel()
+    for s in range(n_steps):
+        zr, zrl, zi, zil, _ = df32.complex_sqr_add(
+            zr, zrl, zi, zil, crh, crl, cih, cil, fold_abs=fractal.fold_abs)
+        ids = points_to_bin_ids_df(canvas, zr, zrl, zi, zil, iters >= s,
+                                   mr, mi)
+        keep = ids[ids < nbins].to(torch.int64)
+        hist_flat.index_add_(
+            0, keep, torch.ones(keep.shape, dtype=torch.int32, device=dev)
+        )
+        hits += keep.numel()
+    return hits
+
+
+def _lib_ext():
+    lib = _build.load("deposit_ext")
+    if lib.cb_replay_deposit_ext.argtypes is None:
+        vp = ctypes.c_void_p
+        lib.cb_replay_deposit_ext.argtypes = [
+            vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_float), vp, vp,
+        ]
+        lib.cb_replay_deposit_ext.restype = ctypes.c_int
+    return lib
 
 
 def _lib():

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import collections
 
-KERNELS = ("classify", "threefry_bits", "deposit_ids", "replay_deposit")
+KERNELS = ("classify", "threefry_bits", "deposit_ids", "replay_deposit",
+           "classify_ext", "replay_deposit_ext")
 
 COUNTS: collections.Counter = collections.Counter()
 

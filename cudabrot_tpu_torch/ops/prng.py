@@ -7,7 +7,8 @@ from the same seed. JAX's threefry PRNG (partitionable mode) reduces to
 three identities on the 20-round Threefry-2x32 block function:
 
   * ``key(s)`` = ``(s >> 32, s & 0xFFFFFFFF)``;
-  * ``fold_in(k, d)`` = ``threefry2x32(k, (0, d))``;
+  * ``fold_in(k, d)`` = ``threefry2x32(k, (0, d))``, and ``split(k)`` is
+    its first two children, ``fold_in(k, 0)`` and ``fold_in(k, 1)``;
   * ``bits(k, (n,))`` = ``x0 ^ x1`` with ``(x0, x1) = threefry2x32(k,
     (0, iota(n)))``.
 
@@ -61,6 +62,11 @@ def fold_in(k: tuple[int, int], data: int) -> tuple[int, int]:
     return threefry2x32(k[0], k[1], 0, int(data) & MASK32)
 
 
+def split(k: tuple[int, int]) -> tuple[tuple[int, int], tuple[int, int]]:
+    """``jax.random.split(k)``: two child keys."""
+    return fold_in(k, 0), fold_in(k, 1)
+
+
 def bits(k: tuple[int, int], n: int, device="cpu") -> torch.Tensor:
     """``jax.random.bits(k, (n,), uint32)`` as an int64 tensor of uint32
     values (n < 2^32). On a CUDA device the ``threefry_bits`` kernel
@@ -109,6 +115,30 @@ def pass_key(seed: int, ordinal: int, pass_index: int) -> tuple[int, int]:
     """The engine's per-pass key: ``fold_in(fold_in(key(seed), ordinal),
     pass_index)`` (pallas_engine._classify_and_compact)."""
     return fold_in(fold_in(key(seed), ordinal), pass_index)
+
+
+def uniform(k: tuple[int, int], n: int, dtype, lo: float, hi: float,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(k, (n,), dtype, lo, hi)`` for float32 or
+    float64, bit for bit: random mantissa bits under exponent 0 give a
+    float in [1, 2); minus one, times the span, plus ``lo``, clamped at
+    ``lo``. float32 takes the top 23 bits of ``bits``; float64 the top 52
+    of the 64-bit word ``x0 << 32 | x1``. The bounds round to ``dtype``
+    first and the span is their difference in ``dtype``, as in JAX."""
+    device = torch.device(device)
+    if dtype == torch.float32:
+        mant = (bits(k, n, device) >> 9) | 0x3F800000
+        floats = mant.to(torch.int32).view(torch.float32)
+    elif dtype == torch.float64:
+        counter = torch.arange(n, dtype=torch.int64, device=device)
+        x0, x1 = threefry2x32(k[0], k[1], torch.zeros_like(counter), counter)
+        floats = ((x0 << 20) | (x1 >> 12) | 0x3FF0000000000000).view(
+            torch.float64)
+    else:
+        raise ValueError(f"uniform: unsupported dtype {dtype}")
+    lo_t = torch.tensor(lo, dtype=dtype, device=device)
+    hi_t = torch.tensor(hi, dtype=dtype, device=device)
+    return torch.maximum(lo_t, (floats - 1.0) * (hi_t - lo_t) + lo_t)
 
 
 def u32_to_domain(bits_u32: torch.Tensor, lo: float, span: float):

@@ -22,6 +22,11 @@ from cudabrot_tpu_torch.models import fractals as tfr
 from cudabrot_tpu_torch.ops import binning as tb
 from cudabrot_tpu_torch.ops import launches
 
+# The suite runs in several worker processes at once: one intra-op thread
+# each keeps PyTorch's thread pools from oversubscribing the cores (two
+# workers spinning on eight cores made a 4 s oracle pass take 386 s).
+torch.set_num_threads(1)
+
 CANVASES = [
     dict(width=1000, height=1000),
     dict(width=64, height=48, min_real=-1.7, max_real=0.6, min_imag=-1.1,

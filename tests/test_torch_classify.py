@@ -27,6 +27,11 @@ from cudabrot_tpu_torch.ops import classify as cls
 from cudabrot_tpu_torch.ops import launches
 from cudabrot_tpu_torch.utils import counters
 
+# The suite runs in several worker processes at once: one intra-op thread
+# each keeps PyTorch's thread pools from oversubscribing the cores (two
+# workers spinning on eight cores made a 4 s oracle pass take 386 s).
+torch.set_num_threads(1)
+
 ROWS = 2
 STEPS = 256
 

@@ -19,6 +19,11 @@ from cudabrot_tpu_torch.io import checkpoint, pgm
 from cudabrot_tpu_torch.ops import launches
 from cudabrot_tpu_torch.utils.device import DeviceError, resolve_device
 
+# The suite runs in several worker processes at once: one intra-op thread
+# each keeps PyTorch's thread pools from oversubscribing the cores (two
+# workers spinning on eight cores made a 4 s oracle pass take 386 s).
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SMALL = ["-w", "40", "-h", "30", "-m", "60", "-c", "5", "--lane-rows", "4",
@@ -80,10 +85,12 @@ def test_render_color_not_yet_ported(capsys):
     (dict(scatter="sorted"), "TPU deposit backend"),
     (dict(replay_block=1024), "blocked replay"),
     (dict(engine="pallas"), "TPU engine"),
-    (dict(engine="oracle"), "--engine oracle is not yet ported"),
+    (dict(engine="oracle", sampler="mh"), "--sampler mh is not yet ported"),
     (dict(sampler="mh"), "--sampler mh is not yet ported"),
-    (dict(precision="extended"), "extended/float64 is not yet ported"),
-    (dict(precision="float64"), "extended/float64 is not yet ported"),
+    (dict(precision="extended", sampler="mh"),
+     "--sampler mh is not yet ported"),
+    (dict(precision="extended", replay="host"),
+     "--replay host is not yet ported"),
     (dict(replay="host"), "--replay host is not yet ported"),
     (dict(replay_device_share=0.5), "--replay-device-share is not yet"),
     (dict(hist_dtype="uint64"), "--hist-dtype uint64 is not yet ported"),
@@ -96,11 +103,69 @@ def test_unported_options_refused(opts, match):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--scatter", "pallas"], ["--engine", "oracle"], ["--sampler", "mh"],
+    ["--scatter", "pallas"], ["--replay", "host"], ["--sampler", "mh"],
 ])
 def test_cli_refuses_unported_flags(argv):
     with pytest.raises(cli.CliError):
         cli.parse_args(argv)
+
+
+@pytest.mark.parametrize("opts", [
+    dict(engine="oracle"), dict(precision="extended"),
+    dict(engine="oracle", precision="extended"),
+    dict(engine="oracle", precision="float64"),
+    dict(precision="extended", emit_filter="canvas"),
+])
+def test_ported_engine_options_validate(opts):
+    config.EngineOptions(**opts).validate()
+
+
+DEEP = ["-w", "32", "-h", "32", "-m", "2000", "-c", "50", "--center",
+        "-0.743643887037151,0.131825904205330", "--span", "1e-5", "-t", "-1"]
+
+
+def test_cli_deep_zoom_extended_renders_on_cpu(tmp_path):
+    """The deep-zoom line (--precision extended --center --span) at 32x32:
+    a valid PGM through the df32 classify pass and the df32 replay."""
+    out, stats, ck = (str(tmp_path / n) for n in ("d.pgm", "s.json", "c.npz"))
+    launches.reset()
+    rc = cli.main([*DEEP, "--precision", "extended", "--lane-rows", "4",
+                   "--steps-per-pass", "1024", "--steps-per-flush", "64",
+                   "--replay-capacity", "4096", "--passes", "2", "-o", out,
+                   "--stats-json", stats, "-s", ck], device="cpu")
+    assert rc == 0
+    img = pgm.read_pgm(out)
+    assert img.shape == (32, 32) and int(img.max()) == 65535
+    s = json.load(open(stats))
+    assert s["engine"] == "cuda" and s["passes"] == 2
+    assert int(np.load(ck)["hist"].sum()) == s["on_canvas_points"] > 0
+    assert launches.COUNTS["classify_ext_plain"] == 2
+    assert launches.COUNTS["replay_deposit_ext_plain"] == 2
+    assert launches.COUNTS["classify_plain"] == 0
+    assert launches.COUNTS["classify_ext"] == 0
+
+
+@pytest.mark.parametrize("precision", ["extended", "float64", "float32"])
+def test_cli_oracle_renders_on_cpu(tmp_path, precision):
+    out, stats = str(tmp_path / "o.pgm"), str(tmp_path / "s.json")
+    argv = [*DEEP, "-m", "400", "--engine", "oracle", "--precision",
+            precision, "--passes", "1", "-o", out, "--stats-json", stats]
+    rc = cli.main(argv, device="cpu")
+    assert rc == 0
+    assert open(out, "rb").read().startswith(b"P5\n32 32\n65535\n")
+    s = json.load(open(stats))
+    assert s["engine"] == "oracle" and s["samples"] == 1 << 16
+    assert s["in_band"] > 0
+
+
+def test_cli_float64_without_oracle_is_a_clean_error(tmp_path, capsys):
+    rc = cli.main([*DEEP, "--precision", "float64", "--passes", "1", "-o",
+                   str(tmp_path / "x.pgm")], device="cpu")
+    assert rc == 1
+    out = capsys.readouterr().out
+    assert "float64 iteration is not supported by the cuda engine" in out
+    assert "--engine oracle" in out and "Traceback" not in out
+    assert not (tmp_path / "x.pgm").exists()
 
 
 @pytest.mark.parametrize("argv", [
@@ -110,6 +175,11 @@ def test_cli_refuses_unported_flags(argv):
     ["--min-real", "-1.5", "--max-real", "0.5", "--emit-filter", "canvas",
      "--fractal", "burning-ship", "--steps-per-pass", "1024"],
     ["--center", "-0.74,0.13", "--span", "0.01", "-w", "200", "-h", "100"],
+    ["--precision", "extended", "--center",
+     "-0.743643887037151,0.131825904205330", "--span", "1e-5", "-m", "20000",
+     "-c", "500"],
+    ["--engine", "oracle", "--precision", "float64", "--replay-capacity",
+     "4096"],
 ])
 def test_parse_args_matches_jax(argv):
     """The same flags give the same render description (lane_rows aside:

@@ -24,6 +24,7 @@ from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
 from cudabrot_tpu_torch.models.fractals import FRACTALS
 from cudabrot_tpu_torch.ops import binning, launches, prng
 from cudabrot_tpu_torch.ops import classify as cls
+from cudabrot_tpu_torch.ops import classify_ext as cx
 
 pytestmark = pytest.mark.cuda
 
@@ -116,15 +117,98 @@ def test_replay_deposit_kernel_matches_plain(cuda, name):
     assert int(hits_k) == int(hits_p) == int(hk.to(torch.int64).sum())
 
 
-def test_engine_pass_on_card_matches_cpu(cuda):
+#: Windows of the extended tests: a seahorse-valley deep zoom (orbits of
+#: ~1000 steps), one just outside the set (~56 steps), a burning-ship crop.
+DEEP = (-0.743643887037151 - 1e-7, -0.743643887037151 + 1e-7,
+        0.131825904205330 - 1e-7, 0.131825904205330 + 1e-7)
+FAST = (-0.75 - 5e-7, -0.75 + 5e-7, 0.055 - 5e-7, 0.055 + 5e-7)
+SHIP = (-1.7548 - 5e-7, -1.7548 + 5e-7, -0.0338 - 5e-7, -0.0338 + 5e-7)
+
+
+@pytest.mark.parametrize("name,domain,band,visit,use_bits", [
+    ("buddhabrot", DEEP, (50, 3000), False, False),
+    ("buddhabrot", FAST, (20, 400), True, True),
+    ("buddhabrot", config.SAMPLE_DOMAIN, (5, 200), True, False),
+    ("burning-ship", SHIP, (5, 500), False, False),
+    ("burning-ship", config.SAMPLE_DOMAIN, (5, 200), True, True),
+    ("anti-buddhabrot", config.SAMPLE_DOMAIN, (0, 64), False, True),
+    ("anti-buddhabrot", config.SAMPLE_DOMAIN, (0, 64), True, False),
+])
+def test_classify_ext_kernel_matches_plain(cuda, name, domain, band, visit,
+                                           use_bits):
+    rows, steps, flush, unroll = 16, 512, 64, 4
+    kw = dict(fractal=FRACTALS[name], min_it=band[0], max_it=band[1],
+              steps_per_pass=steps, steps_per_flush=flush,
+              inner_unroll=unroll, sample_domain=domain,
+              visit_window=(-1.5, 0.5, -1.0, 1.0) if visit else None)
+    state = cx.init_ext_lane_state(rows, cuda)
+    cx.classify_pass_ext(state, (5, 6), **kw)  # carried, mid-flight state
+    a = cx.ExtLaneState(*(t.clone() for t in state))
+    b = cx.ExtLaneState(*(t.clone() for t in state))
+    bits = None
+    if use_bits:
+        shape = (steps // flush, flush // unroll, 2, rows, 128)
+        bits = torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             device=cuda)
+    launches.reset()
+    ra = cx.classify_pass_ext(a, (7, 8), bits, **kw)
+    assert launches.COUNTS["classify_ext"] == 1
+    rb = cx.classify_pass_ext_plain(
+        b, 7, 8, bits, fractal=kw["fractal"], min_it=band[0],
+        max_it=band[1], chunks=steps // flush, windows=flush // unroll,
+        unroll=unroll, detect=FRACTALS[name].cycle_detect,
+        sample_domain=domain, visit_window=kw["visit_window"])
+    for x, y in zip(ra.state, rb.state):
+        assert _same(x, y)
+    assert _same(ra.emit_c, rb.emit_c)
+    assert _same(ra.emit_it, rb.emit_it)
+    assert _same(ra.stats, rb.stats)
+    assert int((ra.emit_it >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("name", sorted(FRACTALS))
+def test_replay_deposit_ext_kernel_matches_plain(cuda, name):
+    canvas = config.Canvas(width=300, height=200, min_real=-2.0,
+                           max_real=1.0, min_imag=-1.2, max_imag=1.2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    k = 1 << 14
+    kr = torch.randint(0, 1 << 24, (k,), generator=g, device=cuda).float()
+    ki = torch.randint(0, 1 << 24, (k,), generator=g, device=cuda).float()
+    it = torch.randint(-1, 200, (k,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    it = torch.sort(it, descending=True).values
+    hk = torch.zeros(canvas.num_pixels, dtype=torch.int32, device=cuda)
+    hp = torch.zeros_like(hk)
+    kw = dict(canvas=canvas, fractal=FRACTALS[name], sample_domain=FAST)
+    launches.reset()
+    hits_k = binning.replay_deposit_ext(hk, kr, ki, it, **kw)
+    assert launches.COUNTS["replay_deposit_ext"] == 1
+    hits_p = binning.replay_deposit_ext_plain(hp, kr, ki, it, **kw)
+    assert torch.equal(hk, hp)
+    assert int(hits_k) == int(hits_p) == int(hk.to(torch.int64).sum()) > 0
+
+
+@pytest.mark.parametrize("extended", [False, True])
+def test_engine_pass_on_card_matches_cpu(cuda, extended):
     """Three engine passes on the card equal the same passes on the CPU
-    bitwise: histogram, lane state and every counter."""
+    bitwise: histogram, lane state and every counter, at float32 and at
+    extended precision."""
     cfg = config.RenderConfig(
         canvas=config.Canvas(width=64, height=48),
         options=config.EngineOptions(lane_rows=8, steps_per_pass=256,
                                      steps_per_flush=32,
                                      replay_capacity=1 << 14),
     )
+    if extended:
+        cfg = config.RenderConfig(
+            canvas=config.Canvas(width=64, height=48),
+            band=config.IterationBand(max_escape_iterations=400,
+                                      min_escape_iterations=20),
+            sample_domain=FAST,
+            options=config.EngineOptions(
+                precision="extended", lane_rows=8, steps_per_pass=512,
+                steps_per_flush=32, replay_capacity=1 << 12),
+        )
     runs = []
     for dev in (cuda, "cpu"):
         eng = CudaEngine(cfg, device=dev)
@@ -134,6 +218,7 @@ def test_engine_pass_on_card_matches_cpu(cuda):
         runs.append((eng.histogram(st), eng.stats(st), st["lanes"]))
     (hg, sg, lg), (hc, sc, lc) = runs
     np.testing.assert_array_equal(hg, hc)
+    assert hg.sum() > 0
     assert sg == sc
     for x, y in zip(lg, lc):
         assert _same(x, y)

@@ -24,6 +24,11 @@ from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine, Tuning, compact
 from cudabrot_tpu_torch.ops import launches, prng
 from cudabrot_tpu_torch.utils import counters
 
+# The suite runs in several worker processes at once: one intra-op thread
+# each keeps PyTorch's thread pools from oversubscribing the cores (two
+# workers spinning on eight cores made a 4 s oracle pass take 386 s).
+torch.set_num_threads(1)
+
 
 def _cfg(mod, canvas=(32, 32), band=(50, 3), **opt):
     base = dict(lane_rows=8, steps_per_pass=256, steps_per_flush=16,

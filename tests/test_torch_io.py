@@ -6,6 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from cudabrot_tpu import config as jcfg
 from cudabrot_tpu.io import checkpoint as jckpt
@@ -17,6 +18,11 @@ from cudabrot_tpu_torch.io import checkpoint as tckpt
 from cudabrot_tpu_torch.io import pgm as tpgm
 from cudabrot_tpu_torch.io import png as tpng
 from cudabrot_tpu_torch.ops import tonemap as ttone
+
+# The suite runs in several worker processes at once: one intra-op thread
+# each keeps PyTorch's thread pools from oversubscribing the cores (two
+# workers spinning on eight cores made a 4 s oracle pass take 386 s).
+torch.set_num_threads(1)
 
 
 def _hist(shape=(48, 64), seed=0, high=5000):
@@ -112,3 +118,82 @@ def test_checkpoint_guards_match_jax(tmp_path):
     h = _hist(seed=5)
     h.astype("<u4").tofile(raw)
     np.testing.assert_array_equal(tckpt.load(str(raw), tc)[0], h)
+
+
+_DEEP = (-0.7436488870, -0.7436388870, 0.1318209042, 0.1318309042)
+
+
+def _deep_cfgs(precision, engine="auto"):
+    """One deep-zoom render in both packages' config classes."""
+    return tuple(
+        m.RenderConfig(
+            canvas=m.Canvas(width=64, height=48, min_real=_DEEP[0],
+                            max_real=_DEEP[1], min_imag=_DEEP[2],
+                            max_imag=_DEEP[3]),
+            band=m.IterationBand(max_escape_iterations=2000,
+                                 min_escape_iterations=50),
+            sample_domain=_DEEP, seed=5,
+            options=m.EngineOptions(precision=precision, engine=engine))
+        for m in (jcfg, tcfg)
+    )
+
+
+@pytest.mark.parametrize("have,want", [
+    ("extended", "float32"), ("float32", "extended"), ("float64", "float32"),
+])
+def test_checkpoint_precision_guard(tmp_path, have, want):
+    """Resuming across precision classes (float32 against extended or
+    float64) is a CheckpointError that names the precision, the same in
+    both packages."""
+    path = str(tmp_path / "ck.npz")
+    engine = "oracle" if "float64" in (have, want) else "auto"
+    tckpt.save(path, _hist(), _deep_cfgs(have, engine)[1], 3)
+    jc, tc = _deep_cfgs(want, engine)
+    with pytest.raises(tckpt.CheckpointError, match="precision") as et:
+        tckpt.load(path, tc)
+    assert repr(have) in str(et.value) and repr(want) in str(et.value)
+    with pytest.raises(jckpt.CheckpointError) as ej:
+        jckpt.load(path, jc)
+    assert str(et.value) == str(ej.value)
+
+
+def test_extended_checkpoint_resumes_across_packages(tmp_path):
+    """A checkpoint the JAX package wrote at extended precision resumes on
+    the port at extended and, the same resolution class, at float64 on the
+    oracle; through the CLI the mismatch is a clean message, not a
+    traceback."""
+    from cudabrot_tpu_torch import cli
+
+    jc, tc = _deep_cfgs("extended")
+    h = _hist(seed=8)
+    path = str(tmp_path / "ck.npz")
+    jckpt.save(path, h, jc, 9)
+    hist, meta = tckpt.load(path, tc)
+    np.testing.assert_array_equal(hist, h)
+    assert meta["passes"] == 9 and meta["precision"] == "extended"
+    assert tckpt._metadata(tc, 9) == jckpt._metadata(jc, 9)
+    np.testing.assert_array_equal(
+        tckpt.load(path, _deep_cfgs("float64", "oracle")[1])[0], h)
+
+    argv = ["-w", "64", "-h", "48", "-m", "2000", "-c", "50",
+            "--min-real", repr(_DEEP[0]), "--max-real", repr(_DEEP[1]),
+            "--min-imag", repr(_DEEP[2]), "--max-imag", repr(_DEEP[3]),
+            "--sample-domain", ",".join(map(repr, _DEEP)), "--seed", "5",
+            "--lane-rows", "2", "--steps-per-pass", "256",
+            "--steps-per-flush", "64", "--passes", "1", "-t", "-1",
+            "-s", path, "-o", str(tmp_path / "x.pgm")]
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv, device="cpu")  # float32 against extended
+    assert rc == 1
+    assert "precision 'extended'" in buf.getvalue()
+    assert "Traceback" not in buf.getvalue()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main([*argv, "--precision", "extended"], device="cpu")
+    assert rc == 0
+    hist2, meta2 = tckpt.load(path, tc)
+    assert meta2["passes"] == 10
+    assert int(hist2.sum(dtype=np.uint64)) >= int(h.sum(dtype=np.uint64))
