@@ -12,23 +12,38 @@ Phases (each fails the run on any mismatch):
      threefry_bits vs its plain version at the default band's slot count;
      classify_ext (df32) vs its plain version the same way, one pass of
      the deep-zoom cell's geometry (4096 steps: eight flush windows with
-     refills, emissions and Brent saves) from a state carried 8 passes.
+     refills, emissions and Brent saves) from a state carried 8 passes;
+     classify_mh and classify_ext_mh (the Metropolis-Hastings chain
+     kernels) vs their plain version on one whole main-path pass of the
+     mhcrop and the mhzoom cell (4096 steps in four flush windows; 16384
+     steps in one), from a state carried 4 passes.
   3. deposit_ids vs index_add_ bitwise on random ids with sentinels at
      1000x1000 and 6000x4500; replay_deposit vs its plain version bitwise
      on a compacted batch from phase 2; replay_deposit_ext (df32) vs its
-     plain version on the batch compacted from phase 2's df32 emissions.
+     plain version on the batch compacted from phase 2's df32 emissions;
+     mh_deposit vs mh_scatter's plain version on phase 2's MH emissions,
+     as a flat (V, S) batch and as they lie in the emission buffers, beside
+     index_add_ of the materialized (bin, weight) stream.
   4. The main paths through cudabrot_tpu_torch.cli.main at 1000x1000: the
-     default band, [2000,20000), and the extended-precision deep zoom
-     (--precision extended, a 1e-5 window, band [500,20000)). Each: valid
-     PGM, histogram sum equal to the on-canvas points, overflow drops
-     <= 1% of in-band samples, every kernel of the path launched, no plain
+     default band, [2000,20000), the extended-precision deep zoom
+     (--precision extended, a 1e-5 window, band [500,20000)), and the two
+     Metropolis-Hastings cells: mhzoom (the deep zoom with --sampler mh,
+     sample domain 8x the window) and mhcrop (--sampler mh on a 6e-3
+     window at float32, band [50,500)). Each: valid PGM, histogram sum
+     equal to the on-canvas points, overflow drops <= 1% of in-band samples
+     (none at all with MH), every kernel of the path launched, no plain
      version run. The deep-zoom window also renders through --engine
      oracle (float64, 65,536 samples a pass), and the two must agree in
-     in-band fraction and orbit points per emission within 15%.
+     in-band fraction and orbit points per emission within 15%. The mhzoom
+     window also renders by uniform sampling (--precision extended
+     --emit-filter canvas over the same 8x domain); two seeds of each must
+     agree as measures (block correlation, bright-half mass ratio), and the
+     deposited mass per second of both is printed.
   5. Kernel times at each cell's main-path shapes (CUDA events) beside
      their bounds, and at the default cell beside their plain versions and
      torch.bincount of the replay's id stream; a torch.profiler profile of
-     16 engine passes per cell (device ms per kernel, busy share).
+     16 engine passes per cell (8 at mhzoom; device ms per kernel, busy
+     share).
 
 ``--ext-budget-sweep`` instead builds and times deep-zoom engine passes at
 2^27..2^30 lane-steps per pass (the measurement behind keeping
@@ -68,15 +83,35 @@ OPS_DEPOSIT_ID = 3
 OPS_THREEFRY_WORD = 120
 OPS_DRAW_EXT = 160
 OPS_REPLAY_POINT_EXT = 121
+#: The MH kernels (csrc/mh.cuh): a finished proposal pays two Threefry
+#: calls, the chain boundary, the proposal draw, the sample's rebuild and
+#: cull, and up to three V-word reservoir moves (V = 8 here); the df32 one
+#: adds the two df32 sums. A deposited emission computes its total by long
+#: division (~30) and one share per recorded bin (~6 each, up to V).
+OPS_DRAW_MH = 324
+OPS_DRAW_MH_EXT = 354
+OPS_MH_EMISSION = 78
 
 ZOOM = ["-m", "20000", "-c", "500", "--precision", "extended", "--center",
         "-0.743643887037151,0.131825904205330", "--span", "1e-5"]
+#: The JAX package's mh_zoom leg (bench.py): the zoom window rendered by
+#: Metropolis-Hastings chains, sampled from a domain 8x the window.
+MHZOOM = [*ZOOM, "--sampler", "mh"]
+MHCROP = ["--sampler", "mh", "--center", "-0.7436,0.1319", "--span", "6e-3",
+          "-m", "500", "-c", "50"]
 #: The main path's cells at 1000x1000: name, CLI arguments, passes.
 CELLS = (
     ("default", [], 20),
     ("deep", ["-m", "20000", "-c", "2000"], 10),
     ("zoom", ZOOM, 96),
+    ("mhzoom", MHZOOM, 40),
+    ("mhcrop", MHCROP, 40),
 )
+#: The measure check of mhzoom: seeds, MH passes (the first MH_BURNIN are
+#: burn-in) and uniform comparator passes per seed.
+MEASURE_SEEDS = (1337, 4242)
+MH_MEASURE_PASSES, MH_MEASURE_BURNIN = 128, 32
+UNIFORM_MEASURE_PASSES = 96
 #: Oracle passes over the zoom window (65,536 float64 samples each).
 ORACLE_PASSES = 2
 #: Every hand-written kernel: source, the TPU code it replaces, and the
@@ -97,6 +132,13 @@ KERNELS = {
     "replay_deposit_ext": ("cudabrot_tpu_torch/csrc/deposit_ext.cu",
                            "cudabrot_tpu/engines/pallas_engine.py:786",
                            "zoom"),
+    "classify_mh": ("cudabrot_tpu_torch/csrc/classify_mh.cu",
+                    "cudabrot_tpu/ops/pallas_kernels_mh.py:437", "mhcrop"),
+    "classify_ext_mh": ("cudabrot_tpu_torch/csrc/classify_mh.cu",
+                        "cudabrot_tpu/ops/pallas_kernels_mh.py:998",
+                        "mhzoom"),
+    "mh_deposit": ("cudabrot_tpu_torch/csrc/deposit.cu",
+                   "cudabrot_tpu/ops/binning.py:938", "mhzoom"),
 }
 
 
@@ -173,7 +215,11 @@ def cell_config(name):
 
 def path_kernels(name):
     """The kernels a cell's main path launches."""
-    if cell_config(name).options.precision == "extended":
+    o = cell_config(name).options
+    if o.sampler == "mh":
+        return ("classify_ext_mh" if o.precision == "extended"
+                else "classify_mh", "mh_deposit")
+    if o.precision == "extended":
         return ("classify_ext", "threefry_bits", "replay_deposit_ext")
     return ("classify", "threefry_bits", "replay_deposit")
 
@@ -409,6 +455,129 @@ def phase_deposit_ext(dev, res, tn, cfg):
                 plain_ms=plain_ms)
 
 
+MH_OUT_FIELDS = ("emit_it", "emit_rep", "emit_v", "emit_bins", "stats")
+
+
+def phase_classify_mh(dev, name):
+    """An MH classify kernel (classify_mh at mhcrop, classify_ext_mh at
+    mhzoom) vs its plain version on one main-path pass of the cell (its
+    own mh_pass_spec, full lane width) from a state carried 4 passes.
+    Returns the kernel's result and its record (error, and the plain
+    version's time for that pass)."""
+    import torch
+
+    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
+    from cudabrot_tpu_torch.ops import classify_mh as cmh
+
+    eng = CudaEngine(cell_config(name), device=dev)
+    spec = eng.mh_pass_spec()
+    ext = eng.extended
+    kernel = "classify_ext_mh" if ext else "classify_mh"
+    classify = cmh.classify_pass_ext_mh if ext else cmh.classify_pass_mh
+    state = eng.init_state(None)["lanes"]
+    for p in range(4):
+        classify(state, (1337, p), **spec)
+    a, b = clone_state(state), clone_state(state)
+    seed = (0xC0FFEE, 0xBADF00D)
+    ra = classify(a, seed, **spec)
+    chunks = spec["steps_per_pass"] // spec["steps_per_flush"]
+    wx0, wx1, wy0, wy1 = spec["window"]
+    cv_w, cv_h = spec["canvas_wh"]
+    args = dict(
+        fractal=spec["fractal"], min_it=spec["min_it"], max_it=spec["max_it"],
+        chunks=chunks,
+        windows=spec["steps_per_flush"] // spec["inner_unroll"],
+        unroll=spec["inner_unroll"], detect=True,
+        sample_domain=spec["sample_domain"],
+        window=(wx0, wx1, wy0, wy1, cv_w / (wx1 - wx0), cv_h / (wy1 - wy0)),
+        restart256=spec["restart256"], rep_cap=spec["rep_cap"],
+        canvas_wh=spec["canvas_wh"])
+    out = {}
+
+    def plain():
+        out["r"] = cmh.classify_pass_mh_plain(ext, b, *seed, None, **args)
+
+    plain_ms = time_ms(plain, 1, warm=False)
+    rb = out["r"]
+    tag = (f"{kernel} ({name}) band ({spec['min_it']}, {spec['max_it']}) "
+           f"U={spec['inner_unroll']} V={eng.visit_slots} "
+           f"steps={spec['steps_per_pass']} lanes={eng.lanes}")
+    pairs = [*zip(ra.state, rb.state),
+             *((getattr(ra, f), getattr(rb, f)) for f in MH_OUT_FIELDS)]
+    for f, (x, y) in zip((*state._fields, *MH_OUT_FIELDS), pairs):
+        check(same_bits(x, y), f"{tag}: {f} bitwise")
+    for f, t in zip(state._fields, ra.state):
+        if t.dtype == torch.float32:
+            check(bool(torch.isfinite(t).all()),
+                  f"{tag}: stored {f} holds no inf/NaN")
+    st = ra.stats.reshape(cmh.MH_STATS_ROWS, -1).sum(dim=1)
+    n_em = int((ra.emit_it >= 0).sum())
+    log(f"  {tag}: {n_em} emissions, {int(st[0])} proposals resolved, "
+        f"{int(st[cmh.STAT_MH_ACCEPT])} accepted, "
+        f"{int(st[cmh.STAT_MH_MERGE])} merges; plain version "
+        f"{plain_ms:.1f} ms")
+    check(n_em > 0 and int(st[cmh.STAT_MH_ACCEPT]) > 0,
+          f"{tag}: pass accepted and emitted")
+    return ra, dict(max_abs_err=max_abs_err(pairs), plain_ms=plain_ms)
+
+
+def mh_batch(res, t):
+    """A pass's MH emissions as the flat (V, S) batch mh_scatter takes."""
+    chunks, slots = res.emit_bins.shape[:2]
+    bins = res.emit_bins.reshape(chunks, slots, -1).transpose(0, 1)
+    return (bins.reshape(slots, -1).contiguous(), t.reshape(-1),
+            res.emit_rep.reshape(-1))
+
+
+def mh_pairs(bins, t, rep):
+    """A flat MH batch as materialized (bin, weight) pairs: what one
+    index_add_ call, the library's form of the deposit, takes."""
+    import torch
+
+    from cudabrot_tpu_torch.ops import binning
+
+    d, n, _ = binning.mh_deposit_weights(t, rep, bins.shape[0])
+    kidx = torch.arange(bins.shape[0], device=bins.device)[:, None]
+    take = (t > 1)[None] & (kidx < n[None])
+    return bins[take].to(torch.int64), d[take].to(torch.int32)
+
+
+def phase_mh_deposit(dev, res, name):
+    """The mh_deposit kernel vs mh_scatter's plain version on the MH
+    emissions of phase 2: as a flat (V, S) batch, and as they lie in
+    the emission buffers (the main path's form); index_add_ of the
+    materialized (bin, weight) pairs, the library yardstick, must give the
+    same histogram. Returns the largest error."""
+    import torch
+
+    from cudabrot_tpu_torch.ops import binning
+
+    nbins = cell_config(name).canvas.num_pixels
+    t = torch.where(res.emit_it >= 0, res.emit_v, 0)
+    bins_c, t_c, rep_c = mh_batch(res, t)
+    hk, hk2, hp = (torch.zeros(nbins, dtype=torch.int32, device=dev)
+                   for _ in range(3))
+    dep_k, mass_k = binning.mh_deposit(hk, bins_c, t_c, rep_c)
+    dep_k2, mass_k2 = binning.mh_deposit(hk2, res.emit_bins, t, res.emit_rep,
+                                         chunked=True)
+    _, dep_p, mass_p = binning.mh_scatter(hp, bins_c, t_c, rep_c)
+    check(torch.equal(hk, hp), f"mh_deposit ({name}): flat batch bitwise")
+    check(torch.equal(hk2, hp),
+          f"mh_deposit ({name}): emission buffers as they lie, bitwise")
+    check(int(dep_k) == int(dep_k2) == int(dep_p.sum()) > 0,
+          f"mh_deposit ({name}): recorded-bin count {int(dep_k)}")
+    check(int(mass_k) == int(mass_k2) == int(mass_p.sum())
+          == int(hk.to(torch.int64).sum()) > 0,
+          f"mh_deposit ({name}): mass {int(mass_k)} == histogram sum")
+    idx, w = mh_pairs(bins_c, t_c, rep_c)
+    check(torch.equal(torch.zeros_like(hp).index_add_(0, idx, w), hp),
+          f"mh_deposit ({name}): index_add_ of the pairs agrees")
+    log(f"  mh_deposit ({name}): {int((t > 1).sum())} emissions, "
+        f"{idx.numel()} (bin, weight) pairs")
+    return max_abs_err(
+        [(hk, hp), (hk2, hp), (dep_k, dep_p.sum()), (mass_k, mass_p.sum())])
+
+
 def run_cli(args, stats_path):
     from cudabrot_tpu_torch import cli
     from cudabrot_tpu_torch.ops import launches
@@ -453,6 +622,16 @@ def phase_main_path(dev):
         check(stats["replay_dropped"] <= 0.01 * stats["in_band"],
               f"{name}: replay_dropped {stats['replay_dropped']} <= 1% of "
               f"in_band {stats['in_band']}")
+        mh = "--sampler" in cell_args
+        if mh:
+            check(stats["mh_deposited"] == stats["on_canvas_points"]
+                  and stats["replay_dropped"] == 0
+                  and stats["mh_lost_weight"] == 0
+                  and stats["weight_scale"] == 256,
+                  f"{name}: mh_deposited == on_canvas_points, nothing "
+                  f"dropped or lost, weight_scale 256")
+            check(stats["mh_accepts"] > 0,
+                  f"{name}: {stats['mh_accepts']} chain moves")
         for k in path_kernels(name):
             check(counts[k] > 0, f"{name}: {k} kernel launched "
                   f"({counts[k]} times)")
@@ -464,8 +643,10 @@ def phase_main_path(dev):
         log(f"  {name}: {passes} passes in {el:.3f} s; "
             f"{lane_steps / el:.4e} classify lane-steps/s; "
             f"{stats['orbit_points'] / el:.4e} replayed orbit points/s; "
-            f"{stats['on_canvas_points'] / el:.4e} deposited points/s; "
-            f"peak device memory {peak / 2**20:.1f} MiB")
+            f"{stats['on_canvas_points'] / el:.4e} deposited points/s"
+            + (f" ({stats['on_canvas_points'] / 256 / el:.4e} deposited "
+               f"mass/s in orbit-point units)" if mh else "")
+            + f"; peak device memory {peak / 2**20:.1f} MiB")
         log(f"  {name} stats: {json.dumps(stats)}")
         results[name] = (stats, counts)
     return results
@@ -512,8 +693,91 @@ def phase_oracle(zoom_stats):
           "zoom: orbit points per emission within 15% of the oracle")
 
 
+def block_map(hist, blocks: int = 8):
+    """A histogram summed over blocks x blocks tiles, normalized to 1."""
+    import numpy as np
+
+    h, w = hist.shape
+    x = hist.astype(np.float64).reshape(
+        blocks, h // blocks, blocks, w // blocks).sum(axis=(1, 3))
+    return x / x.sum()
+
+
+def phase_mh_measure():
+    """mhzoom's measure against uniform sampling of the identical
+    configuration (the JAX bench's comparator: --precision extended
+    --emit-filter canvas over the same domain 8x the window), two seeds of
+    each, by the null-calibrated statistic of the package's MH tests at
+    8x8 blocks of 125 pixels: the correlation of the two-seed averages must
+    reach the smaller of the two self-correlations less 0.05 (two unbiased
+    estimators with independent noise exceed it; a bias common to one
+    estimator's seeds caps it below), a floor of 0.6, and the MH mass of
+    the uniform render's brighter half within 10% of the uniform mass
+    there. Prints the deposited mass per second of both and their ratio
+    (reported, not checked)."""
+    import numpy as np
+
+    log("== phase 4c: mhzoom against uniform sampling of the same window")
+    cfg = cell_config("mhzoom")
+    cv = cfg.canvas
+    geometry = [
+        "-w", "1000", "-h", "1000", "-m", "20000", "-c", "500",
+        "--precision", "extended",
+        "--min-real", repr(cv.min_real), "--max-real", repr(cv.max_real),
+        "--min-imag", repr(cv.min_imag), "--max-imag", repr(cv.max_imag),
+        "--sample-domain", ",".join(repr(v) for v in cfg.sample_domain)]
+    runs = {"mh": (["--sampler", "mh", "--mh-burnin",
+                    str(MH_MEASURE_BURNIN)], MH_MEASURE_PASSES),
+            "uniform": (["--emit-filter", "canvas"], UNIFORM_MEASURE_PASSES)}
+    maps, rates = {}, {}
+    for kind, (extra, passes) in runs.items():
+        maps[kind], mass, seconds = [], 0.0, 0.0
+        for seed in MEASURE_SEEDS:
+            ckpt_path = os.path.join(OUT, f"measure_{kind}_{seed}.ckpt")
+            stats_path = os.path.join(OUT, f"measure_{kind}_{seed}.json")
+            if os.path.exists(ckpt_path):
+                os.remove(ckpt_path)
+            args = [*geometry, *extra, "--seed", str(seed), "--passes",
+                    str(passes), "-t", "-1", "-s", ckpt_path, "-o",
+                    os.path.join(OUT, f"measure_{kind}_{seed}.pgm"),
+                    "--stats-json", stats_path]
+            stats, _ = run_cli(args, stats_path)
+            hist = np.load(ckpt_path)["hist"]
+            check(int(hist.sum(dtype=np.uint64)) == stats["on_canvas_points"]
+                  > 0 and stats["replay_dropped"] <= 0.01 * stats["in_band"],
+                  f"{kind} seed {seed}: histogram == on_canvas_points "
+                  f"({stats['on_canvas_points']}), drops "
+                  f"{stats['replay_dropped']} <= 1% of in-band")
+            maps[kind].append(block_map(hist))
+            mass += stats["on_canvas_points"] / stats.get("weight_scale", 1)
+            seconds += stats["elapsed_seconds"]
+        rates[kind] = mass / seconds
+
+    def corr(a, b):
+        return float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+
+    self_mh, self_un = corr(*maps["mh"]), corr(*maps["uniform"])
+    avg_mh = (maps["mh"][0] + maps["mh"][1]) / 2
+    avg_un = (maps["uniform"][0] + maps["uniform"][1]) / 2
+    cross = corr(avg_mh, avg_un)
+    bright = avg_un > np.median(avg_un)
+    ratio = float(avg_mh[bright].sum() / avg_un[bright].sum())
+    log(f"  block correlation: MH seed against seed {self_mh:.4f}, uniform "
+        f"seed against seed {self_un:.4f}, MH average against uniform "
+        f"average {cross:.4f}; bright-half mass ratio {ratio:.4f}")
+    log(f"  deposited mass/s (orbit-point units; MH passes include "
+        f"{MH_MEASURE_BURNIN} of burn-in): MH {rates['mh']:.4e}, uniform "
+        f"{rates['uniform']:.4e}, ratio {rates['mh'] / rates['uniform']:.2f}")
+    check(cross > min(self_mh, self_un) - 0.05 and cross > 0.6,
+          "mhzoom: MH and uniform block maps agree (null-calibrated)")
+    check(abs(ratio - 1) < 0.1, "mhzoom: bright-half mass ratio within 10%")
+
+
 #: Device-activity groups of the profile: kernel-name substring -> group.
-PROFILE_GROUPS = (("classify_ext_kernel", "classify_ext"),
+PROFILE_GROUPS = (("classify_ext_mh_kernel", "classify_ext_mh"),
+                  ("classify_mh_kernel", "classify_mh"),
+                  ("mh_deposit_kernel", "mh_deposit"),
+                  ("classify_ext_kernel", "classify_ext"),
                   ("classify_kernel", "classify"),
                   ("threefry_bits", "threefry_bits"),
                   ("replay_deposit_ext", "replay_deposit_ext"),
@@ -734,15 +998,121 @@ def cell_times(dev, name, with_plain):
     return rec
 
 
+def mh_cell_times(dev, name):
+    """The two kernels of an MH cell at its main-path shapes (CUDA events,
+    from a lane state carried over some passes): the chain kernel and
+    mh_deposit on that pass's emission buffers, the deposit's plain version
+    and index_add_ of its materialized (bin, weight) pairs, a one-id
+    deposit_ids launch (the floor a deposit this small is up against), a
+    whole engine pass, and the device's busy share."""
+    import itertools
+
+    import torch
+
+    from cudabrot_tpu_torch.engines import cuda_engine as ce
+    from cudabrot_tpu_torch.ops import binning, prng
+    from cudabrot_tpu_torch.ops import classify_mh as cmh
+
+    log(f"== kernel times at the {name} cell's main-path shapes")
+    cfg = cell_config(name)
+    eng = ce.CudaEngine(cfg, device=dev)
+    tn, ext, slots = eng.tuning, eng.extended, eng.visit_slots
+    state = eng.init_state(None)
+    warm_passes = 6
+    for p in range(warm_passes):
+        eng.run_pass(state, p)
+    k1 = "classify_ext_mh" if ext else "classify_mh"
+    classify = cmh.classify_pass_ext_mh if ext else cmh.classify_pass_mh
+    spec = eng.mh_pass_spec()
+    lanes = state["lanes"]
+    seed = prng.bits_host(prng.pass_key(cfg.seed, 0, warm_passes + 1), 2)
+    res = classify(clone_state(lanes), seed, **spec)
+    k1_ms = time_ms(lambda: classify(lanes, seed, **spec), 5)
+    n_lanes = eng.lanes
+    lane_steps = tn.steps_per_pass * n_lanes
+    windows = lane_steps // tn.inner_unroll
+    st = res.stats.reshape(cmh.MH_STATS_ROWS, -1).sum(dim=1)
+    draws = int(st[0])
+    n_slots = tn.emission_slots
+    c_inner, c_boundary = ce.step_ops(ext, True)
+    c_draw = OPS_DRAW_MH_EXT if ext else OPS_DRAW_MH
+    state_words = len(lanes) - 2 + 2 * slots
+    # Visits that record a bin are not counted: the kernel reports visits
+    # per emission only, and they are few beside the inner steps.
+    k1_bound, k1_by = bound_ms(
+        c_inner * lane_steps + c_boundary * windows + c_draw * draws,
+        n_lanes * (2 * 4 * state_words + 4 * cmh.MH_STATS_ROWS)
+        + n_slots * (3 + slots) * 4,
+    )
+
+    nbins = cfg.canvas.num_pixels
+    t = torch.where(res.emit_it >= 0, res.emit_v, 0)
+    hist = torch.zeros(nbins, dtype=torch.int32, device=dev)
+
+    def deposit(h=hist):
+        return binning.mh_deposit(h, res.emit_bins, t, res.emit_rep,
+                                  chunked=True)
+
+    k2_ms = time_ms(deposit, 10)
+    emissions = int((t > 1).sum())
+    bins_c, t_c, rep_c = mh_batch(res, t)
+    hp = torch.zeros_like(hist)
+    k2_plain = time_ms(lambda: binning.mh_scatter(hp, bins_c, t_c, rep_c), 3)
+    idx, w = mh_pairs(bins_c, t_c, rep_c)
+    k2_lib = time_ms(lambda: hp.index_add_(0, idx, w), 10)
+    # What this pass's data makes the function move: t of every slot (a slot
+    # with t <= 1 ends there), rep of each emission that deposits, and per
+    # recorded (bin, weight) pair the bin and a read and a write of its
+    # histogram word. The histogram itself (4 MB) is not streamed.
+    k2_bound, k2_by = bound_ms(
+        OPS_MH_EMISSION * emissions,
+        4 * n_slots + 4 * emissions + 12 * idx.numel())
+    # The cost of the smallest launch through the same binding: one id.
+    one_id = torch.zeros(1, dtype=torch.int32, device=dev)
+    launch_ms = time_ms(lambda: binning.deposit_ids(hp, one_id), 50)
+
+    pass_ids = itertools.count(warm_passes + 2)
+    pass_ms = time_ms(lambda: eng.run_pass(state, next(pass_ids)), 5)
+    busy, span, prof_ms = device_profile(eng, state, 100, 8 if ext else 16)
+
+    log(f"  geometry: {n_lanes} lanes, {tn.steps_per_pass} steps per pass, "
+        f"flush {tn.steps_per_flush}, U={tn.inner_unroll}, V={slots}, "
+        f"capacity {tn.replay_capacity}")
+    log(f"  {k1}: {lane_steps} lane-steps, {draws} proposals resolved, "
+        f"{int(st[cmh.STAT_MH_ACCEPT])} accepted; kernel {k1_ms:.4f} ms, "
+        f"bound {k1_bound:.4f} ms ({k1_by})")
+    log(f"  mh_deposit: {emissions} emissions of {n_slots} slots, "
+        f"{idx.numel()} (bin, weight) pairs; kernel {k2_ms:.4f} ms, bound "
+        f"{k2_bound:.4f} ms ({k2_by}), plain version {k2_plain:.4f} ms, "
+        f"index_add_ of the materialized pairs {k2_lib:.4f} ms, a "
+        f"one-id deposit_ids launch {launch_ms:.4f} ms")
+    log(f"  {name} pass (CUDA events, 5 passes): {pass_ms:.4f} ms")
+    if busy is None:
+        log(f"  {name} device profile: not measured ({span})")
+    else:
+        parts = ", ".join(f"{g} {v:.4f}" for g, v in prof_ms.items() if v)
+        log(f"  {name} device profile (torch.profiler): ms per pass {parts}; "
+            f"busy {busy:.4f} of a {span:.3f} ms span (idle {1 - busy:.4f})")
+    return {
+        k1: dict(ms=k1_ms, bound_ms=k1_bound, bound_by=k1_by,
+                 library_ms=None),
+        "mh_deposit": dict(ms=k2_ms, bound_ms=k2_bound, bound_by=k2_by,
+                           plain_ms=k2_plain, library_ms=k2_lib),
+    }
+
+
+
 def phase_kernel_times(dev, main_runs, errs, ext_records, deposit_ids):
     """One record per hand-written kernel. Times are at the shapes of the
     cell that KERNELS names (the other cells' are printed), launches from
     that cell's main-path run; deposit_ids, which no entry point launches,
     carries phase 3's record at 1000x1000 and 0 launches. plain_ms of the
     two df32 kernels comes from phases 2 and 3, which ran their plain
-    versions at the zoom cell's shapes."""
-    times = {name: cell_times(dev, name, name == "default")
-             for name, _, _ in CELLS}
+    versions at the zoom cell's shapes, and those of the two MH classify
+    kernels at one whole pass of their cells."""
+    times = {name: (mh_cell_times(dev, name) if "--sampler" in args
+                    else cell_times(dev, name, name == "default"))
+             for name, args, _ in CELLS}
     records = []
     for k, (source, replaces, cell) in KERNELS.items():
         if cell is None:
@@ -825,15 +1195,21 @@ def main() -> int:
         phase_build()
         batches, errs = phase_classify(dev)
         ext_res, ext_tn, ext_cfg, ext_classify = phase_classify_ext(dev)
+        mh_res, mh_classify = phase_classify_mh(dev, "mhcrop")
+        ext_mh_res, ext_mh_classify = phase_classify_mh(dev, "mhzoom")
         deposit, deposit_errs = phase_deposit(dev, batches)
         errs.update(deposit_errs)
         ext_replay = phase_deposit_ext(dev, ext_res, ext_tn, ext_cfg)
-        del batches, ext_res
+        errs["mh_deposit"] = max(phase_mh_deposit(dev, mh_res, "mhcrop"),
+                                 phase_mh_deposit(dev, ext_mh_res, "mhzoom"))
+        del batches, ext_res, mh_res, ext_mh_res
         main_runs = phase_main_path(dev)
         phase_oracle(main_runs["zoom"][0])
+        phase_mh_measure()
         kernels = phase_kernel_times(
             dev, main_runs, errs,
-            dict(classify_ext=ext_classify, replay_deposit_ext=ext_replay),
+            dict(classify_ext=ext_classify, replay_deposit_ext=ext_replay,
+                 classify_mh=mh_classify, classify_ext_mh=ext_mh_classify),
             deposit)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -450,7 +450,6 @@ class EngineOptions:
 #: Options whose engines later slices of the port bring, as (what the
 #: message names, predicate on EngineOptions).
 _NOT_YET_PORTED = (
-    ("--sampler mh", lambda o: o.sampler == "mh"),
     ("--replay host", lambda o: o.replay == "host"),
     ("--replay-device-share", lambda o: o.replay_device_share >= 0),
     ("--hist-dtype uint64", lambda o: o.hist_dtype == "uint64"),

@@ -16,6 +16,17 @@
 //    per pass (~512 MB) and streams them through its scatter; here no id
 //    ever reaches device memory, and one kernel serves every band length.
 //
+//  * cb_mh_deposit: the Metropolis-Hastings deposit, the function of
+//    ops/binning.py mh_scatter (an XLA scatter-add of a materialized
+//    (V, capacity) weight array in the JAX engine). One thread per
+//    emission: it computes the tenure's total q and its Bresenham spread
+//    over the recorded bins (mh.cuh mh_deposit_one, pure u32 arithmetic)
+//    and adds each share with atomicAdd; the recorded-bin count and the
+//    mass q are summed into two 64-bit device totals, so the engine's
+//    counters need no second pass and no (V, capacity) temporary exists.
+//    It reads the emission buffers in the classify kernel's own layout
+//    (chunks, V, lanes), so the engine deposits without compacting.
+//
 // Bound. The deposit is a random read-modify-write per orbit point: the
 // floor is the atomic throughput of the L2 (a 1000^2 uint32 histogram is
 // 4 MB and stays in the 50 MB L2), not the bytes the function must move
@@ -26,7 +37,7 @@
 // bitwise whatever the order of the atomics.
 #include <cuda_runtime.h>
 
-#include "orbit.cuh"
+#include "mh.cuh"
 
 namespace {
 
@@ -76,6 +87,15 @@ __global__ void __launch_bounds__(kBlock)
     }
   }
   warp_sum_add(hits, local);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    mh_deposit_kernel(cb::mh::MhDepositArgs a, unsigned long long* totals) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t n = 0, q = 0;
+  if (e < a.n) cb::mh::mh_deposit_one(a, e, n, q);
+  warp_sum_add(totals, n);
+  warp_sum_add(totals + 1, q);
 }
 
 template <int FR>
@@ -130,4 +150,25 @@ extern "C" int cb_replay_deposit(int fractal, const void* cr, const void* ci,
                                                      phits, s));
   }
   return int(cudaErrorInvalidValue);
+}
+
+// bins: (chunks, slots, lanes) int32; t, rep: (chunks * lanes,) int32 with
+// n = chunks * lanes emissions. totals: two uint64 the kernel adds the
+// recorded-bin count and the deposited mass to. Returns the cudaError_t of
+// the launch (0 = launched).
+extern "C" int cb_mh_deposit(const void* bins, const void* t, const void* rep,
+                             long long n, int slots, int lanes, void* hist,
+                             int nbins, void* totals, void* stream) {
+  if (n <= 0) return 0;
+  if (slots <= 0 || lanes <= 0 || n % lanes != 0)
+    return int(cudaErrorInvalidValue);
+  const cb::mh::MhDepositArgs a{
+      static_cast<const int32_t*>(bins), static_cast<const int32_t*>(t),
+      static_cast<const int32_t*>(rep),  n, slots, lanes,
+      static_cast<uint32_t*>(hist),      nbins};
+  const long long grid = (n + kBlock - 1) / kBlock;
+  mh_deposit_kernel<<<unsigned(grid), kBlock, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<unsigned long long*>(totals));
+  return int(cudaGetLastError());
 }

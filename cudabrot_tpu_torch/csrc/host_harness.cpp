@@ -1,7 +1,9 @@
-// CPU build of the extended-precision kernels' per-lane functions.
+// CPU build of the kernels' per-lane functions.
 //
-// The df32 arithmetic (df32.cuh) and the lane and emission functions of
-// the classify_ext and replay_deposit_ext kernels (classify_ext.cuh) are
+// The df32 arithmetic (df32.cuh), the lane and emission functions of the
+// classify_ext and replay_deposit_ext kernels (classify_ext.cuh), and the
+// Metropolis-Hastings lane function and deposit (mh.cuh: classify_mh,
+// classify_ext_mh, mh_deposit) are
 // __host__ __device__; this file loops them over lanes on the CPU behind
 // the same C interface as the CUDA launchers, so a machine without a GPU
 // can hold them bitwise against the plain PyTorch versions. Build:
@@ -11,10 +13,45 @@
 //
 // (-ffp-contract=off: every product and sum must round once, as
 // __fmul_rn/__fadd_rn do on the device.) Nothing in the package loads it;
-// tests/test_torch_df32.py builds it when g++ is present.
+// tests/test_torch_df32.py and tests/test_torch_classify_mh.py build it
+// when g++ is present.
 #include "classify_ext.cuh"
+#include "mh.cuh"
 
 using cb::df::F2;
+
+namespace {
+
+// One MH classify pass, lanes looped on the CPU: the instantiation is
+// picked by reservoir width, then by fractal.
+template <int FR, class Orbit>
+int mh_lanes(int slots, const cb::mh::ClassifyMhArgs& a) {
+  for (int lane = 0; lane < a.lanes; ++lane) {
+    switch (slots) {
+      case 2: cb::mh::classify_mh_lane<FR, 2, Orbit>(a, lane); break;
+      case 4: cb::mh::classify_mh_lane<FR, 4, Orbit>(a, lane); break;
+      case 8: cb::mh::classify_mh_lane<FR, 8, Orbit>(a, lane); break;
+      case 16: cb::mh::classify_mh_lane<FR, 16, Orbit>(a, lane); break;
+      case 32: cb::mh::classify_mh_lane<FR, 32, Orbit>(a, lane); break;
+      default: return 1;
+    }
+  }
+  return 0;
+}
+
+template <class Orbit>
+int mh_fractal(int fractal, int slots,
+                      const cb::mh::ClassifyMhArgs& a) {
+  switch (fractal) {
+    case cb::kBuddhabrot: return mh_lanes<cb::kBuddhabrot, Orbit>(slots, a);
+    case cb::kBurningShip: return mh_lanes<cb::kBurningShip, Orbit>(slots, a);
+    case cb::kAntiBuddhabrot:
+      return mh_lanes<cb::kAntiBuddhabrot, Orbit>(slots, a);
+  }
+  return 1;
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -149,6 +186,34 @@ int cbh_replay_deposit_ext(const void* kr, const void* ki, const void* iters,
     }
   }
   *static_cast<unsigned long long*>(hits) += total;
+  return 0;
+}
+
+// The interface of cb_classify_mh (ext = 0) and cb_classify_ext_mh
+// (ext = 1), lanes looped on the CPU.
+int cbh_classify_mh(int ext, void** ptrs, const int* iargs,
+                    const float* fargs, uint32_t k0, uint32_t k1) {
+  const cb::mh::ClassifyMhArgs a =
+      cb::mh::classify_mh_args(ext != 0, ptrs, iargs, fargs, k0, k1);
+  return ext ? mh_fractal<cb::mh::OrbitDf>(iargs[0], iargs[1], a)
+             : mh_fractal<cb::mh::OrbitF32>(iargs[0], iargs[1], a);
+}
+
+// The interface of cb_mh_deposit, emissions looped on the CPU.
+int cbh_mh_deposit(const void* bins, const void* t, const void* rep,
+                   long long n, int slots, int lanes, void* hist, int nbins,
+                   void* totals) {
+  const cb::mh::MhDepositArgs a{
+      static_cast<const int32_t*>(bins), static_cast<const int32_t*>(t),
+      static_cast<const int32_t*>(rep),  n, slots, lanes,
+      static_cast<uint32_t*>(hist),      nbins};
+  auto* out = static_cast<unsigned long long*>(totals);
+  for (long long e = 0; e < n; ++e) {
+    uint32_t cnt = 0, q = 0;
+    cb::mh::mh_deposit_one(a, e, cnt, q);
+    out[0] += cnt;
+    out[1] += q;
+  }
   return 0;
 }
 

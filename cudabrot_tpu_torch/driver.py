@@ -225,6 +225,16 @@ def run_render(
             "the --sample-domain window."
         )
 
+    lost_w = int(stats.get("mh_lost_weight", 0))
+    if lost_w > 0.02 * max(int(stats.get("on_canvas_points", 0)) + lost_w, 1):
+        # An MH deposit path that forfeits tenure mass reports it here; the
+        # kernel-recorded bins deposit conserves it, so this stays silent.
+        log(
+            f"Warning: {lost_w} units of MH tenure mass found no "
+            "on-canvas points at replay (trajectory-drift class); "
+            "if this grows, the band/crop combination is degenerate."
+        )
+
     if cfg.inprogress_file:
         log(f"Saving in-progress buffer to {cfg.inprogress_file}.")
         ckpt.save(cfg.inprogress_file, hist, cfg, resumed_passes + passes)

@@ -26,6 +26,18 @@ double-float orbits: ``ops.classify_ext.classify_pass_ext``
 ``ops.binning.replay_deposit_ext`` (``csrc/deposit_ext.cu``) rebuilds c,
 replays in df32 and deposits.
 
+With ``--sampler mh`` (Metropolis-Hastings crop renders, at either
+precision) the pass is ``ops.classify_mh.classify_pass_mh`` or
+``classify_pass_ext_mh`` (the two kernels of ``csrc/classify_mh.cu``):
+every lane runs a Markov chain whose emissions carry their own recorded
+canvas bins, so nothing is replayed. ``ops.binning.mh_deposit`` (the
+``mh_deposit`` kernel of ``csrc/deposit.cu``) adds each emission's weighted
+share to its bins straight from the emission buffers: capacity is one
+emission per lane per flush window, so none is ever dropped and the
+order-free integer deposit needs no compaction. Histogram counts are then
+in 1/256 units (``weight_scale``). Reading the histogram first deposits
+every chain's unfinished tenure (``mh_tail_core``).
+
 The pass key is ``fold_in(fold_in(key(seed), ordinal), pass)`` as in the
 JAX engine, so at equal geometry both engines draw the same samples.
 Nothing in a pass waits for the device: stats accumulate in int64 device
@@ -46,6 +58,7 @@ from cudabrot_tpu_torch.models import fractals
 from cudabrot_tpu_torch.ops import binning, df32, prng
 from cudabrot_tpu_torch.ops import classify as cls
 from cudabrot_tpu_torch.ops import classify_ext as cls_ext
+from cudabrot_tpu_torch.ops import classify_mh as cls_mh
 from cudabrot_tpu_torch.utils import counters
 from cudabrot_tpu_torch.utils.device import resolve_device
 
@@ -73,6 +86,25 @@ BOUNDARY_OPS = 40.0
 #: count (2); the boundary is the f32 one plus the two lo-part moves.
 EXT_INNER_STEP_OPS = 94.0
 EXT_BOUNDARY_OPS = 42.0
+#: The counts of the two MH kernels, from csrc/mh.cuh: an inner step adds
+#: the window test (7), the LCG (2) and the visit count (1) to the orbit
+#: step, and at df32 the centre-relative window coordinates (6); the
+#: boundary adds the target (4). The chain resolution and the draw are paid
+#: per finished proposal, not per window.
+MH_INNER_STEP_OPS = 19.0
+MH_BOUNDARY_OPS = 44.0
+EXT_MH_INNER_STEP_OPS = 110.0
+EXT_MH_BOUNDARY_OPS = 46.0
+
+
+def step_ops(extended: bool, mh: bool) -> tuple[float, float]:
+    """(operations per inner step, per window boundary) of the classify
+    kernel a configuration runs."""
+    if mh:
+        return ((EXT_MH_INNER_STEP_OPS, EXT_MH_BOUNDARY_OPS) if extended
+                else (MH_INNER_STEP_OPS, MH_BOUNDARY_OPS))
+    return ((EXT_INNER_STEP_OPS, EXT_BOUNDARY_OPS) if extended
+            else (INNER_STEP_OPS, BOUNDARY_OPS))
 
 
 def _pow2(x: float) -> int:
@@ -118,7 +150,24 @@ class Tuning:
             rate = 0.10 / lifetime
         else:
             rate = band_emission_rate(self.min_it, self.max_it)
-        if cfg.sample_domain != SAMPLE_DOMAIN:
+        #: Metropolis-Hastings sampling: emissions are chain moves, and
+        #: proposals concentrate near in-band states, so their mean cost
+        #: approaches the in-band orbit length, not the uniform-draw mean.
+        #: Acceptance depends on the crop; the rate is sized for the high
+        #: end (0.3 per proposal).
+        self.mh = o.sampler == "mh"
+        if self.mh:
+            if fr.emit == "interior":
+                in_band_len = float(self.max_it)
+            else:
+                mi_b = max(self.min_it, 2)
+                ma_b = max(self.max_it, mi_b + 1)
+                # E[len | in band] for the ~1/t^2 escape-time tail.
+                in_band_len = (mi_b * ma_b / (ma_b - mi_b)) * float(
+                    np.log(ma_b / mi_b))
+            lifetime = 0.5 * in_band_len + lifetime
+            rate = 0.3 / lifetime
+        if cfg.sample_domain != SAMPLE_DOMAIN and not self.mh:
             # A smaller domain concentrates emissions by up to the area
             # ratio; boost by at most 16x, at most one per sample.
             r0, r1, i0, i1 = cfg.sample_domain
@@ -126,31 +175,40 @@ class Tuning:
             rate = min(rate * min(16.0 / area, 16.0), 1.0 / lifetime)
         lanes = o.lane_rows * 128
         self.lanes = lanes
-        # Flush window: ~0.25 expected emissions per lane per window, so a
-        # second finish rarely overwrites a pending one.
         flush_cap = 4096 if rate > 1e-5 else 65536
-        self.steps_per_flush = o.steps_per_flush or int(
-            np.clip(_pow2(0.25 / rate), 32, flush_cap)
-        )
+        if o.steps_per_flush:
+            self.steps_per_flush = o.steps_per_flush
+        elif self.mh:
+            # A pending collision is a mass-conserving merge (a variance
+            # cost, not a loss), so the window can be long: it aims at one
+            # retirement per lane and is at least 8 mean in-band orbits,
+            # up to 16384 steps (the JAX engine's rule).
+            self.steps_per_flush = max(
+                int(np.clip(_pow2(1.0 / rate), 32, max(flush_cap, 16384))),
+                min(16384, _pow2(8.0 * in_band_len)),
+            )
+        else:
+            # ~0.25 expected emissions per lane per window, so a second
+            # finish rarely overwrites a pending one.
+            self.steps_per_flush = int(
+                np.clip(_pow2(0.25 / rate), 32, flush_cap))
         self.thin_tracking = o.escape_tracking != "step"
         #: Extended (df32) deep-zoom iteration; always thin tracking
         #: (EngineOptions.validate).
         self.extended = o.precision == "extended"
         if o.inner_unroll > 0:
             self.inner_unroll = o.inner_unroll
-        elif rate > 1e-4:
+        elif rate > 1e-4 and not self.mh:
             # Emission-heavy bands: samples finish within a few steps, a
-            # window would mostly coast.
+            # window would mostly coast. (MH proposals are long orbits next
+            # to in-band states: they are scored like deep bands.)
             self.inner_unroll = 1
         else:
             candidates = (
                 (1, 2, 4, 8, 16, 32) if self.thin_tracking else (1, 2, 4, 8)
             )
 
-            c_inner, c_boundary = (
-                (EXT_INNER_STEP_OPS, EXT_BOUNDARY_OPS) if self.extended
-                else (INNER_STEP_OPS, BOUNDARY_OPS)
-            )
+            c_inner, c_boundary = step_ops(self.extended, self.mh)
 
             def score(u: int) -> float:
                 cost = c_inner + c_boundary / u
@@ -173,7 +231,27 @@ class Tuning:
             self.steps_per_pass // self.steps_per_flush * lanes
         )
         if o.replay_capacity > 0:
+            if self.mh and o.replay_capacity < self.emission_slots:
+                # An MH drop would lose weighted mass (a uniform drop is an
+                # unbiased thinning), so MH never drops.
+                raise ConfigError(
+                    f"--sampler mh needs one replay slot per lane per flush "
+                    f"window: --replay-capacity {o.replay_capacity} is below "
+                    f"the pass's {self.emission_slots} emission slots. Leave "
+                    f"it at 0 (auto) or shorten --steps-per-pass."
+                )
             self.replay_capacity = o.replay_capacity
+        elif self.mh:
+            # A lane emits at most once per flush window, so one slot per
+            # lane-window holds every emission: an MH drop would lose
+            # weighted mass, where a uniform drop is an unbiased thinning.
+            # Beyond the largest capacity the pass is shortened instead.
+            windows = self.steps_per_pass // self.steps_per_flush
+            self.replay_capacity = int(np.clip(
+                _pow2(lanes * windows), 4096, MAX_REPLAY_CAPACITY))
+            windows = min(windows, max(self.replay_capacity // lanes, 1))
+            self.steps_per_pass = windows * self.steps_per_flush
+            self.emission_slots = windows * lanes
         else:
             # 2x headroom over the rate model before pow2 rounding:
             # overflow is an unbiased thinning, but wasted classify work.
@@ -246,6 +324,11 @@ class CudaEngine:
         self.steps_per_pass = self.tuning.steps_per_pass * self.lanes
         self.replay_capacity = self.tuning.replay_capacity
         self.extended = self.tuning.extended
+        #: Metropolis-Hastings sampling: deposits are importance weights
+        #: in 1/weight_scale histogram units.
+        self.mh = self.tuning.mh
+        self.weight_scale = cls_mh.WEIGHT_SCALE if self.mh else 1
+        self.visit_slots = cfg.options.mh_visit_slots
         # Canvas emit filter: emit only orbits that entered the canvas
         # window, inflated one pixel past the upper binning bounds so the
         # gate has no false negatives (the classify trajectory is the
@@ -277,7 +360,14 @@ class CudaEngine:
         else:
             h = np.ascontiguousarray(hist0, dtype=np.uint32).view(np.int32)
             hist = torch.from_numpy(h.copy()).to(self.device)
-        if self.extended:
+        if self.mh:
+            init = (cls_mh.init_ext_mh_lane_state if self.extended
+                    else cls_mh.init_mh_lane_state)
+            state = {
+                "hist": hist,
+                "lanes": init(self.lane_rows, self.visit_slots, self.device),
+            }
+        elif self.extended:
             c0r, c0i, _, _ = cls_ext.grid_params(self.cfg.sample_domain)
             state = {
                 "hist": hist,
@@ -298,13 +388,16 @@ class CudaEngine:
                 "hist": hist,
                 "lanes": cls.init_lane_state(self.lane_rows, self.device),
             }
-        state.update(counters.zeros(self.device))
+        state.update(counters.zeros(self.device, mh=self.mh))
         return state
 
     def core(self, state: dict, pass_index: int, ordinal: int = 0) -> dict:
         """One pass, entirely on the device; updates ``state`` in place."""
         cfg, tn = self.cfg, self.tuning
         key = prng.pass_key(cfg.seed, ordinal, pass_index)
+        seed = prng.bits_host(key, 2)
+        if self.mh:
+            return self._mh_core(state, pass_index, seed)
         spec = dict(
             fractal=self.fractal,
             min_it=tn.min_it,
@@ -316,7 +409,6 @@ class CudaEngine:
             sample_domain=cfg.sample_domain,
             visit_window=self.visit_window,
         )
-        seed = prng.bits_host(key, 2)
         if self.extended:
             result = cls_ext.classify_pass_ext(state["lanes"], seed, **spec)
         else:
@@ -356,6 +448,89 @@ class CudaEngine:
             state[k] += v
         return state
 
+    def mh_pass_spec(self) -> dict:
+        """The keywords of this render's MH classify pass
+        (``ops.classify_mh``) other than its seed."""
+        cfg, tn, o = self.cfg, self.tuning, self.cfg.options
+        cv = cfg.canvas
+        c_r = c_i = 0.0
+        if self.extended:
+            # The df32 kernel tests the window in centre-relative
+            # coordinates: the canvas bounds minus the exact f64 value of
+            # the df32 sample-window centre.
+            c0r, c0i, _, _ = cls_ext.grid_params(cfg.sample_domain)
+            c_r = float(df32.to_float64(*c0r))
+            c_i = float(df32.to_float64(*c0i))
+        return dict(
+            fractal=self.fractal, min_it=tn.min_it, max_it=tn.max_it,
+            steps_per_pass=tn.steps_per_pass,
+            steps_per_flush=tn.steps_per_flush,
+            cycle_detection=o.cycle_detection, inner_unroll=tn.inner_unroll,
+            sample_domain=cfg.sample_domain,
+            window=(cv.min_real - c_r, cv.max_real - c_r,
+                    cv.min_imag - c_i, cv.max_imag - c_i),
+            restart256=o.mh_restart, rep_cap=o.mh_rep_cap,
+            canvas_wh=(cv.width, cv.height),
+        )
+
+    def _mh_core(self, state: dict, pass_index: int, seed) -> dict:
+        """The MH pass: the chain kernel, then the weighted deposit of its
+        emissions. While ``pass_index < mh_burnin_passes`` the chains
+        advance and nothing is deposited; on the last burn-in pass every
+        tenure counter is zeroed, so mass gathered during burn-in cannot
+        deposit later."""
+        o = self.cfg.options
+        classify = (cls_mh.classify_pass_ext_mh if self.extended
+                    else cls_mh.classify_pass_mh)
+        result = classify(state["lanes"], seed, **self.mh_pass_spec())
+        valid = result.emit_it >= 0
+        if pass_index >= o.mh_burnin_passes:
+            # Every emission fits (Tuning sizes the capacity so), and the
+            # deposit is order-free integer addition: it reads the emission
+            # buffers as they are. t <= 1 marks a slot that deposits nothing.
+            t = torch.where(valid, result.emit_v, 0)
+            deposits, mass = binning.mh_deposit(
+                state["hist"].view(-1), result.emit_bins, t,
+                result.emit_rep, chunked=True)
+            state["points"] += deposits
+            state["mh_deposited"] += mass
+        if pass_index == o.mh_burnin_passes - 1:
+            state["lanes"].rep.zero_()
+        st = result.stats.reshape(cls_mh.MH_STATS_ROWS, -1).sum(dim=1)
+        wasted = st[cls.STAT_WASTED]
+        for k, v in (
+            ("samples", st[cls.STAT_DRAWN]),
+            ("culled", st[cls.STAT_CULLED]),
+            ("in_band", st[cls.STAT_IN_BAND]),
+            ("cycles", st[cls.STAT_CYCLES]),
+            ("wasted", wasted),
+            ("iters", self.steps_per_pass - wasted),
+            ("emitted", valid.sum()),
+            ("mh_accepts", st[cls_mh.STAT_MH_ACCEPT]),
+            ("mh_merges", st[cls_mh.STAT_MH_MERGE]),
+            ("mh_merged_rep", st[cls_mh.STAT_MH_MERGED_REP]),
+        ):
+            state[k] += v
+        return state
+
+    def mh_tail_core(self, state: dict) -> dict:
+        """Deposit every chain's in-flight tenure (its recorded visit bins,
+        weighted by the rep gathered so far) and zero the tenure counters.
+        The two halves of a tenure split this way are additive, so the
+        flush is exact at any call point. Without it each chain's last
+        unfinished tenure would vanish, and those are the stickiest, that
+        is the brightest, states."""
+        lanes = state["lanes"]
+        # Only tenures with visits (xv > 1) carry mass; xv == 1 is the
+        # in-band bridge state.
+        t = torch.where(lanes.rep > 0, lanes.xv, 0)
+        deposits, mass = binning.mh_deposit(
+            state["hist"].view(-1), lanes.xb, t, lanes.rep)
+        state["points"] += deposits
+        state["mh_deposited"] += mass
+        lanes.rep.zero_()
+        return state
+
     def run_pass(self, state: dict, pass_index: int) -> dict:
         return self.core(state, pass_index)
 
@@ -377,15 +552,27 @@ class CudaEngine:
         cv = self.cfg.canvas
         slots = self.tuning.emission_slots
         hist = cv.num_pixels * 4
+        host = hist + cv.num_pixels * 2
+        if self.mh:
+            lane_cls = (cls_mh.ExtMhLaneState if self.extended
+                        else cls_mh.MhLaneState)
+            # vb/xb are (visit_slots, R, 128) each; an emission is
+            # (3 + visit_slots) int32 words, deposited where it lies.
+            words = (len(lane_cls._fields) + 2 * (self.visit_slots - 1)
+                     + cls_mh.MH_STATS_ROWS)
+            emission = slots * (3 + self.visit_slots) * 4
+            return hist + self.lanes * words * 4 + emission, host
         lane_cls = cls_ext.ExtLaneState if self.extended else cls.LaneState
         lanes = self.lanes * (len(lane_cls._fields) + cls.STATS_ROWS) * 4
         emission = slots * 12
         # Compaction: int64 keys, sort output and indices per slot.
         sort = slots * 8 * 3
         replay = self.replay_capacity * 12
-        return hist + lanes + emission + sort + replay, hist + cv.num_pixels * 2
+        return hist + lanes + emission + sort + replay, host
 
     def histogram(self, state: dict) -> np.ndarray:
+        if self.mh:
+            self.mh_tail_core(state)
         h = state["hist"].cpu().numpy()
         return h.view(np.uint32).copy()
 
@@ -393,4 +580,10 @@ class CudaEngine:
         out = counters.counter_stats(state)
         out["on_canvas_points"] = out.pop("_device_on_canvas")
         out["replay"] = "device"
+        if self.mh:
+            # The bins deposit conserves tenure mass by construction, so
+            # no weight is ever lost.
+            out["weight_scale"] = self.weight_scale
+            out["mh_lost_weight"] = 0
+            out["on_canvas_points"] = out["mh_deposited"]
         return out

@@ -1,7 +1,8 @@
 """Orbit-point -> histogram-bin math and the deposit kernels.
 
 Port of ``cudabrot_tpu/ops/binning.py`` (``points_to_bin_ids``,
-``points_to_bin_ids_df``, ``scatter_xla``, ``scatter_pallas``) and of the
+``points_to_bin_ids_df``, ``scatter_xla``, ``scatter_pallas``,
+``mh_deposit_weights``, ``mh_scatter``) and of the
 replay semantics of ``engines/pallas_engine.py`` (``_batched_replay``/
 ``_blocked_replay``, and ``_blocked_replay_ext`` for df32 orbits).
 
@@ -13,6 +14,7 @@ order of atomics gives the same histogram.
 
 ``deposit_ids`` and ``replay_deposit`` launch ``csrc/deposit.cu`` and
 ``replay_deposit_ext`` launches ``csrc/deposit_ext.cu`` for CUDA tensors;
+``mh_deposit`` launches the ``mh_deposit`` kernel of ``csrc/deposit.cu``;
 each runs its plain version for CPU tensors.
 """
 
@@ -101,14 +103,16 @@ def deposit_ids(hist_flat: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if ids.device != hist_flat.device:
         raise ValueError("ids and histogram lie on different devices")
     ids = ids.reshape(-1).contiguous()
+    if ids.numel() == 0:
+        return hist_flat
     lib = _lib()
     with torch.cuda.device(hist_flat.device):
         rc = lib.cb_deposit_ids(
             _build.ptr(ids), ids.numel(), _build.ptr(hist_flat),
             hist_flat.numel(), _build.stream_of(hist_flat),
         )
-        launches.COUNTS["deposit_ids"] += 1
     _build.check(rc, "deposit_ids kernel")
+    launches.COUNTS["deposit_ids"] += 1
     return hist_flat
 
 
@@ -158,6 +162,8 @@ def replay_deposit(
     if not (cr.numel() == ci.numel() == iters.numel()):
         raise ValueError("replay inputs differ in length")
     hits = torch.zeros((), dtype=torch.int64, device=dev)
+    if cr.numel() == 0:
+        return hits
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.cb_replay_deposit(
@@ -167,8 +173,8 @@ def replay_deposit(
             canvas.delta_imag, canvas.width, canvas.height,
             _build.ptr(hits), _build.stream_of(hist_flat),
         )
-        launches.COUNTS["replay_deposit"] += 1
     _build.check(rc, "replay_deposit kernel")
+    launches.COUNTS["replay_deposit"] += 1
     return hits
 
 
@@ -241,6 +247,8 @@ def replay_deposit_ext(
     if not (kr.numel() == ki.numel() == iters.numel()):
         raise ValueError("replay inputs differ in length")
     hits = torch.zeros((), dtype=torch.int64, device=dev)
+    if kr.numel() == 0:
+        return hits
     c0r, c0i, step_r, step_i = grid_params(sample_domain)
     mr, mi, inv_dr, inv_di = _canvas_df(canvas)
     iargs = (ctypes.c_int * 4)(fractal.kernel_id, kr.numel(), canvas.width,
@@ -254,8 +262,8 @@ def replay_deposit_ext(
             _build.ptr(hist_flat), iargs, fargs, _build.ptr(hits),
             _build.stream_of(hist_flat),
         )
-        launches.COUNTS["replay_deposit_ext"] += 1
     _build.check(rc, "replay_deposit_ext kernel")
+    launches.COUNTS["replay_deposit_ext"] += 1
     return hits
 
 
@@ -292,6 +300,116 @@ def replay_deposit_ext_plain(hist_flat, kr, ki, iters, *, canvas: Canvas,
     return hits
 
 
+# ----------------------------------------------------------------------
+# Metropolis-Hastings weighted deposits (--sampler mh).
+#
+# MH emissions carry the tenure's recorded visit bins plus (rep, t): the
+# deposit is a pure integer scatter, no orbit is replayed. Exact accounting:
+#   v   = (t - 1) / 256              the kernel's visit count (capped)
+#   q   = floor(v * rep * 65536 / t) the tenure's deposit, in 1/256 units
+#   d_k = floor((k+1) q / n) - floor(k q / n),  n = min(v, V)
+# The JAX function and the CUDA kernel compute q by three u32 long-division
+# steps; with t < 2^23, v <= 2^15 and rep <= 98303 < 2^17 (config validation
+# bounds mh_rep_cap <= 32767 and steps_per_flush <= 65536) every
+# intermediate stays below 2^32. The plain version runs the same steps in
+# int64, where nothing can wrap, so the three agree exactly.
+
+
+def mh_deposit_weights(t, rep, visit_slots: int):
+    """Per-recorded-bin deposit weights of MH emissions.
+
+    ``t``: int32 chain target 256*v+1 (> 1 marks a depositable emission;
+    anything <= 1 deposits nothing); ``rep``: int32 tenure chain steps.
+    Returns ``(d, n, q)``: d int64 (visit_slots, ...) the Bresenham spread
+    (sum_k d_k == q), n int32 recorded-bin count, q int64 total deposit per
+    emission (0 where invalid)."""
+    valid = t > 1
+    tu = torch.where(valid, t, 1).to(torch.int64)
+    v = (tu - 1) // 256
+    rep_u = torch.clamp(rep, min=0).to(torch.int64)
+    n = torch.clamp(torch.where(valid, torch.clamp(v, max=visit_slots), 1),
+                    min=1)
+    big_n = v * rep_u
+    q1 = big_n // tu
+    r1 = big_n - q1 * tu
+    q2 = (r1 * 256) // tu
+    r2 = r1 * 256 - q2 * tu
+    q3 = (r2 * 256) // tu
+    q = torch.where(valid, q1 * 65536 + q2 * 256 + q3, 0)
+    ks = torch.arange(visit_slots + 1, dtype=torch.int64,
+                      device=t.device).view((-1,) + (1,) * t.dim())
+    pref = (torch.minimum(ks, n[None]) * q[None]) // n[None]
+    return pref[1:] - pref[:-1], n.to(torch.int32), q
+
+
+def mh_scatter(hist_flat, bins, t, rep):
+    """Scatter MH tenure deposits into a flat histogram (in place): the
+    plain version of the ``mh_deposit`` kernel.
+
+    ``bins``: int32 (V, S) recorded visit bins (slots >= n hold stale values
+    and are masked off; a bin outside the histogram is dropped);
+    ``t``/``rep``: int32 (S,). Returns (hist_flat, deposits int32 (S,), mass
+    int64 (S,)): the per-emission recorded-bin count (0 where invalid) and
+    deposited total q."""
+    launches.COUNTS["mh_deposit_plain"] += 1
+    visit_slots, nbins = bins.shape[0], hist_flat.numel()
+    d, n, q = mh_deposit_weights(t, rep, visit_slots)
+    kidx = torch.arange(visit_slots, device=bins.device)[:, None]
+    take = ((t > 1)[None] & (kidx < n[None])
+            & (bins >= 0) & (bins < nbins))
+    hist_flat.index_add_(0, bins[take].to(torch.int64),
+                         d[take].to(torch.int32))
+    return hist_flat, torch.where(t > 1, n, 0).to(torch.int32), q
+
+
+def mh_deposit(hist_flat: torch.Tensor, bins: torch.Tensor, t: torch.Tensor,
+               rep: torch.Tensor, *, chunked: bool = False):
+    """Deposit MH emissions into ``hist_flat`` (in place).
+
+    ``bins`` is int32 (V, *E) for emissions of shape E; with ``chunked`` it
+    is (C, V, *E) for emissions of shape (C, *E) -- the classify pass's
+    emission buffers as they are, one chunk per flush window. ``t``/``rep``
+    are int32 of the emissions' shape. Returns (deposits, mass): the
+    recorded-bin count and the deposited total, summed over the emissions,
+    as 0-dim int64 tensors on the histogram's device."""
+    _check_hist(hist_flat)
+    if not (bins.dtype == t.dtype == rep.dtype == torch.int32):
+        raise ValueError("bins, t and rep must be int32")
+    if t.shape != rep.shape:
+        raise ValueError("t and rep differ in shape")
+    want = bins.shape[:1] + bins.shape[2:] if chunked else bins.shape[1:]
+    if bins.dim() < 2 + int(chunked) or want != t.shape:
+        raise ValueError(
+            f"bins {tuple(bins.shape)} do not match emissions "
+            f"{tuple(t.shape)}")
+    chunks = bins.shape[0] if chunked else 1
+    dev = hist_flat.device
+    if not (bins.device == t.device == rep.device == dev):
+        raise ValueError("deposit inputs lie on different devices")
+    slots = bins.shape[1] if chunked else bins.shape[0]
+    n = t.numel()
+    if dev.type == "cpu":
+        if chunked:
+            bins = bins.reshape(chunks, slots, -1).transpose(0, 1)
+        _, deposits, mass = mh_scatter(
+            hist_flat, bins.reshape(slots, n), t.reshape(-1), rep.reshape(-1))
+        return deposits.sum(), mass.sum()
+    bins, t, rep = (x.contiguous() for x in (bins, t, rep))
+    totals = torch.zeros(2, dtype=torch.int64, device=dev)
+    if n == 0:
+        return totals[0], totals[1]
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.cb_mh_deposit(
+            _build.ptr(bins), _build.ptr(t), _build.ptr(rep), n, slots,
+            n // chunks, _build.ptr(hist_flat), hist_flat.numel(),
+            _build.ptr(totals), _build.stream_of(hist_flat),
+        )
+    _build.check(rc, "mh_deposit kernel")
+    launches.COUNTS["mh_deposit"] += 1
+    return totals[0], totals[1]
+
+
 def _lib_ext():
     lib = _build.load("deposit_ext")
     if lib.cb_replay_deposit_ext.argtypes is None:
@@ -314,4 +432,8 @@ def _lib():
             i, vp, vp, vp, i, vp, f, f, f, f, i, i, vp, vp,
         ]
         lib.cb_replay_deposit.restype = i
+        lib.cb_mh_deposit.argtypes = [
+            vp, vp, vp, ctypes.c_longlong, i, i, vp, i, vp, vp,
+        ]
+        lib.cb_mh_deposit.restype = i
     return lib

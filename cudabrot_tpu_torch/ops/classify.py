@@ -170,8 +170,8 @@ def _classify_cuda(state, k0, k1, bits, *, fractal, min_it, max_it, chunks,
     with torch.cuda.device(dev):
         rc = lib.cb_classify(ptrs, iargs, fargs, k0, k1,
                              _build.stream_of(state.cr))
-        launches.COUNTS["classify"] += 1
     _build.check(rc, "classify kernel")
+    launches.COUNTS["classify"] += 1
     return ClassifyResult(state, emit_c, emit_it, stats)
 
 

@@ -230,8 +230,8 @@ def _classify_ext_cuda(state, k0, k1, bits, *, fractal, min_it, max_it,
     with torch.cuda.device(dev):
         rc = lib.cb_classify_ext(ptrs, iargs, fargs, k0, k1,
                                  _build.stream_of(state.kr))
-        launches.COUNTS["classify_ext"] += 1
     _build.check(rc, "classify_ext kernel")
+    launches.COUNTS["classify_ext"] += 1
     return ExtClassifyResult(state, emit_c, emit_it, stats)
 
 

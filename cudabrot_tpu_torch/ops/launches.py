@@ -11,7 +11,8 @@ from __future__ import annotations
 import collections
 
 KERNELS = ("classify", "threefry_bits", "deposit_ids", "replay_deposit",
-           "classify_ext", "replay_deposit_ext")
+           "classify_ext", "replay_deposit_ext", "classify_mh",
+           "classify_ext_mh", "mh_deposit")
 
 COUNTS: collections.Counter = collections.Counter()
 

@@ -77,12 +77,14 @@ def bits(k: tuple[int, int], n: int, device="cpu") -> torch.Tensor:
     if device.type == "cpu":
         return bits_plain(k, n, device)
     out = torch.empty(n, dtype=torch.int64, device=device)
+    if n == 0:
+        return out
     lib = _lib()
     with torch.cuda.device(device):
         rc = lib.cb_threefry_bits(k[0], k[1], n, _build.ptr(out),
                                   _build.stream_of(out))
-        launches.COUNTS["threefry_bits"] += 1
     _build.check(rc, "threefry_bits kernel")
+    launches.COUNTS["threefry_bits"] += 1
     return out
 
 

@@ -18,13 +18,18 @@ STAT_KEYS = (
     "iters", "points", "cycles", "wasted", "dev_hits",
 )
 
+#: Extra totals of --sampler mh engines (the JAX engine's
+#: ``MH_STAT_KEYS``): chain moves, pending-slot reservoir merges, the rep
+#: mass those merges traded between states, and the deposited mass.
+MH_STAT_KEYS = ("mh_accepts", "mh_merges", "mh_merged_rep", "mh_deposited")
+
 _MASK32 = 0xFFFFFFFF
 
 
-def zeros(device) -> dict:
-    """One zeroed int64 total per stat key."""
+def zeros(device, mh: bool = False) -> dict:
+    """One zeroed int64 total per stat key (the MH keys too with ``mh``)."""
     return {k: torch.zeros((), dtype=torch.int64, device=device)
-            for k in STAT_KEYS}
+            for k in STAT_KEYS + (MH_STAT_KEYS if mh else ())}
 
 
 def value(total: torch.Tensor) -> int:
@@ -47,6 +52,7 @@ def to_u64_pair(total: torch.Tensor) -> tuple[int, int]:
 def counter_stats(totals: dict) -> dict:
     """Counter totals under the JAX engine's ``counter_stats`` names."""
     vals = {k: value(totals[k]) for k in STAT_KEYS}
+    mh = {k: value(totals[k]) for k in MH_STAT_KEYS if k in totals}
     return {
         "samples": vals["samples"],
         "culled": vals["culled"],
@@ -58,4 +64,5 @@ def counter_stats(totals: dict) -> dict:
         "wasted_steps": vals["wasted"],
         "orbit_points": vals["points"],
         "_device_on_canvas": vals["dev_hits"],
+        **mh,
     }

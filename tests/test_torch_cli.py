@@ -85,10 +85,11 @@ def test_render_color_not_yet_ported(capsys):
     (dict(scatter="sorted"), "TPU deposit backend"),
     (dict(replay_block=1024), "blocked replay"),
     (dict(engine="pallas"), "TPU engine"),
-    (dict(engine="oracle", sampler="mh"), "--sampler mh is not yet ported"),
-    (dict(sampler="mh"), "--sampler mh is not yet ported"),
-    (dict(precision="extended", sampler="mh"),
-     "--sampler mh is not yet ported"),
+    (dict(sampler="mh", hist_dtype="uint64"),
+     "--hist-dtype uint64 is not yet ported"),
+    (dict(sampler="mh", replay="host"), "--replay host is not yet ported"),
+    (dict(precision="extended", sampler="mh", num_devices=2),
+     "num_devices > 1 is not yet ported"),
     (dict(precision="extended", replay="host"),
      "--replay host is not yet ported"),
     (dict(replay="host"), "--replay host is not yet ported"),
@@ -103,7 +104,8 @@ def test_unported_options_refused(opts, match):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--scatter", "pallas"], ["--replay", "host"], ["--sampler", "mh"],
+    ["--scatter", "pallas"], ["--replay", "host"],
+    ["--sampler", "mh", "--hist-dtype", "uint64"],
 ])
 def test_cli_refuses_unported_flags(argv):
     with pytest.raises(cli.CliError):
@@ -115,6 +117,7 @@ def test_cli_refuses_unported_flags(argv):
     dict(engine="oracle", precision="extended"),
     dict(engine="oracle", precision="float64"),
     dict(precision="extended", emit_filter="canvas"),
+    dict(sampler="mh"), dict(sampler="mh", precision="extended"),
 ])
 def test_ported_engine_options_validate(opts):
     config.EngineOptions(**opts).validate()
@@ -143,6 +146,89 @@ def test_cli_deep_zoom_extended_renders_on_cpu(tmp_path):
     assert launches.COUNTS["replay_deposit_ext_plain"] == 2
     assert launches.COUNTS["classify_plain"] == 0
     assert launches.COUNTS["classify_ext"] == 0
+
+
+MH_CROP = ["--sampler", "mh", "--center", "-0.7436,0.1319", "--span", "6e-3",
+           "-w", "40", "-h", "40", "-m", "500", "-c", "50", "-t", "-1",
+           "--lane-rows", "4", "--steps-per-pass", "2048",
+           "--steps-per-flush", "256", "--mh-burnin", "1"]
+
+
+def test_cli_mh_crop_renders_on_cpu(tmp_path, capsys):
+    """--sampler mh through cli.main on the CPU: a valid PGM, exact deposit
+    accounting in 1/256 units, the MH stats keys, and the checkpoint's
+    weight-scale guard both ways."""
+    out, stats, ck = (str(tmp_path / n) for n in ("m.pgm", "s.json", "c.npz"))
+    launches.reset()
+    rc = cli.main([*MH_CROP, "--passes", "3", "-o", out, "--stats-json",
+                   stats, "-s", ck], device="cpu")
+    assert rc == 0
+    img = pgm.read_pgm(out)
+    assert img.shape == (40, 40) and int(img.max()) == 65535
+    s = json.load(open(stats))
+    assert s["engine"] == "cuda" and s["device"] == "cpu" and s["passes"] == 3
+    hist = np.load(ck)["hist"]
+    assert int(hist.sum()) == s["on_canvas_points"] == s["mh_deposited"] > 0
+    assert s["weight_scale"] == 256 and s["mh_lost_weight"] == 0
+    assert s["replay_dropped"] == 0 and s["mh_accepts"] > 0
+    assert {"mh_merges", "mh_merged_rep"} <= set(s)
+    assert launches.COUNTS["classify_mh_plain"] == 3
+    assert launches.COUNTS["classify_mh"] == launches.COUNTS["mh_deposit"] == 0
+    # The sample domain is 8x the window around the centre.
+    cfg = cli.parse_args(MH_CROP)[0]
+    assert cfg.sample_domain == pytest.approx(
+        (-0.7436 - 0.024, -0.7436 + 0.024, 0.1319 - 0.024, 0.1319 + 0.024))
+    # Resuming without --sampler mh would mix 1/256-unit counts with raw
+    # ones: a clean error, no traceback. With it, the render continues.
+    capsys.readouterr()
+    cv = cfg.canvas
+    uniform = [
+        "--min-real", repr(cv.min_real), "--max-real", repr(cv.max_real),
+        "--min-imag", repr(cv.min_imag), "--max-imag", repr(cv.max_imag),
+        "--sample-domain", ",".join(repr(v) for v in cfg.sample_domain),
+        *MH_CROP[MH_CROP.index("-w"):MH_CROP.index("--mh-burnin")]]
+    assert cli.main([*uniform, "--replay-capacity", "4096", "--passes", "1",
+                     "-o", out, "-s", ck], device="cpu") == 1
+    msg = capsys.readouterr().out
+    assert "1/256" in msg and "--sampler" in msg
+    assert cli.main([*MH_CROP, "--passes", "2", "-o", out, "-s", ck],
+                    device="cpu") == 0
+    hist2, meta = checkpoint.load(ck, cfg)
+    assert meta["passes"] == 5 and meta["weight_scale"] == 256
+    assert int(hist2.sum()) > int(hist.sum())
+
+
+def test_cli_mh_extended_renders_on_cpu(tmp_path):
+    """--sampler mh --precision extended at a 2e-5 window (the df32 chain
+    pass, centre-relative window)."""
+    out, stats = str(tmp_path / "e.pgm"), str(tmp_path / "s.json")
+    launches.reset()
+    rc = cli.main(["--sampler", "mh", "--precision", "extended", "--center",
+                   "-0.743643887,0.131825904", "--span", "2e-5", "-w", "32",
+                   "-h", "32", "-m", "3000", "-c", "100", "-t", "-1",
+                   "--inner-unroll", "4", "--steps-per-flush", "256",
+                   "--steps-per-pass", "4096", "--lane-rows", "2",
+                   "--mh-burnin", "0", "--passes", "2", "-o", out,
+                   "--stats-json", stats], device="cpu")
+    assert rc == 0
+    assert pgm.read_pgm(out).shape == (32, 32)
+    s = json.load(open(stats))
+    assert s["on_canvas_points"] == s["mh_deposited"] > 0
+    assert s["weight_scale"] == 256 and s["replay_dropped"] == 0
+    assert launches.COUNTS["classify_ext_mh_plain"] == 2
+    assert launches.COUNTS["classify_ext_mh"] == 0
+
+
+def test_cli_mh_bad_input(capsys):
+    with pytest.raises(cli.CliError) as e:
+        cli.parse_args(["--sampler", "bogus"])
+    assert "Unknown sampler: bogus" in e.value.message
+    with pytest.raises(cli.CliError) as e:
+        cli.parse_args(["--sampler", "mh", "--mh-restart", "300"])
+    assert "mh_restart" in e.value.message
+    assert cli.main(["--sampler", "mh", "--engine", "oracle", "-w", "32",
+                     "-h", "32", "--passes", "1"], device="cpu") == 1
+    assert "cuda engine only" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("precision", ["extended", "float64", "float32"])

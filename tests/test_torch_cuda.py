@@ -25,6 +25,7 @@ from cudabrot_tpu_torch.models.fractals import FRACTALS
 from cudabrot_tpu_torch.ops import binning, launches, prng
 from cudabrot_tpu_torch.ops import classify as cls
 from cudabrot_tpu_torch.ops import classify_ext as cx
+from cudabrot_tpu_torch.ops import classify_mh as cmh
 
 pytestmark = pytest.mark.cuda
 
@@ -222,3 +223,164 @@ def test_engine_pass_on_card_matches_cpu(cuda, extended):
     assert sg == sc
     for x, y in zip(lg, lc):
         assert _same(x, y)
+
+
+_SEA = (-0.743643887, 0.131825904)
+
+
+def _deep_mh(span):
+    """(sample domain 4x the window, centre-relative window) at the
+    seahorse valley."""
+    cx_, cy_ = _SEA
+    dom = (cx_ - 2 * span, cx_ + 2 * span, cy_ - 2 * span, cy_ + 2 * span)
+    return dom, (-span / 2, span / 2, -span / 2, span / 2)
+
+
+@pytest.mark.parametrize("ext,name,domain,window,band,slots,use_bits", [
+    (False, "buddhabrot", config.SAMPLE_DOMAIN, (-0.78, -0.72, 0.05, 0.11),
+     (20, 300), 8, False),
+    (False, "buddhabrot", config.SAMPLE_DOMAIN, config.SAMPLE_DOMAIN,
+     (5, 200), 2, True),
+    (False, "buddhabrot", config.SAMPLE_DOMAIN, (-1.5, 0.5, -1.0, 1.0),
+     (5, 200), 32, False),
+    (False, "burning-ship", config.SAMPLE_DOMAIN, (-1.8, -1.6, -0.1, 0.1),
+     (20, 300), 4, False),
+    (False, "anti-buddhabrot", config.SAMPLE_DOMAIN, (-0.6, 0.1, -0.4, 0.3),
+     (0, 64), 16, True),
+    (True, "buddhabrot", *_deep_mh(2e-5), (100, 3000), 8, False),
+    (True, "buddhabrot", *_deep_mh(1e-3), (50, 1000), 4, True),
+    (True, "buddhabrot", *_deep_mh(1e-2), (20, 300), 32, False),
+    (True, "burning-ship", (-1.7648, -1.7448, -0.0438, -0.0238),
+     (-0.005, 0.005, -0.005, 0.005), (5, 500), 2, False),
+    (True, "anti-buddhabrot", config.SAMPLE_DOMAIN, (-0.6, 0.1, -0.4, 0.3),
+     (0, 64), 16, True),
+])
+def test_classify_mh_kernels_match_plain(cuda, ext, name, domain, window,
+                                         band, slots, use_bits):
+    """classify_mh and classify_ext_mh against the plain version, bitwise,
+    for every fractal and reservoir width, from a carried state."""
+    rows, steps, flush, unroll = 16, 1024, 128, 4
+    chunks, windows = steps // flush, flush // unroll
+    fr = FRACTALS[name]
+    kw = dict(fractal=fr, min_it=band[0], max_it=band[1],
+              steps_per_pass=steps, steps_per_flush=flush,
+              inner_unroll=unroll, sample_domain=domain, window=window,
+              restart256=16, rep_cap=24, canvas_wh=(40, 37))
+    init = cmh.init_ext_mh_lane_state if ext else cmh.init_mh_lane_state
+    fn = cmh.classify_pass_ext_mh if ext else cmh.classify_pass_mh
+    kernel = "classify_ext_mh" if ext else "classify_mh"
+    state = init(rows, slots, cuda)
+    fn(state, (5, 6), **kw)  # carried, mid-flight state
+    a = type(state)(*(t.clone() for t in state))
+    b = type(state)(*(t.clone() for t in state))
+    bits = None
+    if use_bits:
+        bits = torch.randint(-2**31, 2**31, (chunks, windows, 4, rows, 128),
+                             dtype=torch.int32, device=cuda)
+    launches.reset()
+    ra = fn(a, (7, 8), bits, **kw)
+    assert launches.COUNTS[kernel] == 1
+    assert launches.COUNTS[f"{kernel}_plain"] == 0
+    wx0, wx1, wy0, wy1 = window
+    rb = cmh.classify_pass_mh_plain(
+        ext, b, 7, 8, bits, fractal=fr, min_it=band[0], max_it=band[1],
+        chunks=chunks, windows=windows, unroll=unroll,
+        detect=fr.cycle_detect, sample_domain=domain,
+        window=(wx0, wx1, wy0, wy1, 40 / (wx1 - wx0), 37 / (wy1 - wy0)),
+        restart256=16, rep_cap=24, canvas_wh=(40, 37))
+    for f, x, y in zip(state._fields, ra.state, rb.state):
+        assert _same(x, y), f
+    for f in ("emit_it", "emit_rep", "emit_v", "emit_bins", "stats"):
+        assert _same(getattr(ra, f), getattr(rb, f)), f
+    assert int((ra.emit_it >= 0).sum()) > 0
+    assert int(ra.stats[cmh.STAT_MH_ACCEPT].sum()) > 0
+
+
+@pytest.mark.parametrize("chunks,slots", [(1, 2), (4, 8), (3, 32)])
+def test_mh_deposit_kernel_matches_plain(cuda, chunks, slots):
+    """mh_deposit against mh_scatter's plain version over the documented
+    extremes (t <= 1, v at the 32767 cap, rep at 98303), out-of-range bins
+    included: histogram and both totals."""
+    lanes, nbins = 4096, 1000 * 1000
+    g = torch.Generator(device=cuda).manual_seed(slots)
+    n = chunks * lanes
+    v = torch.randint(1, 32768, (n,), generator=g, device=cuda)
+    v[:4] = torch.tensor([1, 32767, 32767, 9], device=cuda)
+    rep = torch.randint(1, 98304, (n,), generator=g, device=cuda)
+    rep[:4] = torch.tensor([98303, 98303, 1, 4096], device=cuda)
+    t = (256 * v + 1).to(torch.int32)
+    t[torch.rand(n, generator=g, device=cuda) < 0.3] = 0
+    t[4:8] = torch.tensor([1, -3, 0, 1], dtype=torch.int32, device=cuda)
+    rep = rep.to(torch.int32)
+    bins = torch.randint(0, nbins, (chunks, slots, lanes), generator=g,
+                         device=cuda, dtype=torch.int32)
+    bins[0, 0, :3] = torch.tensor([-1, nbins, nbins + 7], dtype=torch.int32,
+                                  device=cuda)
+    hk = torch.zeros(nbins, dtype=torch.int32, device=cuda)
+    hp = torch.zeros_like(hk)
+    launches.reset()
+    dep_k, mass_k = binning.mh_deposit(
+        hk, bins, t.view(chunks, lanes), rep.view(chunks, lanes),
+        chunked=True)
+    assert launches.COUNTS["mh_deposit"] == 1
+    assert launches.COUNTS["mh_deposit_plain"] == 0
+    flat = bins.transpose(0, 1).reshape(slots, n)
+    _, dep_p, mass_p = binning.mh_scatter(hp, flat, t, rep)
+    assert torch.equal(hk, hp)
+    assert int(dep_k) == int(dep_p.sum()) > 0
+    assert int(mass_k) == int(mass_p.sum()) > 0
+    # The flat (V, S) layout is the one-chunk case.
+    hk2 = torch.zeros_like(hk)
+    dep2, mass2 = binning.mh_deposit(hk2, flat.contiguous(), t, rep)
+    assert torch.equal(hk2, hp)
+    assert (int(dep2), int(mass2)) == (int(dep_k), int(mass_k))
+
+
+@pytest.mark.parametrize("extended", [False, True])
+def test_mh_engine_pass_on_card_matches_cpu(cuda, extended):
+    """Three MH engine passes and the tail flush on the card equal the same
+    on the CPU bitwise: histogram, lane state and every counter, at float32
+    and at extended precision. The card run goes through the kernels."""
+    if extended:
+        cx_, cy_ = _SEA
+        span = 1e-3
+        cfg = config.RenderConfig(
+            canvas=config.Canvas(
+                width=32, height=32, min_real=cx_ - span / 2,
+                max_real=cx_ + span / 2, min_imag=cy_ - span / 2,
+                max_imag=cy_ + span / 2),
+            band=config.IterationBand(max_escape_iterations=1000,
+                                      min_escape_iterations=50),
+            sample_domain=_deep_mh(span)[0],
+            options=config.EngineOptions(
+                sampler="mh", precision="extended", lane_rows=8,
+                steps_per_pass=1024, steps_per_flush=256, inner_unroll=4,
+                mh_burnin_passes=1))
+    else:
+        cfg = config.RenderConfig(
+            canvas=config.Canvas(width=40, height=40, min_real=-0.78,
+                                 max_real=-0.72, min_imag=0.05,
+                                 max_imag=0.11),
+            band=config.IterationBand(max_escape_iterations=300,
+                                      min_escape_iterations=20),
+            options=config.EngineOptions(
+                sampler="mh", lane_rows=8, steps_per_pass=1024,
+                steps_per_flush=128, mh_burnin_passes=1))
+    runs = []
+    for dev in (cuda, "cpu"):
+        launches.reset()
+        eng = CudaEngine(cfg, device=dev)
+        st = eng.init_state(None)
+        for p in range(3):
+            st = eng.run_pass(st, p)
+        runs.append((eng.histogram(st), eng.stats(st), st["lanes"]))
+        kernel = "classify_ext_mh" if extended else "classify_mh"
+        suffix = "" if dev == cuda else "_plain"
+        assert launches.COUNTS[kernel + suffix] == 3
+        assert launches.COUNTS["mh_deposit" + suffix] == 3
+    (hg, sg, lg), (hc, sc, lc) = runs
+    np.testing.assert_array_equal(hg, hc)
+    assert int(hg.sum()) == sg["mh_deposited"] > 0
+    assert sg == sc
+    for f, x, y in zip(lg._fields, lg, lc):
+        assert _same(x, y), f

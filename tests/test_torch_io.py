@@ -197,3 +197,40 @@ def test_extended_checkpoint_resumes_across_packages(tmp_path):
     hist2, meta2 = tckpt.load(path, tc)
     assert meta2["passes"] == 10
     assert int(hist2.sum(dtype=np.uint64)) >= int(h.sum(dtype=np.uint64))
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+@pytest.mark.parametrize("have,want", [("mh", "uniform"), ("uniform", "mh")])
+def test_checkpoint_weight_scale_guard(tmp_path, writer, have, want):
+    """An MH histogram counts in 1/256 units, a uniform one in raw points:
+    resuming one as the other is a CheckpointError with the same message in
+    both packages, whichever package wrote the file; the matching sampler
+    resumes in both, and both write the same metadata (weight_scale 256
+    with --sampler mh, else 1)."""
+    def cfgs(sampler):
+        return tuple(
+            dataclasses.replace(c, options=m.EngineOptions(sampler=sampler))
+            for c, m in zip(_cfgs(), (jcfg, tcfg)))
+
+    jh, th = cfgs(have)
+    jw, tw = cfgs(want)
+    assert tckpt._metadata(th, 4) == jckpt._metadata(jh, 4)
+    assert tckpt._metadata(th, 4)["weight_scale"] == (
+        256 if have == "mh" else 1)
+    path = str(tmp_path / "ck.npz")
+    h = _hist(seed=6)
+    if writer == "jax":
+        jckpt.save(path, h, jh, 4)
+    else:
+        tckpt.save(path, h, th, 4)
+    for mod, cfg in ((jckpt, jh), (tckpt, th)):
+        hist, meta = mod.load(path, cfg)
+        np.testing.assert_array_equal(hist, h)
+        assert meta["passes"] == 4
+    with pytest.raises(tckpt.CheckpointError,
+                       match="matching --sampler") as et:
+        tckpt.load(path, tw)
+    with pytest.raises(jckpt.CheckpointError) as ej:
+        jckpt.load(path, jw)
+    assert str(et.value) == str(ej.value)
+    assert "1/256" in str(et.value)
