@@ -44,6 +44,24 @@ Phases (each fails the run on any mismatch):
      torch.bincount of the replay's id stream; a torch.profiler profile of
      16 engine passes per cell (8 at mhzoom; device ms per kernel, busy
      share).
+  6. The bigtiles route (--scatter bigtiles: replay_ids / replay_ids_ext,
+     torch.sort, bigtiles_deposit) for histograms beyond the L2.
+     bigtiles_deposit vs its plain version bitwise at 1000x1000, 6000x4500
+     and 20000x20000 on four sorted streams (random with 10% sentinels,
+     clustered, one id over several chunks, a real replay's ids);
+     replay_ids and replay_ids_ext vs their plain versions on phase 2's
+     batches. Three cells through cudabrot_tpu_torch.cli.main, each with
+     --scatter bigtiles and again with --scatter auto: bigcanvas (the
+     README's 6000x4500 canvas, default band, 20 passes), northstar
+     (NORTHSTAR.json's 20000x20000 render, band [2000,20000), 10 passes)
+     and bigzoom (the zoom cell at 6000x4500, 32 passes). The two routes'
+     histograms and stats must be equal bit for bit, the route's kernels
+     launched and no plain version run; the PGM's header and size are
+     checked and the file deleted (no checkpoint is written). Then each
+     cell's kernel times at its main-path shapes (the replay to ids, the
+     sort, the deposit, the fused replay-deposit of the same batch, the
+     plain versions and index_add_), and both routes' pass times and
+     device profiles.
 
 ``--ext-budget-sweep`` instead builds and times deep-zoom engine passes at
 2^27..2^30 lane-steps per pass (the measurement behind keeping
@@ -107,6 +125,17 @@ CELLS = (
     ("mhzoom", MHZOOM, 40),
     ("mhcrop", MHCROP, 40),
 )
+#: The bigtiles cells: canvases beyond the card's 50 MB L2, each rendered
+#: through both deposit routes. bigcanvas is the README's 6000x4500 colour
+#: canvas at the default band, northstar NORTHSTAR.json's render, bigzoom
+#: the zoom cell's window at 6000x4500 (the df32 route).
+BIG_CELLS = (
+    ("bigcanvas", ["-w", "6000", "-h", "4500", "--min-imag", "-1.5",
+                   "--max-imag", "1.5"], 20),
+    ("northstar", ["-w", "20000", "-h", "20000", "-m", "20000", "-c",
+                   "2000"], 10),
+    ("bigzoom", ["-w", "6000", "-h", "4500", *ZOOM], 32),
+)
 #: The measure check of mhzoom: seeds, MH passes (the first MH_BURNIN are
 #: burn-in) and uniform comparator passes per seed.
 MEASURE_SEEDS = (1337, 4242)
@@ -139,6 +168,13 @@ KERNELS = {
                         "mhzoom"),
     "mh_deposit": ("cudabrot_tpu_torch/csrc/deposit.cu",
                    "cudabrot_tpu/ops/binning.py:938", "mhzoom"),
+    "replay_ids": ("cudabrot_tpu_torch/csrc/deposit.cu",
+                   "cudabrot_tpu/engines/pallas_engine.py:609", "bigcanvas"),
+    "replay_ids_ext": ("cudabrot_tpu_torch/csrc/deposit_ext.cu",
+                       "cudabrot_tpu/engines/pallas_engine.py:786",
+                       "bigzoom"),
+    "bigtiles_deposit": ("cudabrot_tpu_torch/csrc/bigtiles.cu",
+                         "cudabrot_tpu/ops/binning.py:610", "bigcanvas"),
 }
 
 
@@ -205,23 +241,33 @@ def clone_state(state):
     return type(state)(*(t.clone() for t in state))
 
 
-def cell_config(name):
+def cell_args(name):
+    """A cell's CLI arguments (the CELLS at 1000x1000)."""
+    for n, a, _ in CELLS:
+        if n == name:
+            return ["-w", "1000", "-h", "1000", *a]
+    return next(a for n, a, _ in BIG_CELLS if n == name)
+
+
+def cell_config(name, scatter="auto"):
     """The RenderConfig cli.main builds for a cell's arguments."""
     from cudabrot_tpu_torch import cli
 
-    args = next(a for n, a, _ in CELLS if n == name)
-    return cli.parse_args(["-w", "1000", "-h", "1000", *args])[0]
+    return cli.parse_args([*cell_args(name), "--scatter", scatter])[0]
 
 
-def path_kernels(name):
+def path_kernels(name, scatter="auto"):
     """The kernels a cell's main path launches."""
-    o = cell_config(name).options
+    o = cell_config(name, scatter).options
     if o.sampler == "mh":
         return ("classify_ext_mh" if o.precision == "extended"
                 else "classify_mh", "mh_deposit")
-    if o.precision == "extended":
-        return ("classify_ext", "threefry_bits", "replay_deposit_ext")
-    return ("classify", "threefry_bits", "replay_deposit")
+    ext = o.precision == "extended"
+    head = ("classify_ext" if ext else "classify", "threefry_bits")
+    if scatter == "bigtiles":
+        return (*head, "replay_ids_ext" if ext else "replay_ids",
+                "bigtiles_deposit")
+    return (*head, "replay_deposit_ext" if ext else "replay_deposit")
 
 
 # ----------------------------------------------------------------------
@@ -781,10 +827,17 @@ PROFILE_GROUPS = (("classify_ext_mh_kernel", "classify_ext_mh"),
                   ("classify_kernel", "classify"),
                   ("threefry_bits", "threefry_bits"),
                   ("replay_deposit_ext", "replay_deposit_ext"),
-                  ("replay_deposit", "replay_deposit"))
+                  ("replay_deposit", "replay_deposit"),
+                  ("replay_ids_ext", "replay_ids_ext"),
+                  ("replay_ids", "replay_ids"),
+                  ("bigtiles_deposit", "bigtiles_deposit"))
+#: The bigtiles cells' profiles also group torch.sort's radix-sort kernels
+#: (the compaction's two sorts and, on the bigtiles route, the id sort).
+SORT_GROUP = (("RadixSort", "sort"),)
 
 
-def device_profile(eng, state, first_pass: int, passes: int):
+def device_profile(eng, state, first_pass: int, passes: int,
+                   groups=PROFILE_GROUPS):
     """Where the device time of ``passes`` engine passes goes (synchronizing
     every 8, as the driver does), from torch.profiler's device activity:
     ms per pass of each main-path kernel and of all other device work
@@ -816,10 +869,10 @@ def device_profile(eng, state, first_pass: int, passes: int):
         "kernel", "gpu_memset", "gpu_memcpy")]
     if not device:
         return None, "the profiler recorded no device activity", None
-    ms = {g: 0.0 for _, g in PROFILE_GROUPS}
+    ms = {g: 0.0 for _, g in groups}
     ms["other"] = 0.0
     for e in device:
-        group = next((g for sub, g in PROFILE_GROUPS
+        group = next((g for sub, g in groups
                       if sub in e.get("name", "")), "other")
         ms[group] += float(e.get("dur", 0.0)) / 1e3 / passes
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
@@ -835,20 +888,15 @@ def device_profile(eng, state, first_pass: int, passes: int):
     return busy / span, span / 1e3, ms
 
 
-def replay_ids(cr, ci, it, canvas, fractal):
+def canvas_ids(cr, ci, it, canvas, fractal):
     """The replay batch's on-canvas bin ids as one stream: what the JAX
     engine's batched replay materializes before its scatter."""
     import torch
 
-    from cudabrot_tpu_torch.models.fractals import step
-    from cudabrot_tpu_torch.ops.binning import points_to_bin_ids
+    from cudabrot_tpu_torch.ops.binning import orbit_bins
 
-    zr, zi, out = cr, ci, []
-    for s in range(int(it.max()) + 1):
-        zr, zi = step(fractal, zr, zi, cr, ci)
-        ids = points_to_bin_ids(canvas, zr, zi, it >= s)
-        out.append(ids[ids < canvas.num_pixels])
-    return torch.cat(out)
+    return torch.cat([ids[ids < canvas.num_pixels] for _, ids in orbit_bins(
+        cr, ci, it, canvas=canvas, fractal=fractal)])
 
 
 def cell_times(dev, name, with_plain):
@@ -983,7 +1031,7 @@ def cell_times(dev, name, with_plain):
 
     # The batch's id stream, materialized, through the library's counting
     # call and through deposit_ids: the deposit half of replay_deposit.
-    ids = replay_ids(cr, ci, it, cfg.canvas, fr)
+    ids = canvas_ids(cr, ci, it, cfg.canvas, fr)
     nbins = cfg.canvas.num_pixels
     hk = torch.zeros(nbins, dtype=torch.int32, device=dev)
     replay(hk)
@@ -1105,14 +1153,17 @@ def mh_cell_times(dev, name):
 def phase_kernel_times(dev, main_runs, errs, ext_records, deposit_ids):
     """One record per hand-written kernel. Times are at the shapes of the
     cell that KERNELS names (the other cells' are printed), launches from
-    that cell's main-path run; deposit_ids, which no entry point launches,
-    carries phase 3's record at 1000x1000 and 0 launches. plain_ms of the
-    two df32 kernels comes from phases 2 and 3, which ran their plain
-    versions at the zoom cell's shapes, and those of the two MH classify
-    kernels at one whole pass of their cells."""
+    that cell's main-path run (the bigtiles route's, at the bigtiles
+    cells); deposit_ids, which no entry point launches, carries phase 3's
+    record at 1000x1000 and 0 launches. plain_ms of the three df32 kernels
+    comes from phases 2, 3 and 3b, which ran their plain versions at the
+    zoom cell's shapes, and those of the two MH classify kernels at one
+    whole pass of their cells."""
     times = {name: (mh_cell_times(dev, name) if "--sampler" in args
                     else cell_times(dev, name, name == "default"))
              for name, args, _ in CELLS}
+    times.update({name: big_cell_times(dev, name, name == "bigcanvas")
+                  for name, _, _ in BIG_CELLS})
     records = []
     for k, (source, replaces, cell) in KERNELS.items():
         if cell is None:
@@ -1130,6 +1181,353 @@ def phase_kernel_times(dev, main_runs, errs, ext_records, deposit_ids):
               and all(r[key] is not None for key in keys[:-1]),
               f"kernel record of {r['name']} is complete")
     return [{key: r[key] for key in keys} for r in records]
+
+
+# ----------------------------------------------------------------------
+# The bigtiles route (--scatter bigtiles).
+
+
+def id_offsets(it):
+    """(off, n): each kept emission's first slot in its id stream and the
+    stream's length."""
+    from cudabrot_tpu_torch.ops import binning
+
+    off, ends = binning.id_offsets(it)
+    return off, int(ends[-1]) if ends.numel() else 0
+
+
+def sorted_streams(dev, nbins, replay_ids):
+    """The bigtiles deposit's check streams, sorted: 2^24 random ids with
+    10% sentinels, 2^24 ids clustered in the first 1/50 of the bins, one
+    id repeated over three chunks and a bit, and a real replay's ids."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(nbins % 9973)
+    n = 1 << 24
+    rnd = torch.randint(0, nbins, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    rnd[torch.rand(n, generator=gen, device=dev) < 0.1] = nbins
+    clustered = torch.randint(0, nbins // 50, (n,), generator=gen,
+                              device=dev, dtype=torch.int32)
+    repeated = torch.full((3 * 8192 + 17,), nbins // 3, dtype=torch.int32,
+                          device=dev)
+    return {name: torch.sort(x).values for name, x in (
+        ("random", rnd), ("clustered", clustered), ("repeated", repeated),
+        ("replay", replay_ids))}
+
+
+def phase_bigtiles_kernels(dev, batches, ext_res, ext_tn, ext_cfg):
+    """The bigtiles route's three kernels against their plain versions,
+    bitwise: replay_ids on phase 2's default-band batch (6000x4500
+    canvas), bigtiles_deposit on the four sorted streams at 1000x1000,
+    6000x4500 and 20000x20000 (the replay stream also against the fused
+    replay_deposit's histogram), replay_ids_ext on phase 2's df32 batch
+    (the bigzoom canvas). Returns ({kernel: max_abs_err}, the plain
+    replay_ids_ext's ms on that batch)."""
+    import torch
+
+    from cudabrot_tpu_torch.config import Canvas
+    from cudabrot_tpu_torch.engines.cuda_engine import compact
+    from cudabrot_tpu_torch.models.fractals import get_fractal
+    from cudabrot_tpu_torch.ops import binning
+
+    log("== phase 3b: bigtiles route kernels vs plain, bitwise")
+    fr = get_fractal("buddhabrot")
+    res, tn = batches[(20, 100)]
+    cr, ci, it, _ = compact(res.emit_c, res.emit_it, (1, 2),
+                            tn.replay_capacity, tn.max_it)
+    off, n = id_offsets(it)
+    errs = {"bigtiles_deposit": 0.0}
+    for canvas in (Canvas(), cell_config("bigcanvas").canvas,
+                   cell_config("northstar").canvas):
+        tag = f"{canvas.width}x{canvas.height}"
+        nbins = canvas.num_pixels
+        kw = dict(canvas=canvas, fractal=fr)
+        ids_k, hits_k = binning.replay_ids(cr, ci, it, off, n, **kw)
+        if canvas == cell_config("bigcanvas").canvas:
+            ids_p, hits_p = binning.replay_ids_plain(cr, ci, it, off, n, **kw)
+            check(torch.equal(ids_k, ids_p) and int(hits_k) == int(hits_p),
+                  f"replay_ids {tag}: {n} ids, {int(hits_k)} on the canvas, "
+                  f"bitwise vs plain")
+            errs["replay_ids"] = max_abs_err([(ids_k, ids_p),
+                                              (hits_k, hits_p)])
+            del ids_p
+        fused = torch.zeros(nbins, dtype=torch.int32, device=dev)
+        hits_f = binning.replay_deposit(fused, cr, ci, it, **kw)
+        for name, ids in sorted_streams(dev, nbins, ids_k).items():
+            hk = torch.zeros(nbins, dtype=torch.int32, device=dev)
+            hp = torch.zeros_like(hk)
+            binning.bigtiles_deposit(hk, ids)
+            binning.bigtiles_deposit_plain(hp, ids)
+            what = f"bigtiles_deposit {tag}, {name} stream ({ids.numel()} ids)"
+            check(torch.equal(hk, hp), f"{what}: bitwise vs plain")
+            check(int(hk.sum(dtype=torch.int64))
+                  == int(((ids >= 0) & (ids < nbins)).sum()),
+                  f"{what}: every id below the sentinel counted")
+            errs["bigtiles_deposit"] = max(errs["bigtiles_deposit"],
+                                           max_abs_err([(hk, hp)]))
+            if name == "replay":
+                check(torch.equal(hk, fused) and int(hits_k) == int(hits_f),
+                      f"{what}: == the fused replay_deposit's histogram")
+            del hk, hp
+        del fused, ids_k
+
+    kr, ki, ite, _ = compact(ext_res.emit_c, ext_res.emit_it, (1, 2),
+                             ext_tn.replay_capacity, ext_tn.max_it)
+    offe, ne = id_offsets(ite)
+    canvas = cell_config("bigzoom").canvas
+    kw = dict(canvas=canvas, fractal=fr, sample_domain=ext_cfg.sample_domain)
+    ids_k, hits_k = binning.replay_ids_ext(kr, ki, ite, offe, ne, **kw)
+    out = {}
+
+    def plain():
+        out["r"] = binning.replay_ids_ext_plain(kr, ki, ite, offe, ne, **kw)
+
+    plain_ms = time_ms(plain, 1, warm=False)
+    ids_p, hits_p = out["r"]
+    check(torch.equal(ids_k, ids_p) and int(hits_k) == int(hits_p) > 0,
+          f"replay_ids_ext: {ne} ids, {int(hits_k)} on the canvas, bitwise "
+          f"vs plain ({plain_ms:.1f} ms)")
+    errs["replay_ids_ext"] = max_abs_err([(ids_k, ids_p), (hits_k, hits_p)])
+    fused = torch.zeros(canvas.num_pixels, dtype=torch.int32, device=dev)
+    binning.replay_deposit_ext(fused, kr, ki, ite, **kw)
+    hb = binning.bigtiles_deposit(torch.zeros_like(fused),
+                                  torch.sort(ids_k).values)
+    check(torch.equal(hb, fused),
+          "replay_ids_ext -> sort -> bigtiles_deposit == replay_deposit_ext")
+    return errs, plain_ms
+
+
+def run_cli_capture(args, stats_path):
+    """run_cli, keeping the histogram driver.run_render hands cli.main (no
+    checkpoint is written at these sizes)."""
+    from cudabrot_tpu_torch import driver
+
+    real, box = driver.run_render, {}
+
+    def keep(*a, **k):
+        box["result"] = real(*a, **k)
+        return box["result"]
+
+    driver.run_render = keep
+    try:
+        stats, counts = run_cli(args, stats_path)
+    finally:
+        driver.run_render = real
+    return stats, counts, box.pop("result").histogram
+
+
+def phase_big_cells(dev):
+    """The bigtiles cells through cli.main, each with --scatter bigtiles
+    and with --scatter auto: a PGM of the right header and size (then
+    deleted), histogram sum == on_canvas_points, drops <= 1% of in-band,
+    the route's kernels launched and no plain version run; the two
+    routes' histograms and stats equal bit for bit. Returns {cell:
+    (stats, launch counts)} of the bigtiles runs."""
+    import numpy as np
+    import torch
+
+    from cudabrot_tpu_torch.ops import launches
+
+    log("== phase 6: the bigtiles cells through cudabrot_tpu_torch.cli.main")
+    os.makedirs(OUT, exist_ok=True)
+    results = {}
+    for name, args, passes in BIG_CELLS:
+        cv = cell_config(name).canvas
+        runs = {}
+        for scatter in ("bigtiles", "auto"):
+            tag = f"{name} --scatter {scatter}"
+            pgm_path = os.path.join(OUT, f"{name}_{scatter}.pgm")
+            stats_path = os.path.join(OUT, f"{name}_{scatter}.json")
+            torch.cuda.reset_peak_memory_stats(dev)
+            stats, counts, hist = run_cli_capture(
+                [*args, "--scatter", scatter, "--passes", str(passes), "-t",
+                 "-1", "-o", pgm_path, "--stats-json", stats_path],
+                stats_path)
+            peak = torch.cuda.max_memory_allocated(dev)
+            header = f"P5\n{cv.width} {cv.height}\n65535\n".encode()
+            with open(pgm_path, "rb") as f:
+                head = f.read(len(header))
+            size = os.path.getsize(pgm_path)
+            os.remove(pgm_path)
+            check(head == header
+                  and size == len(header) + 2 * cv.num_pixels,
+                  f"{tag}: PGM header and size ({size} bytes)")
+            check(hist.shape == (cv.height, cv.width)
+                  and int(hist.sum(dtype=np.uint64))
+                  == stats["on_canvas_points"] > 0,
+                  f"{tag}: histogram sum == on_canvas_points "
+                  f"({stats['on_canvas_points']})")
+            check(stats["replay_dropped"] <= 0.01 * stats["in_band"],
+                  f"{tag}: replay_dropped {stats['replay_dropped']} <= 1% "
+                  f"of in_band {stats['in_band']}")
+            for k in path_kernels(name, scatter):
+                check(counts[k] > 0, f"{tag}: {k} kernel launched "
+                      f"({counts[k]} times)")
+            for k in launches.KERNELS:
+                check(counts[f"{k}_plain"] == 0,
+                      f"{tag}: plain version of {k} never ran")
+            el = stats["elapsed_seconds"]
+            lane_steps = stats["classify_iters"] + stats["wasted_steps"]
+            log(f"  {tag}: {passes} passes in {el:.3f} s; "
+                f"{lane_steps / el:.4e} classify lane-steps/s; "
+                f"{stats['orbit_points'] / el:.4e} replayed orbit points/s; "
+                f"{stats['on_canvas_points'] / el:.4e} deposited points/s; "
+                f"peak device memory {peak / 2**20:.1f} MiB")
+            runs[scatter] = (stats, counts, hist)
+        (sb, cb, hb), (sa, _, ha) = runs["bigtiles"], runs["auto"]
+        check(np.array_equal(hb, ha),
+              f"{name}: the bigtiles route's histogram == the fused "
+              f"route's, bit for bit")
+
+        def same(st):
+            return {k: v for k, v in st.items() if k != "elapsed_seconds"}
+
+        check(same(sb) == same(sa), f"{name}: every stat equal between the "
+              f"routes")
+        log(f"  {name} stats: {json.dumps(sb)}")
+        log(f"  {name}: sentinel share of the id stream "
+            f"{1 - sb['on_canvas_points'] / sb['orbit_points']:.6f}; "
+            f"elapsed bigtiles / auto {sb['elapsed_seconds'] / sa['elapsed_seconds']:.4f}")
+        results[name] = (sb, cb)
+        del runs, hb, ha
+    return results
+
+
+def big_cell_times(dev, name, with_plain):
+    """A bigtiles cell at its main-path shapes, from a lane state carried
+    over some passes: one pass's kept batch (cut to the id budget where it
+    exceeds it) through replay_ids, torch.sort and bigtiles_deposit, the
+    fused replay-deposit of the same batch, the deposit's plain version
+    and index_add_ of ones at the unsorted ids; with ``with_plain`` the
+    plain id replay. Then both routes' pass times (CUDA events) and device
+    profiles: the bigtiles route's busy share against the fused route's
+    shows what its one synchronization per pass costs."""
+    import itertools
+
+    import torch
+
+    from cudabrot_tpu_torch.engines import cuda_engine as ce
+    from cudabrot_tpu_torch.ops import binning, prng
+    from cudabrot_tpu_torch.ops import classify as cls
+    from cudabrot_tpu_torch.ops import classify_ext as cx
+
+    log(f"== bigtiles route times at the {name} cell's main-path shapes")
+    cfg = cell_config(name, "bigtiles")
+    eng = ce.CudaEngine(cfg, device=dev)
+    tn, ext = eng.tuning, eng.extended
+    state = eng.init_state(None)
+    warm = 8 if ext else 4
+    for p in range(warm):
+        eng.run_pass(state, p)
+    spec = dict(fractal=eng.fractal, min_it=tn.min_it, max_it=tn.max_it,
+                steps_per_pass=tn.steps_per_pass,
+                steps_per_flush=tn.steps_per_flush, cycle_detection=True,
+                inner_unroll=tn.inner_unroll,
+                sample_domain=cfg.sample_domain)
+    if ext:
+        classify = cx.classify_pass_ext
+    else:
+        classify = cls.classify_pass
+        spec["thin_tracking"] = tn.thin_tracking
+    key = prng.pass_key(cfg.seed, 0, warm + 1)
+    res = classify(clone_state(state["lanes"]), prng.bits_host(key, 2),
+                   **spec)
+    xr, xi, it, _ = ce.compact(res.emit_c, res.emit_it, key,
+                               tn.replay_capacity, tn.max_it)
+    del res
+    off, n = id_offsets(it)
+    if n > binning.BIGTILES_ID_BUDGET:
+        ends = off + torch.clamp(it.to(torch.int64) + 1, min=0)
+        k = int(torch.searchsorted(
+            ends, torch.tensor(binning.BIGTILES_ID_BUDGET, device=dev),
+            right=True))
+        xr, xi, it, off, n = xr[:k], xi[:k], it[:k], off[:k], int(ends[k - 1])
+    nbins = cfg.canvas.num_pixels
+    kw = dict(canvas=cfg.canvas, fractal=eng.fractal)
+    if ext:
+        kw["sample_domain"] = cfg.sample_domain
+    k_ids = "replay_ids_ext" if ext else "replay_ids"
+    write = binning.replay_ids_ext if ext else binning.replay_ids
+    fused = binning.replay_deposit_ext if ext else binning.replay_deposit
+    out = {}
+
+    def write_ids():
+        out["ids"], out["hits"] = write(xr, xi, it, off, n, **kw)
+
+    ids_ms = time_ms(write_ids, 5)
+    ids = out["ids"]
+    sort_ms = time_ms(lambda: torch.sort(ids), 5)
+    sids = torch.sort(ids).values
+    hist = torch.zeros(nbins, dtype=torch.int32, device=dev)
+    dep_ms = time_ms(lambda: binning.bigtiles_deposit(hist, sids), 10)
+    runs = torch.unique_consecutive(sids[sids < nbins]).numel()
+    dep_bound, dep_by = bound_ms(0, 4 * n + 8 * runs)
+    dep_plain = time_ms(lambda: binning.bigtiles_deposit_plain(hist, sids), 3)
+    lib_hist = torch.zeros(nbins + 1, dtype=torch.int32, device=dev)
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    lib_ms = time_ms(lambda: lib_hist.index_add_(0, ids, ones), 5)
+    del lib_hist, ones
+    fused_ms = time_ms(lambda: fused(hist, xr, xi, it, **kw), 5)
+    c_point = OPS_REPLAY_POINT_EXT if ext else OPS_REPLAY_POINT
+    ids_bound, ids_by = bound_ms(c_point * n, 4 * n + 20 * xr.numel())
+    on_canvas = int(out["hits"])
+    log(f"  geometry: {eng.lanes} lanes, {tn.steps_per_pass} steps per "
+        f"pass, capacity {tn.replay_capacity}, canvas {cfg.canvas.width}x"
+        f"{cfg.canvas.height} ({nbins * 4 / 2**20:.1f} MiB)")
+    log(f"  batch: {int((it >= 0).sum())} orbits, {n} ids, {on_canvas} on "
+        f"the canvas (sentinel share {1 - on_canvas / n:.6f}), {runs} runs")
+    log(f"  {k_ids}: kernel {ids_ms:.4f} ms, bound {ids_bound:.4f} ms "
+        f"({ids_by})")
+    log(f"  torch.sort of the {n} ids: {sort_ms:.4f} ms")
+    log(f"  bigtiles_deposit: kernel {dep_ms:.4f} ms, bound {dep_bound:.4f} "
+        f"ms ({dep_by}), plain version {dep_plain:.4f} ms, index_add_ of "
+        f"ones at the unsorted ids {lib_ms:.4f} ms")
+    log(f"  the whole bigtiles route for the batch "
+        f"{ids_ms + sort_ms + dep_ms:.4f} ms; the fused "
+        f"{'replay_deposit_ext' if ext else 'replay_deposit'} of the same "
+        f"batch {fused_ms:.4f} ms")
+    rec = {k_ids: dict(ms=ids_ms, bound_ms=ids_bound, bound_by=ids_by,
+                       library_ms=None),
+           "bigtiles_deposit": dict(ms=dep_ms, bound_ms=dep_bound,
+                                    bound_by=dep_by, plain_ms=dep_plain,
+                                    library_ms=lib_ms)}
+    if with_plain:
+        plain = binning.replay_ids_ext_plain if ext else \
+            binning.replay_ids_plain
+        rec[k_ids]["plain_ms"] = time_ms(
+            lambda: plain(xr, xi, it, off, n, **kw), 1, warm=False)
+        log(f"  {k_ids} plain version {rec[k_ids]['plain_ms']:.4f} ms")
+    del ids, sids, hist, out
+
+    fused_eng = ce.CudaEngine(cell_config(name), device=dev)
+    fused_state = fused_eng.init_state(None)
+    for p in range(warm):
+        fused_eng.run_pass(fused_state, p)
+    busy_of = {}
+    for route, e, st in (("bigtiles", eng, state),
+                         ("auto", fused_eng, fused_state)):
+        pass_ids = itertools.count(warm + 2)
+        pass_ms = time_ms(lambda: e.run_pass(st, next(pass_ids)), 5)
+        busy, span, prof = device_profile(e, st, 100, 8,
+                                          PROFILE_GROUPS + SORT_GROUP)
+        log(f"  {name} --scatter {route} pass (CUDA events, 5 passes): "
+            f"{pass_ms:.4f} ms")
+        if busy is None:
+            log(f"  {name} --scatter {route} device profile: not measured "
+                f"({span})")
+            continue
+        busy_of[route] = busy
+        parts = ", ".join(f"{g} {v:.4f}" for g, v in prof.items() if v)
+        log(f"  {name} --scatter {route} device profile of 8 passes "
+            f"(torch.profiler): ms per pass {parts}; busy {busy:.4f} of a "
+            f"{span:.3f} ms span (idle {1 - busy:.4f})")
+    if len(busy_of) == 2:
+        log(f"  {name}: idle share bigtiles {1 - busy_of['bigtiles']:.4f} "
+            f"against fused {1 - busy_of['auto']:.4f}: the one "
+            f"synchronization per pass costs "
+            f"{busy_of['auto'] - busy_of['bigtiles']:.4f} of the span")
+    return rec
 
 
 def ext_budget_sweep(dev):
@@ -1202,14 +1600,19 @@ def main() -> int:
         ext_replay = phase_deposit_ext(dev, ext_res, ext_tn, ext_cfg)
         errs["mh_deposit"] = max(phase_mh_deposit(dev, mh_res, "mhcrop"),
                                  phase_mh_deposit(dev, ext_mh_res, "mhzoom"))
+        big_errs, ids_ext_plain = phase_bigtiles_kernels(
+            dev, batches, ext_res, ext_tn, ext_cfg)
+        errs.update(big_errs)
         del batches, ext_res, mh_res, ext_mh_res
         main_runs = phase_main_path(dev)
         phase_oracle(main_runs["zoom"][0])
         phase_mh_measure()
+        main_runs.update(phase_big_cells(dev))
         kernels = phase_kernel_times(
             dev, main_runs, errs,
             dict(classify_ext=ext_classify, replay_deposit_ext=ext_replay,
-                 classify_mh=mh_classify, classify_ext_mh=ext_mh_classify),
+                 classify_mh=mh_classify, classify_ext_mh=ext_mh_classify,
+                 replay_ids_ext=dict(plain_ms=ids_ext_plain)),
             deposit)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1217,7 +1620,8 @@ def main() -> int:
     log(f"deposit_ids records: "
         f"{json.dumps({f'{w}x{h}': r for (w, h), r in deposit.items()})}")
     log("main-path launches: " + ", ".join(
-        f"{name} {json.dumps(main_runs[name][1])}" for name, _, _ in CELLS))
+        f"{name} {json.dumps(main_runs[name][1])}"
+        for name, _, _ in (*CELLS, *BIG_CELLS)))
     log(f"chip_smoke took {time.monotonic() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -97,11 +97,13 @@ TPU-native extensions:
              spelling:
              --precision extended --center -0.743644,0.131826 --span 1e-5
   --engine <name>: auto (default), pallas, or oracle.
-  --scatter <name>: histogram accumulation backend: auto (default),
-             pallas (Mosaic RMW kernel, VMEM-resident canvases),
-             bigtiles (sort + tile-streaming Mosaic RMW, >VMEM
-             canvases), sorted (sort + collapsed scatter-add; A/B
-             only), or xla.
+  --scatter <name>: histogram deposit route: auto (default) or xla
+             (the fused replay-deposit kernel: one atomic per orbit
+             point), or bigtiles (orbit bin ids written to a stream,
+             sorted, and counted one atomic per run of equal ids: for
+             canvases beyond the card's 50 MB L2, such as 6000x4500 or
+             20000x20000; the same histogram). pallas and sorted are
+             TPU backends and refused.
   --precision <p>: float32 (default), float64 (oracle engine only),
              or extended — double-float (~2^-48) TPU deep-zoom
              arithmetic for canvases narrower than ~1e-4, where

@@ -243,13 +243,12 @@ class EngineOptions:
     #: for bitwise escape-count parity experiments with the reference,
     #: which always iterates interior points to the cap (cudabrot.cu:338).
     cycle_detection: bool = True
-    #: Histogram scatter backend: "xla" (scatter-add), "pallas" (Mosaic
-    #: RMW kernel, VMEM-resident histograms only), "bigtiles" (sort +
-    #: tile-streaming Mosaic RMW — the >VMEM device-accumulation path),
-    #: "sorted" (sort + run-length collapse + sorted scatter-add;
-    #: measured no faster than xla — kept for A/B), or "auto". (A
-    #: sort+searchsorted backend was measured dead and removed; see
-    #: ops/binning.py.)
+    #: Histogram deposit route: "auto" or "xla" (the fused replay-deposit
+    #: kernel, one global atomic per orbit point), or "bigtiles" (the kept
+    #: orbits' bin ids written to a stream, sorted, and counted one atomic
+    #: per run of equal ids: for histograms beyond the card's 50 MB L2;
+    #: the same histogram bit for bit). The JAX package's TPU backends
+    #: "pallas" and "sorted" are refused.
     scatter: str = "auto"
     #: Orbit replay execution: "device" (on-accelerator, multi-chip
     #: capable), "host" (native C++ engine overlapped with classification
@@ -423,11 +422,11 @@ class EngineOptions:
                 "hardware generator; the CUDA port refills from Threefry "
                 "only."
             )
-        if self.scatter in ("pallas", "bigtiles", "sorted"):
+        if self.scatter in ("pallas", "sorted"):
             raise ConfigError(
                 f"--scatter {self.scatter} is a TPU deposit backend; the "
-                "CUDA port deposits through its fused replay kernel (use "
-                "auto)."
+                "CUDA port deposits through its fused replay kernel (auto) "
+                "or its sorted id-stream deposit (bigtiles)."
             )
         if self.replay_block or self.replay_chunk:
             raise ConfigError(

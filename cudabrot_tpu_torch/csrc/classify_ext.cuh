@@ -247,21 +247,13 @@ inline ReplayExtArgs replay_ext_args(const void* kr, const void* ki,
   return a;
 }
 
-// Adds one to a histogram cell: an atomic on the device (threads share
-// the histogram), a plain increment in the single-threaded host build.
-CB_HD void deposit_one(uint32_t* cell) {
-#if defined(__CUDA_ARCH__)
-  atomicAdd(cell, 1u);
-#else
-  ++*cell;
-#endif
-}
-
 // Replays emission i: c rebuilt from its grid indices, z starts at c,
-// steps s = 0..iters recorded including the escape point. Returns the
-// on-canvas point count.
-template <int FR>
-CB_HD uint32_t replay_ext_one(const ReplayExtArgs& a, int i) {
+// steps s = 0..iters recorded including the escape point, each step's bin
+// going to the sink (orbit.cuh: DepositSink adds it to a.hist, IdSink
+// writes it into the id stream). Returns the on-canvas point count.
+template <int FR, class Sink>
+CB_HD uint32_t replay_ext_one(const ReplayExtArgs& a, int i,
+                              const Sink& sink) {
   const int n = a.iters[i];
   if (n < 0) return 0;
   const df::F2 cr = grid_sample(a.center_r, a.kr[i], a.step_r);
@@ -271,10 +263,8 @@ CB_HD uint32_t replay_ext_one(const ReplayExtArgs& a, int i) {
   for (int s = 0; s <= n; ++s) {
     df::complex_sqr_add<FR>(zr, zi, cr, ci);
     const int64_t b = df::bin_id_df(a.q, zr, zi);
-    if (b >= 0) {
-      deposit_one(a.hist + b);
-      ++local;
-    }
+    sink(s, b);
+    local += b >= 0;
   }
   return local;
 }

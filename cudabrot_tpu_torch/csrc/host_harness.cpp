@@ -1,9 +1,12 @@
 // CPU build of the kernels' per-lane functions.
 //
 // The df32 arithmetic (df32.cuh), the lane and emission functions of the
-// classify_ext and replay_deposit_ext kernels (classify_ext.cuh), and the
+// classify_ext and replay_deposit_ext kernels (classify_ext.cuh), the
 // Metropolis-Hastings lane function and deposit (mh.cuh: classify_mh,
-// classify_ext_mh, mh_deposit) are
+// classify_ext_mh, mh_deposit), the orbit loop of the replay kernels with
+// its id sink (orbit.cuh replay_orbit: replay_ids, and replay_ids_ext
+// through classify_ext.cuh) and the run-length deposit of the bigtiles
+// kernel (bigtiles.cuh) are
 // __host__ __device__; this file loops them over lanes on the CPU behind
 // the same C interface as the CUDA launchers, so a machine without a GPU
 // can hold them bitwise against the plain PyTorch versions. Build:
@@ -13,8 +16,10 @@
 //
 // (-ffp-contract=off: every product and sum must round once, as
 // __fmul_rn/__fadd_rn do on the device.) Nothing in the package loads it;
-// tests/test_torch_df32.py and tests/test_torch_classify_mh.py build it
-// when g++ is present.
+// tests/test_torch_df32.py builds it when g++ is present.
+#include <vector>
+
+#include "bigtiles.cuh"
 #include "classify_ext.cuh"
 #include "mh.cuh"
 
@@ -47,6 +52,25 @@ int mh_fractal(int fractal, int slots,
     case cb::kBurningShip: return mh_lanes<cb::kBurningShip, Orbit>(slots, a);
     case cb::kAntiBuddhabrot:
       return mh_lanes<cb::kAntiBuddhabrot, Orbit>(slots, a);
+  }
+  return 1;
+}
+
+// One df32 replay of emission i into the sink, the instantiation picked by
+// fractal; adds its on-canvas count to total.
+template <class Sink>
+int replay_ext_by_fractal(int fractal, const cb::ReplayExtArgs& a, int i,
+                          const Sink& sink, unsigned long long& total) {
+  switch (fractal) {
+    case cb::kBuddhabrot:
+      total += cb::replay_ext_one<cb::kBuddhabrot>(a, i, sink);
+      return 0;
+    case cb::kBurningShip:
+      total += cb::replay_ext_one<cb::kBurningShip>(a, i, sink);
+      return 0;
+    case cb::kAntiBuddhabrot:
+      total += cb::replay_ext_one<cb::kAntiBuddhabrot>(a, i, sink);
+      return 0;
   }
   return 1;
 }
@@ -171,21 +195,86 @@ int cbh_replay_deposit_ext(const void* kr, const void* ki, const void* iters,
       cb::replay_ext_args(kr, ki, iters, hist, iargs, fargs);
   unsigned long long total = 0;
   for (int i = 0; i < a.k; ++i) {
-    switch (iargs[0]) {
+    const int rc = replay_ext_by_fractal(iargs[0], a, i,
+                                         cb::DepositSink{a.hist}, total);
+    if (rc != 0) return rc;
+  }
+  *static_cast<unsigned long long*>(hits) += total;
+  return 0;
+}
+
+// The interface of cb_replay_ids_ext, emissions looped on the CPU.
+int cbh_replay_ids_ext(const void* kr, const void* ki, const void* iters,
+                       const void* off, void* ids, const int* iargs,
+                       const float* fargs, void* hits) {
+  const cb::ReplayExtArgs a =
+      cb::replay_ext_args(kr, ki, iters, nullptr, iargs, fargs);
+  const auto* po = static_cast<const long long*>(off);
+  auto* pi = static_cast<int32_t*>(ids);
+  unsigned long long total = 0;
+  for (int i = 0; i < a.k; ++i) {
+    const int rc = replay_ext_by_fractal(
+        iargs[0], a, i, cb::IdSink{pi + po[i], a.q.width * a.q.height},
+        total);
+    if (rc != 0) return rc;
+  }
+  *static_cast<unsigned long long*>(hits) += total;
+  return 0;
+}
+
+// The interface of cb_replay_ids, emissions looped on the CPU.
+int cbh_replay_ids(int fractal, const float* cr, const float* ci,
+                   const int32_t* iters, const long long* off, int k,
+                   int32_t* ids, float min_re, float min_im, float d_re,
+                   float d_im, int width, int height, void* hits) {
+  const cb::CanvasQ q{min_re, min_im, d_re, d_im, width, height};
+  unsigned long long total = 0;
+  for (int i = 0; i < k; ++i) {
+    if (iters[i] < 0) continue;
+    const cb::IdSink sink{ids + off[i], width * height};
+    switch (fractal) {
       case cb::kBuddhabrot:
-        total += cb::replay_ext_one<cb::kBuddhabrot>(a, i);
+        total += cb::replay_orbit<cb::kBuddhabrot>(cr[i], ci[i], iters[i], q,
+                                                   sink);
         break;
       case cb::kBurningShip:
-        total += cb::replay_ext_one<cb::kBurningShip>(a, i);
+        total += cb::replay_orbit<cb::kBurningShip>(cr[i], ci[i], iters[i],
+                                                    q, sink);
         break;
       case cb::kAntiBuddhabrot:
-        total += cb::replay_ext_one<cb::kAntiBuddhabrot>(a, i);
+        total += cb::replay_orbit<cb::kAntiBuddhabrot>(cr[i], ci[i],
+                                                       iters[i], q, sink);
         break;
       default:
         return 1;
     }
   }
   *static_cast<unsigned long long*>(hits) += total;
+  return 0;
+}
+
+// The interface of cb_bigtiles_deposit: each chunk copied into the padded
+// layout, its threads' position ranges run in order, and the exclusive
+// max-scan of their last run starts carried along as the kernel's block
+// scan computes it.
+int cbh_bigtiles_deposit(const int32_t* ids, long long n, int chunk,
+                         uint32_t* hist, int nbins) {
+  namespace bt = cb::bigtiles;
+  if (chunk <= 0 || chunk > bt::kMaxChunk) return 1;
+  std::vector<int32_t> s(bt::kSlots);
+  const int per = (chunk + bt::kThreads - 1) / bt::kThreads;
+  for (long long base = 0; base < n; base += chunk) {
+    const int len = n - base < chunk ? int(n - base) : chunk;
+    for (int j = 0; j < len; ++j) s[bt::slot(j)] = ids[base + j];
+    int start = -1;
+    for (int t = 0; t < bt::kThreads; ++t) {
+      const int lo = t * per;
+      const int hi = lo + per < len ? lo + per : len;
+      bt::deposit_runs(s.data(), lo, hi, len, start, hist, nbins);
+      const int last = bt::last_run_start(s.data(), lo, hi);
+      if (last > start) start = last;
+    }
+  }
   return 0;
 }
 

@@ -117,4 +117,64 @@ CB_HD int64_t bin_id(const CanvasQ& q, float re, float im) {
   return int64_t(int32_t(row)) * q.width + int32_t(col);
 }
 
+// Adds v to a histogram cell: an atomic on the device (threads share the
+// histogram), a plain add in the single-threaded host build.
+CB_HD void deposit_add(uint32_t* cell, uint32_t v) {
+#if defined(__CUDA_ARCH__)
+  atomicAdd(cell, v);
+#else
+  *cell += v;
+#endif
+}
+
+#if defined(__CUDACC__)
+// Adds a per-thread count to *dst with one atomic per warp. Every thread
+// of the warp must reach it (the kernels never return early).
+__device__ __forceinline__ void warp_sum_add(unsigned long long* dst,
+                                             uint32_t v) {
+#if defined(__CUDA_ARCH__)
+  const uint32_t s = __reduce_add_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0 && s != 0) atomicAdd(dst, (unsigned long long)s);
+#else
+  if (v != 0) atomicAdd(dst, (unsigned long long)v);
+#endif
+}
+#endif
+
+// Where a replayed orbit's bins go (b = -1 off the canvas). The fused
+// replay adds each on-canvas point to the histogram; the bigtiles route
+// writes step s's bin id, or the sentinel nbins, at out[s], so an orbit of
+// n + 1 steps fills n + 1 consecutive slots of the id stream.
+struct DepositSink {
+  uint32_t* hist;
+  CB_HD void operator()(int, int64_t b) const {
+    if (b >= 0) deposit_add(hist + b, 1u);
+  }
+};
+
+struct IdSink {
+  int32_t* out;
+  int32_t nbins;
+  CB_HD void operator()(int s, int64_t b) const {
+    out[s] = b >= 0 ? int32_t(b) : nbins;
+  }
+};
+
+// Replays one emission: z starts at c (cudabrot.cu:323-324), steps
+// s = 0..n are recorded including the escape point, and each step's bin
+// goes to the sink. Returns the on-canvas point count.
+template <int FR, class Sink>
+CB_HD uint32_t replay_orbit(float c_r, float c_i, int n, const CanvasQ& q,
+                            const Sink& sink) {
+  float zr = c_r, zi = c_i;
+  uint32_t hits = 0;
+  for (int s = 0; s <= n; ++s) {
+    step<FR>(zr, zi, c_r, c_i);
+    const int64_t b = bin_id(q, zr, zi);
+    sink(s, b);
+    hits += b >= 0;
+  }
+  return hits;
+}
+
 }  // namespace cb

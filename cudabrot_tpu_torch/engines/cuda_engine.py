@@ -26,6 +26,14 @@ double-float orbits: ``ops.classify_ext.classify_pass_ext``
 ``ops.binning.replay_deposit_ext`` (``csrc/deposit_ext.cu``) rebuilds c,
 replays in df32 and deposits.
 
+With ``--scatter bigtiles`` (histograms beyond the L2) step 3 is
+``ops.binning.replay_bigtiles`` (``replay_bigtiles_ext`` at extended
+precision): the ``replay_ids`` kernel writes every kept point's bin id
+into a flat stream, ``torch.sort`` sorts it and the ``bigtiles_deposit``
+kernel (``csrc/bigtiles.cu``) adds each run of equal ids with one atomic.
+The histogram and every stat are the fused route's, bit for bit; the
+route reads its id count back once per pass (one host synchronization).
+
 With ``--sampler mh`` (Metropolis-Hastings crop renders, at either
 precision) the pass is ``ops.classify_mh.classify_pass_mh`` or
 ``classify_pass_ext_mh`` (the two kernels of ``csrc/classify_mh.cu``):
@@ -40,8 +48,9 @@ every chain's unfinished tenure (``mh_tail_core``).
 
 The pass key is ``fold_in(fold_in(key(seed), ordinal), pass)`` as in the
 JAX engine, so at equal geometry both engines draw the same samples.
-Nothing in a pass waits for the device: stats accumulate in int64 device
-totals, and the driver synchronizes every ``pipeline_depth`` passes.
+On the fused route nothing in a pass waits for the device: stats
+accumulate in int64 device totals, and the driver synchronizes every
+``pipeline_depth`` passes.
 """
 
 from __future__ import annotations
@@ -324,6 +333,12 @@ class CudaEngine:
         self.steps_per_pass = self.tuning.steps_per_pass * self.lanes
         self.replay_capacity = self.tuning.replay_capacity
         self.extended = self.tuning.extended
+        #: The uniform samplers' deposit route: "fused" (replay-deposit) or
+        #: "bigtiles" (id stream, sort, run-length deposit). MH deposits
+        #: its emissions' recorded bins whatever --scatter says, as the JAX
+        #: engine does.
+        self.scatter_backend = binning.select_scatter_backend(
+            cfg.options.scatter)
         #: Metropolis-Hastings sampling: deposits are importance weights
         #: in 1/weight_scale histogram units.
         self.mh = self.tuning.mh
@@ -420,16 +435,18 @@ class CudaEngine:
             result.emit_c, result.emit_it, key, self.replay_capacity,
             tn.max_it,
         )
+        kw = dict(canvas=cfg.canvas, fractal=self.fractal)
         if self.extended:
-            hits = binning.replay_deposit_ext(
-                state["hist"].view(-1), cr_c, ci_c, it_c, canvas=cfg.canvas,
-                fractal=self.fractal, sample_domain=cfg.sample_domain,
-            )
+            kw["sample_domain"] = cfg.sample_domain
+        if self.scatter_backend == "bigtiles":
+            # A kept orbit records at most max_it points.
+            kw["max_len"] = tn.max_it
+            replay = (binning.replay_bigtiles_ext if self.extended
+                      else binning.replay_bigtiles)
         else:
-            hits = binning.replay_deposit(
-                state["hist"].view(-1), cr_c, ci_c, it_c,
-                canvas=cfg.canvas, fractal=self.fractal,
-            )
+            replay = (binning.replay_deposit_ext if self.extended
+                      else binning.replay_deposit)
+        hits = replay(state["hist"].view(-1), cr_c, ci_c, it_c, **kw)
         st = result.stats.reshape(cls.STATS_ROWS, -1).sum(dim=1)
         wasted = st[cls.STAT_WASTED]
         emitted = torch.clamp(n_valid, max=self.replay_capacity)
@@ -568,6 +585,13 @@ class CudaEngine:
         # Compaction: int64 keys, sort output and indices per slot.
         sort = slots * 8 * 3
         replay = self.replay_capacity * 12
+        if self.scatter_backend == "bigtiles":
+            # One group's id stream (4 bytes an id), torch.sort's sorted
+            # values (4) and int64 indices (8), and its working buffers:
+            # 36 bytes an id in all (33.7-35.6 measured on an H100).
+            ids = min(binning.BIGTILES_ID_BUDGET,
+                      self.replay_capacity * self.tuning.max_it)
+            replay += ids * 36
         return hist + lanes + emission + sort + replay, host
 
     def histogram(self, state: dict) -> np.ndarray:

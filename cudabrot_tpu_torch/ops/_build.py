@@ -21,8 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cudabrot_tpu_torch"
-LIBS = ("classify", "deposit", "classify_ext", "deposit_ext", "classify_mh")
-_HEADERS = ("orbit.cuh", "df32.cuh", "classify_ext.cuh", "mh.cuh")
+LIBS = ("classify", "deposit", "classify_ext", "deposit_ext", "classify_mh",
+        "bigtiles")
+_HEADERS = ("orbit.cuh", "df32.cuh", "classify_ext.cuh", "mh.cuh",
+            "bigtiles.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",

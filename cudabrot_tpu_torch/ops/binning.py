@@ -2,8 +2,9 @@
 
 Port of ``cudabrot_tpu/ops/binning.py`` (``points_to_bin_ids``,
 ``points_to_bin_ids_df``, ``scatter_xla``, ``scatter_pallas``,
-``mh_deposit_weights``, ``mh_scatter``) and of the
-replay semantics of ``engines/pallas_engine.py`` (``_batched_replay``/
+``bigtiles_layout``, ``scatter_bigtiles``, ``scatter_bigtiles_padded``,
+``select_scatter_backend``, ``mh_deposit_weights``, ``mh_scatter``) and of
+the replay semantics of ``engines/pallas_engine.py`` (``_batched_replay``/
 ``_blocked_replay``, and ``_blocked_replay_ext`` for df32 orbits).
 
 Histograms are flat int32 tensors holding the JAX package's uint32 counts
@@ -16,6 +17,18 @@ order of atomics gives the same histogram.
 ``replay_deposit_ext`` launches ``csrc/deposit_ext.cu`` for CUDA tensors;
 ``mh_deposit`` launches the ``mh_deposit`` kernel of ``csrc/deposit.cu``;
 each runs its plain version for CPU tensors.
+
+Two deposit routes replay the kept orbits (``select_scatter_backend``):
+the fused replay-deposit (``--scatter auto``/``xla``), one global atomic
+per orbit point, and the bigtiles route (``--scatter bigtiles``, for
+histograms beyond the L2): ``replay_bigtiles``/``replay_bigtiles_ext``
+write every point's bin id into a flat int32 stream (the ``replay_ids``/
+``replay_ids_ext`` kernels), sort it with ``torch.sort`` (the JAX
+package's ``jax.lax.sort``, outside its kernel too), and count it with the
+``bigtiles_deposit`` kernel (``csrc/bigtiles.cu``), one atomic per run of
+equal ids. Both give the same histogram bit for bit. The bigtiles route
+reads the pass's orbit-length sums back to size its id buffers: one host
+synchronization per pass, where the fused route has none.
 """
 
 from __future__ import annotations
@@ -178,27 +191,55 @@ def replay_deposit(
     return hits
 
 
-def replay_deposit_plain(hist_flat, cr, ci, iters, *, canvas: Canvas,
-                         fractal: FractalMap) -> torch.Tensor:
-    """The replay kernel's function step-major in plain PyTorch: every
-    emission advances one step per iteration; the ones still inside their
-    recording window deposit through ``index_add_``."""
-    launches.COUNTS["replay_deposit_plain"] += 1
+def orbit_bins(cr, ci, iters, *, canvas: Canvas, fractal: FractalMap):
+    """The replay kernels' orbit loop step-major in plain PyTorch: yields
+    ``(s, ids)`` for every step s, ``ids`` the bin ids of step s's points,
+    with the sentinel ``canvas.num_pixels`` where a point is off the canvas
+    or an emission is past its ``iters``. Every emission advances one step
+    per iteration (finished ones coast, unrecorded)."""
     cr, ci, iters = (t.reshape(-1) for t in (cr, ci, iters))
-    dev = hist_flat.device
-    hits = torch.zeros((), dtype=torch.int64, device=dev)
     n_steps = int(iters.max().item()) + 1 if iters.numel() else 0
     zr, zi = cr, ci
-    nbins = hist_flat.numel()
     for s in range(n_steps):
         zr, zi = step(fractal, zr, zi, cr, ci)
-        ids = points_to_bin_ids(canvas, zr, zi, iters >= s)
+        yield s, points_to_bin_ids(canvas, zr, zi, iters >= s)
+
+
+def _deposit_steps(hist_flat, steps) -> torch.Tensor:
+    """Deposits the on-canvas ids of every step through ``index_add_``;
+    returns their count as a 0-dim int64 tensor."""
+    dev, nbins = hist_flat.device, hist_flat.numel()
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    for _, ids in steps:
         keep = ids[ids < nbins].to(torch.int64)
         hist_flat.index_add_(
             0, keep, torch.ones(keep.shape, dtype=torch.int32, device=dev)
         )
         hits += keep.numel()
     return hits
+
+
+def _write_steps(iters, off, n_ids: int, nbins: int, steps):
+    """Writes step s of emission e at ``off[e] + s`` of a new int32 stream
+    of ``n_ids`` slots; returns it and the on-canvas count (0-dim int64)."""
+    iters, off = iters.reshape(-1), off.reshape(-1)
+    ids = torch.empty(n_ids, dtype=torch.int32, device=iters.device)
+    hits = torch.zeros((), dtype=torch.int64, device=iters.device)
+    for s, b in steps:
+        act = iters >= s
+        ids[off[act] + s] = b[act]
+        hits += (b < nbins).sum()
+    return ids, hits
+
+
+def replay_deposit_plain(hist_flat, cr, ci, iters, *, canvas: Canvas,
+                         fractal: FractalMap) -> torch.Tensor:
+    """The replay kernel's function step-major in plain PyTorch: the
+    points still inside their recording window deposit through
+    ``index_add_``."""
+    launches.COUNTS["replay_deposit_plain"] += 1
+    return _deposit_steps(hist_flat, orbit_bins(cr, ci, iters, canvas=canvas,
+                                                 fractal=fractal))
 
 
 # ----------------------------------------------------------------------
@@ -271,11 +312,20 @@ def replay_deposit_ext_plain(hist_flat, kr, ki, iters, *, canvas: Canvas,
                              fractal: FractalMap,
                              sample_domain: tuple) -> torch.Tensor:
     """The df32 replay kernel's function step-major in plain PyTorch, as
-    ``replay_deposit_plain``: every emission advances one df32 step per
-    iteration (finished ones coast, unrecorded)."""
+    ``replay_deposit_plain``."""
     launches.COUNTS["replay_deposit_ext_plain"] += 1
+    return _deposit_steps(hist_flat, orbit_bins_ext(
+        kr, ki, iters, canvas=canvas, fractal=fractal,
+        sample_domain=sample_domain))
+
+
+def orbit_bins_ext(kr, ki, iters, *, canvas: Canvas, fractal: FractalMap,
+                   sample_domain: tuple):
+    """``orbit_bins`` for df32 emissions: c rebuilt from the grid indices
+    as the classify pass drew it, one df32 step per iteration, points
+    binned through ``points_to_bin_ids_df``."""
     kr, ki, iters = (t.reshape(-1) for t in (kr, ki, iters))
-    dev = hist_flat.device
+    dev = kr.device
     c0r, c0i, step_r, step_i = grid_params(sample_domain)
     mr, mi, _, _ = _canvas_df(canvas)
     mr, mi = (tuple(f32(v, dev) for v in m) for m in (mr, mi))
@@ -283,21 +333,333 @@ def replay_deposit_ext_plain(hist_flat, kr, ki, iters, *, canvas: Canvas,
                               f32(step_r, dev))
     cih, cil, _ = grid_sample(tuple(f32(v, dev) for v in c0i), ki,
                               f32(step_i, dev))
-    hits = torch.zeros((), dtype=torch.int64, device=dev)
     n_steps = int(iters.max().item()) + 1 if iters.numel() else 0
     zr, zrl, zi, zil = crh, crl, cih, cil
-    nbins = hist_flat.numel()
     for s in range(n_steps):
         zr, zrl, zi, zil, _ = df32.complex_sqr_add(
             zr, zrl, zi, zil, crh, crl, cih, cil, fold_abs=fractal.fold_abs)
-        ids = points_to_bin_ids_df(canvas, zr, zrl, zi, zil, iters >= s,
-                                   mr, mi)
-        keep = ids[ids < nbins].to(torch.int64)
-        hist_flat.index_add_(
-            0, keep, torch.ones(keep.shape, dtype=torch.int32, device=dev)
+        yield s, points_to_bin_ids_df(canvas, zr, zrl, zi, zil, iters >= s,
+                                      mr, mi)
+
+
+# ----------------------------------------------------------------------
+# The bigtiles route (--scatter bigtiles): replay to an id stream, sort it,
+# count it.
+
+#: Histogram tile of the JAX kernel, (8192, 128) int32: only its layout
+#: (``bigtiles_layout``) carries over, for the padded entry point.
+BIGTILES_TILE_ROWS = 8192
+#: Sorted ids one block of the bigtiles_deposit kernel counts (at most
+#: 8192, csrc/bigtiles.cuh kMaxChunk), as the JAX kernel's chunk.
+BIGTILES_CHUNK = 8192
+#: Largest id stream one replay group materializes: 2^27 int32 ids
+#: (512 MB), the JAX engine's BATCHED_REPLAY_SLOT_BUDGET.
+BIGTILES_ID_BUDGET = 1 << 27
+#: Most points one orbit can record: the configuration keeps
+#: max_escape_iterations below 2^24.
+MAX_ORBIT_LEN = 1 << 24
+
+
+def bigtiles_layout(nbins: int, tile_rows: int = 0) -> tuple[int, int]:
+    """(ntiles, padded_rows) covering nbins bins + the sentinel cell."""
+    if tile_rows <= 0:
+        tile_rows = BIGTILES_TILE_ROWS
+    rows = (nbins + 1 + 127) // 128
+    ntiles = (rows + tile_rows - 1) // tile_rows
+    return ntiles, ntiles * tile_rows
+
+
+def select_scatter_backend(name: str) -> str:
+    """The deposit route of ``--scatter``: "auto" and "xla" resolve to
+    the fused replay-deposit ("fused": the JAX package resolves auto to its
+    XLA scatter off the TPU and never picks bigtiles on its own),
+    "bigtiles" to the sorted id-stream route."""
+    if name in ("auto", "xla"):
+        return "fused"
+    if name == "bigtiles":
+        return "bigtiles"
+    raise ValueError(f"Unknown scatter backend for the CUDA port: {name}")
+
+
+def _check_nbins(nbins: int) -> None:
+    if nbins >= 1 << 31:
+        raise ValueError(f"{nbins} bins do not fit the kernels' int32 ids")
+
+
+def bigtiles_deposit(hist_flat: torch.Tensor, ids: torch.Tensor, *,
+                     chunk: int = 0) -> torch.Tensor:
+    """Add one at every id of a sorted int32 stream into ``hist_flat`` (in
+    place; returned), one add per run of equal ids; ids outside
+    [0, nbins) are dropped. Any order gives the same histogram (integer
+    adds commute); sorted order makes the runs long and the kernel's
+    blocks walk the histogram in address order. ``chunk``: ids per block
+    of the kernel, 1..8192 (0: ``BIGTILES_CHUNK``)."""
+    _check_hist(hist_flat)
+    _check_nbins(hist_flat.numel())
+    if ids.dtype != torch.int32:
+        raise ValueError("ids must be int32")
+    chunk = chunk or BIGTILES_CHUNK
+    if not 0 < chunk <= BIGTILES_CHUNK:
+        raise ValueError(f"chunk must lie in [1, {BIGTILES_CHUNK}]")
+    if hist_flat.device.type == "cpu":
+        return bigtiles_deposit_plain(hist_flat, ids)
+    if ids.device != hist_flat.device:
+        raise ValueError("ids and histogram lie on different devices")
+    ids = ids.reshape(-1).contiguous()
+    if ids.numel() == 0:
+        return hist_flat
+    lib = _lib_bigtiles()
+    with torch.cuda.device(hist_flat.device):
+        rc = lib.cb_bigtiles_deposit(
+            _build.ptr(ids), ids.numel(), chunk, _build.ptr(hist_flat),
+            hist_flat.numel(), _build.stream_of(hist_flat),
         )
-        hits += keep.numel()
+    _build.check(rc, "bigtiles_deposit kernel")
+    launches.COUNTS["bigtiles_deposit"] += 1
+    return hist_flat
+
+
+def bigtiles_deposit_plain(hist_flat: torch.Tensor, ids: torch.Tensor):
+    """The bigtiles kernel's function in plain PyTorch: the runs of equal
+    ids (``torch.unique_consecutive``) added by ``index_add_``."""
+    launches.COUNTS["bigtiles_deposit_plain"] += 1
+    vals, counts = torch.unique_consecutive(ids.reshape(-1),
+                                            return_counts=True)
+    keep = (vals >= 0) & (vals < hist_flat.numel())
+    hist_flat.index_add_(0, vals[keep].to(torch.int64),
+                         counts[keep].to(torch.int32))
+    return hist_flat
+
+
+def scatter_bigtiles(hist_flat: torch.Tensor, ids: torch.Tensor, *,
+                     chunk: int = 0) -> torch.Tensor:
+    """Add one at every id in [0, nbins) (in place; returned): the stream
+    sorted by ``torch.sort`` and counted by ``bigtiles_deposit``. Bitwise
+    equal to ``deposit_ids`` (the JAX ``scatter_xla``)."""
+    ids = torch.sort(ids.reshape(-1)).values
+    return bigtiles_deposit(hist_flat, ids, chunk=chunk)
+
+
+def scatter_bigtiles_padded(hist_pad: torch.Tensor, ids: torch.Tensor,
+                            nbins: int, *, chunk: int = 0) -> torch.Tensor:
+    """``scatter_bigtiles`` into a histogram in the ``bigtiles_layout``
+    padding (cells >= nbins are pad that is never read): the first nbins
+    cells are deposited in place and the padded tensor returned."""
+    _, rows = bigtiles_layout(nbins)
+    if hist_pad.numel() != rows * 128:
+        raise ValueError(f"padded histogram must hold {rows * 128} cells")
+    scatter_bigtiles(hist_pad[:nbins], ids, chunk=chunk)
+    return hist_pad
+
+
+def scatter_bigtiles_plain(hist_flat: torch.Tensor, ids: torch.Tensor):
+    """``scatter_bigtiles`` in plain PyTorch: ``torch.sort``, then
+    ``bigtiles_deposit_plain``."""
+    return bigtiles_deposit_plain(hist_flat,
+                                  torch.sort(ids.reshape(-1)).values)
+
+
+def id_offsets(iters):
+    """``(off, ends)``, int64: each emission's first and one-past-last
+    slot in the id stream of ``replay_ids``, the exclusive and inclusive
+    prefix sums of max(iters + 1, 0)."""
+    lens = torch.clamp(iters.reshape(-1).to(torch.int64) + 1, min=0)
+    ends = torch.cumsum(lens, 0)
+    return ends - lens, ends
+
+
+def _check_replay_ids(xr, xi, iters, off, what: str):
+    if xr.dtype != torch.float32 or xi.dtype != torch.float32:
+        raise ValueError(f"{what} must be float32")
+    if iters.dtype != torch.int32 or off.dtype != torch.int64:
+        raise ValueError("iters must be int32 and off int64")
+    xr, xi, iters, off = (t.reshape(-1).contiguous()
+                          for t in (xr, xi, iters, off))
+    if not (xr.numel() == xi.numel() == iters.numel() == off.numel()):
+        raise ValueError("replay inputs differ in length")
+    if not (xr.device == xi.device == iters.device == off.device):
+        raise ValueError("replay inputs lie on different devices")
+    return xr, xi, iters, off
+
+
+def replay_ids(cr, ci, iters, off, n_ids: int, *, canvas: Canvas,
+               fractal: FractalMap):
+    """Replay each emission's orbit into an id stream: emission e writes
+    the bin id of each of its ``iters[e] + 1`` steps (the sentinel
+    ``canvas.num_pixels`` where a point is off the canvas) at
+    ``off[e] + s`` of a new int32 tensor of ``n_ids`` slots. ``off`` is
+    int64, the exclusive prefix sum of max(iters + 1, 0), so every slot is
+    written once (``id_offsets``); ``n_ids`` must cover the last
+    emission's slots, which the kernel does not check. Returns ``(ids,
+    hits)``: the stream and the on-canvas point count (0-dim int64)."""
+    _check_nbins(canvas.num_pixels)
+    cr, ci, iters, off = _check_replay_ids(cr, ci, iters, off, "c values")
+    if cr.device.type == "cpu":
+        return replay_ids_plain(cr, ci, iters, off, n_ids, canvas=canvas,
+                                fractal=fractal)
+    dev = cr.device
+    ids = torch.empty(n_ids, dtype=torch.int32, device=dev)
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    if cr.numel() == 0:
+        return ids, hits
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.cb_replay_ids(
+            fractal.kernel_id, _build.ptr(cr), _build.ptr(ci),
+            _build.ptr(iters), _build.ptr(off), cr.numel(), _build.ptr(ids),
+            canvas.min_real, canvas.min_imag, canvas.delta_real,
+            canvas.delta_imag, canvas.width, canvas.height,
+            _build.ptr(hits), _build.stream_of(ids),
+        )
+    _build.check(rc, "replay_ids kernel")
+    launches.COUNTS["replay_ids"] += 1
+    return ids, hits
+
+
+def replay_ids_plain(cr, ci, iters, off, n_ids: int, *, canvas: Canvas,
+                     fractal: FractalMap):
+    """``replay_ids`` step-major in plain PyTorch."""
+    launches.COUNTS["replay_ids_plain"] += 1
+    return _write_steps(iters, off, n_ids, canvas.num_pixels, orbit_bins(
+        cr, ci, iters, canvas=canvas, fractal=fractal))
+
+
+def replay_ids_ext(kr, ki, iters, off, n_ids: int, *, canvas: Canvas,
+                   fractal: FractalMap, sample_domain: tuple):
+    """``replay_ids`` for extended-precision emissions (24-bit grid indices
+    over ``sample_domain``): the df32 orbits of ``replay_deposit_ext``."""
+    _check_nbins(canvas.num_pixels)
+    kr, ki, iters, off = _check_replay_ids(kr, ki, iters, off,
+                                           "grid indices")
+    if kr.device.type == "cpu":
+        return replay_ids_ext_plain(kr, ki, iters, off, n_ids, canvas=canvas,
+                                    fractal=fractal,
+                                    sample_domain=sample_domain)
+    dev = kr.device
+    ids = torch.empty(n_ids, dtype=torch.int32, device=dev)
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    if kr.numel() == 0:
+        return ids, hits
+    c0r, c0i, step_r, step_i = grid_params(sample_domain)
+    mr, mi, inv_dr, inv_di = _canvas_df(canvas)
+    iargs = (ctypes.c_int * 4)(fractal.kernel_id, kr.numel(), canvas.width,
+                               canvas.height)
+    fargs = (ctypes.c_float * 12)(*c0r, *c0i, step_r, step_i, *mr, *mi,
+                                  inv_dr, inv_di)
+    lib = _lib_ext()
+    with torch.cuda.device(dev):
+        rc = lib.cb_replay_ids_ext(
+            _build.ptr(kr), _build.ptr(ki), _build.ptr(iters),
+            _build.ptr(off), _build.ptr(ids), iargs, fargs,
+            _build.ptr(hits), _build.stream_of(ids),
+        )
+    _build.check(rc, "replay_ids_ext kernel")
+    launches.COUNTS["replay_ids_ext"] += 1
+    return ids, hits
+
+
+def replay_ids_ext_plain(kr, ki, iters, off, n_ids: int, *, canvas: Canvas,
+                         fractal: FractalMap, sample_domain: tuple):
+    """``replay_ids_ext`` step-major in plain PyTorch."""
+    launches.COUNTS["replay_ids_ext_plain"] += 1
+    return _write_steps(iters, off, n_ids, canvas.num_pixels, orbit_bins_ext(
+        kr, ki, iters, canvas=canvas, fractal=fractal,
+        sample_domain=sample_domain))
+
+
+def _replay_sorted(hist_flat, iters, write_ids, max_len: int,
+                   budget: int) -> torch.Tensor:
+    """The bigtiles route over a kept batch: consecutive groups of whole
+    orbits, each replayed to ids (``write_ids(slice, off, n_ids)``),
+    sorted and counted into ``hist_flat``. Group j holds the orbits whose
+    first id falls in [j B, (j + 1) B), B = budget - max_len, so its ids
+    never exceed ``budget`` and no orbit is cut. The group bounds, their id
+    offsets and the longest orbit come to the host in one read: the
+    route's one synchronization per pass. Returns the on-canvas count."""
+    dev = hist_flat.device
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    k = iters.numel()
+    budget = budget or BIGTILES_ID_BUDGET
+    span = budget - max_len
+    if k == 0:
+        return hits
+    if span < 1:
+        raise ValueError(f"an orbit of {max_len} points does not fit the id "
+                         f"budget of {budget}")
+    off, ends = id_offsets(iters)
+    groups = -(-k * max_len // span)
+    first = torch.searchsorted(off, torch.arange(
+        groups + 1, dtype=torch.int64, device=dev) * span)
+    at = torch.cat([ends.new_zeros(1), ends])[first]
+    host = torch.cat([first, at, (ends - off).max().reshape(1)]).tolist()
+    bounds, offsets, longest = (host[:groups + 1],
+                                host[groups + 1:-1], host[-1])
+    if longest > max_len:
+        raise ValueError(f"an orbit of {longest} points exceeds max_len "
+                         f"{max_len}")
+    for j in range(groups):
+        e0, e1 = bounds[j], bounds[j + 1]
+        n_ids = offsets[j + 1] - offsets[j]
+        if n_ids == 0:
+            continue
+        ids, h = write_ids(slice(e0, e1), off[e0:e1] - offsets[j], n_ids)
+        bigtiles_deposit(hist_flat, torch.sort(ids).values)
+        hits += h
     return hits
+
+
+def replay_bigtiles(
+    hist_flat: torch.Tensor,
+    cr: torch.Tensor,
+    ci: torch.Tensor,
+    iters: torch.Tensor,
+    *,
+    canvas: Canvas,
+    fractal: FractalMap,
+    max_len: int = MAX_ORBIT_LEN,
+    budget: int = 0,
+) -> torch.Tensor:
+    """``replay_deposit`` through the bigtiles route: the same histogram,
+    bit for bit, and the same on-canvas count (0-dim int64). ``max_len``
+    bounds the points of one orbit (the band's max_it); ``budget`` the ids
+    of one group (0: ``BIGTILES_ID_BUDGET``)."""
+    _check_hist(hist_flat)
+    if hist_flat.numel() != canvas.num_pixels:
+        raise ValueError("histogram size does not match the canvas")
+    cr, ci, iters = (t.reshape(-1) for t in (cr, ci, iters))
+
+    def write(sl, off, n_ids):
+        return replay_ids(cr[sl], ci[sl], iters[sl], off, n_ids,
+                          canvas=canvas, fractal=fractal)
+
+    return _replay_sorted(hist_flat, iters, write, max_len, budget)
+
+
+def replay_bigtiles_ext(
+    hist_flat: torch.Tensor,
+    kr: torch.Tensor,
+    ki: torch.Tensor,
+    iters: torch.Tensor,
+    *,
+    canvas: Canvas,
+    fractal: FractalMap,
+    sample_domain: tuple,
+    max_len: int = MAX_ORBIT_LEN,
+    budget: int = 0,
+) -> torch.Tensor:
+    """``replay_deposit_ext`` through the bigtiles route (``replay_ids_ext``
+    for the ids): the same histogram and count, bit for bit."""
+    _check_hist(hist_flat)
+    if hist_flat.numel() != canvas.num_pixels:
+        raise ValueError("histogram size does not match the canvas")
+    kr, ki, iters = (t.reshape(-1) for t in (kr, ki, iters))
+
+    def write(sl, off, n_ids):
+        return replay_ids_ext(kr[sl], ki[sl], iters[sl], off, n_ids,
+                              canvas=canvas, fractal=fractal,
+                              sample_domain=sample_domain)
+
+    return _replay_sorted(hist_flat, iters, write, max_len, budget)
 
 
 # ----------------------------------------------------------------------
@@ -419,6 +781,21 @@ def _lib_ext():
             ctypes.POINTER(ctypes.c_float), vp, vp,
         ]
         lib.cb_replay_deposit_ext.restype = ctypes.c_int
+        lib.cb_replay_ids_ext.argtypes = [
+            vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_float), vp, vp,
+        ]
+        lib.cb_replay_ids_ext.restype = ctypes.c_int
+    return lib
+
+
+def _lib_bigtiles():
+    lib = _build.load("bigtiles")
+    if lib.cb_bigtiles_deposit.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.cb_bigtiles_deposit.argtypes = [vp, ctypes.c_longlong, i, vp, i,
+                                            vp]
+        lib.cb_bigtiles_deposit.restype = i
     return lib
 
 
@@ -432,6 +809,10 @@ def _lib():
             i, vp, vp, vp, i, vp, f, f, f, f, i, i, vp, vp,
         ]
         lib.cb_replay_deposit.restype = i
+        lib.cb_replay_ids.argtypes = [
+            i, vp, vp, vp, vp, i, vp, f, f, f, f, i, i, vp, vp,
+        ]
+        lib.cb_replay_ids.restype = i
         lib.cb_mh_deposit.argtypes = [
             vp, vp, vp, ctypes.c_longlong, i, i, vp, i, vp, vp,
         ]

@@ -101,6 +101,13 @@ JAX_CASES = [
      None, None, 0.05),
     (True, "buddhabrot", *_deep(1e-3), (50, 1000), 1024, 256, "bits",
      None, None, 0.05),
+    # The chain fields of those two long cases' geometry (flush window 256,
+    # their generators), held where the chains still agree: one 256-step
+    # window.
+    (True, "buddhabrot", *_deep(2e-5), (100, 3000), 256, 256, "threefry",
+     0.85, None, 0.03),    # 0.8945; no emission yet in either package
+    (True, "buddhabrot", *_deep(1e-3), (50, 1000), 256, 256, "bits",
+     0.93, None, 0.03),    # 0.9629; no emission yet in either package
 ]
 #: Compared bitwise between the packages: the chain, the proposal's grid
 #: index and its bookkeeping. The orbit position and the Brent point carry
@@ -124,7 +131,11 @@ def test_pass_matches_jax_kernel(ext, name, domain, window, band, steps,
     recorded bins of slots valid in both with the same target equal for
     >= 85% of them (measured 99.1-100% over 7 to 1180 such slots, and 9
     of 10). The two packages' emission counts agree within 10% or 4, and
-    the per-pass stat totals within ``stat_tol`` or 10 counts."""
+    the per-pass stat totals within ``stat_tol`` or 10 counts. The deep
+    windows' 2048- and 1024-step passes hold totals only; at their flush
+    window of 256 steps every chain field is equal for >= 0.85 (2e-5
+    window, measured 0.8945) and >= 0.93 (1e-3 window, measured 0.9629) of
+    the lanes."""
     rows, unroll, slots = 4, 4, 8
     kw = dict(min_it=band[0], max_it=band[1], steps_per_pass=steps,
               steps_per_flush=flush, inner_unroll=unroll,

@@ -81,7 +81,6 @@ def test_render_color_not_yet_ported(capsys):
     (dict(refill_rng="hardware"), "hardware generator"),
     (dict(refill_rng="hardware_rw"), "hardware generator"),
     (dict(scatter="pallas"), "TPU deposit backend"),
-    (dict(scatter="bigtiles"), "TPU deposit backend"),
     (dict(scatter="sorted"), "TPU deposit backend"),
     (dict(replay_block=1024), "blocked replay"),
     (dict(engine="pallas"), "TPU engine"),
@@ -104,7 +103,7 @@ def test_unported_options_refused(opts, match):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--scatter", "pallas"], ["--replay", "host"],
+    ["--scatter", "pallas"], ["--scatter", "sorted"], ["--replay", "host"],
     ["--sampler", "mh", "--hist-dtype", "uint64"],
 ])
 def test_cli_refuses_unported_flags(argv):
@@ -118,6 +117,8 @@ def test_cli_refuses_unported_flags(argv):
     dict(engine="oracle", precision="float64"),
     dict(precision="extended", emit_filter="canvas"),
     dict(sampler="mh"), dict(sampler="mh", precision="extended"),
+    dict(scatter="bigtiles"), dict(scatter="bigtiles", precision="extended"),
+    dict(scatter="bigtiles", sampler="mh"),
 ])
 def test_ported_engine_options_validate(opts):
     config.EngineOptions(**opts).validate()

@@ -13,6 +13,7 @@ comparison is bitwise — including a whole engine pass on the card against
 the same pass on the CPU.
 """
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -384,3 +385,142 @@ def test_mh_engine_pass_on_card_matches_cpu(cuda, extended):
     assert sg == sc
     for f, x, y in zip(lg._fields, lg, lc):
         assert _same(x, y), f
+
+
+def _sorted_streams(nbins, n, device):
+    """Sorted id streams of the bigtiles deposit's cases: random with 10%
+    sentinels, clustered in 1/50 of the bins, one id repeated across
+    several chunks, and ids beyond the sentinel and below zero."""
+    g = torch.Generator(device=device).manual_seed(nbins % 1000)
+    rnd = torch.randint(0, nbins, (n,), generator=g, device=device,
+                        dtype=torch.int32)
+    rnd[torch.rand(n, generator=g, device=device) < 0.1] = nbins
+    clustered = torch.randint(0, max(nbins // 50, 1), (n,), generator=g,
+                              device=device, dtype=torch.int32)
+    repeated = torch.full((3 * 8192 + 17,), nbins // 3, dtype=torch.int32,
+                          device=device)
+    edges = torch.tensor([-5, 0, 0, nbins - 1, nbins, nbins + 9, 2**31 - 1],
+                         dtype=torch.int32, device=device)
+    return [torch.sort(x).values for x in (rnd, clustered, repeated, edges)]
+
+
+@pytest.mark.parametrize("w,h", [(1000, 1000), (6000, 4500), (20000, 20000)])
+def test_bigtiles_deposit_kernel_matches_plain(cuda, w, h):
+    nbins = w * h
+    for ids in _sorted_streams(nbins, 1 << 22, cuda):
+        for chunk in (0, 256):
+            hk = torch.zeros(nbins, dtype=torch.int32, device=cuda)
+            hp = torch.zeros_like(hk)
+            launches.reset()
+            binning.bigtiles_deposit(hk, ids, chunk=chunk)
+            assert launches.COUNTS["bigtiles_deposit"] == 1
+            assert launches.COUNTS["bigtiles_deposit_plain"] == 0
+            binning.bigtiles_deposit_plain(hp, ids)
+            assert torch.equal(hk, hp)
+            want = int(((ids >= 0) & (ids < nbins)).sum())
+            assert int(hk.to(torch.int64).sum()) == want
+        del hk, hp
+
+
+def _offsets(it):
+    off, ends = binning.id_offsets(it)
+    return off, int(ends[-1])
+
+
+@pytest.mark.parametrize("name", sorted(FRACTALS))
+def test_replay_ids_kernel_matches_plain(cuda, name):
+    canvas = config.Canvas(width=300, height=200, min_real=-2.0,
+                           max_real=1.0, min_imag=-1.2, max_imag=1.2)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    k = 1 << 16
+    cr = torch.rand(k, generator=g, device=cuda) * 3.0 - 2.0
+    ci = torch.rand(k, generator=g, device=cuda) * 3.0 - 1.5
+    it = torch.randint(-1, 200, (k,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    it = torch.sort(it, descending=True).values
+    off, n = _offsets(it)
+    kw = dict(canvas=canvas, fractal=FRACTALS[name])
+    launches.reset()
+    ids_k, hits_k = binning.replay_ids(cr, ci, it, off, n, **kw)
+    assert launches.COUNTS["replay_ids"] == 1
+    ids_p, hits_p = binning.replay_ids_plain(cr, ci, it, off, n, **kw)
+    assert torch.equal(ids_k, ids_p)
+    assert int(hits_k) == int(hits_p) == int((ids_k < canvas.num_pixels).sum())
+    # The ids count into the fused kernel's histogram.
+    hf = torch.zeros(canvas.num_pixels, dtype=torch.int32, device=cuda)
+    binning.replay_deposit(hf, cr, ci, it, **kw)
+    hb = binning.bigtiles_deposit(torch.zeros_like(hf),
+                                  torch.sort(ids_k).values)
+    assert torch.equal(hb, hf)
+
+
+@pytest.mark.parametrize("name", sorted(FRACTALS))
+def test_replay_ids_ext_kernel_matches_plain(cuda, name):
+    canvas = config.Canvas(width=300, height=200, min_real=-2.0,
+                           max_real=1.0, min_imag=-1.2, max_imag=1.2)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    k = 1 << 14
+    kr = torch.randint(0, 1 << 24, (k,), generator=g, device=cuda).float()
+    ki = torch.randint(0, 1 << 24, (k,), generator=g, device=cuda).float()
+    it = torch.randint(-1, 200, (k,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    it = torch.sort(it, descending=True).values
+    off, n = _offsets(it)
+    kw = dict(canvas=canvas, fractal=FRACTALS[name], sample_domain=FAST)
+    launches.reset()
+    ids_k, hits_k = binning.replay_ids_ext(kr, ki, it, off, n, **kw)
+    assert launches.COUNTS["replay_ids_ext"] == 1
+    ids_p, hits_p = binning.replay_ids_ext_plain(kr, ki, it, off, n, **kw)
+    assert torch.equal(ids_k, ids_p)
+    assert int(hits_k) == int(hits_p) > 0
+    hf = torch.zeros(canvas.num_pixels, dtype=torch.int32, device=cuda)
+    binning.replay_deposit_ext(hf, kr, ki, it, **kw)
+    hb = binning.bigtiles_deposit(torch.zeros_like(hf),
+                                  torch.sort(ids_k).values)
+    assert torch.equal(hb, hf)
+
+
+@pytest.mark.parametrize("extended", [False, True])
+def test_bigtiles_engine_pass_on_card_matches_fused(cuda, extended,
+                                                   monkeypatch):
+    """Three engine passes with --scatter bigtiles on the card equal the
+    fused route's passes on the card and the bigtiles passes on the CPU,
+    bitwise: histogram and every counter. A small id budget splits each
+    pass into several groups."""
+    cfg = config.RenderConfig(
+        canvas=config.Canvas(width=64, height=48),
+        options=config.EngineOptions(lane_rows=8, steps_per_pass=256,
+                                     steps_per_flush=32,
+                                     replay_capacity=1 << 14),
+    )
+    if extended:
+        cfg = config.RenderConfig(
+            canvas=config.Canvas(width=64, height=48),
+            band=config.IterationBand(max_escape_iterations=400,
+                                      min_escape_iterations=20),
+            sample_domain=FAST,
+            options=config.EngineOptions(
+                precision="extended", lane_rows=8, steps_per_pass=512,
+                steps_per_flush=32, replay_capacity=1 << 12),
+        )
+    monkeypatch.setattr(binning, "BIGTILES_ID_BUDGET", 1 << 12)
+    runs = []
+    for dev, scatter in ((cuda, "bigtiles"), (cuda, "auto"),
+                         ("cpu", "bigtiles")):
+        opts = dataclasses.replace(cfg.options, scatter=scatter)
+        eng = CudaEngine(dataclasses.replace(cfg, options=opts), device=dev)
+        st = eng.init_state(None)
+        launches.reset()
+        for p in range(3):
+            st = eng.run_pass(st, p)
+        if dev == cuda and scatter == "bigtiles":
+            kernel = "replay_ids_ext" if extended else "replay_ids"
+            assert launches.COUNTS[kernel] > 3
+            assert launches.COUNTS["bigtiles_deposit"] > 3
+            assert launches.COUNTS[kernel + "_plain"] == 0
+        runs.append((eng.histogram(st), eng.stats(st)))
+    (hb, sb), (hf, sf), (hc, sc) = runs
+    assert hb.sum() > 0
+    np.testing.assert_array_equal(hb, hf)
+    np.testing.assert_array_equal(hb, hc)
+    assert sb == sf == sc

@@ -227,7 +227,7 @@ CSRC = Path(df32.__file__).resolve().parent.parent / "csrc"
 FP = ctypes.POINTER(ctypes.c_float)
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="session")
 def harness(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
