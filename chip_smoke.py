@@ -62,10 +62,25 @@ Phases (each fails the run on any mismatch):
      sort, the deposit, the fused replay-deposit of the same batch, the
      plain versions and index_add_), and both routes' pass times and
      device profiles.
+  7. The df32 replay's long-orbit floor: the zoom batch's longest orbit,
+     at 19,999 steps, replayed alone (one thread in its own launch), and
+     at the head of the whole batch and of its first 32..16384 orbits, by
+     replay_deposit_ext and by replay_ids_ext (bigzoom canvas); the batch
+     at 4..32 resident warps per SM; both kernels' registers.
+  8. Engine passes with the fused replay overlapping the next pass (its
+     side streams, as the driver runs them) against the same passes with
+     a synchronize() after each and with the replay on the main stream:
+     histogram and every stat bitwise at the default, deep and zoom cells.
+  Phases 2, 3 and 3b hold the two df32 replay kernels on a batch whose
+  head orbit is set to 19,999 steps.
 
 ``--ext-budget-sweep`` instead builds and times deep-zoom engine passes at
 2^27..2^30 lane-steps per pass (the measurement behind keeping
 ``cuda_engine.LANE_STEP_BUDGET`` at extended precision).
+``--replay-study`` builds and runs phase 7, then times 16 engine passes of
+six cells on the host clock (synchronizing every 8, as the driver does).
+Both run against the previous commit's package as well (a copy beside
+this script), for a before-and-after in one call.
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
@@ -87,6 +102,11 @@ OUT = os.path.join(ROOT, "build", "chip_smoke")
 #: tensor cores, and HBM3 bandwidth.
 PEAK_OPS = 67e12
 PEAK_BYTES = 3.35e12
+#: The card's unfused issue rate: 132 SMs x 128 lanes x 1.98 GHz. The
+#: kernels build with -fmad=false, so each counted operation is one issued
+#: instruction and an operation-bound kernel cannot beat ops / PEAK_ISSUE
+#: (PEAK_OPS counts an FFMA as two operations).
+PEAK_ISSUE = 33.5e12
 #: 32-bit operations per unit of work, counted from csrc/*.cu: a refill
 #: draw (Threefry-2x32 + domain map + cull), a replayed orbit point (step
 #: + bin), a deposited id, a Threefry word. The df32 counts: a draw adds
@@ -143,6 +163,14 @@ MH_MEASURE_PASSES, MH_MEASURE_BURNIN = 128, 32
 UNIFORM_MEASURE_PASSES = 96
 #: Oracle passes over the zoom window (65,536 float64 samples each).
 ORACLE_PASSES = 2
+#: The df32 replay's long-orbit floor (phase 7): steps of the measured
+#: orbit, and the heads of the descending zoom batch it is timed inside.
+FLOOR_STEPS = 19_999
+FLOOR_HEADS = (32, 128, 256, 1024, 4096, 16384)
+#: Cells and routes whose engine passes phase 7 times.
+STUDY_CELLS = (("default", "auto"), ("deep", "auto"), ("zoom", "auto"),
+               ("northstar", "auto"), ("bigzoom", "auto"),
+               ("bigzoom", "bigtiles"))
 #: Every hand-written kernel: source, the TPU code it replaces, and the
 #: cell whose main-path run counts its launches and gives its shapes (None:
 #: no entry point launches it; its record comes from phase 3).
@@ -204,6 +232,25 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def pass_ms(eng, state, first: int, reps: int) -> float:
+    """Mean milliseconds per engine pass over ``reps`` passes (CUDA events,
+    after one warm pass); the end event waits for the fused replay's side
+    streams, so the last pass's replay is counted."""
+    import torch
+
+    eng.run_pass(state, first)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for p in range(reps):
+        eng.run_pass(state, first + 1 + p)
+    eng.wait_replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -477,6 +524,7 @@ def phase_deposit_ext(dev, res, tn, cfg):
 
     kr, ki, it, _ = compact(res.emit_c, res.emit_it, (1, 2),
                             tn.replay_capacity, tn.max_it)
+    it[0] = FLOOR_STEPS - 1  # a 19,999-step orbit at the batch's head
     kw = dict(canvas=cfg.canvas, fractal=get_fractal(cfg.fractal),
               sample_domain=cfg.sample_domain)
     hk = torch.zeros(cfg.canvas.num_pixels, dtype=torch.int32, device=dev)
@@ -904,8 +952,6 @@ def cell_times(dev, name, with_plain):
     from a lane state carried over some passes), a whole engine pass, and
     the device's busy share. ``with_plain`` adds the plain versions and the
     library calls (the default cell; they take seconds at full width)."""
-    import itertools
-
     import torch
 
     from cudabrot_tpu_torch.engines import cuda_engine as ce
@@ -978,8 +1024,7 @@ def cell_times(dev, name, with_plain):
     k3_bound, k3_by = bound_ms(OPS_THREEFRY_WORD * slots, 8 * slots)
     t_compact = time_ms(lambda: ce.compact(res.emit_c, res.emit_it, key,
                                            tn.replay_capacity, tn.max_it), 5)
-    pass_ids = itertools.count(warm_passes + 2)
-    pass_ms = time_ms(lambda: eng.run_pass(state, next(pass_ids)), 10)
+    pass_time = pass_ms(eng, state, warm_passes + 2, 10)
     busy, span, prof_ms = device_profile(eng, state, 100, 16)
 
     log(f"  geometry: {n_lanes} lanes, {tn.steps_per_pass} steps per pass, "
@@ -991,7 +1036,7 @@ def cell_times(dev, name, with_plain):
         f"{k2_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_by})")
     log(f"  threefry_bits: {slots} words; kernel {k3_ms:.4f} ms, bound "
         f"{k3_bound:.4f} ms ({k3_by}); whole compaction {t_compact:.4f} ms")
-    log(f"  {name} pass (CUDA events, 10 passes): {pass_ms:.4f} ms")
+    log(f"  {name} pass (CUDA events, 10 passes): {pass_time:.4f} ms")
     if busy is None:
         log(f"  {name} device profile: not measured ({span})")
     else:
@@ -1053,8 +1098,6 @@ def mh_cell_times(dev, name):
     and index_add_ of its materialized (bin, weight) pairs, a one-id
     deposit_ids launch (the floor a deposit this small is up against), a
     whole engine pass, and the device's busy share."""
-    import itertools
-
     import torch
 
     from cudabrot_tpu_torch.engines import cuda_engine as ce
@@ -1119,8 +1162,7 @@ def mh_cell_times(dev, name):
     one_id = torch.zeros(1, dtype=torch.int32, device=dev)
     launch_ms = time_ms(lambda: binning.deposit_ids(hp, one_id), 50)
 
-    pass_ids = itertools.count(warm_passes + 2)
-    pass_ms = time_ms(lambda: eng.run_pass(state, next(pass_ids)), 5)
+    pass_time = pass_ms(eng, state, warm_passes + 2, 5)
     busy, span, prof_ms = device_profile(eng, state, 100, 8 if ext else 16)
 
     log(f"  geometry: {n_lanes} lanes, {tn.steps_per_pass} steps per pass, "
@@ -1134,7 +1176,7 @@ def mh_cell_times(dev, name):
         f"{k2_bound:.4f} ms ({k2_by}), plain version {k2_plain:.4f} ms, "
         f"index_add_ of the materialized pairs {k2_lib:.4f} ms, a "
         f"one-id deposit_ids launch {launch_ms:.4f} ms")
-    log(f"  {name} pass (CUDA events, 5 passes): {pass_ms:.4f} ms")
+    log(f"  {name} pass (CUDA events, 5 passes): {pass_time:.4f} ms")
     if busy is None:
         log(f"  {name} device profile: not measured ({span})")
     else:
@@ -1180,6 +1222,11 @@ def phase_kernel_times(dev, main_runs, errs, ext_records, deposit_ids):
         check(all(key in r for key in keys)
               and all(r[key] is not None for key in keys[:-1]),
               f"kernel record of {r['name']} is complete")
+        if r["bound_by"] == "operations":
+            floor = r["bound_ms"] * PEAK_OPS / PEAK_ISSUE
+            log(f"  {r['name']}: unfused issue floor {floor:.4f} ms "
+                f"(operations / {PEAK_ISSUE:.3g}); kernel {r['ms']:.4f} ms, "
+                f"{floor / r['ms']:.3f} of it")
     return [{key: r[key] for key in keys} for r in records]
 
 
@@ -1274,6 +1321,7 @@ def phase_bigtiles_kernels(dev, batches, ext_res, ext_tn, ext_cfg):
 
     kr, ki, ite, _ = compact(ext_res.emit_c, ext_res.emit_it, (1, 2),
                              ext_tn.replay_capacity, ext_tn.max_it)
+    ite[0] = FLOOR_STEPS - 1  # a 19,999-step orbit at the batch's head
     offe, ne = id_offsets(ite)
     canvas = cell_config("bigzoom").canvas
     kw = dict(canvas=canvas, fractal=fr, sample_domain=ext_cfg.sample_domain)
@@ -1403,8 +1451,6 @@ def big_cell_times(dev, name, with_plain):
     plain id replay. Then both routes' pass times (CUDA events) and device
     profiles: the bigtiles route's busy share against the fused route's
     shows what its one synchronization per pass costs."""
-    import itertools
-
     import torch
 
     from cudabrot_tpu_torch.engines import cuda_engine as ce
@@ -1507,12 +1553,11 @@ def big_cell_times(dev, name, with_plain):
     busy_of = {}
     for route, e, st in (("bigtiles", eng, state),
                          ("auto", fused_eng, fused_state)):
-        pass_ids = itertools.count(warm + 2)
-        pass_ms = time_ms(lambda: e.run_pass(st, next(pass_ids)), 5)
+        pass_time = pass_ms(e, st, warm + 2, 5)
         busy, span, prof = device_profile(e, st, 100, 8,
                                           PROFILE_GROUPS + SORT_GROUP)
         log(f"  {name} --scatter {route} pass (CUDA events, 5 passes): "
-            f"{pass_ms:.4f} ms")
+            f"{pass_time:.4f} ms")
         if busy is None:
             log(f"  {name} --scatter {route} device profile: not measured "
                 f"({span})")
@@ -1528,6 +1573,198 @@ def big_cell_times(dev, name, with_plain):
             f"synchronization per pass costs "
             f"{busy_of['auto'] - busy_of['bigtiles']:.4f} of the span")
     return rec
+
+
+# ----------------------------------------------------------------------
+# The df32 replay's long-orbit floor and the engine's pass times.
+
+
+def kept_batch(dev, name, scatter="auto", warm=8):
+    """A cell's engine, its lane state after ``warm`` passes, and the kept
+    batch of the next pass: (eng, state, (xr, xi, iters)), compacted and
+    ordered by descending orbit length as the main path replays it."""
+    from cudabrot_tpu_torch.engines import cuda_engine as ce
+    from cudabrot_tpu_torch.ops import classify as cls
+    from cudabrot_tpu_torch.ops import classify_ext as cx
+    from cudabrot_tpu_torch.ops import prng
+
+    cfg = cell_config(name, scatter)
+    eng = ce.CudaEngine(cfg, device=dev)
+    tn = eng.tuning
+    state = eng.init_state(None)
+    for p in range(warm):
+        eng.run_pass(state, p)
+    spec = dict(fractal=eng.fractal, min_it=tn.min_it, max_it=tn.max_it,
+                steps_per_pass=tn.steps_per_pass,
+                steps_per_flush=tn.steps_per_flush, cycle_detection=True,
+                inner_unroll=tn.inner_unroll,
+                sample_domain=cfg.sample_domain)
+    if eng.extended:
+        classify = cx.classify_pass_ext
+    else:
+        classify = cls.classify_pass
+        spec["thin_tracking"] = tn.thin_tracking
+    key = prng.pass_key(cfg.seed, 0, warm + 1)
+    res = classify(clone_state(state["lanes"]), prng.bits_host(key, 2),
+                   **spec)
+    xr, xi, it, _ = ce.compact(res.emit_c, res.emit_it, key,
+                               tn.replay_capacity, tn.max_it)
+    return eng, state, (xr, xi, it)
+
+
+def registers(lib, substr):
+    """(kernel, registers) of the entry functions of a library's last
+    build whose mangled name holds ``substr`` (nvcc -Xptxas -v)."""
+    from cudabrot_tpu_torch.ops import _build
+
+    out, entry = [], None
+    for line in _build.ptxas_report(lib).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line and entry and substr in entry:
+            out.append((entry, int(line.split("Used")[1].split()[0])))
+            entry = None
+    return out
+
+
+def phase_replay_floor(dev, card):
+    """What bounds the two df32 replay kernels at the zoom cell's batch:
+    the lone-orbit floor (the batch's longest orbit, set to FLOOR_STEPS
+    steps, replayed alone: one thread in its own launch), the same orbit
+    at the head of the whole batch, and the batch's heads of FLOOR_HEADS
+    orbits; the same for replay_ids_ext at the bigzoom canvas; each
+    kernel's registers. The time of a lone orbit is its dependent df32
+    chain; what the batch adds to it is contention for issue slots and
+    layout. Returns the lone-orbit times."""
+    import torch
+
+    from cudabrot_tpu_torch.ops import binning
+
+    log("== phase 7: the df32 replay's long-orbit floor (zoom batch)")
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=False).stdout.strip()
+    log(f"  card: {card}; max SM clock {clocks}")
+    eng, _, (kr, ki, it) = kept_batch(dev, "zoom")
+    cfg = eng.cfg
+    head = it.clone()
+    head[0] = FLOOR_STEPS - 1
+    orbits = int((it >= 0).sum())
+    log(f"  zoom batch: {orbits} orbits, longest {int(it[0]) + 1} steps "
+        f"(timed at {FLOOR_STEPS}), "
+        f"{int(torch.where(it >= 0, it + 1, 0).sum())} points")
+    out = {}
+    big = cell_config("bigzoom").canvas
+    for kernel, canvas in (("replay_deposit_ext", cfg.canvas),
+                           ("replay_ids_ext", big)):
+        kw = dict(canvas=canvas, fractal=eng.fractal,
+                  sample_domain=cfg.sample_domain)
+        hist = torch.zeros(canvas.num_pixels, dtype=torch.int32, device=dev)
+
+        def call(n, its=head):
+            if kernel == "replay_deposit_ext":
+                return lambda: binning.replay_deposit_ext(
+                    hist, kr[:n], ki[:n], its[:n], **kw)
+            off, ends = binning.id_offsets(its[:n])
+            n_ids = int(ends[-1])
+            return lambda: binning.replay_ids_ext(
+                kr[:n], ki[:n], its[:n], off, n_ids, **kw)
+
+        # Three rounds, interleaved: the card's clock under this light load
+        # moves between calls, so each figure is the least of its rounds.
+        rounds = []
+        for _ in range(3):
+            rounds.append({n: time_ms(call(n), 5)
+                           for n in (1, *FLOOR_HEADS, kr.numel())})
+            rounds[-1]["as_is"] = time_ms(call(kr.numel(), it), 5)
+        best = {n: min(r[n] for r in rounds) for n in rounds[0]}
+        lone, whole = best[1], best[kr.numel()]
+        out[kernel] = lone
+        log(f"  {kernel} ({canvas.width}x{canvas.height}), least of 3 "
+            f"rounds: lone orbit of {FLOOR_STEPS} steps {lone:.4f} ms; at "
+            f"the head of the batch's "
+            + ", ".join(f"{n} orbits {best[n]:.4f}" for n in FLOOR_HEADS)
+            + f", all {kr.numel()} {whole:.4f} ms (the batch as compacted "
+            f"{best['as_is']:.4f}); batch / lone {whole / lone:.3f}")
+        log(f"  {kernel} rounds (lone, all): " + "; ".join(
+            f"{r[1]:.4f}, {r[kr.numel()]:.4f}" for r in rounds))
+        warps = getattr(binning, "REPLAY_EXT_WARPS_PER_SM", None)
+        if warps is not None:
+            sweep = {}
+            for w in (4, 8, 16, 32, 4):
+                binning.REPLAY_EXT_WARPS_PER_SM = w
+                sweep[w] = min(sweep.get(w, 1e9), time_ms(call(kr.numel()), 5))
+            binning.REPLAY_EXT_WARPS_PER_SM = warps
+            log(f"  {kernel}: the batch at resident warps per SM "
+                + ", ".join(f"{w}: {t:.4f} ms" for w, t in sweep.items())
+                + f" (the kernel's choice: {warps})")
+        del hist
+    for lib, sub in (("deposit_ext", "replay"), ("deposit", "replay")):
+        for entry, regs in registers(lib, sub):
+            log(f"  registers [{lib}] {entry}: {regs}")
+    return out
+
+
+def phase_pass_times(dev, card, passes=16):
+    """Engine passes of STUDY_CELLS on the host clock, as the driver runs
+    them (synchronize every 8 passes, and at the end), after 8 passes of
+    warm-up: ms per pass, lane-steps/s and deposited points/s."""
+    import torch
+
+    log(f"== phase 7b: engine passes, host clock over {passes} passes "
+        f"({card})")
+    for name, scatter in STUDY_CELLS:
+        eng, state, _ = kept_batch(dev, name, scatter)
+        eng.synchronize()
+        hits0 = int(state["dev_hits"])
+        t0 = time.perf_counter()
+        for p in range(passes):
+            eng.run_pass(state, 100 + p)
+            if (p + 1) % 8 == 0:
+                eng.synchronize()
+        eng.synchronize()
+        sec = time.perf_counter() - t0
+        hits = int(state["dev_hits"]) - hits0
+        log(f"  {name} --scatter {scatter}: {1e3 * sec / passes:.4f} ms per "
+            f"pass, {eng.steps_per_pass * passes / sec:.4e} lane-steps/s, "
+            f"{hits / sec:.4e} deposited points/s")
+        del eng, state
+        torch.cuda.empty_cache()
+
+
+def phase_overlap(dev):
+    """Engine passes with the fused replay on its side streams (as the
+    driver runs them) against the same passes with a synchronize() after
+    each and against the replay on the main stream: histogram and every
+    stat bitwise, at the default, deep and zoom cells (8 passes each)."""
+    import numpy as np
+
+    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
+
+    log("== phase 8: overlapped passes vs passes one after another")
+    for name in ("default", "deep", "zoom"):
+        runs = {}
+        for mode in ("overlap", "serial", "main"):
+            eng = CudaEngine(cell_config(name), device=dev)
+            check(len(eng.replay_streams) == 2,
+                  f"{name}: the fused replay has its side streams")
+            if mode == "main":
+                eng.replay_streams = []
+            state = eng.init_state(None)
+            for p in range(8):
+                eng.run_pass(state, p)
+                if mode == "serial":
+                    eng.synchronize()
+            runs[mode] = (eng.histogram(state), eng.stats(state))
+        (ho, so), (hs, ss), (hm, sm) = (runs[m] for m in
+                                        ("overlap", "serial", "main"))
+        check(np.array_equal(ho, hs) and np.array_equal(ho, hm),
+              f"{name}: overlapped histogram == serial == main stream, "
+              f"bitwise")
+        check(so == ss == sm and int(ho.sum(dtype=np.uint64))
+              == so["on_canvas_points"] > 0,
+              f"{name}: every stat equal; histogram sum == on_canvas_points "
+              f"({so['on_canvas_points']})")
 
 
 def ext_budget_sweep(dev):
@@ -1589,6 +1826,12 @@ def main() -> int:
         ext_budget_sweep(dev)
         log(card)
         return 0
+    if sys.argv[1:] == ["--replay-study"]:
+        phase_build()
+        phase_replay_floor(dev, card)
+        phase_pass_times(dev, card)
+        log(card)
+        return 0
     try:
         phase_build()
         batches, errs = phase_classify(dev)
@@ -1608,6 +1851,8 @@ def main() -> int:
         phase_oracle(main_runs["zoom"][0])
         phase_mh_measure()
         main_runs.update(phase_big_cells(dev))
+        phase_replay_floor(dev, card)
+        phase_overlap(dev)
         kernels = phase_kernel_times(
             dev, main_runs, errs,
             dict(classify_ext=ext_classify, replay_deposit_ext=ext_replay,

@@ -67,7 +67,11 @@ def state_from_jax(np_state: dict, device="cpu") -> dict:
 
 
 def state_to_numpy(state: dict) -> dict:
-    """This package's state in the JAX engine's numpy layout."""
+    """This package's state in the JAX engine's numpy layout. On the card
+    it synchronizes the device first: the engine's fused replay may still
+    be adding to the histogram and its count on a side stream."""
+    if state["hist"].is_cuda:
+        torch.cuda.synchronize(state["hist"].device)
     out = {
         "hist": state["hist"].cpu().numpy().view(np.uint32).copy(),
         "lanes": tuple(t.cpu().numpy().copy() for t in state["lanes"]),

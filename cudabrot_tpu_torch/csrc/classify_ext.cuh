@@ -222,7 +222,8 @@ struct ReplayExtArgs {
   df::CanvasQDf q;
 };
 
-// iargs: fractal, k, width, height.
+// iargs: fractal, k, width, height (the kernels' launchers also read
+//        iargs[4], the resident warps).
 // fargs: centre (rh, rl, ih, il), step_r, step_i, canvas minimum (rh, rl,
 //        ih, il), inverse pitches (re, im).
 inline ReplayExtArgs replay_ext_args(const void* kr, const void* ki,
@@ -247,22 +248,34 @@ inline ReplayExtArgs replay_ext_args(const void* kr, const void* ki,
   return a;
 }
 
-// Replays emission i: c rebuilt from its grid indices, z starts at c,
-// steps s = 0..iters recorded including the escape point, each step's bin
-// going to the sink (orbit.cuh: DepositSink adds it to a.hist, IdSink
-// writes it into the id stream). Returns the on-canvas point count.
+// Replays emission i, whose orbit records n + 1 points (n = its iters):
+// c rebuilt from its grid indices, z starts at c, steps s = 0..n recorded
+// including the escape point, each step's bin going to the sink
+// (orbit.cuh: DepositSink adds it to a.hist, IdSink and CanvasIdSink
+// write it into the id stream). Returns the on-canvas point count.
+//
+// The loop runs `steps` >= n + 1 times: a kernel runs each warp's lanes to
+// its longest lane's length together, so the loop never diverges (a
+// diverged warp spends issue slots switching to its finished lanes); the
+// steps past n give the sink b = -1, which records nothing, and count
+// nothing. It is pipelined by one step: point s is binned after step
+// s + 1 is taken, so the binning (which the orbit never reads) and the
+// next step's dependent df32 chain sit in one iteration and the compiler
+// interleaves them. The points and their bins are those of the plain
+// loop.
 template <int FR, class Sink>
-CB_HD uint32_t replay_ext_one(const ReplayExtArgs& a, int i,
-                              const Sink& sink) {
-  const int n = a.iters[i];
-  if (n < 0) return 0;
+CB_HD uint32_t replay_ext_one(const ReplayExtArgs& a, int i, int n,
+                              int steps, const Sink& sink) {
   const df::F2 cr = grid_sample(a.center_r, a.kr[i], a.step_r);
   const df::F2 ci = grid_sample(a.center_i, a.ki[i], a.step_i);
   df::F2 zr = cr, zi = ci;
+  df::complex_sqr_add<FR>(zr, zi, cr, ci);
   uint32_t local = 0;
-  for (int s = 0; s <= n; ++s) {
+  for (int s = 0; s < steps; ++s) {
+    const df::F2 pr = zr, pi = zi;
     df::complex_sqr_add<FR>(zr, zi, cr, ci);
-    const int64_t b = df::bin_id_df(a.q, zr, zi);
+    const int64_t bin = df::bin_id_df(a.q, pr, pi);
+    const int64_t b = s <= n ? bin : -1;
     sink(s, b);
     local += b >= 0;
   }

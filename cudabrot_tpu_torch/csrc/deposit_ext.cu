@@ -4,128 +4,189 @@
 // Replaces the df32 device replay of the TPU engine,
 // cudabrot_tpu/engines/pallas_engine.py _blocked_replay_ext, together with
 // the scatter it feeds (cudabrot_tpu/ops/binning.py _pallas_scatter_kernel
-// through scatter_ids). One thread per kept emission rebuilds c from its
-// 24-bit grid indices exactly as the classify pass drew it, starts z at c,
-// takes iters + 1 df32 steps and bins each new point as
-// points_to_bin_ids_df does (df32 offset from the canvas minimum, times
-// the rounded inverse pitch), adding it to the histogram with atomicAdd.
-// No id stream is materialized, and the TPU version's block and chunk
-// geometry has no counterpart. The on-canvas count is summed per warp and
-// added to one uint64.
+// through scatter_ids). Each kept emission is replayed by one thread: c is
+// rebuilt from its 24-bit grid indices exactly as the classify pass drew
+// it, z starts at c, iters + 1 df32 steps are taken and each new point is
+// binned as points_to_bin_ids_df does (df32 offset from the canvas
+// minimum, times the rounded inverse pitch). The fused kernel adds every
+// on-canvas point to the histogram with atomicAdd; no id stream is
+// materialized, and the TPU version's block and chunk geometry has no
+// counterpart. The on-canvas count is summed per warp and added to one
+// uint64.
 //
-// Bound. Operations: ~120 f32 operations per replayed point (94 for the
-// df32 step, 26 for the df32 bin offset and quantization) against the
-// card's f32 rate; bytes are 12 per emission plus the histogram. Like the
-// f32 replay (deposit.cu), long orbits are serial chains, one thread each,
-// and the df32 step's chain is about ten times longer: when few long
-// orbits are kept, their latency, not the operation rate, sets the time.
-// Emissions arrive sorted by descending orbit length, so a warp's lanes
-// run orbits of nearly equal length.
+// Bound. Operations: ~121 f32 operations per replayed point (94 for the
+// df32 step, 27 for the df32 bin offset and quantization); built with
+// -fmad=false, each is one issued instruction, so the card's unfused
+// issue rate (128 lanes per clock per SM) is the floor. Bytes: 12 per
+// emission plus the histogram. But an orbit is a serial chain of about 29
+// dependent operations per step, one thread each: at the deep zoom the
+// batch holds ~130,000 orbits of ~1,000 points, its longest ~20,000 steps,
+// and the longest orbit's chain, not the operation rate, sets the time.
+//
+// Layout. The batch arrives sorted by descending orbit length, and the
+// card's warps work through it as a queue: each resident warp takes the
+// next group of 32 consecutive emissions (a warp of nearly equal orbits)
+// from a global counter, replays it, and takes another. The launch puts
+// REPLAY_EXT_WARPS_PER_SM warps on each SM in blocks of four (one per SM
+// sub-partition, that is per warp scheduler), so the longest groups start
+// first, each on a scheduler of its own, and the shorter groups fill the
+// other warps as they free up: the longest orbit's chain runs with as few
+// warps competing for its scheduler's issue slots as the launch allows.
 //
 // Integer adds commute and the arithmetic rounds once per operation, so
-// the histogram equals ops/binning.replay_deposit_ext_plain bitwise.
+// any mapping of emissions to threads gives the histogram of
+// ops/binning.replay_deposit_ext_plain, bitwise.
 //
-// cb_replay_ids_ext is the same orbit loop (classify_ext.cuh replay_ext_one)
-// with the id sink: emission i writes the bin id of each of its iters + 1
-// steps, or the sentinel width * height off the canvas, at off[i] + s of a
-// flat int32 stream, which the bigtiles route sorts and counts
-// (csrc/bigtiles.cu). Every slot is written exactly once, so no atomics;
-// its ids are the fused kernel's bins exactly. It replaces the scan of
-// pallas_engine.py _blocked_replay_ext that materializes the ids for the
-// TPU's scatter. Bound: the same 121 operations per point, plus 4 bytes
-// written per id.
+// cb_replay_ids_ext is the same queue and orbit loop (classify_ext.cuh
+// replay_ext_one) with the on-canvas id sink (orbit.cuh CanvasIdSink):
+// emission i writes the bin id of each on-canvas step s at off[i] + s of a
+// flat int32 stream that the wrapper filled with the sentinel
+// width * height beforehand, so the stream equals, word for word, the one
+// a store per point (orbit.cuh IdSink) writes, and the bigtiles route
+// sorts and counts it (csrc/bigtiles.cu). At the deep zoom 99.3% of the
+// points are off the canvas: they cost no store. Every slot is written at
+// most once, so no atomics. It replaces the scan of pallas_engine.py
+// _blocked_replay_ext that materializes the ids for the TPU's scatter.
+// Bound: the same 121 operations per point, plus 4 bytes per id for the
+// fill and 4 per on-canvas id.
 #include <cuda_runtime.h>
 
 #include "classify_ext.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kWarpsPerBlock = 4;  // one warp per SM sub-partition
+constexpr int kBlock = 32 * kWarpsPerBlock;
+
+// The queue: each warp takes the next group of 32 emissions until none is
+// left; sink_of(i) is emission i's sink. The group index is broadcast from
+// lane 0, so the loop's exit is warp-uniform and every lane reaches the
+// warp sum. The lanes replay their orbits in step, for the group's longest
+// orbit; a lane past the batch's end runs the group's first emission and
+// records nothing (n = -1).
+template <int FR, class SinkOf>
+__device__ __forceinline__ void replay_queue(const cb::ReplayExtArgs& a,
+                                             unsigned long long* next,
+                                             unsigned long long* hits,
+                                             const SinkOf& sink_of) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long groups = (unsigned long long)(a.k + 31) / 32;
+  uint32_t local = 0;
+  for (;;) {
+    unsigned long long g = 0;
+    if (lane == 0) g = atomicAdd(next, 1ull);
+    g = __shfl_sync(0xffffffffu, g, 0);
+    if (g >= groups) break;
+    const int i = int(g) * 32 + lane;
+    const int e = i < a.k ? i : int(g) * 32;
+    const int n = i < a.k ? a.iters[i] : -1;
+    const int steps = __reduce_max_sync(0xffffffffu, n) + 1;
+    if (steps > 0)
+      local += cb::replay_ext_one<FR>(a, e, n, steps, sink_of(e));
+  }
+  cb::warp_sum_add(hits, local);
+}
 
 template <int FR>
 __global__ void __launch_bounds__(kBlock)
-    replay_deposit_ext_kernel(cb::ReplayExtArgs a, unsigned long long* hits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const uint32_t local =
-      i < a.k ? cb::replay_ext_one<FR>(a, i, cb::DepositSink{a.hist}) : 0u;
-  cb::warp_sum_add(hits, local);
+    replay_deposit_ext_kernel(cb::ReplayExtArgs a, unsigned long long* next,
+                              unsigned long long* hits) {
+  replay_queue<FR>(a, next, hits,
+                   [&](int) { return cb::DepositSink{a.hist}; });
 }
 
 template <int FR>
 __global__ void __launch_bounds__(kBlock)
     replay_ids_ext_kernel(cb::ReplayExtArgs a, const long long* off,
-                          int32_t* ids, unsigned long long* hits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int32_t nbins = a.q.width * a.q.height;
-  const uint32_t local =
-      i < a.k ? cb::replay_ext_one<FR>(a, i, cb::IdSink{ids + off[i], nbins})
-              : 0u;
-  cb::warp_sum_add(hits, local);
+                          int32_t* ids, unsigned long long* next,
+                          unsigned long long* hits) {
+  replay_queue<FR>(a, next, hits,
+                   [&](int i) { return cb::CanvasIdSink{ids + off[i]}; });
+}
+
+// Blocks of the launch: `warps` resident warps (iargs[4]), no more than
+// the batch has groups of 32.
+int blocks(const cb::ReplayExtArgs& a, int warps) {
+  const int groups = (a.k + 31) / 32;
+  const int w = warps < groups ? warps : groups;
+  return (w + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
 
 template <int FR>
-cudaError_t launch(const cb::ReplayExtArgs& a, unsigned long long* hits,
+cudaError_t launch(const cb::ReplayExtArgs& a, int warps,
+                   unsigned long long* next, unsigned long long* hits,
                    cudaStream_t stream) {
-  const int grid = (a.k + kBlock - 1) / kBlock;
-  replay_deposit_ext_kernel<FR><<<grid, kBlock, 0, stream>>>(a, hits);
+  replay_deposit_ext_kernel<FR>
+      <<<blocks(a, warps), kBlock, 0, stream>>>(a, next, hits);
   return cudaGetLastError();
 }
 
 template <int FR>
-cudaError_t launch_ids(const cb::ReplayExtArgs& a, const long long* off,
-                       int32_t* ids, unsigned long long* hits,
+cudaError_t launch_ids(const cb::ReplayExtArgs& a, int warps,
+                       const long long* off, int32_t* ids,
+                       unsigned long long* next, unsigned long long* hits,
                        cudaStream_t stream) {
-  const int grid = (a.k + kBlock - 1) / kBlock;
-  replay_ids_ext_kernel<FR><<<grid, kBlock, 0, stream>>>(a, off, ids, hits);
+  replay_ids_ext_kernel<FR>
+      <<<blocks(a, warps), kBlock, 0, stream>>>(a, off, ids, next, hits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Arguments as classify_ext.cuh replay_ext_args documents them; hits is
-// one uint64 the kernel adds the on-canvas point count to. Returns the
-// cudaError_t of the launch (0 = launched).
+// Arguments as classify_ext.cuh replay_ext_args documents them, and
+// iargs[4]: the resident warps to launch. next: one zeroed uint64, the
+// queue's counter; hits: one uint64 the kernel adds the on-canvas point
+// count to. Returns the cudaError_t of the launch (0 = launched).
 extern "C" int cb_replay_deposit_ext(const void* kr, const void* ki,
                                      const void* iters, void* hist,
                                      const int* iargs, const float* fargs,
-                                     void* hits, void* stream) {
+                                     void* next, void* hits, void* stream) {
   const cb::ReplayExtArgs a =
       cb::replay_ext_args(kr, ki, iters, hist, iargs, fargs);
   if (a.k <= 0) return 0;
+  if (iargs[4] <= 0) return int(cudaErrorInvalidValue);
+  auto* pn = static_cast<unsigned long long*>(next);
   auto* ph = static_cast<unsigned long long*>(hits);
   auto s = static_cast<cudaStream_t>(stream);
   switch (iargs[0]) {
-    case cb::kBuddhabrot: return int(launch<cb::kBuddhabrot>(a, ph, s));
-    case cb::kBurningShip: return int(launch<cb::kBurningShip>(a, ph, s));
+    case cb::kBuddhabrot:
+      return int(launch<cb::kBuddhabrot>(a, iargs[4], pn, ph, s));
+    case cb::kBurningShip:
+      return int(launch<cb::kBurningShip>(a, iargs[4], pn, ph, s));
     case cb::kAntiBuddhabrot:
-      return int(launch<cb::kAntiBuddhabrot>(a, ph, s));
+      return int(launch<cb::kAntiBuddhabrot>(a, iargs[4], pn, ph, s));
   }
   return int(cudaErrorInvalidValue);
 }
 
 // The id-stream replay: arguments as cb_replay_deposit_ext (hist unused);
 // off: (k,) int64 first slot of each emission; ids: the int32 stream,
-// off[k-1] + iters[k-1] + 1 slots. hits: one uint64 the kernel adds the
-// on-canvas point count to. Returns the cudaError_t of the launch.
+// off[k-1] + iters[k-1] + 1 slots, filled with the sentinel width * height
+// (the kernel writes only on-canvas ids). Returns the cudaError_t of the
+// launch.
 extern "C" int cb_replay_ids_ext(const void* kr, const void* ki,
                                  const void* iters, const void* off,
                                  void* ids, const int* iargs,
-                                 const float* fargs, void* hits,
+                                 const float* fargs, void* next, void* hits,
                                  void* stream) {
   const cb::ReplayExtArgs a =
       cb::replay_ext_args(kr, ki, iters, nullptr, iargs, fargs);
   if (a.k <= 0) return 0;
+  if (iargs[4] <= 0) return int(cudaErrorInvalidValue);
   const auto* po = static_cast<const long long*>(off);
   auto* pi = static_cast<int32_t*>(ids);
+  auto* pn = static_cast<unsigned long long*>(next);
   auto* ph = static_cast<unsigned long long*>(hits);
   auto s = static_cast<cudaStream_t>(stream);
   switch (iargs[0]) {
     case cb::kBuddhabrot:
-      return int(launch_ids<cb::kBuddhabrot>(a, po, pi, ph, s));
+      return int(launch_ids<cb::kBuddhabrot>(a, iargs[4], po, pi, pn, ph, s));
     case cb::kBurningShip:
-      return int(launch_ids<cb::kBurningShip>(a, po, pi, ph, s));
+      return int(
+          launch_ids<cb::kBurningShip>(a, iargs[4], po, pi, pn, ph, s));
     case cb::kAntiBuddhabrot:
-      return int(launch_ids<cb::kAntiBuddhabrot>(a, po, pi, ph, s));
+      return int(
+          launch_ids<cb::kAntiBuddhabrot>(a, iargs[4], po, pi, pn, ph, s));
   }
   return int(cudaErrorInvalidValue);
 }

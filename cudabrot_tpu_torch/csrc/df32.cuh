@@ -142,6 +142,8 @@ CB_HD float grid_offset(float k, float step) {
 // multiplied by the rounded inverse pitch and truncated. The range test
 // runs on the float product (for x >= 0, trunc(x) < n iff x < n), so no
 // out-of-range float is converted. Returns -1 off-canvas (NaN included).
+// Written with selects, not early returns: inside the replay's orbit loop
+// a branch would split the loop body the compiler interleaves.
 struct CanvasQDf {
   F2 min_re, min_im;
   float inv_d_re, inv_d_im;
@@ -151,11 +153,12 @@ struct CanvasQDf {
 CB_HD int64_t bin_id_df(const CanvasQDf& q, F2 re, F2 im) {
   const float dx = add(re, neg(q.min_re)).hi;
   const float dy = add(im, neg(q.min_im)).hi;
-  if (!(dx >= 0.0f) || !(dy >= 0.0f)) return -1;
   const float col = fmul(dx, q.inv_d_re);
   const float row = fmul(dy, q.inv_d_im);
-  if (!(col < float(q.width)) || !(row < float(q.height))) return -1;
-  return int64_t(int32_t(row)) * q.width + int32_t(col);
+  const bool ok = (dx >= 0.0f) & (dy >= 0.0f) & (col < float(q.width)) &
+                  (row < float(q.height));
+  const int32_t c = int32_t(ok ? col : 0.0f), r = int32_t(ok ? row : 0.0f);
+  return ok ? int64_t(r) * q.width + c : -1;
 }
 
 }  // namespace df

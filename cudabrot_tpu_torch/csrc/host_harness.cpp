@@ -4,7 +4,7 @@
 // classify_ext and replay_deposit_ext kernels (classify_ext.cuh), the
 // Metropolis-Hastings lane function and deposit (mh.cuh: classify_mh,
 // classify_ext_mh, mh_deposit), the orbit loop of the replay kernels with
-// its id sink (orbit.cuh replay_orbit: replay_ids, and replay_ids_ext
+// its id sinks (orbit.cuh replay_orbit: replay_ids, and replay_ids_ext
 // through classify_ext.cuh) and the run-length deposit of the bigtiles
 // kernel (bigtiles.cuh) are
 // __host__ __device__; this file loops them over lanes on the CPU behind
@@ -56,23 +56,46 @@ int mh_fractal(int fractal, int slots,
   return 1;
 }
 
-// One df32 replay of emission i into the sink, the instantiation picked by
-// fractal; adds its on-canvas count to total.
+// One df32 replay of emission i into the sink, for its own length (a
+// kernel's warp runs its lanes for the longest one's); adds its on-canvas
+// count to total.
+template <int FR, class Sink>
+void replay_ext_own(const cb::ReplayExtArgs& a, int i, const Sink& sink,
+                    unsigned long long& total) {
+  const int n = a.iters[i];
+  if (n >= 0) total += cb::replay_ext_one<FR>(a, i, n, n + 1, sink);
+}
+
+// replay_ext_own with the instantiation picked by fractal.
 template <class Sink>
 int replay_ext_by_fractal(int fractal, const cb::ReplayExtArgs& a, int i,
                           const Sink& sink, unsigned long long& total) {
   switch (fractal) {
     case cb::kBuddhabrot:
-      total += cb::replay_ext_one<cb::kBuddhabrot>(a, i, sink);
+      replay_ext_own<cb::kBuddhabrot>(a, i, sink, total);
       return 0;
     case cb::kBurningShip:
-      total += cb::replay_ext_one<cb::kBurningShip>(a, i, sink);
+      replay_ext_own<cb::kBurningShip>(a, i, sink, total);
       return 0;
     case cb::kAntiBuddhabrot:
-      total += cb::replay_ext_one<cb::kAntiBuddhabrot>(a, i, sink);
+      replay_ext_own<cb::kAntiBuddhabrot>(a, i, sink, total);
       return 0;
   }
   return 1;
+}
+
+// Every emission of a df32 replay in order, emission i into sink_of(i);
+// adds the on-canvas count to *hits.
+template <class SinkOf>
+int replay_ext_all(int fractal, const cb::ReplayExtArgs& a,
+                   const SinkOf& sink_of, void* hits) {
+  unsigned long long total = 0;
+  for (int i = 0; i < a.k; ++i) {
+    const int rc = replay_ext_by_fractal(fractal, a, i, sink_of(i), total);
+    if (rc != 0) return rc;
+  }
+  *static_cast<unsigned long long*>(hits) += total;
+  return 0;
 }
 
 }  // namespace
@@ -193,17 +216,13 @@ int cbh_replay_deposit_ext(const void* kr, const void* ki, const void* iters,
                            void* hits) {
   const cb::ReplayExtArgs a =
       cb::replay_ext_args(kr, ki, iters, hist, iargs, fargs);
-  unsigned long long total = 0;
-  for (int i = 0; i < a.k; ++i) {
-    const int rc = replay_ext_by_fractal(iargs[0], a, i,
-                                         cb::DepositSink{a.hist}, total);
-    if (rc != 0) return rc;
-  }
-  *static_cast<unsigned long long*>(hits) += total;
-  return 0;
+  return replay_ext_all(
+      iargs[0], a, [&](int) { return cb::DepositSink{a.hist}; }, hits);
 }
 
-// The interface of cb_replay_ids_ext, emissions looped on the CPU.
+// The df32 id writer with a store per point (orbit.cuh IdSink): every slot
+// of each orbit gets its bin id or the sentinel. Arguments as
+// cb_replay_ids_ext.
 int cbh_replay_ids_ext(const void* kr, const void* ki, const void* iters,
                        const void* off, void* ids, const int* iargs,
                        const float* fargs, void* hits) {
@@ -211,15 +230,26 @@ int cbh_replay_ids_ext(const void* kr, const void* ki, const void* iters,
       cb::replay_ext_args(kr, ki, iters, nullptr, iargs, fargs);
   const auto* po = static_cast<const long long*>(off);
   auto* pi = static_cast<int32_t*>(ids);
-  unsigned long long total = 0;
-  for (int i = 0; i < a.k; ++i) {
-    const int rc = replay_ext_by_fractal(
-        iargs[0], a, i, cb::IdSink{pi + po[i], a.q.width * a.q.height},
-        total);
-    if (rc != 0) return rc;
-  }
-  *static_cast<unsigned long long*>(hits) += total;
-  return 0;
+  const int32_t nbins = a.q.width * a.q.height;
+  return replay_ext_all(
+      iargs[0], a, [&](int i) { return cb::IdSink{pi + po[i], nbins}; },
+      hits);
+}
+
+// The interface of cb_replay_ids_ext, emissions looped on the CPU: the
+// kernel's on-canvas sink (orbit.cuh CanvasIdSink), so ids must hold the
+// sentinel beforehand, as the kernel's wrapper fills it.
+int cbh_replay_ids_ext_canvas(const void* kr, const void* ki,
+                              const void* iters, const void* off, void* ids,
+                              const int* iargs, const float* fargs,
+                              void* hits) {
+  const cb::ReplayExtArgs a =
+      cb::replay_ext_args(kr, ki, iters, nullptr, iargs, fargs);
+  const auto* po = static_cast<const long long*>(off);
+  auto* pi = static_cast<int32_t*>(ids);
+  return replay_ext_all(
+      iargs[0], a, [&](int i) { return cb::CanvasIdSink{pi + po[i]}; },
+      hits);
 }
 
 // The interface of cb_replay_ids, emissions looped on the CPU.

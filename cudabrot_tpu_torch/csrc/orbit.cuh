@@ -144,7 +144,9 @@ __device__ __forceinline__ void warp_sum_add(unsigned long long* dst,
 // Where a replayed orbit's bins go (b = -1 off the canvas). The fused
 // replay adds each on-canvas point to the histogram; the bigtiles route
 // writes step s's bin id, or the sentinel nbins, at out[s], so an orbit of
-// n + 1 steps fills n + 1 consecutive slots of the id stream.
+// n + 1 steps fills n + 1 consecutive slots of the id stream. CanvasIdSink
+// writes the on-canvas ids only, into a stream filled with the sentinel
+// beforehand: the same stream, without a store per off-canvas point.
 struct DepositSink {
   uint32_t* hist;
   CB_HD void operator()(int, int64_t b) const {
@@ -157,6 +159,13 @@ struct IdSink {
   int32_t nbins;
   CB_HD void operator()(int s, int64_t b) const {
     out[s] = b >= 0 ? int32_t(b) : nbins;
+  }
+};
+
+struct CanvasIdSink {
+  int32_t* out;
+  CB_HD void operator()(int s, int64_t b) const {
+    if (b >= 0) out[s] = int32_t(b);
   }
 };
 

@@ -50,7 +50,10 @@ The pass key is ``fold_in(fold_in(key(seed), ordinal), pass)`` as in the
 JAX engine, so at equal geometry both engines draw the same samples.
 On the fused route nothing in a pass waits for the device: stats
 accumulate in int64 device totals, and the driver synchronizes every
-``pipeline_depth`` passes.
+``pipeline_depth`` passes. On the card the fused replay runs on a side
+stream (two, taken in turn by pass), so the next pass's classify and
+compaction run under the replay's long-orbit tail (``_replay_fused``);
+``histogram`` and ``stats`` wait for it before they read.
 """
 
 from __future__ import annotations
@@ -82,6 +85,10 @@ _SELECT_FOLD = 0x7711
 LANE_STEP_BUDGET = 1 << 30
 #: Largest auto replay capacity: 2^23 emissions (~100 MB of c/iters).
 MAX_REPLAY_CAPACITY = 1 << 23
+#: Side streams of the fused replay on the card, taken in turn by pass: a
+#: replay can overlap the next pass's classify and compaction, and the
+#: next pass's replay.
+REPLAY_STREAMS = 2
 #: Operations the classify kernel spends per inner step and per window
 #: boundary (counted from csrc/classify.cu); their ratio picks the
 #: inner window. Counts, not times: the choice depends on the
@@ -339,6 +346,14 @@ class CudaEngine:
         #: engine does.
         self.scatter_backend = binning.select_scatter_backend(
             cfg.options.scatter)
+        #: The fused replay's side streams (see ``_replay_fused``); high
+        #: priority, so its blocks are placed before the next classify's.
+        self.replay_streams = []
+        if (self.device.type == "cuda" and self.scatter_backend == "fused"
+                and cfg.options.sampler != "mh"):
+            self.replay_streams = [
+                torch.cuda.Stream(self.device, priority=-1)
+                for _ in range(REPLAY_STREAMS)]
         #: Metropolis-Hastings sampling: deposits are importance weights
         #: in 1/weight_scale histogram units.
         self.mh = self.tuning.mh
@@ -440,13 +455,12 @@ class CudaEngine:
             kw["sample_domain"] = cfg.sample_domain
         if self.scatter_backend == "bigtiles":
             # A kept orbit records at most max_it points.
-            kw["max_len"] = tn.max_it
             replay = (binning.replay_bigtiles_ext if self.extended
                       else binning.replay_bigtiles)
+            state["dev_hits"] += replay(state["hist"].view(-1), cr_c, ci_c,
+                                        it_c, max_len=tn.max_it, **kw)
         else:
-            replay = (binning.replay_deposit_ext if self.extended
-                      else binning.replay_deposit)
-        hits = replay(state["hist"].view(-1), cr_c, ci_c, it_c, **kw)
+            self._replay_fused(state, pass_index, (cr_c, ci_c, it_c), kw)
         st = result.stats.reshape(cls.STATS_ROWS, -1).sum(dim=1)
         wasted = st[cls.STAT_WASTED]
         emitted = torch.clamp(n_valid, max=self.replay_capacity)
@@ -460,10 +474,43 @@ class CudaEngine:
             ("emitted", emitted),
             ("replay_dropped", n_valid - emitted),
             ("points", torch.where(it_c >= 0, it_c + 1, 0).sum()),
-            ("dev_hits", hits),
         ):
             state[k] += v
         return state
+
+    def _replay_fused(self, state: dict, pass_index: int, batch, kw) -> None:
+        """The fused replay-deposit of one pass's kept batch, adding its
+        on-canvas count to ``dev_hits``. On the card it runs on a side
+        stream, so the next pass's classify and compaction (main stream)
+        run under its long-orbit tail: the side stream waits on an event
+        recorded after the compaction; the batch, the histogram and
+        ``dev_hits`` are marked as used there (``record_stream``), so the
+        caching allocator does not hand their memory to the main stream
+        before the replay is done; the kernel adds the count into
+        ``dev_hits`` with atomics, so the replays of consecutive passes,
+        on the two streams, may overlap. Integer adds commute: histogram
+        and stats are bitwise those of passes run one after another.
+        Everything that reads them waits first (``wait_replay``)."""
+        replay = (binning.replay_deposit_ext if self.extended
+                  else binning.replay_deposit)
+        hist = state["hist"].view(-1)
+        if not self.replay_streams:
+            replay(hist, *batch, hits=state["dev_hits"], **kw)
+            return
+        side = self.replay_streams[pass_index % len(self.replay_streams)]
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        for t in (*batch, state["hist"], state["dev_hits"]):
+            t.record_stream(side)
+        with torch.cuda.stream(side):
+            replay(hist, *batch, hits=state["dev_hits"], **kw)
+
+    def wait_replay(self) -> None:
+        """Make the current stream wait for every fused replay in flight
+        (nothing to wait for on the CPU or on the bigtiles route)."""
+        if self.replay_streams:
+            cur = torch.cuda.current_stream(self.device)
+            for side in self.replay_streams:
+                cur.wait_stream(side)
 
     def mh_pass_spec(self) -> dict:
         """The keywords of this render's MH classify pass
@@ -597,10 +644,12 @@ class CudaEngine:
     def histogram(self, state: dict) -> np.ndarray:
         if self.mh:
             self.mh_tail_core(state)
+        self.wait_replay()
         h = state["hist"].cpu().numpy()
         return h.view(np.uint32).copy()
 
     def stats(self, state: dict) -> dict:
+        self.wait_replay()
         out = counters.counter_stats(state)
         out["on_canvas_points"] = out.pop("_device_on_canvas")
         out["replay"] = "device"

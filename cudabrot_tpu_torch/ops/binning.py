@@ -152,12 +152,14 @@ def replay_deposit(
     *,
     canvas: Canvas,
     fractal: FractalMap,
+    hits: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Replay each emission's orbit and deposit its on-canvas points into
     ``hist_flat`` (in place). Emissions with ``iters < 0`` are inactive;
     an active one records z_1..z_{iters+1} with z_0 = c (steps s <= iters,
-    the escape point included). Returns the on-canvas point count as a
-    0-dim int64 tensor on the histogram's device."""
+    the escape point included). Adds the on-canvas point count to
+    ``hits``, a 0-dim int64 tensor on the histogram's device (the kernel
+    adds with atomics; a new zero one when None), and returns it."""
     _check_hist(hist_flat)
     if hist_flat.numel() != canvas.num_pixels:
         raise ValueError("histogram size does not match the canvas")
@@ -165,16 +167,16 @@ def replay_deposit(
         raise ValueError("c values must be float32")
     if iters.dtype != torch.int32:
         raise ValueError("iters must be int32")
+    hits = _hits(hits, hist_flat.device)
     if hist_flat.device.type == "cpu":
         return replay_deposit_plain(hist_flat, cr, ci, iters, canvas=canvas,
-                                    fractal=fractal)
+                                    fractal=fractal, hits=hits)
     dev = hist_flat.device
     cr, ci, iters = (t.reshape(-1).contiguous() for t in (cr, ci, iters))
     if not (cr.device == ci.device == iters.device == dev):
         raise ValueError("replay inputs lie on different devices")
     if not (cr.numel() == ci.numel() == iters.numel()):
         raise ValueError("replay inputs differ in length")
-    hits = torch.zeros((), dtype=torch.int64, device=dev)
     if cr.numel() == 0:
         return hits
     lib = _lib()
@@ -205,11 +207,23 @@ def orbit_bins(cr, ci, iters, *, canvas: Canvas, fractal: FractalMap):
         yield s, points_to_bin_ids(canvas, zr, zi, iters >= s)
 
 
-def _deposit_steps(hist_flat, steps) -> torch.Tensor:
+def _hits(hits, dev) -> torch.Tensor:
+    """The on-canvas count a replay adds to: ``hits`` checked, or a new
+    zero."""
+    if hits is None:
+        return torch.zeros((), dtype=torch.int64, device=dev)
+    if (hits.dtype != torch.int64 or hits.numel() != 1
+            or hits.device != dev):
+        raise ValueError("hits must be one int64 on the histogram's device")
+    return hits
+
+
+def _deposit_steps(hist_flat, steps, hits=None) -> torch.Tensor:
     """Deposits the on-canvas ids of every step through ``index_add_``;
-    returns their count as a 0-dim int64 tensor."""
+    adds their count to ``hits`` (a new 0-dim int64 zero when None) and
+    returns it."""
     dev, nbins = hist_flat.device, hist_flat.numel()
-    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    hits = _hits(hits, dev)
     for _, ids in steps:
         keep = ids[ids < nbins].to(torch.int64)
         hist_flat.index_add_(
@@ -233,13 +247,13 @@ def _write_steps(iters, off, n_ids: int, nbins: int, steps):
 
 
 def replay_deposit_plain(hist_flat, cr, ci, iters, *, canvas: Canvas,
-                         fractal: FractalMap) -> torch.Tensor:
+                         fractal: FractalMap, hits=None) -> torch.Tensor:
     """The replay kernel's function step-major in plain PyTorch: the
     points still inside their recording window deposit through
     ``index_add_``."""
     launches.COUNTS["replay_deposit_plain"] += 1
     return _deposit_steps(hist_flat, orbit_bins(cr, ci, iters, canvas=canvas,
-                                                 fractal=fractal))
+                                                 fractal=fractal), hits)
 
 
 # ----------------------------------------------------------------------
@@ -263,13 +277,17 @@ def replay_deposit_ext(
     canvas: Canvas,
     fractal: FractalMap,
     sample_domain: tuple,
+    hits: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``replay_deposit`` for extended-precision emissions: ``kr``/``ki``
     are the 24-bit grid indices (as f32) the df32 classify pass emitted
     over ``sample_domain``. c is rebuilt as the pass drew it
     (``classify_ext.grid_sample``), the orbit runs in df32 and every point
-    bins through ``points_to_bin_ids_df``. Returns the on-canvas point
-    count as a 0-dim int64 tensor on the histogram's device."""
+    bins through ``points_to_bin_ids_df``. Adds the on-canvas point count
+    to ``hits`` (as ``replay_deposit``) and returns it. The kernel's warps
+    take the batch's groups of 32 emissions in order from a queue
+    (``REPLAY_EXT_WARPS_PER_SM``), so a batch ordered by descending orbit
+    length starts its longest orbits first."""
     _check_hist(hist_flat)
     if hist_flat.numel() != canvas.num_pixels:
         raise ValueError("histogram size does not match the canvas")
@@ -277,31 +295,28 @@ def replay_deposit_ext(
         raise ValueError("grid indices must be float32")
     if iters.dtype != torch.int32:
         raise ValueError("iters must be int32")
+    hits = _hits(hits, hist_flat.device)
     if hist_flat.device.type == "cpu":
         return replay_deposit_ext_plain(
             hist_flat, kr, ki, iters, canvas=canvas, fractal=fractal,
-            sample_domain=sample_domain)
+            sample_domain=sample_domain, hits=hits)
     dev = hist_flat.device
     kr, ki, iters = (t.reshape(-1).contiguous() for t in (kr, ki, iters))
     if not (kr.device == ki.device == iters.device == dev):
         raise ValueError("replay inputs lie on different devices")
     if not (kr.numel() == ki.numel() == iters.numel()):
         raise ValueError("replay inputs differ in length")
-    hits = torch.zeros((), dtype=torch.int64, device=dev)
     if kr.numel() == 0:
         return hits
-    c0r, c0i, step_r, step_i = grid_params(sample_domain)
-    mr, mi, inv_dr, inv_di = _canvas_df(canvas)
-    iargs = (ctypes.c_int * 4)(fractal.kernel_id, kr.numel(), canvas.width,
-                               canvas.height)
-    fargs = (ctypes.c_float * 12)(*c0r, *c0i, step_r, step_i, *mr, *mi,
-                                  inv_dr, inv_di)
+    iargs, fargs = _replay_ext_args(dev, kr.numel(), canvas, fractal,
+                                    sample_domain)
+    queue = torch.zeros(1, dtype=torch.int64, device=dev)
     lib = _lib_ext()
     with torch.cuda.device(dev):
         rc = lib.cb_replay_deposit_ext(
             _build.ptr(kr), _build.ptr(ki), _build.ptr(iters),
-            _build.ptr(hist_flat), iargs, fargs, _build.ptr(hits),
-            _build.stream_of(hist_flat),
+            _build.ptr(hist_flat), iargs, fargs, _build.ptr(queue),
+            _build.ptr(hits), _build.stream_of(hist_flat),
         )
     _build.check(rc, "replay_deposit_ext kernel")
     launches.COUNTS["replay_deposit_ext"] += 1
@@ -309,14 +324,34 @@ def replay_deposit_ext(
 
 
 def replay_deposit_ext_plain(hist_flat, kr, ki, iters, *, canvas: Canvas,
-                             fractal: FractalMap,
-                             sample_domain: tuple) -> torch.Tensor:
+                             fractal: FractalMap, sample_domain: tuple,
+                             hits=None) -> torch.Tensor:
     """The df32 replay kernel's function step-major in plain PyTorch, as
     ``replay_deposit_plain``."""
     launches.COUNTS["replay_deposit_ext_plain"] += 1
     return _deposit_steps(hist_flat, orbit_bins_ext(
         kr, ki, iters, canvas=canvas, fractal=fractal,
-        sample_domain=sample_domain))
+        sample_domain=sample_domain), hits)
+
+
+#: Resident warps per SM of the df32 replay kernels' queue
+#: (csrc/deposit_ext.cu): four, one per warp scheduler, so each of the
+#: batch's longest orbit groups has a scheduler to itself.
+REPLAY_EXT_WARPS_PER_SM = 4
+
+
+def _replay_ext_args(dev, k: int, canvas: Canvas, fractal: FractalMap,
+                     sample_domain: tuple):
+    """The C arguments (iargs, fargs) of the df32 replay kernels on CUDA
+    device ``dev``."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    c0r, c0i, step_r, step_i = grid_params(sample_domain)
+    mr, mi, inv_dr, inv_di = _canvas_df(canvas)
+    iargs = (ctypes.c_int * 5)(fractal.kernel_id, k, canvas.width,
+                               canvas.height, sms * REPLAY_EXT_WARPS_PER_SM)
+    fargs = (ctypes.c_float * 12)(*c0r, *c0i, step_r, step_i, *mr, *mi,
+                                  inv_dr, inv_di)
+    return iargs, fargs
 
 
 def orbit_bins_ext(kr, ki, iters, *, canvas: Canvas, fractal: FractalMap,
@@ -527,7 +562,9 @@ def replay_ids_plain(cr, ci, iters, off, n_ids: int, *, canvas: Canvas,
 def replay_ids_ext(kr, ki, iters, off, n_ids: int, *, canvas: Canvas,
                    fractal: FractalMap, sample_domain: tuple):
     """``replay_ids`` for extended-precision emissions (24-bit grid indices
-    over ``sample_domain``): the df32 orbits of ``replay_deposit_ext``."""
+    over ``sample_domain``): the df32 orbits of ``replay_deposit_ext``, and
+    its queue. The stream is filled with the sentinel first and the kernel
+    writes the on-canvas ids only: the same stream, word for word."""
     _check_nbins(canvas.num_pixels)
     kr, ki, iters, off = _check_replay_ids(kr, ki, iters, off,
                                            "grid indices")
@@ -536,22 +573,20 @@ def replay_ids_ext(kr, ki, iters, off, n_ids: int, *, canvas: Canvas,
                                     fractal=fractal,
                                     sample_domain=sample_domain)
     dev = kr.device
-    ids = torch.empty(n_ids, dtype=torch.int32, device=dev)
+    ids = torch.full((n_ids,), canvas.num_pixels, dtype=torch.int32,
+                     device=dev)
     hits = torch.zeros((), dtype=torch.int64, device=dev)
     if kr.numel() == 0:
         return ids, hits
-    c0r, c0i, step_r, step_i = grid_params(sample_domain)
-    mr, mi, inv_dr, inv_di = _canvas_df(canvas)
-    iargs = (ctypes.c_int * 4)(fractal.kernel_id, kr.numel(), canvas.width,
-                               canvas.height)
-    fargs = (ctypes.c_float * 12)(*c0r, *c0i, step_r, step_i, *mr, *mi,
-                                  inv_dr, inv_di)
+    iargs, fargs = _replay_ext_args(dev, kr.numel(), canvas, fractal,
+                                    sample_domain)
+    queue = torch.zeros(1, dtype=torch.int64, device=dev)
     lib = _lib_ext()
     with torch.cuda.device(dev):
         rc = lib.cb_replay_ids_ext(
             _build.ptr(kr), _build.ptr(ki), _build.ptr(iters),
             _build.ptr(off), _build.ptr(ids), iargs, fargs,
-            _build.ptr(hits), _build.stream_of(ids),
+            _build.ptr(queue), _build.ptr(hits), _build.stream_of(ids),
         )
     _build.check(rc, "replay_ids_ext kernel")
     launches.COUNTS["replay_ids_ext"] += 1
@@ -778,12 +813,12 @@ def _lib_ext():
         vp = ctypes.c_void_p
         lib.cb_replay_deposit_ext.argtypes = [
             vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_float), vp, vp,
+            ctypes.POINTER(ctypes.c_float), vp, vp, vp,
         ]
         lib.cb_replay_deposit_ext.restype = ctypes.c_int
         lib.cb_replay_ids_ext.argtypes = [
             vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_float), vp, vp,
+            ctypes.POINTER(ctypes.c_float), vp, vp, vp,
         ]
         lib.cb_replay_ids_ext.restype = ctypes.c_int
     return lib

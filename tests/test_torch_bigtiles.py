@@ -379,10 +379,10 @@ def test_header_replay_ids_bitwise(harness, name):  # noqa: F811
     assert hits.value == int(hits_p) > 0
 
 
-@pytest.mark.parametrize("name", sorted(FRACTALS))
-def test_header_replay_ids_ext_bitwise(harness, name):  # noqa: F811
-    """The df32 replay's emission function with the id sink
-    (classify_ext.cuh replay_ext_one) against replay_ids_ext_plain."""
+def _host_ids_ext(harness, fn, name, prefill):  # noqa: F811
+    """A df32 id stream of the harness's writer ``fn`` over 300 emissions
+    (ids filled with ``prefill`` first), its hit count, and the plain
+    version's stream and count."""
     canvas = tcfg.Canvas(width=48, height=40)
     rng = np.random.default_rng(8)
     k = 300
@@ -393,7 +393,7 @@ def test_header_replay_ids_ext_bitwise(harness, name):  # noqa: F811
     want, hits_p = binning.replay_ids_ext_plain(
         *map(torch.from_numpy, (kr, ki, it)), off, n, canvas=canvas,
         fractal=FRACTALS[name], sample_domain=FAST)
-    ids = np.empty(n, np.int32)
+    ids = np.full(n, prefill, np.int32)
     hits = ctypes.c_ulonglong(0)
     c0r, c0i, step_r, step_i = cx.grid_params(FAST)
     iargs = (ctypes.c_int * 4)(FRACTALS[name].kernel_id, k, canvas.width,
@@ -404,14 +404,39 @@ def test_header_replay_ids_ext_bitwise(harness, name):  # noqa: F811
         np.float32(1.0 / canvas.delta_real),
         np.float32(1.0 / canvas.delta_imag))
     vp = ctypes.c_void_p
-    harness.cbh_replay_ids_ext.argtypes = [
-        vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int), FP, vp]
+    fn = getattr(harness, fn)
+    fn.argtypes = [vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int), FP, vp]
     offs = off.numpy()
-    assert harness.cbh_replay_ids_ext(
-        kr.ctypes.data, ki.ctypes.data, it.ctypes.data, offs.ctypes.data,
-        ids.ctypes.data, iargs, fargs, ctypes.addressof(hits)) == 0
-    np.testing.assert_array_equal(ids, want.numpy())
-    assert hits.value == int(hits_p) > 0
+    assert fn(kr.ctypes.data, ki.ctypes.data, it.ctypes.data,
+              offs.ctypes.data, ids.ctypes.data, iargs, fargs,
+              ctypes.addressof(hits)) == 0
+    return ids, hits.value, want.numpy(), int(hits_p), canvas.num_pixels
+
+
+@pytest.mark.parametrize("name", sorted(FRACTALS))
+def test_header_replay_ids_ext_bitwise(harness, name):  # noqa: F811
+    """The df32 replay's emission function with the id sink
+    (classify_ext.cuh replay_ext_one) against replay_ids_ext_plain."""
+    ids, hits, want, hits_p, _ = _host_ids_ext(
+        harness, "cbh_replay_ids_ext", name, -7)
+    np.testing.assert_array_equal(ids, want)
+    assert hits == hits_p > 0
+
+
+@pytest.mark.parametrize("name", sorted(FRACTALS))
+def test_header_canvas_id_sink_equals_id_sink(harness, name):  # noqa: F811
+    """The replay_ids_ext kernel's sink (orbit.cuh CanvasIdSink) writes
+    only on-canvas ids into a stream filled with the sentinel: that gives
+    the stream of a store per point (IdSink) word for word, and the plain
+    version's, with the same hit count."""
+    nbins = tcfg.Canvas(width=48, height=40).num_pixels
+    ids, hits, want, hits_p, _ = _host_ids_ext(
+        harness, "cbh_replay_ids_ext_canvas", name, nbins)
+    every, hits_e, _, _, _ = _host_ids_ext(
+        harness, "cbh_replay_ids_ext", name, -7)
+    np.testing.assert_array_equal(ids, every)
+    np.testing.assert_array_equal(ids, want)
+    assert hits == hits_e == hits_p == int((ids < nbins).sum()) > 0
 
 
 def test_memory_estimate_counts_the_sort():

@@ -188,3 +188,34 @@ def test_replay_deposit_ext_accounting_and_validation():
         tb.replay_deposit_ext(hist, mid, mid, it.long(), **kw)
     with pytest.raises(ValueError, match="does not match the canvas"):
         tb.replay_deposit_ext(hist[:-1].clone(), mid, mid, it, **kw)
+
+
+@pytest.mark.parametrize("ext", [False, True])
+def test_replay_adds_into_the_given_count(ext):
+    """Both fused replays add their on-canvas count into a given int64 (the
+    engine's dev_hits, which the kernels add to with atomics) and return
+    it; two calls into one count equal the sum of two fresh ones; a count
+    of another dtype or size is refused."""
+    canvas = Canvas(width=32, height=32)
+    fr = tfr.FRACTALS["buddhabrot"]
+    if ext:
+        kw = dict(canvas=canvas, fractal=fr, sample_domain=FAST)
+        x = torch.full((3,), 8388608.0)
+        replay = tb.replay_deposit_ext
+    else:
+        kw = dict(canvas=canvas, fractal=fr)
+        x = torch.tensor([-0.1, 0.2, 0.3], dtype=torch.float32)
+        replay = tb.replay_deposit
+    it = torch.tensor([9, 4, -1], dtype=torch.int32)
+    hist = torch.zeros(canvas.num_pixels, dtype=torch.int32)
+    fresh = [int(replay(hist, x, x, it, **kw)) for _ in range(2)]
+    total = torch.full((), 5, dtype=torch.int64)
+    hist2 = torch.zeros_like(hist)
+    for _ in range(2):
+        assert replay(hist2, x, x, it, hits=total, **kw) is total
+    assert int(total) == 5 + sum(fresh) and torch.equal(hist, hist2)
+    assert sum(fresh) == int(hist.sum()) > 0
+    for bad in (torch.zeros((), dtype=torch.int32),
+                torch.zeros(2, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="hits must be one int64"):
+            replay(hist, x, x, it, hits=bad, **kw)

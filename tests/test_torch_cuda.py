@@ -20,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from cudabrot_tpu_torch import config
-from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
+from cudabrot_tpu_torch import cli, config
+from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine, compact
 from cudabrot_tpu_torch.models.fractals import FRACTALS
 from cudabrot_tpu_torch.ops import binning, launches, prng
 from cudabrot_tpu_torch.ops import classify as cls
@@ -524,3 +524,155 @@ def test_bigtiles_engine_pass_on_card_matches_fused(cuda, extended,
     np.testing.assert_array_equal(hb, hf)
     np.testing.assert_array_equal(hb, hc)
     assert sb == sf == sc
+
+
+#: The deep-zoom cell (the JAX package's deep-zoom configuration, at
+#: 1000x1000) and the cells whose passes the overlap test runs.
+ZOOM = ["-m", "20000", "-c", "500", "--precision", "extended", "--center",
+        "-0.743643887037151,0.131825904205330", "--span", "1e-5"]
+CELLS = {"default": ["-w", "1000", "-h", "1000"],
+         "deep": ["-w", "1000", "-h", "1000", "-m", "20000", "-c", "2000"],
+         "zoom": ["-w", "1000", "-h", "1000", *ZOOM]}
+BIG_CELLS = {
+    "bigcanvas": ["-w", "6000", "-h", "4500", "--min-imag", "-1.5",
+                  "--max-imag", "1.5"],
+    "northstar": ["-w", "20000", "-h", "20000", "-m", "20000", "-c", "2000"],
+    "bigzoom": ["-w", "6000", "-h", "4500", *ZOOM]}
+
+
+def _cell(argv, scatter="auto"):
+    return cli.parse_args([*argv, "--scatter", scatter])[0]
+
+
+@pytest.fixture(scope="module")
+def zoom_batch():
+    """One pass's kept batch of the zoom cell at full lane width, from a
+    state carried 8 passes, with its longest orbit set to 19,999 steps:
+    (kr, ki, iters), descending orbit length."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    cfg = _cell(CELLS["zoom"])
+    eng = CudaEngine(cfg, device="cuda")
+    tn = eng.tuning
+    state = eng.init_state(None)
+    for p in range(8):
+        eng.run_pass(state, p)
+    key = prng.pass_key(cfg.seed, 0, 9)
+    res = cx.classify_pass_ext(
+        state["lanes"], prng.bits_host(key, 2), fractal=eng.fractal,
+        min_it=tn.min_it, max_it=tn.max_it, steps_per_pass=tn.steps_per_pass,
+        steps_per_flush=tn.steps_per_flush, inner_unroll=tn.inner_unroll,
+        sample_domain=cfg.sample_domain)
+    kr, ki, it, _ = compact(res.emit_c, res.emit_it, key, tn.replay_capacity,
+                            tn.max_it)
+    it = it.clone()
+    it[0] = 19_998
+    return kr, ki, it
+
+
+@pytest.mark.parametrize("cell", ["zoom", "bigzoom"])
+def test_replay_ext_kernels_match_plain_on_the_zoom_batch(cuda, zoom_batch,
+                                                          cell):
+    """Both df32 replay kernels against their plain versions, bitwise, on
+    the zoom cell's whole kept batch with a 19,999-step orbit at its head,
+    at the zoom canvas and at the bigzoom canvas (6000x4500)."""
+    kr, ki, it = zoom_batch
+    cfg = _cell(CELLS["zoom"] if cell == "zoom" else BIG_CELLS[cell])
+    kw = dict(canvas=cfg.canvas, fractal=FRACTALS["buddhabrot"],
+              sample_domain=cfg.sample_domain)
+    nbins = cfg.canvas.num_pixels
+    hk = torch.zeros(nbins, dtype=torch.int32, device=cuda)
+    hp = torch.zeros_like(hk)
+    launches.reset()
+    hits_k = binning.replay_deposit_ext(hk, kr, ki, it, **kw)
+    assert launches.COUNTS["replay_deposit_ext"] == 1
+    hits_p = binning.replay_deposit_ext_plain(hp, kr, ki, it, **kw)
+    assert torch.equal(hk, hp)
+    assert int(hits_k) == int(hits_p) == int(hk.to(torch.int64).sum()) > 0
+    off, n = _offsets(it)
+    ids_k, ids_hits = binning.replay_ids_ext(kr, ki, it, off, n, **kw)
+    assert launches.COUNTS["replay_ids_ext"] == 1
+    ids_p, ids_hits_p = binning.replay_ids_ext_plain(kr, ki, it, off, n, **kw)
+    assert torch.equal(ids_k, ids_p)
+    assert int(ids_hits) == int(ids_hits_p) == int(hits_k)
+    assert int((ids_k == nbins).sum()) > 0  # the sentinel fill shows
+
+
+def test_replay_ext_kernels_match_plain_on_a_lone_long_orbit(cuda,
+                                                             zoom_batch):
+    """A batch of one 19,999-step orbit (one thread of one warp) and the
+    batch's first 33 orbits (a second group of one), both kernels."""
+    kr, ki, it = zoom_batch
+    cfg = _cell(CELLS["zoom"])
+    kw = dict(canvas=cfg.canvas, fractal=FRACTALS["buddhabrot"],
+              sample_domain=cfg.sample_domain)
+    for k in (1, 33):
+        hk = torch.zeros(cfg.canvas.num_pixels, dtype=torch.int32,
+                         device=cuda)
+        hp = torch.zeros_like(hk)
+        hits = binning.replay_deposit_ext(hk, kr[:k], ki[:k], it[:k], **kw)
+        hits_p = binning.replay_deposit_ext_plain(hp, kr[:k], ki[:k], it[:k],
+                                                  **kw)
+        assert torch.equal(hk, hp) and int(hits) == int(hits_p)
+        off, n = _offsets(it[:k])
+        ids_k, _ = binning.replay_ids_ext(kr[:k], ki[:k], it[:k], off, n,
+                                          **kw)
+        ids_p, _ = binning.replay_ids_ext_plain(kr[:k], ki[:k], it[:k], off,
+                                                n, **kw)
+        assert torch.equal(ids_k, ids_p)
+
+
+def _passes(cfg, n, mode):
+    """n engine passes of ``cfg`` on the card: "overlap" as the driver runs
+    them (the fused replay on its side streams, no synchronization),
+    "serial" with a synchronize() after each, "main" with the replay on the
+    main stream. Returns (histogram, stats)."""
+    eng = CudaEngine(cfg, device="cuda")
+    if mode == "main":
+        eng.replay_streams = []
+    state = eng.init_state(None)
+    for p in range(n):
+        eng.run_pass(state, p)
+        if mode == "serial":
+            eng.synchronize()
+    return eng.histogram(state), eng.stats(state)
+
+
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_overlapped_passes_equal_serial_passes(cuda, cell):
+    """Engine passes with the fused replay overlapping the next pass equal
+    the same passes run one after another, bitwise: histogram and every
+    stat, at the default, deep and zoom cells."""
+    cfg = _cell(CELLS[cell])
+    runs = {mode: _passes(cfg, 6, mode)
+            for mode in ("overlap", "serial", "main")}
+    (ho, so), (hs, ss), (hm, sm) = (runs[m] for m in
+                                    ("overlap", "serial", "main"))
+    assert CudaEngine(cfg, device="cuda").replay_streams
+    np.testing.assert_array_equal(ho, hs)
+    np.testing.assert_array_equal(ho, hm)
+    assert int(ho.sum(dtype=np.uint64)) == so["on_canvas_points"] > 0
+    assert so == ss == sm
+
+
+@pytest.mark.parametrize("cell", sorted(BIG_CELLS))
+def test_bigtiles_route_equals_fused_route_at_the_big_cells(cuda, cell):
+    """--scatter bigtiles against --scatter auto (whose replay overlaps the
+    next pass) at the three canvases beyond the L2: two passes each,
+    histogram and every stat bitwise."""
+    out = {}
+    for scatter in ("bigtiles", "auto"):
+        eng = CudaEngine(_cell(BIG_CELLS[cell], scatter), device="cuda")
+        assert bool(eng.replay_streams) == (scatter == "auto")
+        state = eng.init_state(None)
+        launches.reset()
+        for p in range(2):
+            eng.run_pass(state, p)
+        out[scatter] = (eng.histogram(state), eng.stats(state),
+                        dict(launches.COUNTS))
+        del eng, state
+        torch.cuda.empty_cache()
+    (hb, sb, cb), (ha, sa, _) = out["bigtiles"], out["auto"]
+    assert cb["bigtiles_deposit"] >= 2
+    np.testing.assert_array_equal(hb, ha)
+    assert sb == sa and sb["on_canvas_points"] > 0

@@ -237,3 +237,11 @@ def test_extended_tuning_and_refusals():
     with pytest.raises(ValueError, match="lane state has 3 arrays"):
         convert.state_from_jax({"hist": np.zeros((2, 2), np.uint32),
                                 "lanes": (1, 2, 3)})
+
+
+def test_cpu_engine_replays_on_the_calling_stream():
+    """The fused replay's side streams exist on the card only: a CPU
+    engine has none, and waiting for them is a no-op."""
+    eng = CudaEngine(_ext_cfg(tcfg), device="cpu")
+    assert eng.replay_streams == []
+    eng.wait_replay()
