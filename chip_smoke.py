@@ -4,11 +4,14 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each fails the run on any mismatch):
-  1. Build the CUDA kernels from csrc/ (one nvcc per source, in parallel)
-     and print their registers and spills (nvcc -Xptxas -v).
+  1. Build the CUDA kernels from csrc/ (one nvcc per source, and the
+     classify kernel's study builds with 1 and 4 lanes per thread, all in
+     parallel) and print their registers and spills (nvcc -Xptxas -v).
   2. classify kernel vs its plain PyTorch version, bitwise (lane state,
      emissions, stats), at full lane width from a carried state: the
-     default band [20,100) and [2000,20000) (auto inner window, Brent);
+     default band [20,100) and [2000,20000) (auto inner window, Brent),
+     each through the builds with 1, 2 (the package's) and 4 lanes per
+     thread;
      threefry_bits vs its plain version at the default band's slot count;
      classify_ext (df32) vs its plain version the same way, one pass of
      the deep-zoom cell's geometry (4096 steps: eight flush windows with
@@ -19,7 +22,9 @@ Phases (each fails the run on any mismatch):
      steps in one), from a state carried 4 passes.
   3. deposit_ids vs index_add_ bitwise on random ids with sentinels at
      1000x1000 and 6000x4500; replay_deposit vs its plain version bitwise
-     on a compacted batch from phase 2; replay_deposit_ext (df32) vs its
+     on a compacted batch from phase 2, at the package's resident warps
+     per SM and at each of 4..64 (binning.REPLAY_WARPS_PER_SM set for the
+     call); replay_deposit_ext (df32) vs its
      plain version on the batch compacted from phase 2's df32 emissions;
      mh_deposit vs mh_scatter's plain version on phase 2's MH emissions,
      as a flat (V, S) batch and as they lie in the emission buffers, beside
@@ -77,10 +82,19 @@ Phases (each fails the run on any mismatch):
 ``--ext-budget-sweep`` instead builds and times deep-zoom engine passes at
 2^27..2^30 lane-steps per pass (the measurement behind keeping
 ``cuda_engine.LANE_STEP_BUDGET`` at extended precision).
-``--replay-study`` builds and runs phase 7, then times 16 engine passes of
-six cells on the host clock (synchronizing every 8, as the driver does).
-Both run against the previous commit's package as well (a copy beside
-this script), for a before-and-after in one call.
+``--replay-study`` builds and runs phase 7 and phase 7c (the f32
+replay-deposit's long-orbit floor at the deep and northstar batches, and
+the default, deep and northstar batches at 4..64 resident warps per SM),
+then times 16 engine passes of every cell on the host clock
+(synchronizing every 8, as the driver does; the big cells through both
+routes). ``--classify-study`` measures the f32
+classify kernel at the default cell: with in-kernel Threefry against the
+same pass fed its words, the draw profile, issue cycles per warp-step, the
+lanes-per-thread sweep (the study builds), the SASS counts of the refill
+draw and of the lane window (its inner step and boundary) by pipe, and an
+Nsight Compute probe. Run from a copy of another commit's tree (the
+script beside its package), each gives that commit's numbers, so two
+commits compare within one call.
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
@@ -89,11 +103,13 @@ no result line, when CUDA is unavailable or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
@@ -107,27 +123,40 @@ PEAK_BYTES = 3.35e12
 #: instruction and an operation-bound kernel cannot beat ops / PEAK_ISSUE
 #: (PEAK_OPS counts an FFMA as two operations).
 PEAK_ISSUE = 33.5e12
-#: 32-bit operations per unit of work, counted from csrc/*.cu: a refill
-#: draw (Threefry-2x32 + domain map + cull), a replayed orbit point (step
-#: + bin), a deposited id, a Threefry word. The df32 counts: a draw adds
-#: the two grid offsets and df32 sums; a replayed point is the df32 step
-#: (89 without |z|^2 and the survival count) plus the df32 bin offset and
-#: quantization (32). A classify inner step and window boundary cost
-#: INNER_STEP_OPS and BOUNDARY_OPS (EXT_* for df32; engines/cuda_engine.py),
-#: the counts its window choice uses.
-OPS_DRAW = 140
+#: The integer ALU pipe (adds, logic, shifts, compares): 64 lanes a clock
+#: per SM, half the issue rate: 132 x 64 x 1.98 GHz.
+PEAK_INT = 16.7e12
+#: Operations per unit of work as (instructions, of which on the ALU pipe).
+#: A refill draw (Threefry-2x32 69 (49 ALU), the domain map of two words 11
+#: (2), the cull 13 (3)), a Threefry word of threefry_bits (the block and
+#: the xor), the df32 draw (Threefry and the df32 grid draw 42 (5)): SASS
+#: counts that chip_smoke.py --classify-study (sass_study) prints for
+#: sm_90a. A replayed orbit point (step + bin), a deposited id: hand counts
+#: from csrc/*.cu, all on the FMA pipe; the df32 point is the df32 step (89
+#: without |z|^2 and the survival count) plus the df32 bin offset and
+#: quantization (32). The f32 classify's inner step and window boundary
+#: (the default cell's thin-tracking window with Brent checks): SASS
+#: counts, as above, from the loop bodies of one window at U = 0, 1 and 2;
+#: at U = 1, the default cell's window, the two sum to the 43 (23 ALU) the
+#: loop spends on a window (hand count: 49). The df32 and MH ones cost the
+#: hand counts the engine's window choice uses (EXT_* and MH_* in
+#: engines/cuda_engine.py), counted as FMA-pipe work.
+OPS_STEP = (15, 9)
+OPS_BOUNDARY = (28, 14)
+OPS_DRAW = (93, 54)
 OPS_REPLAY_POINT = 15
 OPS_DEPOSIT_ID = 3
-OPS_THREEFRY_WORD = 120
-OPS_DRAW_EXT = 160
+OPS_THREEFRY_WORD = (70, 50)
+OPS_DRAW_EXT = (111, 54)
 OPS_REPLAY_POINT_EXT = 121
 #: The MH kernels (csrc/mh.cuh): a finished proposal pays two Threefry
-#: calls, the chain boundary, the proposal draw, the sample's rebuild and
-#: cull, and up to three V-word reservoir moves (V = 8 here); the df32 one
-#: adds the two df32 sums. A deposited emission computes its total by long
-#: division (~30) and one share per recorded bin (~6 each, up to V).
-OPS_DRAW_MH = 324
-OPS_DRAW_MH_EXT = 354
+#: calls (SASS, as above), and by hand count the chain boundary, the
+#: proposal draw, the sample's rebuild and cull, and up to three V-word
+#: reservoir moves (V = 8 here), 84; the df32 one adds the two df32 sums,
+#: 114. A deposited emission computes its total by long division (~30) and
+#: one share per recorded bin (~6 each, up to V).
+OPS_DRAW_MH = (2 * 69 + 84, 2 * 49)
+OPS_DRAW_MH_EXT = (2 * 69 + 114, 2 * 49)
 OPS_MH_EMISSION = 78
 
 ZOOM = ["-m", "20000", "-c", "500", "--precision", "extended", "--center",
@@ -167,10 +196,13 @@ ORACLE_PASSES = 2
 #: orbit, and the heads of the descending zoom batch it is timed inside.
 FLOOR_STEPS = 19_999
 FLOOR_HEADS = (32, 128, 256, 1024, 4096, 16384)
-#: Cells and routes whose engine passes phase 7 times.
+#: Cells and routes whose engine passes phase 7b times: every cell, the
+#: big ones through both routes.
 STUDY_CELLS = (("default", "auto"), ("deep", "auto"), ("zoom", "auto"),
-               ("northstar", "auto"), ("bigzoom", "auto"),
-               ("bigzoom", "bigtiles"))
+               ("mhzoom", "auto"), ("mhcrop", "auto"),
+               *((name, route)
+                 for name in ("bigcanvas", "northstar", "bigzoom")
+                 for route in ("auto", "bigtiles")))
 #: Every hand-written kernel: source, the TPU code it replaces, and the
 #: cell whose main-path run counts its launches and gives its shapes (None:
 #: no entry point launches it; its record comes from phase 3).
@@ -256,9 +288,20 @@ def pass_ms(eng, state, first: int, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+def bound_ms(ops: float, nbytes: float,
+             int_ops: float = 0.0) -> tuple[float, str]:
+    """The least time for ``ops`` operations (``int_ops`` of them on the
+    integer ALU pipe, the rest at the f32 peak) and ``nbytes`` of traffic,
+    and which of the two bounds it."""
+    t_ops = max((ops - int_ops) / PEAK_OPS, int_ops / PEAK_INT)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def floor_ms(ops: float, nbytes: float, int_ops: float = 0.0) -> float:
+    """The unfused issue floor: one instruction per operation at
+    PEAK_ISSUE, the ALU's share at PEAK_INT, the bytes at PEAK_BYTES."""
+    return 1e3 * max(ops / PEAK_ISSUE, int_ops / PEAK_INT, nbytes / PEAK_BYTES)
 
 
 def same_bits(a, b) -> bool:
@@ -325,12 +368,49 @@ def phase_build():
 
     log("== phase 1: build")
     t0 = time.monotonic()
-    _build.build_all()
-    log(f"  built {', '.join(_build.LIBS)} in {time.monotonic() - t0:.1f} s")
-    for name in _build.LIBS:
-        for line in _build.ptxas_report(name).splitlines():
+    variants = [("classify", d) for d in map(lanes_defines,
+                                             STUDY_LANES_PER_THREAD) if d]
+    _build.build_all(variants=variants)
+    log(f"  built {', '.join(_build.LIBS)} and {len(variants)} study "
+        f"builds in {time.monotonic() - t0:.1f} s")
+    for name, d in [(n, ()) for n in _build.LIBS] + variants:
+        for line in _build.ptxas_report(name, d).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  [{name}] {line.strip()}")
+                log(f"  [{name}{''.join(' -D' + x for x in d)}] "
+                    f"{line.strip()}")
+
+
+def package_lanes() -> int:
+    """The lanes per thread of the package's classify build
+    (csrc/classify.cu's CB_LANES_PER_THREAD)."""
+    import re
+
+    from cudabrot_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "classify.cu").read_text()
+    m = re.search(r"#define CB_LANES_PER_THREAD (\d+)", src)
+    return int(m.group(1)) if m else 1
+
+
+def lanes_defines(S) -> tuple:
+    """The macro definitions of the classify build with S lanes per
+    thread: none for the package's own."""
+    return () if S in (None, package_lanes()) else (
+        f"CB_LANES_PER_THREAD={S}",)
+
+
+@contextlib.contextmanager
+def classify_lanes(S):
+    """classify_pass runs the build with S lanes per thread inside."""
+    from cudabrot_tpu_torch.ops import classify as cls
+
+    d = lanes_defines(S)
+    if not d:
+        yield
+        return
+    lib = cls._lib(d)
+    with mock.patch.object(cls, "_lib", lambda: lib):
+        yield
 
 
 def classify_spec(cfg, steps, flush):
@@ -385,6 +465,11 @@ def phase_classify(dev):
         tag = f"band {band} U={tn.inner_unroll} lanes={lanes}"
         err = check_classify(tag, cls.LaneState._fields, ra, rb)
         errs["classify"] = max(errs.get("classify", 0.0), err)
+        for S in STUDY_LANES_PER_THREAD:
+            with classify_lanes(S):
+                rs = cls.classify_pass(clone_state(state), seed, **spec)
+            errs["classify"] = max(errs["classify"], check_classify(
+                f"{tag} S={S}", cls.LaneState._fields, rs, rb))
         n_em = int((ra.emit_it >= 0).sum())
         cyc = int(ra.stats[cls.STAT_CYCLES].sum())
         log(f"  {tag}: {n_em} emissions, {cyc} Brent cycles in the pass")
@@ -507,6 +592,15 @@ def phase_deposit(dev, batches):
         errs["replay_deposit"] = max(
             errs.get("replay_deposit", 0.0),
             max_abs_err([(hk, hp), (hits_k, hits_p)]))
+        for w in STUDY_REPLAY_WARPS:
+            hw = torch.zeros_like(hk)
+            with mock.patch.object(binning, "REPLAY_WARPS_PER_SM", w):
+                hits_w = binning.replay_deposit(hw, cr, ci, it,
+                                                canvas=canvas, fractal=fr)
+            check(torch.equal(hw, hp) and int(hits_w) == int(hits_p),
+                  f"replay_deposit band {band}, {w} warps per SM: bitwise")
+            errs["replay_deposit"] = max(errs["replay_deposit"], max_abs_err(
+                [(hw, hp), (hits_w, hits_p)]))
         log(f"  band {band}: {int((it >= 0).sum())} orbits, "
             f"{int(hits_k)} on-canvas points")
     return records, errs
@@ -977,13 +1071,13 @@ def cell_times(dev, name, with_plain):
         classify, k1, k2 = cx.classify_pass_ext, "classify_ext", \
             "replay_deposit_ext"
         c_inner, c_boundary, c_draw, c_point = (
-            ce.EXT_INNER_STEP_OPS, ce.EXT_BOUNDARY_OPS, OPS_DRAW_EXT,
-            OPS_REPLAY_POINT_EXT)
+            (ce.EXT_INNER_STEP_OPS, 0), (ce.EXT_BOUNDARY_OPS, 0),
+            OPS_DRAW_EXT, OPS_REPLAY_POINT_EXT)
     else:
         classify, k1, k2 = cls.classify_pass, "classify", "replay_deposit"
         spec["thin_tracking"] = tn.thin_tracking
         c_inner, c_boundary, c_draw, c_point = (
-            ce.INNER_STEP_OPS, ce.BOUNDARY_OPS, OPS_DRAW, OPS_REPLAY_POINT)
+            OPS_STEP, OPS_BOUNDARY, OPS_DRAW, OPS_REPLAY_POINT)
     lanes = state["lanes"]
     key = prng.pass_key(cfg.seed, 0, warm_passes + 1)
     seed = prng.bits_host(key, 2)
@@ -995,10 +1089,12 @@ def cell_times(dev, name, with_plain):
     draws = int(res.stats[cls.STAT_DRAWN].sum())
     slots = tn.emission_slots
     state_words = len(lanes)
-    k1_bound, k1_by = bound_ms(
-        c_inner * lane_steps + c_boundary * windows + c_draw * draws,
-        n_lanes * (2 * 4 * state_words + 20) + slots * 12,
-    )
+    k1_ops = (c_inner[0] * lane_steps + c_boundary[0] * windows
+              + c_draw[0] * draws,
+              n_lanes * (2 * 4 * state_words + 20) + slots * 12,
+              c_inner[1] * lane_steps + c_boundary[1] * windows
+              + c_draw[1] * draws)
+    k1_bound, k1_by = bound_ms(*k1_ops)
 
     cr, ci, it, _ = ce.compact(res.emit_c, res.emit_it, key,
                                tn.replay_capacity, tn.max_it)
@@ -1016,12 +1112,13 @@ def cell_times(dev, name, with_plain):
     k2_ms = time_ms(replay, 10)
     orbits = int((it >= 0).sum())
     points = int(torch.where(it >= 0, it + 1, 0).sum())
-    k2_bound, k2_by = bound_ms(
-        c_point * points, 12 * cr.numel() + 8 * cfg.canvas.num_pixels)
+    k2_ops = (c_point * points, 12 * cr.numel() + 8 * cfg.canvas.num_pixels)
+    k2_bound, k2_by = bound_ms(*k2_ops)
 
     sel_key = prng.fold_in(key, 0x7711)
     k3_ms = time_ms(lambda: prng.bits(sel_key, slots, dev), 20)
-    k3_bound, k3_by = bound_ms(OPS_THREEFRY_WORD * slots, 8 * slots)
+    k3_bound, k3_by = bound_ms(OPS_THREEFRY_WORD[0] * slots, 8 * slots,
+                               OPS_THREEFRY_WORD[1] * slots)
     t_compact = time_ms(lambda: ce.compact(res.emit_c, res.emit_it, key,
                                            tn.replay_capacity, tn.max_it), 5)
     pass_time = pass_ms(eng, state, warm_passes + 2, 10)
@@ -1047,11 +1144,11 @@ def cell_times(dev, name, with_plain):
 
     rec = {
         k1: dict(ms=k1_ms, bound_ms=k1_bound, bound_by=k1_by,
-                 library_ms=None),
+                 library_ms=None, floor_ms=floor_ms(*k1_ops)),
         "threefry_bits": dict(ms=k3_ms, bound_ms=k3_bound, bound_by=k3_by,
                               library_ms=None),
         k2: dict(ms=k2_ms, bound_ms=k2_bound, bound_by=k2_by,
-                 library_ms=None),
+                 library_ms=None, floor_ms=floor_ms(*k2_ops)),
     }
     if not with_plain:
         return rec
@@ -1130,11 +1227,11 @@ def mh_cell_times(dev, name):
     state_words = len(lanes) - 2 + 2 * slots
     # Visits that record a bin are not counted: the kernel reports visits
     # per emission only, and they are few beside the inner steps.
-    k1_bound, k1_by = bound_ms(
-        c_inner * lane_steps + c_boundary * windows + c_draw * draws,
-        n_lanes * (2 * 4 * state_words + 4 * cmh.MH_STATS_ROWS)
-        + n_slots * (3 + slots) * 4,
-    )
+    k1_ops = (c_inner * lane_steps + c_boundary * windows + c_draw[0] * draws,
+              n_lanes * (2 * 4 * state_words + 4 * cmh.MH_STATS_ROWS)
+              + n_slots * (3 + slots) * 4,
+              c_draw[1] * draws)
+    k1_bound, k1_by = bound_ms(*k1_ops)
 
     nbins = cfg.canvas.num_pixels
     t = torch.where(res.emit_it >= 0, res.emit_v, 0)
@@ -1185,7 +1282,7 @@ def mh_cell_times(dev, name):
             f"busy {busy:.4f} of a {span:.3f} ms span (idle {1 - busy:.4f})")
     return {
         k1: dict(ms=k1_ms, bound_ms=k1_bound, bound_by=k1_by,
-                 library_ms=None),
+                 library_ms=None, floor_ms=floor_ms(*k1_ops)),
         "mh_deposit": dict(ms=k2_ms, bound_ms=k2_bound, bound_by=k2_by,
                            plain_ms=k2_plain, library_ms=k2_lib),
     }
@@ -1222,10 +1319,11 @@ def phase_kernel_times(dev, main_runs, errs, ext_records, deposit_ids):
         check(all(key in r for key in keys)
               and all(r[key] is not None for key in keys[:-1]),
               f"kernel record of {r['name']} is complete")
-        if r["bound_by"] == "operations":
-            floor = r["bound_ms"] * PEAK_OPS / PEAK_ISSUE
+        if "floor_ms" in r:
+            floor = r["floor_ms"]
             log(f"  {r['name']}: unfused issue floor {floor:.4f} ms "
-                f"(operations / {PEAK_ISSUE:.3g}); kernel {r['ms']:.4f} ms, "
+                f"(operations / {PEAK_ISSUE:.3g}, the ALU's / "
+                f"{PEAK_INT:.3g}); kernel {r['ms']:.4f} ms, "
                 f"{floor / r['ms']:.3f} of it")
     return [{key: r[key] for key in keys} for r in records]
 
@@ -1516,7 +1614,8 @@ def big_cell_times(dev, name, with_plain):
     del lib_hist, ones
     fused_ms = time_ms(lambda: fused(hist, xr, xi, it, **kw), 5)
     c_point = OPS_REPLAY_POINT_EXT if ext else OPS_REPLAY_POINT
-    ids_bound, ids_by = bound_ms(c_point * n, 4 * n + 20 * xr.numel())
+    ids_ops = (c_point * n, 4 * n + 20 * xr.numel())
+    ids_bound, ids_by = bound_ms(*ids_ops)
     on_canvas = int(out["hits"])
     log(f"  geometry: {eng.lanes} lanes, {tn.steps_per_pass} steps per "
         f"pass, capacity {tn.replay_capacity}, canvas {cfg.canvas.width}x"
@@ -1534,7 +1633,7 @@ def big_cell_times(dev, name, with_plain):
         f"{'replay_deposit_ext' if ext else 'replay_deposit'} of the same "
         f"batch {fused_ms:.4f} ms")
     rec = {k_ids: dict(ms=ids_ms, bound_ms=ids_bound, bound_by=ids_by,
-                       library_ms=None),
+                       library_ms=None, floor_ms=floor_ms(*ids_ops)),
            "bigtiles_deposit": dict(ms=dep_ms, bound_ms=dep_bound,
                                     bound_by=dep_by, plain_ms=dep_plain,
                                     library_ms=lib_ms)}
@@ -1705,16 +1804,546 @@ def phase_replay_floor(dev, card):
     return out
 
 
+#: The classify study's shortened pass: short enough that the Threefry words
+#: of every (window, lane) fit on the card as a bits tensor (1 GiB).
+STUDY_STEPS = 512
+#: Lanes per thread and replay warps per SM the studies sweep.
+STUDY_LANES_PER_THREAD = (1, 2, 4)
+STUDY_REPLAY_WARPS = (4, 8, 16, 32, 64)
+#: binning.REPLAY_TAKES_PER_WARP values the replay study sweeps at the
+#: default batch (the last gives each warp one group at a time).
+STUDY_TAKES_PER_WARP = (1, 2, 4, 8, 16, 1 << 30)
+#: SASS opcodes by the SM sub-partition pipe that runs them: the integer
+#: ALU (16 lanes a clock, 64 per SM), the FMA pipe (f32 arithmetic and
+#: IMAD), the conversion unit; the rest (moves, memory, branches) apart.
+PIPE_OF = {
+    "alu": ("IADD3", "LOP3", "SHF", "SHL", "SHR", "ISETP", "LEA", "IMNMX",
+            "IABS", "PRMT", "SEL", "FSEL", "FSETP", "FMNMX", "POPC", "FLO",
+            "BREV", "SGXT", "BMSK", "PLOP3", "P2R", "R2P", "VIADD", "VIMNMX"),
+    "fma": ("FADD", "FMUL", "FFMA", "IMAD", "IMUL", "FMUL32I", "FADD32I",
+            "FFMA32I", "IMAD32I"),
+    "xu": ("I2F", "F2I", "MUFU", "F2F", "I2FP", "F2IP", "FRND"),
+}
+#: Functions of the refill draw and the f32 lane window, compiled with the
+#: kernels' flags into one cubin whose SASS the study counts (each kernel
+#: less sass_base, or less sass_lane_base for the window: the same loads and
+#: stores without the function).
+SASS_STUDY_CU = r"""
+#include "classify.cuh"
+#include "classify_ext.cuh"
+#define IO const uint32_t* __restrict__ in, uint32_t* __restrict__ out, \
+    uint32_t k0, uint32_t k1, float lo, float span
+#define LOAD const int i = blockIdx.x * blockDim.x + threadIdx.x; \
+    uint32_t x0 = in[2 * i], x1 = in[2 * i + 1], x2 = x0, x3 = x1, x4 = x0;
+#define STORE out[5 * i] = x0; out[5 * i + 1] = x1; out[5 * i + 2] = x2; \
+    out[5 * i + 3] = x3; out[5 * i + 4] = x4;
+extern "C" __global__ void sass_base(IO) { LOAD STORE }
+extern "C" __global__ void sass_threefry(IO) {
+  LOAD cb::threefry2x32(k0, k1, x0, x1); STORE }
+extern "C" __global__ void sass_domain(IO) {
+  LOAD x0 = __float_as_uint(cb::u32_to_domain(x0, lo, span));
+  x1 = __float_as_uint(cb::u32_to_domain(x1, span, lo)); STORE }
+extern "C" __global__ void sass_cull(IO) {
+  LOAD x4 = cb::culled(__uint_as_float(x0), __uint_as_float(x1)); STORE }
+extern "C" __global__ void sass_draw_ext(IO) {
+  LOAD const float kr = float(int32_t(x0 >> 8)), ki = float(int32_t(x1 >> 8));
+  const float off_r = cb::df::grid_offset(kr, lo);
+  const float off_i = cb::df::grid_offset(ki, span);
+  const cb::df::F2 cr = cb::df::add_f({lo, span}, off_r);
+  const cb::df::F2 ci = cb::df::add_f({span, lo}, off_i);
+  x0 = __float_as_uint(cr.hi); x1 = __float_as_uint(cr.lo);
+  x2 = __float_as_uint(ci.hi); x3 = __float_as_uint(ci.lo);
+  x4 = cb::culled(cb::fadd(lo, off_r), cb::fadd(span, off_i)); STORE }
+// The default cell's lane (buddhabrot, thin tracking, no visit window,
+// Brent checks on) through a.windows windows of U updates, one loop
+// iteration each, a finished lane refilled with a fixed draw (as the
+// kernel's loop carries it); U = 0 finishes the lane at max_it without a
+// window.
+template <int U> __device__ void window_loop(cb::ClassifyArgs a) {
+  a.detect = 1;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  cb::Lane l = cb::load_lane(a, i);
+  const cb::Draw d{l.ci, l.cr, l.dead};
+#pragma unroll 1
+  for (int w = 0; w < a.windows; ++w) {
+    bool fin = l.it >= a.max_it;
+    if constexpr (U > 0)
+      fin = cb::lane_window<cb::kBuddhabrot, true, false, U>(a, l);
+    if (fin) cb::refill<false>(l, d);
+  }
+  cb::flush_lane(a, l, 0, i);
+  cb::store_lane(a, l, i);
+}
+extern "C" __global__ void sass_window0(cb::ClassifyArgs a) { window_loop<0>(a); }
+extern "C" __global__ void sass_window1(cb::ClassifyArgs a) { window_loop<1>(a); }
+extern "C" __global__ void sass_window2(cb::ClassifyArgs a) { window_loop<2>(a); }
+"""
+
+
+def sass_listing(text):
+    """{function: [(address, opcode), ...]} of cuobjdump -sass output, NOPs
+    left out; a branch's opcode is followed by its target, as
+    ("BRA", target)."""
+    import re
+
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)(?:\S*\s+(0x[0-9a-f]+|`\(\S+\)))?",
+                     line)
+        if m and cur is not None and m.group(2) != "NOP":
+            op = m.group(2)
+            tgt = m.group(3)
+            if op == "BRA" and tgt and tgt.startswith("0x"):
+                op = ("BRA", int(tgt, 16))
+            cur.append((int(m.group(1), 16), op))
+    return funcs
+
+
+def _name(op):
+    return op[0] if isinstance(op, tuple) else op
+
+
+def sass_functions(text):
+    """{function: [opcode, ...]} of cuobjdump -sass output (NOPs and the
+    closing self-branch left out)."""
+    funcs = {k: [_name(op) for _, op in v]
+             for k, v in sass_listing(text).items()}
+    for ops in funcs.values():
+        while ops and ops[-1] == "BRA":
+            ops.pop()
+    return funcs
+
+
+def loop_body(listing):
+    """The opcodes of a function's longest loop: from the target of a
+    backward branch to that branch."""
+    start, end = max(((op[1], addr) for addr, op in listing
+                      if isinstance(op, tuple) and op[1] < addr),
+                     key=lambda t: t[1] - t[0])
+    return [_name(op) for addr, op in listing if start <= addr <= end]
+
+
+def pipe_counts(ops):
+    """Instruction counts of a SASS opcode list by pipe (PIPE_OF), plus
+    'other' and 'all'."""
+    out = {p: 0 for p in (*PIPE_OF, "other")}
+    for op in ops:
+        out[next((p for p, names in PIPE_OF.items() if op in names),
+                 "other")] += 1
+    out["all"] = len(ops)
+    return out
+
+
+def sass_study(dev):
+    """The refill draw's instructions from the SASS: Threefry-2x32, the
+    domain map of two words, the cull, and the df32 grid draw, each less the
+    loads and stores of sass_base, by pipe; the f32 lane window of the
+    default cell from the loop bodies of sass_window0/1/2 (U = 2 less U = 1
+    is one inner step; U = 1 less the step and less U = 0's loop, its
+    counter and refill, is the boundary); then the opcode mix of the built
+    classify library's default-cell kernel. Dumps go to OUT."""
+    import collections
+    import shutil
+
+    from cudabrot_tpu_torch.ops import _build
+
+    log("== SASS counts of the refill draw (cuobjdump -sass)")
+    os.makedirs(OUT, exist_ok=True)
+    nvcc = _build.nvcc_path()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        cuobjdump = shutil.which("cuobjdump") or cuobjdump
+    src = os.path.join(OUT, "sass_study.cu")
+    with open(src, "w") as f:
+        f.write(SASS_STUDY_CU)
+    cubin = os.path.join(OUT, "sass_study.cubin")
+    flags = [a for a in _build.NVCC_FLAGS
+             if a not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    subprocess.run([nvcc, *flags, "-cubin", "-I", str(_build.CSRC), "-o",
+                    cubin, src], check=True, capture_output=True, text=True)
+    text = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                          capture_output=True, text=True).stdout
+    with open(os.path.join(OUT, "sass_study.sass"), "w") as f:
+        f.write(text)
+    funcs = {k: pipe_counts(v) for k, v in sass_functions(text).items()}
+    base = funcs["sass_base"]
+    counts = {}
+    for name in ("sass_threefry", "sass_domain", "sass_cull", "sass_draw_ext"):
+        c = {p: funcs[name][p] - base[p] for p in base}
+        counts[name[5:]] = c
+        log(f"  {name[5:]}: {c['all']} instructions ({c['alu']} ALU, "
+            f"{c['fma']} FMA pipe, {c['xu']} conversion, {c['other']} other)")
+    bodies = {u: loop_body(sass_listing(text)[f"sass_window{u}"])
+              for u in (0, 1, 2)}
+    b0, b1, b2 = (pipe_counts(bodies[u]) for u in (0, 1, 2))
+    counts["inner_step"] = {p: b2[p] - b1[p] for p in b0}
+    counts["boundary"] = {p: b1[p] - b0[p] - counts["inner_step"][p]
+                          for p in b0}
+    for name in ("inner_step", "boundary"):
+        c = counts[name]
+        log(f"  f32 window {name} (loop bodies U = 0, 1, 2: {b0['all']}, "
+            f"{b1['all']}, {b2['all']}): {c['all']} instructions "
+            f"({c['alu']} ALU, {c['fma']} FMA pipe, {c['xu']} conversion, "
+            f"{c['other']} other)")
+    mix = collections.Counter(sass_functions(text)["sass_threefry"])
+    log(f"  threefry opcodes (with sass_base's): {dict(mix)}")
+    w1_mix = collections.Counter(bodies[1])
+    w1_mix.subtract(bodies[0])
+    log(f"  window U = 1 loop-body opcodes less U = 0's: "
+        f"{ {k: v for k, v in w1_mix.items() if v} }")
+    lib = _build.lib_path("classify")
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    with open(os.path.join(OUT, "classify.sass"), "w") as f:
+        f.write(text)
+    # The default cell's variant (buddhabrot, thin tracking, no visit
+    # window; U = 1 where the kernel has a U argument).
+    for name, ops in sorted(sass_functions(text).items()):
+        if "classify_kernelILi0ELb1ELb0E" in name and (
+                "ELi1EE" in name
+                or name.endswith("ELb0EEEvNS_12ClassifyArgsE")):
+            log(f"  {name}: {pipe_counts(ops)}")
+    return counts
+
+
+def ncu_probe(dev):
+    """Whether Nsight Compute runs here: its version, then one classify
+    launch at the default cell under it (ALU and FMA pipe utilization),
+    each within a time limit. Reports what happened; never fails the run."""
+    import shutil
+
+    from cudabrot_tpu_torch.ops import _build
+
+    ncu = os.path.join(os.path.dirname(_build.nvcc_path()), "ncu")
+    if not os.path.exists(ncu):
+        ncu = shutil.which("ncu")
+    if ncu is None:
+        log("  ncu: not found on this machine")
+        return
+    script = (
+        "import sys; sys.path.insert(0, %r); import chip_smoke as c, torch;"
+        "from cudabrot_tpu_torch.engines import cuda_engine as ce;"
+        "e = ce.CudaEngine(c.cell_config('default'), device='cuda');"
+        "s = e.init_state(None); e.run_pass(s, 0); torch.cuda.synchronize()"
+        % ROOT)
+    metrics = ",".join((
+        "sm__inst_executed_pipe_alu.avg.pct_of_peak_sustained_active",
+        "sm__inst_executed_pipe_fma.avg.pct_of_peak_sustained_active",
+        "sm__pipe_alu_cycles_active.avg.pct_of_peak_sustained_active",
+        "sm__pipe_fma_cycles_active.avg.pct_of_peak_sustained_active",
+        "smsp__issue_active.avg.pct_of_peak_sustained_active"))
+    import signal
+
+    for cmd, limit in (([ncu, "--version"], 60),
+                       ([ncu, "-k", "regex:classify_kernel", "-c", "1",
+                         "--metrics", metrics, sys.executable, "-c", script],
+                        150)):
+        t0 = time.monotonic()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=limit)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            log(f"  ncu ({cmd[1]}): no result within {limit} s")
+            return
+        tail = out.strip().splitlines()[-12:]
+        log(f"  ncu ({cmd[1]}): exit {proc.returncode} after "
+            f"{time.monotonic() - t0:.0f} s: " + " | ".join(tail))
+        if proc.returncode != 0:
+            return
+
+
+def cell_lanes_study(dev, name="default", steps=STUDY_STEPS):
+    """A cell's engine after 4 passes: (cfg, engine tuning, carried lane
+    state, the classify spec of a ``steps``-step pass, its seed)."""
+    from cudabrot_tpu_torch.engines import cuda_engine as ce
+    from cudabrot_tpu_torch.ops import prng
+
+    cfg = cell_config(name)
+    eng = ce.CudaEngine(cfg, device=dev)
+    tn = eng.tuning
+    state = eng.init_state(None)
+    for p in range(4):
+        eng.run_pass(state, p)
+    spec = dict(fractal=eng.fractal, min_it=tn.min_it, max_it=tn.max_it,
+                steps_per_pass=steps,
+                steps_per_flush=min(tn.steps_per_flush, steps),
+                cycle_detection=True, inner_unroll=tn.inner_unroll,
+                thin_tracking=tn.thin_tracking,
+                sample_domain=cfg.sample_domain)
+    seed = tuple(prng.bits_host(prng.pass_key(cfg.seed, 0, 5), 2))
+    return cfg, tn, clone_state(state["lanes"]), spec, seed
+
+
+def study_bits(dev, seed, spec, rows):
+    """The Threefry words every (window, lane) of the pass would draw, as
+    the (chunks, windows, 2, rows, 128) int32 bits tensor."""
+    import torch
+
+    from cudabrot_tpu_torch.ops import prng
+
+    chunks = spec["steps_per_pass"] // spec["steps_per_flush"]
+    windows = spec["steps_per_flush"] // spec["inner_unroll"]
+    lane = torch.arange(rows * 128, dtype=torch.int64, device=dev)
+    g = torch.arange(chunks * windows, dtype=torch.int64, device=dev)
+    w0, w1 = prng.threefry2x32(seed[0], seed[1], lane[None, :], g[:, None])
+    w = torch.stack((w0, w1), dim=1)
+    del w0, w1
+    w = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+    return w.reshape(chunks, windows, 2, rows, 128)
+
+
+def time_from(lanes0, run, reps):
+    """Least and mean ms of ``run(state)`` over ``reps`` calls, each from a
+    fresh copy of ``lanes0`` (CUDA events around the call alone); returns
+    them and the last call's result."""
+    import torch
+
+    times, res = [], None
+    run(clone_state(lanes0))
+    for _ in range(reps):
+        st = clone_state(lanes0)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = run(st)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return min(times), sum(times) / len(times), res
+
+
+def classify_study(dev, card):
+    """What the f32 classify kernel spends its time on at the default cell
+    (its lane state after 4 passes, a STUDY_STEPS-step pass): the kernel
+    with in-kernel Threefry against the same pass with the words read from
+    a bits tensor (bitwise equal results; the difference is Threefry's
+    cost); the draw profile (draws per lane-step, the share of warp-steps
+    with a draw, Threefry warp-passes per 32 lanes for S lanes per thread),
+    from one-window launches fed the same words; issue cycles per
+    warp-step; the SASS counts; the lanes-per-thread sweep where the kernel
+    has one; an Nsight Compute probe."""
+    import inspect
+
+    import torch
+
+    from cudabrot_tpu_torch.ops import _build
+    from cudabrot_tpu_torch.ops import classify as cls
+
+    log(f"== classify study at the default cell ({card})")
+    nvcc = _nvcc_version()
+    log(f"  nvcc: {nvcc}")
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=False).stdout.split()[0])
+    cfg, tn, lanes0, spec, seed = cell_lanes_study(dev)
+    rows = lanes0.cr.shape[0]
+    n = rows * 128
+    bits = study_bits(dev, seed, spec, rows)
+    sweep = "defines" in inspect.signature(_build.load).parameters
+    choices = STUDY_LANES_PER_THREAD if sweep else (None,)
+
+    def run_cell(spec, seed, S, b=None):
+        def call(st):
+            with classify_lanes(S):
+                return cls.classify_pass(st, seed, b, **spec)
+        return call
+
+    def run(S, b):
+        return run_cell(spec, seed, S, b)
+
+    warp_steps = n * STUDY_STEPS / 32
+    ref = None
+    for rnd in range(2):
+        for S in choices:
+            t_tf, m_tf, r_tf = time_from(lanes0, run(S, None), 5)
+            t_b, m_b, r_b = time_from(lanes0, run(S, bits), 5)
+            if ref is None:
+                ref = r_tf
+            for x, y in ((r_tf, r_b), (r_tf, ref)):
+                check(all(same_bits(a, b) for a, b in zip(x.state, y.state))
+                      and same_bits(x.emit_c, y.emit_c)
+                      and same_bits(x.emit_it, y.emit_it)
+                      and same_bits(x.stats, y.stats),
+                      f"classify S={S}: threefry and bits passes bitwise "
+                      f"equal")
+            cyc = t_tf * 1e-3 * clk * 1e6 * 132 * 4 / warp_steps
+            log(f"  round {rnd} S={S} U={spec['inner_unroll']}, "
+                f"{STUDY_STEPS} steps x {n} lanes: threefry {t_tf:.4f} ms "
+                f"(mean {m_tf:.4f}), bits {t_b:.4f} ms (mean {m_b:.4f}); "
+                f"Threefry share {(t_tf - t_b) / t_tf:.4f}; "
+                f"{cyc:.1f} issue cycles per warp-step at {clk:.0f} MHz")
+    draws = int(ref.stats[cls.STAT_DRAWN].sum())
+    log(f"  draws per lane-step {draws / (n * STUDY_STEPS):.5f} "
+        f"({draws} draws)")
+
+    # The draw profile, window by window: one-window launches fed the same
+    # words leave the lane state of the whole pass, bitwise.
+    U = spec["inner_unroll"]
+    one = dict(spec, steps_per_pass=U, steps_per_flush=U)
+    st = clone_state(lanes0)
+    fins = []
+    chunks, windows = bits.shape[:2]
+    for c in range(chunks):
+        for w in range(windows):
+            word = bits[c, w][None, None].contiguous()
+            r = cls.classify_pass(st, seed, word, **one)
+            fins.append(r.stats[cls.STAT_DRAWN].reshape(-1) > 0)
+    check(all(same_bits(a, b) for a, b in zip(st, ref.state)),
+          "classify: one-window launches leave the pass's lane state")
+    fin = torch.stack(fins)
+    check(int(fin.sum()) == draws, "classify: one-window draws == the pass's")
+    G = fin.shape[0]
+    log(f"  {G} windows, draws per lane-window "
+        f"{float(fin.float().mean()):.5f}")
+    for S in STUDY_LANES_PER_THREAD:
+        per = fin.reshape(G, n // (32 * S), 32 * S).sum(-1)
+        passes = ((per + 31) // 32).float().mean() / S
+        log(f"  S={S}: share of warp-windows with a draw "
+            f"{float((per > 0).float().mean()):.5f}; Threefry warp-passes per "
+            f"32 lanes per window {float(passes):.4f}")
+    per = fin.reshape(G, n // 256, 256).sum(-1)
+    log(f"  block queue (8 warps, S=1): warp-passes per 32 lanes per window "
+        f"{float(((per + 31) // 32).float().mean() / 8):.4f}")
+    del bits, fin
+    if sweep:
+        # The whole main-path pass of the default and deep cells at each S.
+        for name in ("default", "deep"):
+            _, tn, lanes, full, seed = cell_lanes_study(dev, name, 4096)
+            best = {S: min(time_from(lanes, run_cell(full, seed, S), 5)[0]
+                           for _ in range(2)) for S in choices}
+            log(f"  {name} pass (U={tn.inner_unroll}, 4096 steps), least "
+                f"of 2 rounds of 5: " + ", ".join(
+                    f"S={S} {t:.4f} ms" for S, t in best.items())
+                + f" (the package's S: {package_lanes()})")
+    sass = sass_study(dev)
+    ncu_probe(dev)
+    return sass
+
+
+def _nvcc_version():
+    from cudabrot_tpu_torch.ops import _build
+
+    return subprocess.run([_build.nvcc_path(), "--version"],
+                          capture_output=True,
+                          text=True).stdout.strip().splitlines()[-1]
+
+
+def phase_replay_floor_f32(dev, card):
+    """What bounds the f32 replay-deposit kernel: at the deep batch (its
+    1000x1000 canvas) and at the northstar batch (20000x20000), the batch's
+    longest orbit set to FLOOR_STEPS steps and replayed alone, at the head
+    of the batch's first 128 and 256 orbits and of the whole batch; then
+    the whole batch of the default, deep and northstar cells at each
+    STUDY_REPLAY_WARPS resident warps per SM where the kernel has a queue
+    (binning.REPLAY_WARPS_PER_SM set for the call), and the default batch
+    at each STUDY_TAKES_PER_WARP. Least of 3 rounds each."""
+    import torch
+
+    from cudabrot_tpu_torch.ops import binning
+
+    log(f"== phase 7c: the f32 replay's long-orbit floor ({card})")
+    warps = hasattr(binning, "REPLAY_WARPS_PER_SM")
+    for name in ("deep", "northstar", "default"):
+        eng, _, (cr, ci, it) = kept_batch(dev, name, warm=4)
+        canvas = eng.cfg.canvas
+        hist = torch.zeros(canvas.num_pixels, dtype=torch.int32, device=dev)
+        head = it.clone()
+        if name != "default":
+            head[0] = FLOOR_STEPS - 1
+        k = cr.numel()
+        orbits = int((it >= 0).sum())
+        log(f"  {name} batch: {orbits} orbits, longest {int(it[0]) + 1} "
+            f"steps, {int(torch.where(it >= 0, it + 1, 0).sum())} points, "
+            f"canvas {canvas.width}x{canvas.height}")
+
+        def call(m, its=head, const=None, value=None):
+            def replay():
+                return binning.replay_deposit(hist, cr[:m], ci[:m], its[:m],
+                                              canvas=canvas,
+                                              fractal=eng.fractal)
+            if const is None:
+                return replay
+
+            def patched():
+                with mock.patch.object(binning, const, value):
+                    return replay()
+            return patched
+
+        if name != "default":
+            rounds = []
+            for _ in range(3):
+                rounds.append({m: time_ms(call(m), 5)
+                               for m in (1, 128, 256, k)})
+                rounds[-1]["as_is"] = time_ms(call(k, it), 5)
+            best = {m: min(r[m] for r in rounds) for m in rounds[0]}
+            log(f"  replay_deposit ({name}), least of 3 rounds: lone orbit "
+                f"of {FLOOR_STEPS} steps {best[1]:.4f} ms; at the head of "
+                f"128 orbits {best[128]:.4f}, 256 orbits {best[256]:.4f}, "
+                f"all {k} {best[k]:.4f} ms (the batch as compacted "
+                f"{best['as_is']:.4f}); batch / lone {best[k] / best[1]:.3f}")
+        if warps:
+            sweep = {}
+            for _ in range(3):
+                for w in STUDY_REPLAY_WARPS:
+                    sweep[w] = min(sweep.get(w, 1e9), time_ms(
+                        call(k, it, "REPLAY_WARPS_PER_SM", w), 5))
+            log(f"  replay_deposit ({name}): the batch as compacted at "
+                "resident warps per SM " + ", ".join(
+                    f"{w}: {t:.4f} ms" for w, t in sweep.items())
+                + f" (least of 3 rounds; the package's "
+                f"{binning.REPLAY_WARPS_PER_SM})")
+            if name == "default":
+                takes = {}
+                for _ in range(3):
+                    for g in STUDY_TAKES_PER_WARP:
+                        takes[g] = min(takes.get(g, 1e9), time_ms(
+                            call(k, it, "REPLAY_TAKES_PER_WARP", g), 5))
+
+                def take_of(g):
+                    with mock.patch.object(binning, "REPLAY_TAKES_PER_WARP",
+                                           g):
+                        return binning.replay_launch(k, dev)[1]
+                log(f"  replay_deposit ({name}): REPLAY_TAKES_PER_WARP (groups "
+                    "of 32 a warp takes at once) " + ", ".join(
+                        f"{g} ({take_of(g)}): {t:.4f} ms"
+                        for g, t in takes.items())
+                    + f" (least of 3 rounds; the package's "
+                    f"{binning.REPLAY_TAKES_PER_WARP})")
+        else:
+            log(f"  replay_deposit ({name}): the batch as compacted "
+                f"{min(time_ms(call(k, it), 5) for _ in range(3)):.4f} ms")
+        del hist, eng
+        torch.cuda.empty_cache()
+    for entry, regs in registers("deposit", "replay"):
+        log(f"  registers [deposit] {entry}: {regs}")
+
+
 def phase_pass_times(dev, card, passes=16):
     """Engine passes of STUDY_CELLS on the host clock, as the driver runs
     them (synchronize every 8 passes, and at the end), after 8 passes of
     warm-up: ms per pass, lane-steps/s and deposited points/s."""
     import torch
 
+    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
+
     log(f"== phase 7b: engine passes, host clock over {passes} passes "
         f"({card})")
     for name, scatter in STUDY_CELLS:
-        eng, state, _ = kept_batch(dev, name, scatter)
+        eng = CudaEngine(cell_config(name, scatter), device=dev)
+        state = eng.init_state(None)
+        for p in range(8):
+            eng.run_pass(state, p)
         eng.synchronize()
         hits0 = int(state["dev_hits"])
         t0 = time.perf_counter()
@@ -1829,7 +2458,13 @@ def main() -> int:
     if sys.argv[1:] == ["--replay-study"]:
         phase_build()
         phase_replay_floor(dev, card)
+        phase_replay_floor_f32(dev, card)
         phase_pass_times(dev, card)
+        log(card)
+        return 0
+    if sys.argv[1:] == ["--classify-study"]:
+        phase_build()
+        classify_study(dev, card)
         log(card)
         return 0
     try:

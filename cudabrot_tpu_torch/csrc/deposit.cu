@@ -8,16 +8,29 @@
 //  * cb_deposit_ids: the exact function of scatter_pallas — count a flat
 //    int32 id stream into a uint32 histogram; ids outside [0, nbins) (the
 //    sentinel nbins) are dropped. One global atomicAdd per id.
-//  * cb_replay_deposit: what the render's main path runs. One thread per
-//    compacted emission (c, iters): z starts at c, steps s = 0..iters are
+//  * cb_replay_deposit: what the render's main path runs. Each compacted
+//    emission (c, iters) is replayed: z starts at c, steps s = 0..iters are
 //    recorded including the escape point, each on-canvas point binned
 //    (points_to_bin_ids, strict rounding) and added with atomicAdd straight
 //    into the global histogram. The TPU path materializes up to 2^27 ids
 //    per pass (~512 MB) and streams them through its scatter; here no id
-//    ever reaches device memory, and one kernel serves every band length.
+//    ever reaches device memory, and one kernel serves every band. The
+//    batch arrives sorted by descending orbit length, and the card's warps
+//    work through it as a queue (deposit_ext.cu's, longest first): each
+//    resident warp takes the next group of 32 emissions from a global
+//    counter, runs its lanes in step for the group's longest orbit with
+//    only each lane's own steps recorded (orbit.cuh replay_orbit,
+//    branch-free binning), and takes another. The wrapper puts
+//    binning.REPLAY_WARPS_PER_SM resident warps on each SM, the count that
+//    served the deep (a few thousand orbits, the longest ~20,000 steps),
+//    northstar and default (~3e6 orbits of ~40 points, bound by the
+//    atomics' throughput) batches alike, and at the default batch each take
+//    is several groups, so the counter's atomics do not serialize the
+//    warps.
 //
-//  * cb_replay_ids: the same orbit loop (orbit.cuh replay_orbit) writing
-//    ids instead of adding them, for the bigtiles route: emission i writes
+//  * cb_replay_ids: the replay (orbit.cuh replay_orbit, one thread per
+//    emission in blocks of 256) writing ids instead of adding them, for
+//    the bigtiles route: emission i writes
 //    the bin id of each of its iters + 1 steps, or the sentinel nbins off
 //    the canvas, at off[i] + s of a flat int32 stream (off: the exclusive
 //    prefix sum of the orbit lengths, int64). Every slot is written
@@ -41,11 +54,11 @@
 // Bound. The deposit is a random read-modify-write per orbit point: the
 // floor is the atomic throughput of the L2 (a 1000^2 uint32 histogram is
 // 4 MB and stays in the 50 MB L2), not the bytes the function must move
-// (its inputs are read once). The replay's f32 work is ~13 operations per
-// point. Emissions arrive sorted by descending orbit length, so the lanes
-// of a warp run orbits of nearly equal length. Integer adds commute, so
-// the histogram equals the plain PyTorch versions (ops/binning.py)
-// bitwise whatever the order of the atomics.
+// (its inputs are read once). The replay's f32 work is ~15 operations per
+// point, in a dependent chain per orbit: a lone long orbit's chain is the
+// floor at deep bands. Integer adds commute, so the histogram equals the
+// plain PyTorch versions (ops/binning.py) bitwise whatever the order of the
+// atomics and whatever mapping of emissions to warps.
 #include <cuda_runtime.h>
 
 #include "mh.cuh"
@@ -65,16 +78,41 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+constexpr int kQueueBlock = 128;  // 4 warps: one per SM sub-partition
+
+// The queue: each warp takes the next `take` groups of 32 emissions until
+// none is left. The group index is broadcast from lane 0, so the loop's
+// exit is warp-uniform and every lane reaches the warp sum. The lanes
+// replay their orbits in step, for the group's longest orbit; a lane past
+// the batch's end runs the group's first emission and records nothing
+// (n = -1). Taking several groups at once spares the counter (one address,
+// so its atomics serialize) at batches of many short orbits.
 template <int FR>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kQueueBlock)
     replay_deposit_kernel(const float* cr, const float* ci,
                           const int32_t* iters, int k, uint32_t* hist,
-                          cb::CanvasQ q, unsigned long long* hits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                          cb::CanvasQ q, int take,
+                          unsigned long long* next,
+                          unsigned long long* hits) {
+  const int lane = threadIdx.x & 31;
+  const int groups = (k + 31) / 32;
   uint32_t local = 0;
-  const int n = i < k ? iters[i] : -1;
-  if (n >= 0)
-    local = cb::replay_orbit<FR>(cr[i], ci[i], n, q, cb::DepositSink{hist});
+  for (;;) {
+    unsigned long long first = 0;
+    if (lane == 0) first = atomicAdd(next, (unsigned long long)take);
+    first = __shfl_sync(0xffffffffu, first, 0);
+    if (first >= (unsigned long long)groups) break;
+    const int end = int(first) + take < groups ? int(first) + take : groups;
+    for (int g = int(first); g < end; ++g) {
+      const int i = g * 32 + lane;
+      const int e = i < k ? i : g * 32;
+      const int n = i < k ? iters[i] : -1;
+      const int steps = __reduce_max_sync(0xffffffffu, n) + 1;
+      if (steps > 0)
+        local += cb::replay_orbit<FR>(cr[e], ci[e], n, steps, q,
+                                      cb::DepositSink{hist});
+    }
+  }
   cb::warp_sum_add(hits, local);
 }
 
@@ -87,7 +125,7 @@ __global__ void __launch_bounds__(kBlock)
   uint32_t local = 0;
   const int n = i < k ? iters[i] : -1;
   if (n >= 0)
-    local = cb::replay_orbit<FR>(cr[i], ci[i], n, q,
+    local = cb::replay_orbit<FR>(cr[i], ci[i], n, n + 1, q,
                                  cb::IdSink{ids + off[i], q.width * q.height});
   cb::warp_sum_add(hits, local);
 }
@@ -104,11 +142,15 @@ __global__ void __launch_bounds__(kBlock)
 template <int FR>
 cudaError_t launch_replay(const float* cr, const float* ci,
                           const int32_t* iters, int k, uint32_t* hist,
-                          const cb::CanvasQ& q, unsigned long long* hits,
+                          const cb::CanvasQ& q, int warps, int take,
+                          unsigned long long* next, unsigned long long* hits,
                           cudaStream_t stream) {
-  const int grid = (k + kBlock - 1) / kBlock;
-  replay_deposit_kernel<FR><<<grid, kBlock, 0, stream>>>(cr, ci, iters, k,
-                                                          hist, q, hits);
+  // `warps` resident warps in all, no more than the batch has takes.
+  const int takes = ((k + 31) / 32 + take - 1) / take;
+  const int w = warps < takes ? warps : takes;
+  const int grid = (w + kQueueBlock / 32 - 1) / (kQueueBlock / 32);
+  replay_deposit_kernel<FR><<<grid, kQueueBlock, 0, stream>>>(
+      cr, ci, iters, k, hist, q, take, next, hits);
   return cudaGetLastError();
 }
 
@@ -138,30 +180,37 @@ extern "C" int cb_deposit_ids(const void* ids, long long n, void* hist,
   return int(cudaGetLastError());
 }
 
-// hits: one uint64 the kernel adds the on-canvas point count to.
+// warps: the resident warps to launch (the SMs times the warps per SM);
+// take: the groups of 32 a warp takes from the queue at once; next: one
+// zeroed uint64, the queue's counter; hits: one uint64 the kernel adds the
+// on-canvas point count to. Returns the cudaError_t of the launch
+// (0 = launched).
 extern "C" int cb_replay_deposit(int fractal, const void* cr, const void* ci,
                                  const void* iters, int k, void* hist,
                                  float min_re, float min_im, float d_re,
                                  float d_im, int width, int height,
-                                 void* hits, void* stream) {
+                                 int warps, int take, void* next, void* hits,
+                                 void* stream) {
   if (k <= 0) return 0;
+  if (warps <= 0 || take <= 0) return int(cudaErrorInvalidValue);
   const cb::CanvasQ q{min_re, min_im, d_re, d_im, width, height};
   const auto* pcr = static_cast<const float*>(cr);
   const auto* pci = static_cast<const float*>(ci);
   const auto* pit = static_cast<const int32_t*>(iters);
   auto* ph = static_cast<uint32_t*>(hist);
+  auto* pn = static_cast<unsigned long long*>(next);
   auto* phits = static_cast<unsigned long long*>(hits);
   auto s = static_cast<cudaStream_t>(stream);
   switch (fractal) {
     case cb::kBuddhabrot:
       return int(launch_replay<cb::kBuddhabrot>(pcr, pci, pit, k, ph, q,
-                                                 phits, s));
+                                                 warps, take, pn, phits, s));
     case cb::kBurningShip:
       return int(launch_replay<cb::kBurningShip>(pcr, pci, pit, k, ph, q,
-                                                  phits, s));
+                                                  warps, take, pn, phits, s));
     case cb::kAntiBuddhabrot:
-      return int(launch_replay<cb::kAntiBuddhabrot>(pcr, pci, pit, k, ph, q,
-                                                     phits, s));
+      return int(launch_replay<cb::kAntiBuddhabrot>(
+          pcr, pci, pit, k, ph, q, warps, take, pn, phits, s));
   }
   return int(cudaErrorInvalidValue);
 }

@@ -1,6 +1,9 @@
 // CPU build of the kernels' per-lane functions.
 //
-// The df32 arithmetic (df32.cuh), the lane and emission functions of the
+// The f32 classify lane functions (classify.cuh) in an emulation of the
+// kernel's warps with their compacted refill, the fused f32 replay's orbit
+// loop as the kernel's queue runs it (orbit.cuh replay_orbit), the
+// df32 arithmetic (df32.cuh), the lane and emission functions of the
 // classify_ext and replay_deposit_ext kernels (classify_ext.cuh), the
 // Metropolis-Hastings lane function and deposit (mh.cuh: classify_mh,
 // classify_ext_mh, mh_deposit), the orbit loop of the replay kernels with
@@ -17,9 +20,11 @@
 // (-ffp-contract=off: every product and sum must round once, as
 // __fmul_rn/__fadd_rn do on the device.) Nothing in the package loads it;
 // tests/test_torch_df32.py builds it when g++ is present.
+#include <type_traits>
 #include <vector>
 
 #include "bigtiles.cuh"
+#include "classify.cuh"
 #include "classify_ext.cuh"
 #include "mh.cuh"
 
@@ -98,9 +103,167 @@ int replay_ext_all(int fractal, const cb::ReplayExtArgs& a,
   return 0;
 }
 
+// One pass of the f32 classify kernel (classify.cu) with S lanes per
+// thread, its warps emulated in turn: each warp's 32 threads run their S
+// lanes' windows, the finished pairs queue their lane ids at the slots
+// refill_slot gives them, the queued draws are computed in passes of 32 (as
+// thread q takes slots q, q + 32, ...), and each finished lane takes its
+// own slot's draw. The window loop runs at the runtime unroll (U = 0).
+template <int FR, bool THIN, bool VISIT, int S>
+void classify_warps(const cb::ClassifyArgs& a) {
+  const int warps = (a.lanes + 32 * S - 1) / (32 * S);
+  std::vector<cb::Lane> L(32 * S);
+  std::vector<int> q_lane(32 * S);
+  std::vector<cb::Draw> q_draw(32 * S);
+  for (int g = 0; g < warps; ++g) {
+    auto lane = [&](int t, int j) { return (g * S + j) * 32 + t; };
+    auto live = [&](int t, int j) { return lane(t, j) < a.lanes; };
+    for (int t = 0; t < 32; ++t)
+      for (int j = 0; j < S; ++j)
+        L[t * S + j] = cb::load_lane(a, live(t, j) ? lane(t, j) : 0);
+    for (int chunk = 0; chunk < a.chunks; ++chunk) {
+      for (int w = 0; w < a.windows; ++w) {
+        uint32_t mask[S] = {};
+        bool fin[32][S];
+        int F = 0;
+        for (int t = 0; t < 32; ++t)
+          for (int j = 0; j < S; ++j) {
+            fin[t][j] = cb::lane_window<FR, THIN, VISIT, 0>(a, L[t * S + j])
+                        && live(t, j);
+            mask[j] |= uint32_t(fin[t][j]) << t;
+          }
+        for (int j = 0; j < S; ++j) F += cb::popc32(mask[j]);
+        const int gwin = chunk * a.windows + w;
+        for (int t = 0; t < 32; ++t)
+          for (int j = 0; j < S; ++j)
+            if (fin[t][j]) q_lane[cb::refill_slot<S>(mask, t, j)] = lane(t, j);
+        for (int pass = 0; pass * 32 < F; ++pass)
+          for (int t = 0; t < 32; ++t) {
+            const int q = pass * 32 + t;
+            if (q < F) q_draw[q] = cb::draw_sample<FR>(a, q_lane[q], gwin);
+          }
+        for (int t = 0; t < 32; ++t)
+          for (int j = 0; j < S; ++j)
+            if (fin[t][j])
+              cb::refill<VISIT>(L[t * S + j],
+                                q_draw[cb::refill_slot<S>(mask, t, j)]);
+      }
+      for (int t = 0; t < 32; ++t)
+        for (int j = 0; j < S; ++j)
+          if (live(t, j)) cb::flush_lane(a, L[t * S + j], chunk, lane(t, j));
+    }
+    for (int t = 0; t < 32; ++t)
+      for (int j = 0; j < S; ++j)
+        if (live(t, j)) cb::store_lane(a, L[t * S + j], lane(t, j));
+  }
+}
+
+template <int FR, bool THIN, bool VISIT>
+int classify_warps_by_s(int per_thread, const cb::ClassifyArgs& a) {
+  switch (per_thread) {
+    case 1: classify_warps<FR, THIN, VISIT, 1>(a); return 0;
+    case 2: classify_warps<FR, THIN, VISIT, 2>(a); return 0;
+    case 4: classify_warps<FR, THIN, VISIT, 4>(a); return 0;
+  }
+  return 1;
+}
+
+template <int FR>
+int classify_warps_by_variant(int thin, int visit, int per_thread,
+                              const cb::ClassifyArgs& a) {
+  if (!thin)
+    return visit ? 1
+                 : classify_warps_by_s<FR, false, false>(per_thread, a);
+  return visit ? classify_warps_by_s<FR, true, true>(per_thread, a)
+               : classify_warps_by_s<FR, true, false>(per_thread, a);
+}
+
 }  // namespace
 
 extern "C" {
+
+// The interface of cb_classify, the kernel's warps emulated on the CPU
+// with iargs[10] lanes per thread (the kernel's CB_LANES_PER_THREAD).
+int cbh_classify(void** ptrs, const int* iargs, const float* fargs,
+                 uint32_t k0, uint32_t k1) {
+  const cb::ClassifyArgs a = cb::classify_args(ptrs, iargs, fargs, k0, k1);
+  const int thin = iargs[1], visit = iargs[2], per_thread = iargs[10];
+  switch (iargs[0]) {
+    case cb::kBuddhabrot:
+      return classify_warps_by_variant<cb::kBuddhabrot>(thin, visit,
+                                                        per_thread, a);
+    case cb::kBurningShip:
+      return classify_warps_by_variant<cb::kBurningShip>(thin, visit,
+                                                         per_thread, a);
+    case cb::kAntiBuddhabrot:
+      return classify_warps_by_variant<cb::kAntiBuddhabrot>(thin, visit,
+                                                            per_thread, a);
+  }
+  return 1;
+}
+
+// refill_slot for every (thread, sub-lane) of one warp: masks holds S
+// ballots; slots[j * 32 + t] gets the slot of finished pairs, -1 for the
+// others.
+int cbh_refill_slots(int per_thread, const uint32_t* masks, int* slots) {
+  auto fill = [&](auto tag) {
+    constexpr int S = decltype(tag)::value;
+    uint32_t m[S];
+    for (int j = 0; j < S; ++j) m[j] = masks[j];
+    for (int j = 0; j < S; ++j)
+      for (int t = 0; t < 32; ++t)
+        slots[j * 32 + t] =
+            (m[j] >> t) & 1u ? cb::refill_slot<S>(m, t, j) : -1;
+    return 0;
+  };
+  switch (per_thread) {
+    case 1: return fill(std::integral_constant<int, 1>());
+    case 2: return fill(std::integral_constant<int, 2>());
+    case 4: return fill(std::integral_constant<int, 4>());
+  }
+  return 1;
+}
+
+// The interface of cb_replay_deposit, the kernel's queue emulated on the
+// CPU: groups of 32 emissions, each lane replayed for its group's longest
+// orbit (orbit.cuh replay_orbit), a lane past the batch's end
+// running the group's first emission with nothing recorded.
+int cbh_replay_deposit(int fractal, const float* cr, const float* ci,
+                       const int32_t* iters, int k, uint32_t* hist,
+                       float min_re, float min_im, float d_re, float d_im,
+                       int width, int height, void* hits) {
+  const cb::CanvasQ q{min_re, min_im, d_re, d_im, width, height};
+  const cb::DepositSink sink{hist};
+  unsigned long long total = 0;
+  for (int g = 0; g * 32 < k; ++g) {
+    int steps = 0;
+    for (int i = g * 32; i < g * 32 + 32 && i < k; ++i)
+      steps = iters[i] + 1 > steps ? iters[i] + 1 : steps;
+    if (steps <= 0) continue;
+    for (int i = g * 32; i < g * 32 + 32; ++i) {
+      const int e = i < k ? i : g * 32;
+      const int n = i < k ? iters[i] : -1;
+      switch (fractal) {
+        case cb::kBuddhabrot:
+          total += cb::replay_orbit<cb::kBuddhabrot>(cr[e], ci[e], n,
+                                                           steps, q, sink);
+          break;
+        case cb::kBurningShip:
+          total += cb::replay_orbit<cb::kBurningShip>(cr[e], ci[e], n,
+                                                            steps, q, sink);
+          break;
+        case cb::kAntiBuddhabrot:
+          total += cb::replay_orbit<cb::kAntiBuddhabrot>(
+              cr[e], ci[e], n, steps, q, sink);
+          break;
+        default:
+          return 1;
+      }
+    }
+  }
+  *static_cast<unsigned long long*>(hits) += total;
+  return 0;
+}
 
 // Elementwise df32 functions over n values; outputs are (hi, lo) arrays.
 void cbh_two_sum(const float* a, const float* b, int n, float* s, float* e) {
@@ -264,16 +427,16 @@ int cbh_replay_ids(int fractal, const float* cr, const float* ci,
     const cb::IdSink sink{ids + off[i], width * height};
     switch (fractal) {
       case cb::kBuddhabrot:
-        total += cb::replay_orbit<cb::kBuddhabrot>(cr[i], ci[i], iters[i], q,
-                                                   sink);
+        total += cb::replay_orbit<cb::kBuddhabrot>(cr[i], ci[i], iters[i],
+                                                   iters[i] + 1, q, sink);
         break;
       case cb::kBurningShip:
         total += cb::replay_orbit<cb::kBurningShip>(cr[i], ci[i], iters[i],
-                                                    q, sink);
+                                                    iters[i] + 1, q, sink);
         break;
       case cb::kAntiBuddhabrot:
-        total += cb::replay_orbit<cb::kAntiBuddhabrot>(cr[i], ci[i],
-                                                       iters[i], q, sink);
+        total += cb::replay_orbit<cb::kAntiBuddhabrot>(
+            cr[i], ci[i], iters[i], iters[i] + 1, q, sink);
         break;
       default:
         return 1;

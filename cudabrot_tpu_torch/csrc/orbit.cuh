@@ -101,20 +101,25 @@ CB_HD float u32_to_domain(uint32_t bits, float lo, float span) {
 }
 
 // Canvas quantization (ops/binning.points_to_bin_ids): points below the
-// minimum are rejected before the divide; col/row truncate; the range
-// test runs on the float quotient (trunc(x) < n  <=>  x < n for x >= 0),
-// so no out-of-range float is ever converted. Returns -1 off-canvas.
+// minimum are off the canvas; col/row truncate; the range test runs on the
+// float quotient (trunc(x) < n  <=>  x < n for x >= 0). Returns -1
+// off-canvas. Without a branch: the quotients are taken for every point
+// and the tests select, so a warp whose lanes land on and off the canvas
+// does not diverge, and a float reaches the integer conversion only in
+// range.
 struct CanvasQ {
   float min_re, min_im, d_re, d_im;
   int width, height;
 };
 
 CB_HD int64_t bin_id(const CanvasQ& q, float re, float im) {
-  if (!(re >= q.min_re) || !(im >= q.min_im)) return -1;
-  float col = fdiv(fsub(re, q.min_re), q.d_re);
-  float row = fdiv(fsub(im, q.min_im), q.d_im);
-  if (!(col < float(q.width)) || !(row < float(q.height))) return -1;
-  return int64_t(int32_t(row)) * q.width + int32_t(col);
+  const float col = fdiv(fsub(re, q.min_re), q.d_re);
+  const float row = fdiv(fsub(im, q.min_im), q.d_im);
+  const bool on = (re >= q.min_re) & (im >= q.min_im) &
+                  (col < float(q.width)) & (row < float(q.height));
+  const int64_t b = int64_t(int32_t(on ? row : 0.0f)) * q.width +
+                    int32_t(on ? col : 0.0f);
+  return on ? b : -1;
 }
 
 // Adds v to a histogram cell: an atomic on the device (threads share the
@@ -171,15 +176,24 @@ struct CanvasIdSink {
 
 // Replays one emission: z starts at c (cudabrot.cu:323-324), steps
 // s = 0..n are recorded including the escape point, and each step's bin
-// goes to the sink. Returns the on-canvas point count.
+// goes to the sink. Returns the on-canvas point count. The loop runs
+// `steps` >= n + 1 times: the fused replay's queue (deposit.cu) runs all
+// the lanes of a warp for its longest lane's length, so the warp never
+// diverges; steps past n give the sink b = -1, which records nothing.
+// Pipelined by one step: point s is binned after step s + 1 is taken, so
+// the binning, which the orbit never reads, and the next step's dependent
+// chain sit in one iteration and the compiler interleaves them.
 template <int FR, class Sink>
-CB_HD uint32_t replay_orbit(float c_r, float c_i, int n, const CanvasQ& q,
-                            const Sink& sink) {
+CB_HD uint32_t replay_orbit(float c_r, float c_i, int n, int steps,
+                            const CanvasQ& q, const Sink& sink) {
   float zr = c_r, zi = c_i;
+  step<FR>(zr, zi, c_r, c_i);
   uint32_t hits = 0;
-  for (int s = 0; s <= n; ++s) {
+  for (int s = 0; s < steps; ++s) {
+    const float pr = zr, pi = zi;
     step<FR>(zr, zi, c_r, c_i);
-    const int64_t b = bin_id(q, zr, zi);
+    const int64_t bin = bin_id(q, pr, pi);
+    const int64_t b = s <= n ? bin : -1;
     sink(s, b);
     hits += b >= 0;
   }

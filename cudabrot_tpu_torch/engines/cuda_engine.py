@@ -13,9 +13,10 @@ Port of the uniform device-replay paths of
      uniform key (Threefry words from the ``threefry_bits`` kernel) picks
      at most ``replay_capacity`` emissions, then the kept ones are
      ordered by descending orbit length.
-  3. ``ops.binning.replay_deposit`` (``csrc/deposit.cu``): one thread per
-     kept emission replays its orbit and deposits every on-canvas point
-     into the device histogram with atomics. It replaces both the batched
+  3. ``ops.binning.replay_deposit`` (``csrc/deposit.cu``): the kernel's
+     warps take the kept emissions in groups of 32, longest first, replay
+     their orbits and deposit every on-canvas point into the device
+     histogram with atomics. It replaces both the batched
      (materialized id stream + one scatter) and the blocked replay of the
      JAX engine: no id stream exists, and one kernel covers every band.
 

@@ -144,6 +144,28 @@ def deposit_ids_plain(hist_flat: torch.Tensor, ids: torch.Tensor):
 # replay_deposit: orbit replay fused with the deposit (the main path).
 
 
+#: Resident warps per SM of the f32 replay-deposit kernel's queue
+#: (csrc/deposit.cu): on an H100 the fastest at the default batch and
+#: level with 4..64 at the deep and northstar ones (chip_smoke.py
+#: --replay-study, which sweeps it). The histogram does not depend on it.
+REPLAY_WARPS_PER_SM = 16
+#: Takes from the queue each resident warp should get at least: a warp
+#: takes max(1, groups / (warps * REPLAY_TAKES_PER_WARP)) groups of 32 at
+#: once, so a batch of millions of short orbits does not serialize on the
+#: queue's counter, and one of a few thousand long ones takes them one by
+#: one, longest first.
+REPLAY_TAKES_PER_WARP = 8
+
+
+def replay_launch(k: int, device) -> tuple[int, int]:
+    """The f32 replay-deposit kernel's launch for a batch of ``k``
+    emissions on ``device``: its resident warps in all, and the groups of
+    32 each warp takes from the queue at once."""
+    warps = torch.cuda.get_device_properties(
+        device).multi_processor_count * REPLAY_WARPS_PER_SM
+    return warps, max(1, (k + 31) // 32 // (warps * REPLAY_TAKES_PER_WARP))
+
+
 def replay_deposit(
     hist_flat: torch.Tensor,
     cr: torch.Tensor,
@@ -159,7 +181,10 @@ def replay_deposit(
     an active one records z_1..z_{iters+1} with z_0 = c (steps s <= iters,
     the escape point included). Adds the on-canvas point count to
     ``hits``, a 0-dim int64 tensor on the histogram's device (the kernel
-    adds with atomics; a new zero one when None), and returns it."""
+    adds with atomics; a new zero one when None), and returns it. The
+    kernel's warps take the batch's groups of 32 emissions in order from a
+    queue (``replay_launch``), so a batch ordered by descending orbit
+    length starts its longest orbits first."""
     _check_hist(hist_flat)
     if hist_flat.numel() != canvas.num_pixels:
         raise ValueError("histogram size does not match the canvas")
@@ -179,6 +204,8 @@ def replay_deposit(
         raise ValueError("replay inputs differ in length")
     if cr.numel() == 0:
         return hits
+    warps, take = replay_launch(cr.numel(), dev)
+    queue = torch.zeros(1, dtype=torch.int64, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.cb_replay_deposit(
@@ -186,7 +213,8 @@ def replay_deposit(
             _build.ptr(iters), cr.numel(), _build.ptr(hist_flat),
             canvas.min_real, canvas.min_imag, canvas.delta_real,
             canvas.delta_imag, canvas.width, canvas.height,
-            _build.ptr(hits), _build.stream_of(hist_flat),
+            warps, take, _build.ptr(queue), _build.ptr(hits),
+            _build.stream_of(hist_flat),
         )
     _build.check(rc, "replay_deposit kernel")
     launches.COUNTS["replay_deposit"] += 1
@@ -841,7 +869,7 @@ def _lib():
         lib.cb_deposit_ids.argtypes = [vp, ctypes.c_longlong, vp, i, vp]
         lib.cb_deposit_ids.restype = i
         lib.cb_replay_deposit.argtypes = [
-            i, vp, vp, vp, i, vp, f, f, f, f, i, i, vp, vp,
+            i, vp, vp, vp, i, vp, f, f, f, f, i, i, i, i, vp, vp, vp,
         ]
         lib.cb_replay_deposit.restype = i
         lib.cb_replay_ids.argtypes = [

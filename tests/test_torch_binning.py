@@ -7,6 +7,8 @@ constant (a few points on bin edges land one bin over) and contracts
 a*b+c into fused multiply-adds (replayed orbits drift in the low bits).
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from cudabrot_tpu_torch.config import Canvas
 from cudabrot_tpu_torch.models import fractals as tfr
 from cudabrot_tpu_torch.ops import binning as tb
 from cudabrot_tpu_torch.ops import launches
+from tests.test_torch_df32 import harness  # noqa: F401  (fixture)
 
 # The suite runs in several worker processes at once: one intra-op thread
 # each keeps PyTorch's thread pools from oversubscribing the cores (two
@@ -148,3 +151,39 @@ def test_replay_deposit_matches_jax_replay(name):
     assert ref_total == ref.sum()
     assert abs(got.sum() - ref.sum()) <= 0.005 * ref.sum()
     assert np.abs(got - ref).sum() <= 0.05 * ref.sum()
+
+
+@pytest.mark.parametrize("name,k,order", [
+    (n, k, o) for n in sorted(tfr.FRACTALS) for k, o in (
+        (1000, "descending"), (37, "shuffled"))])
+def test_header_replay_queue_bitwise(harness, name, k, order):  # noqa: F811
+    """The fused f32 replay as the kernel's queue runs it (csrc/orbit.cuh
+    replay_orbit, built with g++): every group of 32 emissions
+    replayed for its longest orbit, only each lane's own steps recorded,
+    branch-free binning. Histogram and hits bitwise equal to the plain
+    version, on a batch that is not a multiple of 32 long, sorted as the
+    engine compacts it or shuffled (the histogram must not depend on the
+    order)."""
+    canvas = Canvas(width=64, height=48, min_real=-1.7, max_real=0.6,
+                    min_imag=-1.1, max_imag=1.3)
+    cr, ci, it = _emissions(k, 13, max_it=90)
+    if order == "shuffled":
+        perm = np.random.default_rng(2).permutation(k)
+        cr, ci, it = cr[perm].copy(), ci[perm].copy(), it[perm].copy()
+    fr = tfr.FRACTALS[name]
+    hist_p = torch.zeros(canvas.num_pixels, dtype=torch.int32)
+    hits_p = tb.replay_deposit(hist_p, torch.from_numpy(cr),
+                               torch.from_numpy(ci), torch.from_numpy(it),
+                               canvas=canvas, fractal=fr)
+    hist = np.zeros(canvas.num_pixels, np.uint32)
+    hits = ctypes.c_ulonglong(0)
+    vp, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+    harness.cbh_replay_deposit.argtypes = [i, vp, vp, vp, i, vp, f, f, f, f,
+                                           i, i, vp]
+    assert harness.cbh_replay_deposit(
+        fr.kernel_id, cr.ctypes.data, ci.ctypes.data, it.ctypes.data, k,
+        hist.ctypes.data, canvas.min_real, canvas.min_imag,
+        canvas.delta_real, canvas.delta_imag, canvas.width, canvas.height,
+        ctypes.addressof(hits)) == 0
+    np.testing.assert_array_equal(hist.view(np.int32), hist_p.numpy())
+    assert hits.value == int(hits_p) == int(hist.sum()) > 0

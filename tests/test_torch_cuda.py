@@ -80,6 +80,55 @@ def test_classify_kernel_matches_plain(cuda, name, thin, visit, use_bits):
     assert _same(ra.stats, rb.stats)
 
 
+#: The classify kernel's variants for the lanes-per-thread cases: fractal,
+#: thin tracking, band, visit window.
+CLASSIFY_VARIANTS = {
+    "buddhabrot-thin": ("buddhabrot", True, (20, 100), None),
+    "step-tracking": ("buddhabrot", False, (5, 200), None),
+    "burning-ship": ("burning-ship", True, (5, 200), None),
+    "anti-buddhabrot": ("anti-buddhabrot", True, (0, 64), None),
+    "visit-window": ("buddhabrot", True, (5, 200), (-1.5, 0.5, -1.0, 1.0)),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(CLASSIFY_VARIANTS))
+@pytest.mark.parametrize("unroll", [1, 8])
+@pytest.mark.parametrize("per_thread", [1, 2, 4])
+def test_classify_kernel_lanes_per_thread_match_plain(cuda, monkeypatch,
+                                                      variant, unroll,
+                                                      per_thread):
+    """The compacted-refill kernel built with every lanes-per-thread S
+    (-DCB_LANES_PER_THREAD; 2 is the package's build) and an unrolled
+    window of 1 and 8, on 640 lanes (the last warp of S = 4 half full),
+    against the plain version bitwise."""
+    if per_thread != 2:
+        lib = cls._lib((f"CB_LANES_PER_THREAD={per_thread}",))
+        monkeypatch.setattr(cls, "_lib", lambda: lib)
+    name, thin, band, visit = CLASSIFY_VARIANTS[variant]
+    rows, flush = 5, 16 * unroll
+    kw = dict(fractal=FRACTALS[name], min_it=band[0], max_it=band[1],
+              steps_per_pass=4 * flush, steps_per_flush=flush,
+              inner_unroll=unroll, thin_tracking=thin, visit_window=visit)
+    state = cls.init_lane_state(rows, cuda)
+    cls.classify_pass(state, (5, 6), **kw)  # carried, mid-flight state
+    a = cls.LaneState(*(t.clone() for t in state))
+    b = cls.LaneState(*(t.clone() for t in state))
+    launches.reset()
+    ra = cls.classify_pass(a, (7, 8), **kw)
+    assert launches.COUNTS["classify"] == 1
+    rb = cls.classify_pass_plain(
+        b, 7, 8, None, fractal=kw["fractal"], min_it=band[0],
+        max_it=band[1], chunks=4, windows=16, unroll=unroll, thin=thin,
+        detect=FRACTALS[name].cycle_detect,
+        sample_domain=config.SAMPLE_DOMAIN, visit_window=visit)
+    for x, y in zip(ra.state, rb.state):
+        assert _same(x, y)
+    assert _same(ra.emit_c, rb.emit_c)
+    assert _same(ra.emit_it, rb.emit_it)
+    assert _same(ra.stats, rb.stats)
+    assert int(ra.stats[cls.STAT_DRAWN].sum()) > 0
+
+
 @pytest.mark.parametrize("n", [1, 1000, 1 << 23])
 def test_threefry_bits_kernel_matches_plain(cuda, n):
     key = prng.fold_in(prng.key(1337), 0x7711)
@@ -117,6 +166,57 @@ def test_replay_deposit_kernel_matches_plain(cuda, name):
                                           fractal=FRACTALS[name])
     assert torch.equal(hk, hp)
     assert int(hits_k) == int(hits_p) == int(hk.to(torch.int64).sum())
+
+
+def _replay_batch(cuda, kind):
+    """A replay batch, sorted by descending length as compacted: 'ragged'
+    (1000 emissions, not a multiple of 32), 'short' (40, fewer groups than
+    any launch has resident warps), 'empty' (no emission, and 64 inactive
+    ones), 'long' (one 19,999-step orbit at the head of 64), 'many'
+    (100,000: at one resident warp per SM each warp takes two groups at
+    once)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    k = {"ragged": 1000, "short": 40, "empty": 64, "long": 64,
+         "many": 100_000}[kind]
+    cr = torch.rand(k, generator=g, device=cuda) * 3.0 - 2.0
+    ci = torch.rand(k, generator=g, device=cuda) * 3.0 - 1.5
+    it = torch.randint(-1, 200, (k,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    if kind == "empty":
+        it.fill_(-1)
+    if kind == "long":
+        # c = -1 cycles through 0 and -1: all 19,999 points are on the
+        # canvas.
+        cr[0], ci[0] = -1.0, 0.0
+        it[0] = 19_998
+    return cr, ci, torch.sort(it, descending=True).values
+
+
+@pytest.mark.parametrize("kind", ["ragged", "short", "empty", "long",
+                                  "many"])
+@pytest.mark.parametrize("warps", [4, 32, 1])
+def test_replay_deposit_queue_matches_plain(cuda, monkeypatch, kind, warps):
+    """The replay's queue at `warps` resident warps per SM against the
+    plain version, bitwise."""
+    monkeypatch.setattr(binning, "REPLAY_WARPS_PER_SM", warps)
+    canvas = config.Canvas(width=300, height=200, min_real=-2.0,
+                           max_real=1.0, min_imag=-1.2, max_imag=1.2)
+    cr, ci, it = _replay_batch(cuda, kind)
+    fr = FRACTALS["buddhabrot"]
+    for n in ((0, cr.numel()) if kind == "empty" else (cr.numel(),)):
+        hk = torch.zeros(canvas.num_pixels, dtype=torch.int32, device=cuda)
+        hp = torch.zeros_like(hk)
+        hits_k = binning.replay_deposit(hk, cr[:n], ci[:n], it[:n],
+                                        canvas=canvas, fractal=fr)
+        hits_p = binning.replay_deposit_plain(hp, cr[:n], ci[:n], it[:n],
+                                              canvas=canvas, fractal=fr)
+        assert torch.equal(hk, hp)
+        assert int(hits_k) == int(hits_p) == int(hk.to(torch.int64).sum())
+        assert (int(hits_k) == 0) == (kind == "empty")
+    if kind == "long":
+        assert int(hits_k) >= 19_999
+    if kind == "many" and warps == 1:
+        assert binning.replay_launch(cr.numel(), cuda)[1] >= 2
 
 
 #: Windows of the extended tests: a seahorse-valley deep zoom (orbits of
