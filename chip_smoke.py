@@ -82,19 +82,33 @@ Phases (each fails the run on any mismatch):
 ``--ext-budget-sweep`` instead builds and times deep-zoom engine passes at
 2^27..2^30 lane-steps per pass (the measurement behind keeping
 ``cuda_engine.LANE_STEP_BUDGET`` at extended precision).
-``--replay-study`` builds and runs phase 7 and phase 7c (the f32
+``--replay-study`` builds and runs phase 7, phase 7c (the f32
 replay-deposit's long-orbit floor at the deep and northstar batches, and
-the default, deep and northstar batches at 4..64 resident warps per SM),
-then times 16 engine passes of every cell on the host clock
-(synchronizing every 8, as the driver does; the big cells through both
-routes). ``--classify-study`` measures the f32
-classify kernel at the default cell: with in-kernel Threefry against the
-same pass fed its words, the draw profile, issue cycles per warp-step, the
-lanes-per-thread sweep (the study builds), the SASS counts of the refill
-draw and of the lane window (its inner step and boundary) by pipe, and an
-Nsight Compute probe. Run from a copy of another commit's tree (the
-script beside its package), each gives that commit's numbers, so two
-commits compare within one call.
+the default, deep and northstar batches at 4..64 resident warps per SM and
+without the queue) and phase 7d (the f32 replay_ids kernel at the
+bigcanvas and northstar batches: its staged stores against the study
+builds with a store per point, with on-canvas stores into a sentinel-filled
+stream and without the queue, each held word for word to it; its resident
+warps and takes), then times 16 engine passes of every cell on the host
+clock (synchronizing every 8, as the driver does; the big cells through
+both routes). ``--mh-study`` measures the f32 MH classify kernel at the
+mhcrop cell, at V = 8 and 32, in its package build and its study builds
+(two lanes a thread; the reservoirs all in registers or all in shared
+memory; the window as a run-time loop): with in-kernel
+Threefry against the same pass fed its boundary words (bitwise equal),
+issue cycles per warp-step, proposals per lane-step, the share of
+warp-windows with a finished lane and the Threefry warp-passes its
+compaction runs, the mhcrop pass per build, classify_ext_mh's mhzoom pass,
+and the registers and spills of every instantiation. ``--classify-study``
+measures the f32 classify kernel at the default cell: with in-kernel
+Threefry against the same pass fed its words, the draw profile, issue
+cycles per warp-step, the lanes-per-thread sweep (the study builds), the
+SASS counts of the refill draw and of the lane window (its inner step and
+boundary) by pipe, and an Nsight Compute probe. The study flags combine (one build, the studies in
+the order given), and build the study variants beside the package's
+libraries. Run from a copy of another commit's tree (the script beside its
+package), each gives that commit's numbers, so two commits compare within
+one call.
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
@@ -363,13 +377,19 @@ def path_kernels(name, scatter="auto"):
 # ----------------------------------------------------------------------
 
 
-def phase_build():
+def phase_build(study=False):
+    """Phase 1; with ``study``, also the variant builds of the replay and
+    MH classify kernels that the studies time (STUDY_DEPOSIT_BUILDS,
+    STUDY_MH_BUILDS)."""
     from cudabrot_tpu_torch.ops import _build
 
     log("== phase 1: build")
     t0 = time.monotonic()
     variants = [("classify", d) for d in map(lanes_defines,
                                              STUDY_LANES_PER_THREAD) if d]
+    if study:
+        variants += [("deposit", d) for _, d in STUDY_DEPOSIT_BUILDS if d]
+        variants += [("classify_mh", d) for _, d in STUDY_MH_BUILDS if d]
     _build.build_all(variants=variants)
     log(f"  built {', '.join(_build.LIBS)} and {len(variants)} study "
         f"builds in {time.monotonic() - t0:.1f} s")
@@ -1813,6 +1833,28 @@ STUDY_REPLAY_WARPS = (4, 8, 16, 32, 64)
 #: binning.REPLAY_TAKES_PER_WARP values the replay study sweeps at the
 #: default batch (the last gives each warp one group at a time).
 STUDY_TAKES_PER_WARP = (1, 2, 4, 8, 16, 1 << 30)
+#: The study builds of csrc/deposit.cu (label, -D macros): the package's
+#: (replay_ids' staged tile), replay_ids with a store per point, and with
+#: on-canvas stores into a stream filled with the sentinel first; both f32
+#: replays with one warp per group in place of the queue.
+STUDY_DEPOSIT_BUILDS = (("the package's build", ()),
+                        ("a store per point", ("CB_IDS_STORE=1",)),
+                        ("on-canvas stores, sentinel fill",
+                         ("CB_IDS_STORE=2",)),
+                        ("no queue, a warp per group",
+                         ("CB_REPLAY_QUEUE=0",)))
+#: The MH classify study's builds of csrc/classify_mh.cu (label, -D
+#: macros; the first is the package's: one lane a thread, the chain's
+#: reservoirs xb and p_b in shared memory, the window unrolled): two lanes a
+#: thread, all reservoirs in registers, all three in shared memory, the
+#: window as a run-time loop. And its reservoir widths: the default and the
+#: widest.
+STUDY_MH_BUILDS = (("the package's build", ()),
+                   ("S=2", ("CB_MH_LANES_PER_THREAD=2",)),
+                   ("reservoirs in registers", ("CB_MH_SHARED_SLOTS=0",)),
+                   ("all reservoirs shared", ("CB_MH_SHARED_SLOTS=2",)),
+                   ("window loop", ("CB_MH_WINDOW_UNROLL=0",)))
+STUDY_MH_SLOTS = (8, 32)
 #: SASS opcodes by the SM sub-partition pipe that runs them: the integer
 #: ALU (16 lanes a clock, 64 per SM), the FMA pipe (f32 arithmetic and
 #: IMAD), the conversion unit; the rest (moves, memory, branches) apart.
@@ -2231,6 +2273,185 @@ def classify_study(dev, card):
     return sass
 
 
+def mh_study_bits(dev, seed, spec, rows):
+    """The four words every (window, lane) of an MH pass would draw at a
+    finished boundary, as the (chunks, windows, 4, rows, 128) int32 bits
+    tensor: Threefry-2x32 of (lane, window) and of (lane | 2^30, window)."""
+    import torch
+
+    from cudabrot_tpu_torch.ops import prng
+
+    chunks = spec["steps_per_pass"] // spec["steps_per_flush"]
+    windows = spec["steps_per_flush"] // spec["inner_unroll"]
+    lane = torch.arange(rows * 128, dtype=torch.int64, device=dev)
+    g = torch.arange(chunks * windows, dtype=torch.int64, device=dev)
+    words = []
+    for blk in (0, 1 << 30):
+        words += prng.threefry2x32(seed[0], seed[1], (lane | blk)[None, :],
+                                   g[:, None])
+    w = torch.stack(words, dim=1)
+    del words
+    w = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+    return w.reshape(chunks, windows, 4, rows, 128)
+
+
+@contextlib.contextmanager
+def mh_build(defines):
+    """classify_pass_mh runs the build with these -D macros inside (the
+    package's for none)."""
+    from cudabrot_tpu_torch.ops import classify_mh as cmh
+
+    if not defines:
+        yield
+        return
+    lib = cmh._lib("classify_mh", defines)
+    with mock.patch.object(cmh, "_lib", lambda name: lib):
+        yield
+
+
+def mh_study(dev, card):
+    """What the f32 MH classify kernel spends its time on at the mhcrop cell
+    (its chains after 4 passes), at each STUDY_MH_SLOTS reservoir width: a
+    STUDY_STEPS-step pass with in-kernel Threefry against the same pass
+    with the boundary words read from a bits tensor (bitwise equal
+    results; the difference is Threefry's cost), issue cycles per
+    warp-step, proposals per lane-step, and the draw profile from
+    one-window launches fed the same words (the share of warp-windows with
+    a finished lane, Threefry warp-passes per 32 lanes for S lanes a
+    thread), each for every STUDY_MH_BUILDS build; then the whole
+    main-path pass of mhcrop per build, and classify_ext_mh's pass at
+    mhzoom; registers and spills of every instantiation from the build
+    logs. Trees without the variant builds (an older tree) time the
+    package's kernel alone."""
+    import inspect
+
+    import torch
+
+    from cudabrot_tpu_torch import cli
+    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
+    from cudabrot_tpu_torch.ops import _build
+    from cudabrot_tpu_torch.ops import classify_mh as cmh
+
+    log(f"== MH classify study at the mhcrop cell ({card})")
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=False).stdout.split()[0])
+    sweep = "defines" in inspect.signature(cmh._lib).parameters
+    choices = STUDY_MH_BUILDS if sweep else STUDY_MH_BUILDS[:1]
+    seed = (0xC0FFEE, 0xBADF00D)
+
+    def chains(name, slots):
+        cfg = cli.parse_args([*cell_args(name), "--mh-visit-slots",
+                              str(slots)])[0]
+        eng = CudaEngine(cfg, device=dev)
+        spec = eng.mh_pass_spec()
+        fn = (cmh.classify_pass_ext_mh if eng.extended
+              else cmh.classify_pass_mh)
+        state = eng.init_state(None)["lanes"]
+        for p in range(4):
+            fn(state, (1337, p), **spec)
+        return spec, fn, state
+
+    def same(x, y):
+        return (all(same_bits(a, b) for a, b in zip(x.state, y.state))
+                and all(same_bits(getattr(x, f), getattr(y, f))
+                        for f in MH_OUT_FIELDS))
+
+    for slots in STUDY_MH_SLOTS:
+        spec, _, lanes0 = chains("mhcrop", slots)
+        U = spec["inner_unroll"]
+        study = dict(spec, steps_per_pass=STUDY_STEPS,
+                     steps_per_flush=min(spec["steps_per_flush"],
+                                         STUDY_STEPS))
+        rows = lanes0.kr.shape[0]
+        n = rows * 128
+        bits = mh_study_bits(dev, seed, study, rows)
+        warp_steps = n * STUDY_STEPS / 32
+
+        def run(d, b, study=study):
+            def call(st):
+                with mh_build(d):
+                    return cmh.classify_pass_mh(st, seed, b, **study)
+            return call
+
+        ref = None
+        for rnd in range(2):
+            for label, d in choices:
+                t_tf, m_tf, r_tf = time_from(lanes0, run(d, None), 5)
+                t_b, m_b, r_b = time_from(lanes0, run(d, bits), 5)
+                ref = r_tf if ref is None else ref
+                check(same(r_tf, r_b) and same(r_tf, ref),
+                      f"classify_mh V={slots} {label}: threefry and bits "
+                      f"passes bitwise equal (and == the package's build)")
+                cyc = t_tf * 1e-3 * clk * 1e6 * 132 * 4 / warp_steps
+                log(f"  round {rnd} V={slots} {label} U={U}, {STUDY_STEPS} "
+                    f"steps x {n} lanes: threefry {t_tf:.4f} ms (mean "
+                    f"{m_tf:.4f}), bits {t_b:.4f} ms (mean {m_b:.4f}); "
+                    f"Threefry share {(t_tf - t_b) / t_tf:.4f}; {cyc:.1f} "
+                    f"issue cycles per warp-step at {clk:.0f} MHz")
+        drawn = int(ref.stats[cmh.STAT_DRAWN].sum())
+        log(f"  V={slots}: proposals per lane-step "
+            f"{drawn / (n * STUDY_STEPS):.5f} ({drawn} resolved)")
+        # The draw profile, window by window: one-window launches fed the
+        # same words leave the chains of the whole pass, bitwise.
+        one = dict(study, steps_per_pass=U, steps_per_flush=U)
+        st = clone_state(lanes0)
+        fins = []
+        chunks, windows = bits.shape[:2]
+        for c in range(chunks):
+            for w in range(windows):
+                word = bits[c, w][None, None].contiguous()
+                r = cmh.classify_pass_mh(st, seed, word, **one)
+                fins.append(r.stats[cmh.STAT_DRAWN].reshape(-1) > 0)
+        check(all(same_bits(a, b) for a, b in zip(st, ref.state)),
+              f"classify_mh V={slots}: one-window launches leave the pass's "
+              f"lane state")
+        fin = torch.stack(fins)
+        check(int(fin.sum()) == drawn,
+              f"classify_mh V={slots}: one-window proposals == the pass's")
+        G = fin.shape[0]
+        for S in (1, 2):
+            per = fin.reshape(G, n // (32 * S), 32 * S).sum(-1)
+            share = float((per > 0).float().mean())
+            passes = float(((2 * per + 31) // 32).float().mean() / S)
+            log(f"  V={slots} S={S}: share of warp-windows with a finished "
+                f"lane {share:.5f}; Threefry warp-passes per 32 lanes per "
+                f"window {passes:.4f} compacted"
+                + (f", {2 * share:.4f} with each lane drawing its own"
+                   if S == 1 else ""))
+        del bits, fin, ref, lanes0
+        torch.cuda.empty_cache()
+
+    # The main-path pass of mhcrop at each S, and classify_ext_mh at mhzoom.
+    spec, fn, lanes0 = chains("mhcrop", 8)
+    best = {}
+    for _ in range(2):
+        for label, d in choices:
+            def call(st, d=d):
+                with mh_build(d):
+                    return fn(st, seed, **spec)
+            best[label] = min(best.get(label, 1e9),
+                              time_from(lanes0, call, 5)[0])
+    log(f"  mhcrop pass ({spec['steps_per_pass']} steps, U="
+        f"{spec['inner_unroll']}), least of 2 rounds of 5: " + ", ".join(
+            f"{label} {t:.4f} ms" for label, t in best.items()))
+    spec, fn, lanes0 = chains("mhzoom", 8)
+    t = min(time_from(lanes0, lambda st: fn(st, seed, **spec), 3)[0]
+            for _ in range(2))
+    log(f"  mhzoom classify_ext_mh pass ({spec['steps_per_pass']} steps, U="
+        f"{spec['inner_unroll']}), least of 2 rounds of 3: {t:.4f} ms")
+    del lanes0
+    for _, d in choices:
+        entry = None
+        for line in _build.ptxas_report("classify_mh", d).splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif entry and ("registers" in line or "spill" in line):
+                log(f"  [classify_mh{''.join(' -D' + x for x in d)}] "
+                    f"{entry}: {line.strip()}")
+
+
 def _nvcc_version():
     from cudabrot_tpu_torch.ops import _build
 
@@ -2247,13 +2468,19 @@ def phase_replay_floor_f32(dev, card):
     the whole batch of the default, deep and northstar cells at each
     STUDY_REPLAY_WARPS resident warps per SM where the kernel has a queue
     (binning.REPLAY_WARPS_PER_SM set for the call), and the default batch
-    at each STUDY_TAKES_PER_WARP. Least of 3 rounds each."""
+    at each STUDY_TAKES_PER_WARP; each batch also through the study build
+    without the queue (a warp per group). Least of 3 rounds each."""
+    import inspect
+
     import torch
 
     from cudabrot_tpu_torch.ops import binning
 
     log(f"== phase 7c: the f32 replay's long-orbit floor ({card})")
     warps = hasattr(binning, "REPLAY_WARPS_PER_SM")
+    no_queue = None
+    if "defines" in inspect.signature(binning._lib).parameters:
+        no_queue = binning._lib(STUDY_DEPOSIT_BUILDS[-1][1])
     for name in ("deep", "northstar", "default"):
         eng, _, (cr, ci, it) = kept_batch(dev, name, warm=4)
         canvas = eng.cfg.canvas
@@ -2323,7 +2550,119 @@ def phase_replay_floor_f32(dev, card):
         else:
             log(f"  replay_deposit ({name}): the batch as compacted "
                 f"{min(time_ms(call(k, it), 5) for _ in range(3)):.4f} ms")
+        if no_queue is not None:
+            pair = {}
+            for _ in range(3):
+                for label, fn in (("queue", call(k, it)), (
+                        "no queue", call(k, it, "_lib", lambda: no_queue))):
+                    pair[label] = min(pair.get(label, 1e9), time_ms(fn, 5))
+            log(f"  replay_deposit ({name}): the batch with the queue "
+                f"{pair['queue']:.4f} ms, with a warp per group (no queue) "
+                f"{pair['no queue']:.4f} ms (least of 3 rounds)")
         del hist, eng
+        torch.cuda.empty_cache()
+    for entry, regs in registers("deposit", "replay"):
+        log(f"  registers [deposit] {entry}: {regs}")
+
+
+def big_batch(dev, name, warm=4):
+    """A bigtiles cell's kept batch after ``warm`` passes, cut to the
+    route's id budget as its groups are: (engine, (cr, ci, iters, off),
+    ids)."""
+    import torch
+
+    from cudabrot_tpu_torch.ops import binning
+
+    eng, _, (cr, ci, it) = kept_batch(dev, name, "bigtiles", warm=warm)
+    off, n = id_offsets(it)
+    if n > binning.BIGTILES_ID_BUDGET:
+        ends = off + torch.clamp(it.to(torch.int64) + 1, min=0)
+        k = int(torch.searchsorted(
+            ends, torch.tensor(binning.BIGTILES_ID_BUDGET, device=dev),
+            right=True))
+        cr, ci, it, off, n = cr[:k], ci[:k], it[:k], off[:k], int(ends[k - 1])
+    return eng, (cr, ci, it, off), n
+
+
+def phase_ids_study(dev, card):
+    """Phase 7d: the f32 replay_ids kernel at the bigcanvas and northstar
+    batches (4 passes warm): the package's build and each study build of
+    STUDY_DEPOSIT_BUILDS, each first held word for word to the package's
+    stream, then the package's at each STUDY_REPLAY_WARPS resident warps
+    per SM and, at bigcanvas, each STUDY_TAKES_PER_WARP. Least of 3 rounds
+    of 5 calls each (CUDA events; a call allocates its stream, and the
+    sentinel-fill build fills it). Builds without the study's variants (an
+    older tree) time the package's kernel alone."""
+    import inspect
+
+    import torch
+
+    from cudabrot_tpu_torch.ops import binning
+
+    log(f"== phase 7d: the f32 id replay's stores and queue ({card})")
+    variants = ("defines" in inspect.signature(binning._lib).parameters
+                and hasattr(binning, "_replay_ids_launch"))
+    for name in ("bigcanvas", "northstar"):
+        eng, (cr, ci, it, off), n = big_batch(dev, name)
+        canvas = eng.cfg.canvas
+        kw = dict(canvas=canvas, fractal=eng.fractal)
+        ref, ref_hits = binning.replay_ids(cr, ci, it, off, n, **kw)
+        calls = {STUDY_DEPOSIT_BUILDS[0][0]:
+                 lambda: binning.replay_ids(cr, ci, it, off, n, **kw)}
+        for label, d in STUDY_DEPOSIT_BUILDS[1:] if variants else ():
+            lib = binning._lib(d)
+            fill = "CB_IDS_STORE=2" in d
+
+            def call(lib=lib, fill=fill):
+                ids = (torch.full((n,), canvas.num_pixels, dtype=torch.int32,
+                                  device=dev) if fill else
+                       torch.empty(n, dtype=torch.int32, device=dev))
+                return ids, binning._replay_ids_launch(lib, ids, cr, ci, it,
+                                                       off, **kw)
+            ids, hits = call()
+            check(torch.equal(ids, ref) and int(hits) == int(ref_hits),
+                  f"replay_ids, {label} ({name}): the package's stream, "
+                  f"word for word")
+            calls[label] = call
+        del ref
+        orbits = int((it >= 0).sum())
+        bound, by = bound_ms(OPS_REPLAY_POINT * n, 4 * n + 20 * cr.numel())
+        log(f"  {name} batch: {orbits} orbits, {n} ids, longest "
+            f"{int(it[0]) + 1}; bound {bound:.4f} ms ({by})")
+        best = {}
+        for _ in range(3):
+            for label, call in calls.items():
+                best[label] = min(best.get(label, 1e9), time_ms(call, 5))
+        for label, t in best.items():
+            log(f"  replay_ids ({name}), {label}: {t:.4f} ms (least of 3 "
+                f"rounds of 5)")
+        package = calls[STUDY_DEPOSIT_BUILDS[0][0]]
+
+        def patched(const, value):
+            def run():
+                with mock.patch.object(binning, const, value):
+                    return package()
+            return run
+        sweep = {}
+        for _ in range(3):
+            for w in STUDY_REPLAY_WARPS:
+                sweep[w] = min(sweep.get(w, 1e9), time_ms(
+                    patched("REPLAY_WARPS_PER_SM", w), 5))
+        log(f"  replay_ids ({name}) at resident warps per SM " + ", ".join(
+            f"{w}: {t:.4f} ms" for w, t in sweep.items())
+            + f" (least of 3 rounds; the package's "
+            f"{binning.REPLAY_WARPS_PER_SM})")
+        if name == "bigcanvas":
+            takes = {}
+            for _ in range(3):
+                for g in STUDY_TAKES_PER_WARP:
+                    takes[g] = min(takes.get(g, 1e9), time_ms(
+                        patched("REPLAY_TAKES_PER_WARP", g), 5))
+            log(f"  replay_ids ({name}) at REPLAY_TAKES_PER_WARP " + ", ".join(
+                f"{g}: {t:.4f} ms" for g, t in takes.items())
+                + f" (least of 3 rounds; the package's "
+                f"{binning.REPLAY_TAKES_PER_WARP})")
+        del eng, calls
         torch.cuda.empty_cache()
     for entry, regs in registers("deposit", "replay"):
         log(f"  registers [deposit] {entry}: {regs}")
@@ -2450,21 +2789,28 @@ def main() -> int:
     ).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi: no output"
     t0 = time.monotonic()
-    if sys.argv[1:] == ["--ext-budget-sweep"]:
-        phase_build()
-        ext_budget_sweep(dev)
-        log(card)
-        return 0
-    if sys.argv[1:] == ["--replay-study"]:
-        phase_build()
-        phase_replay_floor(dev, card)
-        phase_replay_floor_f32(dev, card)
-        phase_pass_times(dev, card)
-        log(card)
-        return 0
-    if sys.argv[1:] == ["--classify-study"]:
-        phase_build()
-        classify_study(dev, card)
+    studies = {
+        "--ext-budget-sweep": lambda: ext_budget_sweep(dev),
+        "--replay-study": lambda: (phase_replay_floor(dev, card),
+                                   phase_replay_floor_f32(dev, card),
+                                   phase_ids_study(dev, card),
+                                   phase_pass_times(dev, card)),
+        "--classify-study": lambda: classify_study(dev, card),
+        "--mh-study": lambda: mh_study(dev, card),
+    }
+    if sys.argv[1:]:
+        unknown = [a for a in sys.argv[1:] if a not in studies]
+        if unknown:
+            print(f"chip_smoke: unknown flags {unknown}; the studies are "
+                  f"{', '.join(studies)}", file=sys.stderr)
+            return 2
+        try:
+            phase_build(study=True)
+            for flag in sys.argv[1:]:
+                studies[flag]()
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
         log(card)
         return 0
     try:

@@ -26,19 +26,27 @@
 //    northstar and default (~3e6 orbits of ~40 points, bound by the
 //    atomics' throughput) batches alike, and at the default batch each take
 //    is several groups, so the counter's atomics do not serialize the
-//    warps.
+//    warps. With one warp per group in place of the queue (its ~190
+//    groups placed by the block scheduler) the northstar batch took 9-10%
+//    longer in both kernels; the deep and default batches were level, and
+//    replay_ids' bigcanvas batch 4-5% faster (chip_smoke.py
+//    --replay-study).
 //
-//  * cb_replay_ids: the replay (orbit.cuh replay_orbit, one thread per
-//    emission in blocks of 256) writing ids instead of adding them, for
-//    the bigtiles route: emission i writes
-//    the bin id of each of its iters + 1 steps, or the sentinel nbins off
-//    the canvas, at off[i] + s of a flat int32 stream (off: the exclusive
-//    prefix sum of the orbit lengths, int64). Every slot is written
-//    exactly once, so no atomics, and the ids are the fused kernel's bins
-//    exactly. It replaces the XLA scan of pallas_engine.py
-//    _blocked_replay that materializes the TPU scatter's ids. Bound: ~15
-//    operations per point plus 4 bytes written per id; each thread writes
-//    its orbit's ids to consecutive addresses.
+//  * cb_replay_ids: the same queue writing ids instead of adding them, for
+//    the bigtiles route: emission i writes the bin id of each of its
+//    iters + 1 steps, or the sentinel nbins off the canvas, at off[i] + s of
+//    a flat int32 stream (off: the exclusive prefix sum of the orbit
+//    lengths, int64). Every slot is written exactly once, so no atomics, and
+//    the ids are the fused kernel's bins exactly. It replaces the XLA scan
+//    of pallas_engine.py _blocked_replay that materializes the TPU
+//    scatter's ids. Bound: the 4 bytes written per id (~15 operations per
+//    point beside them). A store per point would send a warp's 32 lanes
+//    (32 orbits, one step each) to 32 sectors 4 bytes apiece; so each warp
+//    stages its lanes' ids for 32 steps in a tile of shared memory and
+//    stores the tile row by row, 32 consecutive ids of one orbit per store
+//    (orbit.cuh TileSink, store_tile_word). The queue puts the long orbits
+//    of a deep band on every SM, where a thread per orbit in blocks of 256
+//    left the northstar batch's ~190 groups on 24 of them.
 //
 //  * cb_mh_deposit: the Metropolis-Hastings deposit, the function of
 //    ops/binning.py mh_scatter (an XLA scatter-add of a materialized
@@ -79,14 +87,61 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 constexpr int kQueueBlock = 128;  // 4 warps: one per SM sub-partition
+constexpr int kQueueWarps = kQueueBlock / 32;
+
+// Variant builds, for the measurement study only (chip_smoke.py builds them
+// with -D; the package loads the plain build). CB_REPLAY_QUEUE 0: warp g
+// replays group g, one warp launched per group, in place of the queue.
+// CB_IDS_STORE, replay_ids' stores: 0 the staged tile; 1 a store per point
+// (orbit.cuh IdSink); 2 on-canvas ids only (CanvasIdSink), into a stream
+// the caller fills with the sentinel first.
+#ifndef CB_REPLAY_QUEUE
+#define CB_REPLAY_QUEUE 1
+#endif
+#ifndef CB_IDS_STORE
+#define CB_IDS_STORE 0
+#endif
 
 // The queue: each warp takes the next `take` groups of 32 emissions until
-// none is left. The group index is broadcast from lane 0, so the loop's
-// exit is warp-uniform and every lane reaches the warp sum. The lanes
-// replay their orbits in step, for the group's longest orbit; a lane past
-// the batch's end runs the group's first emission and records nothing
-// (n = -1). Taking several groups at once spares the counter (one address,
-// so its atomics serialize) at batches of many short orbits.
+// none is left, and runs body(e, n, steps) on each: lane j of group g has
+// emission e = 32 g + j, its n (-1 past the batch's end, where e is the
+// group's first emission and nothing is recorded) and the group's longest
+// orbit's `steps`, which every lane runs. The group index is broadcast from
+// lane 0, so the loop's exit is warp-uniform and every lane reaches the
+// warp sum. Taking several groups at once spares the counter (one address,
+// so its atomics serialize) at batches of many short orbits. Returns the
+// lane's on-canvas count.
+template <class Body>
+__device__ __forceinline__ uint32_t replay_queue(const int32_t* iters, int k,
+                                                 int take,
+                                                 unsigned long long* next,
+                                                 const Body& body) {
+  const int lane = threadIdx.x & 31;
+  const int groups = (k + 31) / 32;
+  uint32_t local = 0;
+  auto group = [&](int g) {
+    const int i = g * 32 + lane;
+    const int e = i < k ? i : g * 32;
+    const int n = i < k ? iters[i] : -1;
+    const int steps = __reduce_max_sync(0xffffffffu, n) + 1;
+    if (steps > 0) local += body(e, n, steps);
+  };
+#if CB_REPLAY_QUEUE
+  for (;;) {
+    unsigned long long first = 0;
+    if (lane == 0) first = atomicAdd(next, (unsigned long long)take);
+    first = __shfl_sync(0xffffffffu, first, 0);
+    if (first >= (unsigned long long)groups) break;
+    const int end = int(first) + take < groups ? int(first) + take : groups;
+    for (int g = int(first); g < end; ++g) group(g);
+  }
+#else
+  const int g = int((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  if (g < groups) group(g);
+#endif
+  return local;
+}
+
 template <int FR>
 __global__ void __launch_bounds__(kQueueBlock)
     replay_deposit_kernel(const float* cr, const float* ci,
@@ -94,40 +149,56 @@ __global__ void __launch_bounds__(kQueueBlock)
                           cb::CanvasQ q, int take,
                           unsigned long long* next,
                           unsigned long long* hits) {
-  const int lane = threadIdx.x & 31;
-  const int groups = (k + 31) / 32;
-  uint32_t local = 0;
-  for (;;) {
-    unsigned long long first = 0;
-    if (lane == 0) first = atomicAdd(next, (unsigned long long)take);
-    first = __shfl_sync(0xffffffffu, first, 0);
-    if (first >= (unsigned long long)groups) break;
-    const int end = int(first) + take < groups ? int(first) + take : groups;
-    for (int g = int(first); g < end; ++g) {
-      const int i = g * 32 + lane;
-      const int e = i < k ? i : g * 32;
-      const int n = i < k ? iters[i] : -1;
-      const int steps = __reduce_max_sync(0xffffffffu, n) + 1;
-      if (steps > 0)
-        local += cb::replay_orbit<FR>(cr[e], ci[e], n, steps, q,
-                                      cb::DepositSink{hist});
-    }
-  }
-  cb::warp_sum_add(hits, local);
+  const cb::DepositSink sink{hist};
+  cb::warp_sum_add(hits, replay_queue(iters, k, take, next,
+                                      [&](int e, int n, int steps) {
+    return cb::replay_orbit<FR>(cr[e], ci[e], n, steps, q, sink);
+  }));
 }
 
 template <int FR>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kQueueBlock)
     replay_ids_kernel(const float* cr, const float* ci, const int32_t* iters,
                       const long long* off, int k, int32_t* ids,
-                      cb::CanvasQ q, unsigned long long* hits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  uint32_t local = 0;
-  const int n = i < k ? iters[i] : -1;
-  if (n >= 0)
-    local = cb::replay_orbit<FR>(cr[i], ci[i], n, n + 1, q,
-                                 cb::IdSink{ids + off[i], q.width * q.height});
-  cb::warp_sum_add(hits, local);
+                      cb::CanvasQ q, int take, unsigned long long* next,
+                      unsigned long long* hits) {
+  const int32_t nbins = q.width * q.height;
+#if CB_IDS_STORE == 0
+  // Per warp: the tile, and each row's orbit (its first slot and length).
+  __shared__ int32_t tile[kQueueWarps][cb::kTile * cb::kTileStride];
+  __shared__ int32_t* row_out[kQueueWarps][32];
+  __shared__ int row_len[kQueueWarps][32];
+  const int lane = threadIdx.x & 31, wb = threadIdx.x >> 5;
+  int32_t* const t = tile[wb];
+  const cb::TileSink sink{t + lane * cb::kTileStride, nbins};
+  auto body = [&](int e, int n, int steps) {
+    row_out[wb][lane] = ids + off[e];
+    row_len[wb][lane] = n + 1;
+    cb::ReplayLane l = cb::replay_start<FR>(cr[e], ci[e]);
+    uint32_t h = 0;
+    for (int t0 = 0; t0 < steps; t0 += cb::kTile) {
+      const int t1 = t0 + cb::kTile < steps ? t0 + cb::kTile : steps;
+      h += cb::replay_span<FR>(l, n, t0, t1, q, sink);
+      __syncwarp();
+#pragma unroll 8
+      for (int r = 0; r < 32; ++r)
+        cb::store_tile_word(t, r, lane, t0, row_len[wb][r], row_out[wb][r]);
+      __syncwarp();
+    }
+    return h;
+  };
+#elif CB_IDS_STORE == 1
+  auto body = [&](int e, int n, int steps) {
+    return cb::replay_orbit<FR>(cr[e], ci[e], n, steps, q,
+                                cb::IdSink{ids + off[e], nbins, n});
+  };
+#else
+  auto body = [&](int e, int n, int steps) {
+    return cb::replay_orbit<FR>(cr[e], ci[e], n, steps, q,
+                                cb::CanvasIdSink{ids + off[e]});
+  };
+#endif
+  cb::warp_sum_add(hits, replay_queue(iters, k, take, next, body));
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -139,29 +210,41 @@ __global__ void __launch_bounds__(kBlock)
   cb::warp_sum_add(totals + 1, q);
 }
 
+// The queue's blocks: `warps` resident warps in all (iargs of the C
+// functions), no more than the batch has takes; one warp per group without
+// the queue.
+int queue_blocks(int k, int warps, int take) {
+  const int groups = (k + 31) / 32;
+#if CB_REPLAY_QUEUE
+  const int takes = (groups + take - 1) / take;
+  const int w = warps < takes ? warps : takes;
+#else
+  const int w = groups;
+#endif
+  return (w + kQueueWarps - 1) / kQueueWarps;
+}
+
 template <int FR>
 cudaError_t launch_replay(const float* cr, const float* ci,
                           const int32_t* iters, int k, uint32_t* hist,
                           const cb::CanvasQ& q, int warps, int take,
                           unsigned long long* next, unsigned long long* hits,
                           cudaStream_t stream) {
-  // `warps` resident warps in all, no more than the batch has takes.
-  const int takes = ((k + 31) / 32 + take - 1) / take;
-  const int w = warps < takes ? warps : takes;
-  const int grid = (w + kQueueBlock / 32 - 1) / (kQueueBlock / 32);
-  replay_deposit_kernel<FR><<<grid, kQueueBlock, 0, stream>>>(
-      cr, ci, iters, k, hist, q, take, next, hits);
+  replay_deposit_kernel<FR><<<queue_blocks(k, warps, take), kQueueBlock, 0,
+                              stream>>>(cr, ci, iters, k, hist, q, take, next,
+                                        hits);
   return cudaGetLastError();
 }
 
 template <int FR>
 cudaError_t launch_ids(const float* cr, const float* ci, const int32_t* iters,
                        const long long* off, int k, int32_t* ids,
-                       const cb::CanvasQ& q, unsigned long long* hits,
+                       const cb::CanvasQ& q, int warps, int take,
+                       unsigned long long* next, unsigned long long* hits,
                        cudaStream_t stream) {
-  const int grid = (k + kBlock - 1) / kBlock;
-  replay_ids_kernel<FR><<<grid, kBlock, 0, stream>>>(cr, ci, iters, off, k,
-                                                      ids, q, hits);
+  replay_ids_kernel<FR><<<queue_blocks(k, warps, take), kQueueBlock, 0,
+                          stream>>>(cr, ci, iters, off, k, ids, q, take, next,
+                                    hits);
   return cudaGetLastError();
 }
 
@@ -223,26 +306,29 @@ extern "C" int cb_replay_ids(int fractal, const void* cr, const void* ci,
                              const void* iters, const void* off, int k,
                              void* ids, float min_re, float min_im,
                              float d_re, float d_im, int width, int height,
-                             void* hits, void* stream) {
+                             int warps, int take, void* next, void* hits,
+                             void* stream) {
   if (k <= 0) return 0;
+  if (warps <= 0 || take <= 0) return int(cudaErrorInvalidValue);
   const cb::CanvasQ q{min_re, min_im, d_re, d_im, width, height};
   const auto* pcr = static_cast<const float*>(cr);
   const auto* pci = static_cast<const float*>(ci);
   const auto* pit = static_cast<const int32_t*>(iters);
   const auto* po = static_cast<const long long*>(off);
   auto* pids = static_cast<int32_t*>(ids);
+  auto* pn = static_cast<unsigned long long*>(next);
   auto* phits = static_cast<unsigned long long*>(hits);
   auto s = static_cast<cudaStream_t>(stream);
   switch (fractal) {
     case cb::kBuddhabrot:
       return int(launch_ids<cb::kBuddhabrot>(pcr, pci, pit, po, k, pids, q,
-                                             phits, s));
+                                             warps, take, pn, phits, s));
     case cb::kBurningShip:
       return int(launch_ids<cb::kBurningShip>(pcr, pci, pit, po, k, pids, q,
-                                              phits, s));
+                                              warps, take, pn, phits, s));
     case cb::kAntiBuddhabrot:
-      return int(launch_ids<cb::kAntiBuddhabrot>(pcr, pci, pit, po, k, pids,
-                                                 q, phits, s));
+      return int(launch_ids<cb::kAntiBuddhabrot>(
+          pcr, pci, pit, po, k, pids, q, warps, take, pn, phits, s));
   }
   return int(cudaErrorInvalidValue);
 }

@@ -5,11 +5,12 @@
 // loop as the kernel's queue runs it (orbit.cuh replay_orbit), the
 // df32 arithmetic (df32.cuh), the lane and emission functions of the
 // classify_ext and replay_deposit_ext kernels (classify_ext.cuh), the
-// Metropolis-Hastings lane function and deposit (mh.cuh: classify_mh,
-// classify_ext_mh, mh_deposit), the orbit loop of the replay kernels with
-// its id sinks (orbit.cuh replay_orbit: replay_ids, and replay_ids_ext
-// through classify_ext.cuh) and the run-length deposit of the bigtiles
-// kernel (bigtiles.cuh) are
+// Metropolis-Hastings lane functions and deposit (mh.cuh: classify_mh in an
+// emulation of its warps with their compacted draws, classify_ext_mh,
+// mh_deposit), the orbit loop of the replay kernels with
+// its id sinks (orbit.cuh: replay_ids' staged tile in an emulation of its
+// warps, and replay_ids_ext through classify_ext.cuh) and the run-length
+// deposit of the bigtiles kernel (bigtiles.cuh) are
 // __host__ __device__; this file loops them over lanes on the CPU behind
 // the same C interface as the CUDA launchers, so a machine without a GPU
 // can hold them bitwise against the plain PyTorch versions. Build:
@@ -57,6 +58,127 @@ int mh_fractal(int fractal, int slots,
     case cb::kBurningShip: return mh_lanes<cb::kBurningShip, Orbit>(slots, a);
     case cb::kAntiBuddhabrot:
       return mh_lanes<cb::kAntiBuddhabrot, Orbit>(slots, a);
+  }
+  return 1;
+}
+
+// One pass of the f32 MH classify kernel (classify_mh.cu) with S lanes
+// per thread, its warps emulated in turn: each warp's 32 threads run their
+// S lanes' windows (mh_window), the finished lanes queue their ids at the
+// slots refill_slot gives them, the 2F boundary blocks are computed in
+// passes of 32 (entry q: lane q / 2's block q % 2, as thread q takes
+// entries q, q + 32, ...), and each finished lane resolves with its own
+// four words (mh_resolve). SH places the reservoirs as the kernel's
+// CB_MH_SHARED_SLOTS does: 0 registers, 1 xb and p_b in columns of a
+// shared array, 2 vb too; UC > 0 runs the window unrolled for U = UC, as
+// the kernel's CB_MH_WINDOW_UNROLL build does.
+template <int FR, int V, int S, int SH, int UC, class Orbit>
+void mh_warps(const cb::mh::ClassifyMhArgs& a) {
+  using CS = std::conditional_t<(SH >= 1), cb::mh::SharedSlots,
+                                cb::mh::RegSlots<V>>;
+  using VS = std::conditional_t<(SH >= 2), cb::mh::SharedSlots,
+                                cb::mh::RegSlots<V>>;
+  const int warps = (a.lanes + 32 * S - 1) / (32 * S);
+  const int stride = 32 * S;
+  std::vector<cb::mh::MhLane<V, Orbit, VS, CS>> L(32 * S);
+  std::vector<int32_t> slots(3 * V * stride, -99);
+  for (int t = 0; t < 32; ++t)
+    for (int j = 0; j < S; ++j) {
+      int32_t* col = slots.data() + j * 32 + t;
+      if constexpr (SH >= 1) {
+        L[t * S + j].ch.xb = {col, stride};
+        L[t * S + j].ch.p_b = {col + V * stride, stride};
+      }
+      if constexpr (SH >= 2) L[t * S + j].vb = {col + 2 * V * stride, stride};
+    }
+  std::vector<int> q_lane(32 * S);
+  std::vector<uint32_t> q_words(2 * 64 * S);
+  for (int g = 0; g < warps; ++g) {
+    auto lane = [&](int t, int j) { return (g * S + j) * 32 + t; };
+    auto live = [&](int t, int j) { return lane(t, j) < a.lanes; };
+    for (int t = 0; t < 32; ++t)
+      for (int j = 0; j < S; ++j)
+        cb::mh::load_mh_lane(a, live(t, j) ? lane(t, j) : 0, L[t * S + j]);
+    for (int chunk = 0; chunk < a.chunks; ++chunk) {
+      for (int w = 0; w < a.windows; ++w) {
+        uint32_t mask[S] = {};
+        bool fin[32][S];
+        int F = 0;
+        for (int t = 0; t < 32; ++t)
+          for (int j = 0; j < S; ++j) {
+            fin[t][j] = cb::mh::mh_window<FR, UC>(a, L[t * S + j]);
+            if (!fin[t][j]) cb::mh::mh_advance(a, L[t * S + j], a.unroll);
+            fin[t][j] = fin[t][j] && live(t, j);
+            mask[j] |= uint32_t(fin[t][j]) << t;
+          }
+        for (int j = 0; j < S; ++j) F += cb::popc32(mask[j]);
+        const int gwin = chunk * a.windows + w;
+        for (int t = 0; t < 32; ++t)
+          for (int j = 0; j < S; ++j)
+            if (fin[t][j]) q_lane[cb::refill_slot<S>(mask, t, j)] = lane(t, j);
+        for (int pass = 0; pass * 32 < 2 * F; ++pass)
+          for (int t = 0; t < 32; ++t) {
+            const int q = pass * 32 + t;
+            if (q < 2 * F)
+              cb::mh::mh_block(a, q_lane[q >> 1], gwin, q & 1, q_words[2 * q],
+                               q_words[2 * q + 1]);
+          }
+        for (int t = 0; t < 32; ++t)
+          for (int j = 0; j < S; ++j)
+            if (fin[t][j]) {
+              const uint32_t* m =
+                  &q_words[4 * cb::refill_slot<S>(mask, t, j)];
+              cb::mh::mh_resolve<FR>(a, L[t * S + j], m[0], m[1], m[2], m[3]);
+            }
+      }
+      for (int t = 0; t < 32; ++t)
+        for (int j = 0; j < S; ++j)
+          if (live(t, j))
+            cb::mh::flush_mh_lane(a, L[t * S + j], chunk, lane(t, j));
+    }
+    for (int t = 0; t < 32; ++t)
+      for (int j = 0; j < S; ++j)
+        if (live(t, j)) cb::mh::store_mh_lane(a, L[t * S + j], lane(t, j));
+  }
+}
+
+// mh_warps with the instantiation picked by lanes per thread, reservoir
+// places, the window's unrolling (at U = 4 only), reservoir width (2, 8
+// and 32: the narrowest, the default, the widest) and fractal.
+template <class Orbit>
+int mh_warps_pick(int fractal, int slots, int per_thread, int shared,
+                  int unrolled, const cb::mh::ClassifyMhArgs& a) {
+  auto by_s = [&](auto fr, auto v) {
+    constexpr int FR = decltype(fr)::value, V = decltype(v)::value;
+    if (unrolled) {
+      if (per_thread != 1 || shared != 1 || a.unroll != 4) return 1;
+      mh_warps<FR, V, 1, 1, 4, Orbit>(a);
+      return 0;
+    }
+    switch (per_thread * 4 + shared) {
+      case 4: mh_warps<FR, V, 1, 0, 0, Orbit>(a); return 0;
+      case 5: mh_warps<FR, V, 1, 1, 0, Orbit>(a); return 0;
+      case 6: mh_warps<FR, V, 1, 2, 0, Orbit>(a); return 0;
+      case 9: mh_warps<FR, V, 2, 1, 0, Orbit>(a); return 0;
+    }
+    return 1;
+  };
+  auto by_v = [&](auto fr) {
+    using std::integral_constant;
+    switch (slots) {
+      case 2: return by_s(fr, integral_constant<int, 2>());
+      case 8: return by_s(fr, integral_constant<int, 8>());
+      case 32: return by_s(fr, integral_constant<int, 32>());
+    }
+    return 1;
+  };
+  switch (fractal) {
+    case cb::kBuddhabrot:
+      return by_v(std::integral_constant<int, cb::kBuddhabrot>());
+    case cb::kBurningShip:
+      return by_v(std::integral_constant<int, cb::kBurningShip>());
+    case cb::kAntiBuddhabrot:
+      return by_v(std::integral_constant<int, cb::kAntiBuddhabrot>());
   }
   return 1;
 }
@@ -395,7 +517,8 @@ int cbh_replay_ids_ext(const void* kr, const void* ki, const void* iters,
   auto* pi = static_cast<int32_t*>(ids);
   const int32_t nbins = a.q.width * a.q.height;
   return replay_ext_all(
-      iargs[0], a, [&](int i) { return cb::IdSink{pi + po[i], nbins}; },
+      iargs[0], a,
+      [&](int i) { return cb::IdSink{pi + po[i], nbins, a.iters[i]}; },
       hits);
 }
 
@@ -415,32 +538,61 @@ int cbh_replay_ids_ext_canvas(const void* kr, const void* ki,
       hits);
 }
 
-// The interface of cb_replay_ids, emissions looped on the CPU.
+// The interface of cb_replay_ids (warps and the queue's arguments left
+// out), the kernel's warps emulated on the CPU: groups of 32 emissions,
+// each lane replayed for its group's longest orbit kTile steps at a time
+// into its row of the warp's tile (orbit.cuh TileSink), the tile stored
+// after each span row by row as the warp's 32 threads store it
+// (store_tile_word). The tile starts filled with `poison`, as shared memory
+// holds whatever it held, so a stale word that reached the stream would
+// show.
 int cbh_replay_ids(int fractal, const float* cr, const float* ci,
                    const int32_t* iters, const long long* off, int k,
                    int32_t* ids, float min_re, float min_im, float d_re,
-                   float d_im, int width, int height, void* hits) {
+                   float d_im, int width, int height, int poison,
+                   void* hits) {
   const cb::CanvasQ q{min_re, min_im, d_re, d_im, width, height};
+  const int32_t nbins = width * height;
+  std::vector<int32_t> tile(cb::kTile * cb::kTileStride, poison);
   unsigned long long total = 0;
-  for (int i = 0; i < k; ++i) {
-    if (iters[i] < 0) continue;
-    const cb::IdSink sink{ids + off[i], width * height};
-    switch (fractal) {
-      case cb::kBuddhabrot:
-        total += cb::replay_orbit<cb::kBuddhabrot>(cr[i], ci[i], iters[i],
-                                                   iters[i] + 1, q, sink);
-        break;
-      case cb::kBurningShip:
-        total += cb::replay_orbit<cb::kBurningShip>(cr[i], ci[i], iters[i],
-                                                    iters[i] + 1, q, sink);
-        break;
-      case cb::kAntiBuddhabrot:
-        total += cb::replay_orbit<cb::kAntiBuddhabrot>(
-            cr[i], ci[i], iters[i], iters[i] + 1, q, sink);
-        break;
-      default:
-        return 1;
+  auto warps = [&](auto tag) {
+    constexpr int FR = decltype(tag)::value;
+    for (int g = 0; g * 32 < k; ++g) {
+      cb::ReplayLane l[32];
+      int n[32], steps = 0;
+      int32_t* out[32];
+      for (int x = 0; x < 32; ++x) {
+        const int i = g * 32 + x, e = i < k ? i : g * 32;
+        n[x] = i < k ? iters[i] : -1;
+        out[x] = ids + off[e];
+        l[x] = cb::replay_start<FR>(cr[e], ci[e]);
+        steps = n[x] + 1 > steps ? n[x] + 1 : steps;
+      }
+      for (int t0 = 0; t0 < steps; t0 += cb::kTile) {
+        const int t1 = t0 + cb::kTile < steps ? t0 + cb::kTile : steps;
+        for (int x = 0; x < 32; ++x)
+          total += cb::replay_span<FR>(
+              l[x], n[x], t0, t1, q,
+              cb::TileSink{tile.data() + x * cb::kTileStride, nbins});
+        for (int r = 0; r < 32; ++r)
+          for (int x = 0; x < 32; ++x)
+            cb::store_tile_word(tile.data(), r, x, t0, n[r] + 1, out[r]);
+      }
     }
+    return 0;
+  };
+  switch (fractal) {
+    case cb::kBuddhabrot:
+      warps(std::integral_constant<int, cb::kBuddhabrot>());
+      break;
+    case cb::kBurningShip:
+      warps(std::integral_constant<int, cb::kBurningShip>());
+      break;
+    case cb::kAntiBuddhabrot:
+      warps(std::integral_constant<int, cb::kAntiBuddhabrot>());
+      break;
+    default:
+      return 1;
   }
   *static_cast<unsigned long long*>(hits) += total;
   return 0;
@@ -479,6 +631,19 @@ int cbh_classify_mh(int ext, void** ptrs, const int* iargs,
       cb::mh::classify_mh_args(ext != 0, ptrs, iargs, fargs, k0, k1);
   return ext ? mh_fractal<cb::mh::OrbitDf>(iargs[0], iargs[1], a)
              : mh_fractal<cb::mh::OrbitF32>(iargs[0], iargs[1], a);
+}
+
+// The interface of cb_classify_mh, the f32 kernel's warps emulated on the
+// CPU with iargs[13] lanes per thread, iargs[14] reservoirs in shared
+// memory and iargs[15] the window unrolled (the kernel's
+// CB_MH_LANES_PER_THREAD, CB_MH_SHARED_SLOTS and CB_MH_WINDOW_UNROLL: S = 1
+// with 0, 1 or 2, S = 2 with 1; unrolled at S = 1 with 1 and U = 4).
+int cbh_classify_mh_warps(void** ptrs, const int* iargs, const float* fargs,
+                          uint32_t k0, uint32_t k1) {
+  const cb::mh::ClassifyMhArgs a =
+      cb::mh::classify_mh_args(false, ptrs, iargs, fargs, k0, k1);
+  return mh_warps_pick<cb::mh::OrbitF32>(iargs[0], iargs[1], iargs[13],
+                                         iargs[14], iargs[15], a);
 }
 
 // The interface of cb_mh_deposit, emissions looped on the CPU.

@@ -1,7 +1,8 @@
 // Metropolis-Hastings chain functions, the lane function of the two MH
 // classify kernels, and the weighted bin deposit, as __host__ __device__
-// code: the two kernels of classify_mh.cu run the lane function with
-// one thread per lane (the f32 and the df32 orbit are its Orbit policy),
+// code: the two kernels of classify_mh.cu run the lane's functions (the
+// f32 and the df32 orbit are their Orbit policy), the df32 one with one
+// thread per lane, the f32 one with its warps' draws compacted,
 // deposit.cu runs mh_deposit_one with one thread per emission, and
 // host_harness.cpp loops both on the CPU so a g++ build can be held
 // bitwise against the plain PyTorch versions (ops/classify_mh.py,
@@ -71,16 +72,41 @@ CB_HD Proposal propose(float xkr, float xki, int32_t xv, uint32_t rb_r,
   return p;
 }
 
+// A lane's V-word reservoir (the visit bins vb, the chain's xb, the
+// pending emission's p_b). RegSlots keeps the words in registers: with V
+// a compile-time constant and every index either unrolled or the run-time
+// slot of set(), an unrolled predicated select, the array never goes to
+// local memory. SharedSlots keeps them in a column of shared memory, word
+// k at p[k * stride]: set() is one indexed store, and the words cost no
+// registers.
+template <int V>
+struct RegSlots {
+  int32_t w[V];
+  CB_HD int32_t get(int k) const { return w[k]; }
+  CB_HD void set(int slot, int32_t v) {
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (k == slot) w[k] = v;
+  }
+};
+
+struct SharedSlots {
+  int32_t* p;
+  int stride;
+  CB_HD int32_t get(int k) const { return p[k * stride]; }
+  CB_HD void set(int slot, int32_t v) { p[slot * stride] = v; }
+};
+
 // _record_visit: reservoir-record one canvas visit. The LCG advances on
 // every call, masked steps included: it is part of the sample schedule.
 // The first V visits fill slots in order; visit j >= V replaces a uniform
 // slot with probability V / (j + 1). The bin is computed only under `vis`
-// (inside the window, so the float -> int conversions are in range); the
-// slot is written by an unrolled predicated select, which keeps vb in
-// registers.
-template <int V>
+// (inside the window, so the float -> int conversions are in range) and
+// only for a visit the reservoir takes: most steps of most warps skip it,
+// which a branch-free form (the bin of every step) measured slower.
+template <int V, class Slots>
 CB_HD void record_visit(bool vis, float dr, float di, int32_t jvis,
-                        uint32_t& rsv, int32_t (&vb)[V], const Window& w) {
+                        uint32_t& rsv, Slots& vb, const Window& w) {
   rsv = rsv * 1664525u + 1013904223u;
   if (!vis) return;
   const uint32_t mix = rsv ^ (rsv >> 16);
@@ -93,22 +119,19 @@ CB_HD void record_visit(bool vis, float dr, float di, int32_t jvis,
                            w.width - 1);
   const int32_t row = imin(int32_t(fmul(fsub(di, w.y0), w.inv_dy)),
                            w.height - 1);
-  const int32_t bin = row * w.width + col;
   const int32_t slot = jvis < V ? jvis : int32_t(mix & uint32_t(V - 1));
-#pragma unroll
-  for (int k = 0; k < V; ++k)
-    if (k == slot) vb[k] = bin;
+  vb.set(slot, row * w.width + col);
 }
 
 // The chain state of one lane, its pending emission, and the chain's
 // counters.
-template <int V>
+template <int V, class Slots = RegSlots<V>>
 struct Chain {
   float xkr, xki;         // chain state grid indices
   int32_t xv, xit, rep;   // target t(x) (0 = unseeded), escape index, tenure
-  int32_t xb[V];          // the chain state's visit-bin reservoir
+  Slots xb;               // the chain state's visit-bin reservoir
   int32_t p_it, p_rep, p_v;  // pending emission (p_it < 0: empty)
-  int32_t p_b[V];
+  Slots p_b;
   int32_t n_acc, n_merge, n_merged_rep;
 };
 
@@ -120,10 +143,10 @@ struct Chain {
 // carry the summed mass either way), and the chain update. The pending
 // copy takes the old xb before the accept overwrites it with vb. Returns
 // accept.
-template <int V>
-CB_HD bool boundary(Chain<V>& c, int32_t v_prop, int32_t needed, float kr,
-                    float ki, const int32_t (&vb)[V], uint32_t rb_a,
-                    uint32_t rb_b, int rep_cap) {
+template <int V, class CS, class VS>
+CB_HD bool boundary(Chain<V, CS>& c, int32_t v_prop, int32_t needed, float kr,
+                    float ki, const VS& vb, uint32_t rb_a, uint32_t rb_b,
+                    int rep_cap) {
   const float u24 = fmul(top24(rb_a), kInv24);
   const bool accept = float(v_prop) > fmul(u24, float(c.xv));
   const int32_t rep_rej = c.rep + 1;
@@ -145,7 +168,7 @@ CB_HD bool boundary(Chain<V>& c, int32_t v_prop, int32_t needed, float kr,
       c.p_it = c.xit;
       c.p_v = c.xv;
 #pragma unroll
-      for (int k = 0; k < V; ++k) c.p_b[k] = c.xb[k];
+      for (int k = 0; k < V; ++k) c.p_b.set(k, c.xb.get(k));
     }
     c.p_rep = occupied ? tot : rep_used;
   }
@@ -155,7 +178,7 @@ CB_HD bool boundary(Chain<V>& c, int32_t v_prop, int32_t needed, float kr,
     c.xv = v_prop;
     c.xit = needed;
 #pragma unroll
-    for (int k = 0; k < V; ++k) c.xb[k] = vb[k];
+    for (int k = 0; k < V; ++k) c.xb.set(k, vb.get(k));
     c.rep = 1;
     c.n_acc += 1;
   } else {
@@ -329,11 +352,236 @@ struct OrbitDf {
   }
 };
 
-// One lane of an MH classify pass: the persistent-lane scaffolding of the
-// uniform kernels (thin escape tracking, windowed boundaries, Brent on the
-// boundary schedule) with the refill replaced by the chain logic. A
-// finished proposal resolves against the chain (boundary), then the next
-// proposal is drawn from the updated chain state (propose) and installed.
+// One lane's registers across an MH pass: the orbit, the proposal's grid
+// indices and Brent point, its window and visit counters, the visit
+// reservoir, the chain with its pending emission, and the pass counters.
+// v_prop and needed carry a finished window's target and escape index to
+// its resolution. VS and CS hold the visit reservoir and the chain's two
+// (RegSlots, or SharedSlots pointed at their columns before the load).
+template <int V, class Orbit, class VS = RegSlots<V>, class CS = RegSlots<V>>
+struct MhLane {
+  Orbit o;
+  float kr, ki, sr, si;
+  int it, sv, dead, vcnt;
+  uint32_t rsv;
+  VS vb;
+  Chain<V, CS> ch;
+  int n_drawn, n_cull, n_band, n_cyc, n_waste;
+  int32_t v_prop, needed, jv;
+};
+
+template <int V, class Orbit, class VS, class CS>
+CB_HD void load_mh_lane(const ClassifyMhArgs& a, int lane,
+                        MhLane<V, Orbit, VS, CS>& l) {
+  const size_t L = size_t(a.lanes);
+  l.o.load(a, lane);
+  l.kr = a.kr[lane];
+  l.ki = a.ki[lane];
+  l.sr = a.sr[lane];
+  l.si = a.si[lane];
+  l.it = a.it[lane];
+  l.sv = a.sv[lane];
+  l.dead = a.dead[lane];
+  l.vcnt = a.vcnt[lane];
+  l.rsv = uint32_t(a.rsv[lane]);
+  l.ch.xkr = a.xkr[lane];
+  l.ch.xki = a.xki[lane];
+  l.ch.xv = a.xv[lane];
+  l.ch.xit = a.xit[lane];
+  l.ch.rep = a.rep[lane];
+  l.ch.p_it = -1;
+  l.ch.p_rep = 0;
+  l.ch.p_v = 0;
+  l.ch.n_acc = l.ch.n_merge = l.ch.n_merged_rep = 0;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    l.vb.set(k, a.vb[size_t(k) * L + lane]);
+    l.ch.xb.set(k, a.xb[size_t(k) * L + lane]);
+    l.ch.p_b.set(k, 0);
+  }
+  l.n_drawn = l.n_cull = l.n_band = l.n_cyc = l.n_waste = 0;
+}
+
+// One inner step of a lane's window: the orbit update, the survival
+// count (`<= 4`, so the NaNs an escaped lane coasts into count as escaped;
+// NaN is also outside the window, all four compares false), the in-window
+// test and the visit record.
+template <int FR, int V, class Orbit, class VS, class CS>
+CB_HD void window_step(const ClassifyMhArgs& a, MhLane<V, Orbit, VS, CS>& l,
+                       int& nesc, int& jv) {
+  nesc += l.o.template step<FR>() <= 4.0f;
+  const float dr = l.o.win_r(a), di = l.o.win_i(a);
+  const bool vis =
+      dr >= a.win.x0 && dr < a.win.x1 && di >= a.win.y0 && di < a.win.y1;
+  record_visit<V>(vis, dr, di, jv, l.rsv, l.vb, a.win);
+  jv += vis;
+}
+
+// One window of a lane: U orbit updates (UC, unrolled, where it is not 0;
+// else a.unroll in a loop), then the boundary's tests and counters.
+// Returns whether the proposal finished: a finished lane then takes
+// mh_resolve, an unfinished one mh_advance.
+template <int FR, int UC = 0, int V, class Orbit, class VS, class CS>
+CB_HD bool mh_window(const ClassifyMhArgs& a, MhLane<V, Orbit, VS, CS>& l) {
+  using T = Traits<FR>;
+  const int U = UC > 0 ? UC : a.unroll;
+  int nesc = 0;
+  int jv = l.vcnt;
+  if constexpr (UC > 0) {
+#pragma unroll
+    for (int k = 0; k < UC; ++k) window_step<FR>(a, l, nesc, jv);
+  } else {
+    for (int k = 0; k < U; ++k) window_step<FR>(a, l, nesc, jv);
+  }
+  const bool esc = nesc < U;
+  int needed = l.it + nesc;
+  const bool cyc =
+      a.detect && l.o.hi_r() == l.sr && l.o.hi_i() == l.si && !esc;
+
+  const int it_new = l.it + U;
+  const bool maxed = it_new >= a.max_it;
+  const bool deadb = l.dead != 0;
+  const bool fin = esc || cyc || maxed || deadb;
+  bool cand;
+  if (T::interior) {
+    // Anti-Buddhabrot: candidates finish without escaping within the cap;
+    // their orbit is the full capped one.
+    const bool esc_in_cap = esc && needed < a.max_it;
+    cand = (cyc || maxed) && !esc_in_cap && !deadb;
+    if (cand) needed = a.max_it - 1;
+  } else {
+    cand = esc && !deadb && needed >= a.min_it && needed < a.max_it;
+  }
+  // The bridge target: 256 per (capped) visit plus 1 for being in band, 0
+  // otherwise.
+  l.v_prop = cand ? imin(jv, kVisitCap) * kTargetVisit + 1 : 0;
+  l.needed = needed;
+  l.jv = jv;
+  l.n_band += l.v_prop > 0;
+  l.n_cyc += cyc && !deadb;
+  if (deadb) l.n_waste += U;
+  if (esc && !deadb) l.n_waste += it_new - needed - 1;
+  return fin;
+}
+
+// An unfinished proposal after its window of U steps: the Brent save on
+// its schedule, the iteration and visit counts.
+template <int V, class Orbit, class VS, class CS>
+CB_HD void mh_advance(const ClassifyMhArgs& a, MhLane<V, Orbit, VS, CS>& l,
+                      int U) {
+  const int it_new = l.it + U;
+  if (a.detect && it_new >= l.sv) {
+    l.sr = l.o.hi_r();
+    l.si = l.o.hi_i();
+    l.sv = l.sv * 2;
+  }
+  l.it = it_new;
+  l.vcnt = l.jv;
+}
+
+// Block `blk` of the four words a finished boundary of lane `lane` at
+// global window gwin draws: Threefry-2x32 of (lane, gwin) for block 0, the
+// mutation mantissas (rb_r, rb_i), and of (lane | 2^30, gwin) for block 1,
+// the acceptance and control words (rb_a, rb_b); lane ids are below 2^24.
+// Or the same words from the bits tensor. The words depend on nothing but
+// (lane, gwin, blk), so any thread may compute them.
+CB_HD void mh_block(const ClassifyMhArgs& a, int lane, int gwin, int blk,
+                    uint32_t& x0, uint32_t& x1) {
+  if (a.bits != nullptr) {
+    const size_t L = size_t(a.lanes);
+    const size_t base = (size_t(gwin) * 4 + 2 * size_t(blk)) * L + lane;
+    x0 = a.bits[base];
+    x1 = a.bits[base + L];
+  } else {
+    x0 = uint32_t(lane) | (blk ? 0x40000000u : 0u);
+    x1 = uint32_t(gwin);
+    threefry2x32(a.k0, a.k1, x0, x1);
+  }
+}
+
+// A finished proposal: resolves it against the chain (boundary), draws the
+// next proposal from the updated chain state (propose) and installs it.
+template <int FR, int V, class Orbit, class VS, class CS>
+CB_HD void mh_resolve(const ClassifyMhArgs& a, MhLane<V, Orbit, VS, CS>& l,
+                      uint32_t rb_r, uint32_t rb_i, uint32_t rb_a,
+                      uint32_t rb_b) {
+  boundary<V>(l.ch, l.v_prop, l.needed, l.kr, l.ki, l.vb, rb_a, rb_b,
+              a.rep_cap);
+  const Proposal p = propose(l.ch.xkr, l.ch.xki, l.ch.xv, rb_r, rb_i, rb_b,
+                             a.restart256);
+  l.kr = float(p.kr);
+  l.ki = float(p.ki);
+  const bool in_set = l.o.refill(a, l.kr, l.ki);
+  const bool ncull = (Traits<FR>::use_cull && in_set) || p.oob;
+  l.it = 0;
+  l.sr = kBig;
+  l.si = kBig;
+  l.sv = kSave0;
+  l.dead = ncull;
+  l.vcnt = 0;
+  l.n_drawn += 1;
+  l.n_cull += ncull;
+}
+
+// Writes the chunk's pending emission and clears it.
+template <int V, class Orbit, class VS, class CS>
+CB_HD void flush_mh_lane(const ClassifyMhArgs& a, MhLane<V, Orbit, VS, CS>& l,
+                         int chunk, int lane) {
+  const size_t L = size_t(a.lanes);
+  const size_t e = size_t(chunk) * L + lane;
+  a.emit_it[e] = l.ch.p_it;
+  a.emit_rep[e] = l.ch.p_rep;
+  a.emit_v[e] = l.ch.p_v;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    a.emit_b[(size_t(chunk) * V + k) * L + lane] = l.ch.p_b.get(k);
+    l.ch.p_b.set(k, 0);
+  }
+  l.ch.p_it = -1;
+  l.ch.p_rep = 0;
+  l.ch.p_v = 0;
+}
+
+template <int V, class Orbit, class VS, class CS>
+CB_HD void store_mh_lane(const ClassifyMhArgs& a,
+                         const MhLane<V, Orbit, VS, CS>& l, int lane) {
+  const size_t L = size_t(a.lanes);
+  l.o.store(a, lane);
+  a.kr[lane] = l.kr;
+  a.ki[lane] = l.ki;
+  a.sr[lane] = l.sr;
+  a.si[lane] = l.si;
+  a.it[lane] = l.it;
+  a.sv[lane] = l.sv;
+  a.dead[lane] = l.dead;
+  a.vcnt[lane] = l.vcnt;
+  a.rsv[lane] = int32_t(l.rsv);
+  a.xkr[lane] = l.ch.xkr;
+  a.xki[lane] = l.ch.xki;
+  a.xv[lane] = l.ch.xv;
+  a.xit[lane] = l.ch.xit;
+  a.rep[lane] = l.ch.rep;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    a.vb[size_t(k) * L + lane] = l.vb.get(k);
+    a.xb[size_t(k) * L + lane] = l.ch.xb.get(k);
+  }
+  const int counts[kStats] = {l.n_drawn,  l.n_cull,      l.n_band,
+                              l.n_cyc,    l.n_waste,     l.ch.n_acc,
+                              l.ch.n_merge, l.ch.n_merged_rep};
+  for (int s = 0; s < kStats; ++s) a.stats[size_t(s) * L + lane] = counts[s];
+}
+
+// One lane of an MH classify pass, alone, as the df32 kernel runs it (one
+// thread a lane): the persistent-lane scaffolding of the uniform kernels
+// (thin escape tracking, windowed boundaries, Brent on the boundary
+// schedule) with the refill replaced by the chain logic. A finished
+// proposal draws its four words itself, resolves against the chain
+// (boundary), then the next proposal is drawn from the updated chain state
+// (propose) and installed. The same steps as mh_window, mh_block,
+// mh_resolve and mh_advance, which the f32 kernel's compacted warps run,
+// written as one loop: split into those calls, the df32 kernel took 1-2%
+// longer a pass, bitwise the same.
 template <int FR, int V, class Orbit>
 CB_HD void classify_mh_lane(const ClassifyMhArgs& a, int lane) {
   using T = Traits<FR>;
@@ -357,12 +605,12 @@ CB_HD void classify_mh_lane(const ClassifyMhArgs& a, int lane) {
   ch.p_rep = 0;
   ch.p_v = 0;
   ch.n_acc = ch.n_merge = ch.n_merged_rep = 0;
-  int32_t vb[V];
+  RegSlots<V> vb;
 #pragma unroll
   for (int k = 0; k < V; ++k) {
-    vb[k] = a.vb[size_t(k) * L + lane];
-    ch.xb[k] = a.xb[size_t(k) * L + lane];
-    ch.p_b[k] = 0;
+    vb.set(k, a.vb[size_t(k) * L + lane]);
+    ch.xb.set(k, a.xb[size_t(k) * L + lane]);
+    ch.p_b.set(k, 0);
   }
   int n_drawn = 0, n_cull = 0, n_band = 0, n_cyc = 0, n_waste = 0;
 
@@ -463,8 +711,8 @@ CB_HD void classify_mh_lane(const ClassifyMhArgs& a, int lane) {
     a.emit_v[e] = ch.p_v;
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      a.emit_b[(size_t(chunk) * V + k) * L + lane] = ch.p_b[k];
-      ch.p_b[k] = 0;
+      a.emit_b[(size_t(chunk) * V + k) * L + lane] = ch.p_b.get(k);
+      ch.p_b.set(k, 0);
     }
     ch.p_it = -1;
     ch.p_rep = 0;
@@ -488,8 +736,8 @@ CB_HD void classify_mh_lane(const ClassifyMhArgs& a, int lane) {
   a.rep[lane] = ch.rep;
 #pragma unroll
   for (int k = 0; k < V; ++k) {
-    a.vb[size_t(k) * L + lane] = vb[k];
-    a.xb[size_t(k) * L + lane] = ch.xb[k];
+    a.vb[size_t(k) * L + lane] = vb.get(k);
+    a.xb[size_t(k) * L + lane] = ch.xb.get(k);
   }
   const int counts[kStats] = {n_drawn, n_cull,   n_band,     n_cyc,
                               n_waste, ch.n_acc, ch.n_merge, ch.n_merged_rep};

@@ -144,10 +144,11 @@ def deposit_ids_plain(hist_flat: torch.Tensor, ids: torch.Tensor):
 # replay_deposit: orbit replay fused with the deposit (the main path).
 
 
-#: Resident warps per SM of the f32 replay-deposit kernel's queue
-#: (csrc/deposit.cu): on an H100 the fastest at the default batch and
-#: level with 4..64 at the deep and northstar ones (chip_smoke.py
-#: --replay-study, which sweeps it). The histogram does not depend on it.
+#: Resident warps per SM of the queue of the two f32 replay kernels,
+#: replay_deposit and replay_ids (csrc/deposit.cu): on an H100 the fastest
+#: at the default batch and level with 4..64 at the deep and northstar ones
+#: (chip_smoke.py --replay-study, which sweeps it). No result depends on
+#: it.
 REPLAY_WARPS_PER_SM = 16
 #: Takes from the queue each resident warp should get at least: a warp
 #: takes max(1, groups / (warps * REPLAY_TAKES_PER_WARP)) groups of 32 at
@@ -158,9 +159,10 @@ REPLAY_TAKES_PER_WARP = 8
 
 
 def replay_launch(k: int, device) -> tuple[int, int]:
-    """The f32 replay-deposit kernel's launch for a batch of ``k``
-    emissions on ``device``: its resident warps in all, and the groups of
-    32 each warp takes from the queue at once."""
+    """The launch of an f32 replay kernel (``replay_deposit``,
+    ``replay_ids``) for a batch of ``k`` emissions on ``device``: its
+    resident warps in all, and the groups of 32 each warp takes from the
+    queue at once."""
     warps = torch.cuda.get_device_properties(
         device).multi_processor_count * REPLAY_WARPS_PER_SM
     return warps, max(1, (k + 31) // 32 // (warps * REPLAY_TAKES_PER_WARP))
@@ -554,29 +556,41 @@ def replay_ids(cr, ci, iters, off, n_ids: int, *, canvas: Canvas,
     int64, the exclusive prefix sum of max(iters + 1, 0), so every slot is
     written once (``id_offsets``); ``n_ids`` must cover the last
     emission's slots, which the kernel does not check. Returns ``(ids,
-    hits)``: the stream and the on-canvas point count (0-dim int64)."""
+    hits)``: the stream and the on-canvas point count (0-dim int64). The
+    kernel runs ``replay_deposit``'s queue (``replay_launch``)."""
     _check_nbins(canvas.num_pixels)
     cr, ci, iters, off = _check_replay_ids(cr, ci, iters, off, "c values")
     if cr.device.type == "cpu":
         return replay_ids_plain(cr, ci, iters, off, n_ids, canvas=canvas,
                                 fractal=fractal)
+    ids = torch.empty(n_ids, dtype=torch.int32, device=cr.device)
+    return ids, _replay_ids_launch(_lib(), ids, cr, ci, iters, off,
+                                   canvas=canvas, fractal=fractal)
+
+
+def _replay_ids_launch(lib, ids, cr, ci, iters, off, *, canvas: Canvas,
+                       fractal: FractalMap) -> torch.Tensor:
+    """Launches ``lib``'s replay_ids kernel into ``ids`` (checked,
+    contiguous inputs on one CUDA device); returns the on-canvas count.
+    chip_smoke.py's study passes the variant builds of csrc/deposit.cu."""
     dev = cr.device
-    ids = torch.empty(n_ids, dtype=torch.int32, device=dev)
     hits = torch.zeros((), dtype=torch.int64, device=dev)
     if cr.numel() == 0:
-        return ids, hits
-    lib = _lib()
+        return hits
+    warps, take = replay_launch(cr.numel(), dev)
+    queue = torch.zeros(1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         rc = lib.cb_replay_ids(
             fractal.kernel_id, _build.ptr(cr), _build.ptr(ci),
             _build.ptr(iters), _build.ptr(off), cr.numel(), _build.ptr(ids),
             canvas.min_real, canvas.min_imag, canvas.delta_real,
             canvas.delta_imag, canvas.width, canvas.height,
-            _build.ptr(hits), _build.stream_of(ids),
+            warps, take, _build.ptr(queue), _build.ptr(hits),
+            _build.stream_of(ids),
         )
     _build.check(rc, "replay_ids kernel")
     launches.COUNTS["replay_ids"] += 1
-    return ids, hits
+    return hits
 
 
 def replay_ids_plain(cr, ci, iters, off, n_ids: int, *, canvas: Canvas,
@@ -862,8 +876,11 @@ def _lib_bigtiles():
     return lib
 
 
-def _lib():
-    lib = _build.load("deposit")
+def _lib(defines=()):
+    """The deposit library; ``defines`` selects a variant build (e.g.
+    ``("CB_IDS_STORE=1",)``, csrc/deposit.cu), which only the kernel tests
+    and chip_smoke.py's study load."""
+    lib = _build.load("deposit", defines)
     if lib.cb_deposit_ids.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cb_deposit_ids.argtypes = [vp, ctypes.c_longlong, vp, i, vp]
@@ -873,7 +890,7 @@ def _lib():
         ]
         lib.cb_replay_deposit.restype = i
         lib.cb_replay_ids.argtypes = [
-            i, vp, vp, vp, vp, i, vp, f, f, f, f, i, i, vp, vp,
+            i, vp, vp, vp, vp, i, vp, f, f, f, f, i, i, i, i, vp, vp, vp,
         ]
         lib.cb_replay_ids.restype = i
         lib.cb_mh_deposit.argtypes = [

@@ -9,9 +9,9 @@ engine equals its fused route in the histogram and every stat. Against the
 JAX engine's bigtiles route the whole render is held by the statistical
 criteria of ``test_torch_engine.test_whole_slice_statistical_vs_jax_engine``
 (XLA's CPU backend contracts the JAX kernel's orbits into FMAs). The g++
-build of the CUDA sources' id writer and run-length deposit
-(``csrc/orbit.cuh``, ``classify_ext.cuh``, ``bigtiles.cuh``) is held to the
-plain versions bitwise.
+build of the CUDA sources' id writers (the f32 kernel's staged warps,
+``csrc/orbit.cuh``; ``classify_ext.cuh``) and run-length deposit
+(``bigtiles.cuh``) is held to the plain versions bitwise.
 """
 
 import ctypes
@@ -21,6 +21,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from cudabrot_tpu import config as jcfg
 from cudabrot_tpu.engines import pallas_engine as jpe
@@ -347,11 +349,34 @@ def test_header_bigtiles_deposit_bitwise(harness, chunk):  # noqa: F811
         np.testing.assert_array_equal(got.view(np.int32), want.numpy())
 
 
+def _host_ids(harness, cr, ci, it, canvas, fractal, shift=0,  # noqa: F811
+              guard=-7):
+    """The f32 id stream of replay_ids' staged warps (the g++ emulation of
+    csrc/deposit.cu's kernel, tile filled with a poison word first), written
+    ``shift`` words into a buffer of ``guard`` words, and its hit count.
+    Returns (stream, hits, the buffer's words outside the stream)."""
+    off, n = _offsets(torch.from_numpy(it))
+    buf = np.full(n + shift + 3, guard, np.int32)
+    hits = ctypes.c_ulonglong(0)
+    vp, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+    harness.cbh_replay_ids.argtypes = [
+        i, vp, vp, vp, vp, i, vp, f, f, f, f, i, i, i, vp]
+    offs = off.numpy()
+    assert harness.cbh_replay_ids(
+        fractal.kernel_id, cr.ctypes.data, ci.ctypes.data, it.ctypes.data,
+        offs.ctypes.data, it.size, buf.ctypes.data + 4 * shift,
+        canvas.min_real, canvas.min_imag, canvas.delta_real,
+        canvas.delta_imag, canvas.width, canvas.height, -99,
+        ctypes.addressof(hits)) == 0
+    outside = np.concatenate([buf[:shift], buf[shift + n:]])
+    return buf[shift:shift + n], hits.value, outside
+
+
 @pytest.mark.parametrize("name", sorted(FRACTALS))
 def test_header_replay_ids_bitwise(harness, name):  # noqa: F811
-    """The orbit loop of the f32 replay kernels with the id sink
-    (orbit.cuh replay_orbit) against replay_ids_plain: every slot and the
-    hit count."""
+    """The f32 replay_ids kernel's warps (the queue's groups of 32, the
+    orbit loop of orbit.cuh replay_span and its staged tile) against
+    replay_ids_plain: every slot and the hit count."""
     canvas = tcfg.Canvas(width=48, height=40)
     rng = np.random.default_rng(7)
     k = 400
@@ -362,21 +387,44 @@ def test_header_replay_ids_bitwise(harness, name):  # noqa: F811
     want, hits_p = binning.replay_ids_plain(
         *map(torch.from_numpy, (cr, ci, it)), off, n, canvas=canvas,
         fractal=FRACTALS[name])
-    ids = np.empty(n, np.int32)
-    hits = ctypes.c_ulonglong(0)
-    vp, f = ctypes.c_void_p, ctypes.c_float
-    harness.cbh_replay_ids.argtypes = [
-        ctypes.c_int, vp, vp, vp, vp, ctypes.c_int, vp, f, f, f, f,
-        ctypes.c_int, ctypes.c_int, vp]
-    offs = off.numpy()
-    assert harness.cbh_replay_ids(
-        FRACTALS[name].kernel_id, cr.ctypes.data, ci.ctypes.data,
-        it.ctypes.data, offs.ctypes.data, k, ids.ctypes.data,
-        canvas.min_real, canvas.min_imag, canvas.delta_real,
-        canvas.delta_imag, canvas.width, canvas.height,
-        ctypes.addressof(hits)) == 0
+    ids, hits, outside = _host_ids(harness, cr, ci, it, canvas,
+                                   FRACTALS[name])
     np.testing.assert_array_equal(ids, want.numpy())
-    assert hits.value == int(hits_p) > 0
+    assert hits == int(hits_p) > 0
+    assert (outside == -7).all()
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(lens=st.lists(st.one_of(st.integers(-1, 3), st.integers(28, 100)),
+                     min_size=1, max_size=80),
+       order=st.sampled_from(["descending", "as drawn"]),
+       shift=st.integers(0, 3), seed=st.integers(0, 2**16),
+       name=st.sampled_from(sorted(FRACTALS)))
+def test_header_staged_ids_property(harness, lens, order, shift, seed,  # noqa: F811
+                                    name):
+    """The staged id write over drawn orbit lengths: inactive emissions
+    (iters -1), orbits of one point, orbits that cross 32-step tiles, a
+    last group of fewer than 32, a stream that starts off a 16-byte
+    boundary (``shift``), and points off the canvas (c drawn over a window
+    larger than the canvas). Every slot equals replay_ids_plain's, the hit
+    count too, and no word outside the stream is written."""
+    canvas = tcfg.Canvas(width=24, height=20, min_real=-1.5, max_real=0.5,
+                         min_imag=-1.0, max_imag=1.0)
+    rng = np.random.default_rng(seed)
+    it = np.asarray(lens, np.int32) - 1
+    if order == "descending":
+        it = np.sort(it)[::-1].copy()
+    cr = rng.uniform(-2.2, 1.0, it.size).astype(np.float32)
+    ci = rng.uniform(-1.4, 1.4, it.size).astype(np.float32)
+    ids, hits, outside = _host_ids(harness, cr, ci, it, canvas,
+                                   FRACTALS[name], shift)
+    off, n = _offsets(torch.from_numpy(it))
+    want, hits_p = binning.replay_ids_plain(
+        *map(torch.from_numpy, (cr, ci, it)), off, n, canvas=canvas,
+        fractal=FRACTALS[name])
+    np.testing.assert_array_equal(ids, want.numpy())
+    assert hits == int(hits_p)
+    assert (outside == -7).all()
 
 
 def _host_ids_ext(harness, fn, name, prefill):  # noqa: F811

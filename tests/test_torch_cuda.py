@@ -776,3 +776,192 @@ def test_bigtiles_route_equals_fused_route_at_the_big_cells(cuda, cell):
     assert cb["bigtiles_deposit"] >= 2
     np.testing.assert_array_equal(hb, ha)
     assert sb == sa and sb["on_canvas_points"] > 0
+
+
+#: The variant builds of the f32 replay_ids kernel that chip_smoke.py's
+#: study loads (csrc/deposit.cu): a store per point, on-canvas stores into
+#: a stream filled with the sentinel, and one warp per group in place of
+#: the queue.
+IDS_VARIANTS = {"store-per-point": ("CB_IDS_STORE=1",),
+                "on-canvas-only": ("CB_IDS_STORE=2",),
+                "no-queue": ("CB_REPLAY_QUEUE=0",)}
+
+
+@pytest.mark.parametrize("kind", ["ragged", "long", "many"])
+@pytest.mark.parametrize("variant", sorted(IDS_VARIANTS))
+def test_replay_ids_variant_builds_match_plain(cuda, variant, kind):
+    """Each study build of replay_ids against replay_ids_plain, word for
+    word, with the fused replay_deposit's variant build beside it."""
+    defines = IDS_VARIANTS[variant]
+    canvas = config.Canvas(width=300, height=200, min_real=-2.0,
+                           max_real=1.0, min_imag=-1.2, max_imag=1.2)
+    cr, ci, it = _replay_batch(cuda, kind)
+    off, n = _offsets(it)
+    kw = dict(canvas=canvas, fractal=FRACTALS["buddhabrot"])
+    lib = binning._lib(defines)
+    fill = "CB_IDS_STORE=2" in defines
+    ids = (torch.full((n,), canvas.num_pixels, dtype=torch.int32, device=cuda)
+           if fill else torch.empty(n, dtype=torch.int32, device=cuda))
+    hits = binning._replay_ids_launch(lib, ids, cr, ci, it, off, **kw)
+    ids_p, hits_p = binning.replay_ids_plain(cr, ci, it, off, n, **kw)
+    assert torch.equal(ids, ids_p)
+    assert int(hits) == int(hits_p) > 0
+    hk = torch.zeros(canvas.num_pixels, dtype=torch.int32, device=cuda)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(binning, "_lib", lambda: lib)
+        binning.replay_deposit(hk, cr, ci, it, **kw)
+    hp = torch.zeros_like(hk)
+    binning.replay_deposit_plain(hp, cr, ci, it, **kw)
+    assert torch.equal(hk, hp)
+
+
+@pytest.fixture(scope="module")
+def big_batches():
+    """One pass's kept batch at the bigcanvas and northstar cells, from a
+    state carried 2 passes: {cell: (cr, ci, iters)}, descending orbit
+    length, cut to the bigtiles route's id budget as its groups are."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    out = {}
+    for cell in ("bigcanvas", "northstar"):
+        cfg = _cell(BIG_CELLS[cell], "bigtiles")
+        eng = CudaEngine(cfg, device="cuda")
+        tn = eng.tuning
+        state = eng.init_state(None)
+        for p in range(2):
+            eng.run_pass(state, p)
+        key = prng.pass_key(cfg.seed, 0, 3)
+        res = cls.classify_pass(
+            state["lanes"], prng.bits_host(key, 2), fractal=eng.fractal,
+            min_it=tn.min_it, max_it=tn.max_it,
+            steps_per_pass=tn.steps_per_pass,
+            steps_per_flush=tn.steps_per_flush, cycle_detection=True,
+            inner_unroll=tn.inner_unroll, thin_tracking=tn.thin_tracking)
+        cr, ci, it, _ = compact(res.emit_c, res.emit_it, key,
+                                tn.replay_capacity, tn.max_it)
+        ends = torch.cumsum(torch.clamp(it.to(torch.int64) + 1, min=0), 0)
+        k = int(torch.searchsorted(
+            ends, torch.tensor(binning.BIGTILES_ID_BUDGET, device="cuda"),
+            right=True))
+        out[cell] = (cr[:k], ci[:k], it[:k], cfg.canvas)
+        del eng, state, res
+        torch.cuda.empty_cache()
+    return out
+
+
+@pytest.mark.parametrize("take", ["default", "one"])
+@pytest.mark.parametrize("cell", ["bigcanvas", "northstar"])
+def test_replay_ids_at_the_big_cells_matches_plain(cuda, monkeypatch,
+                                                   big_batches, cell, take):
+    """replay_ids on a pass's kept batch of the bigcanvas (~3e6 orbits of
+    ~40 points) and northstar (~6,000 of ~5,000) cells, at the queue's
+    default take and at one group a take, against replay_ids_plain word for
+    word, and its hit count."""
+    if take == "one":
+        monkeypatch.setattr(binning, "REPLAY_TAKES_PER_WARP", 1 << 30)
+    cr, ci, it, canvas = big_batches[cell]
+    k = cr.numel()
+    groups_a_take = binning.replay_launch(k, cuda)[1]
+    assert (groups_a_take == 1) == (take == "one" or cell == "northstar")
+    off, n = _offsets(it)
+    kw = dict(canvas=canvas, fractal=FRACTALS["buddhabrot"])
+    launches.reset()
+    ids_k, hits_k = binning.replay_ids(cr, ci, it, off, n, **kw)
+    assert launches.COUNTS["replay_ids"] == 1
+    ids_p, hits_p = binning.replay_ids_plain(cr, ci, it, off, n, **kw)
+    assert torch.equal(ids_k, ids_p)
+    assert int(hits_k) == int(hits_p) > 0
+
+
+MHCROP = ["-w", "1000", "-h", "1000", "--sampler", "mh", "--center",
+          "-0.7436,0.1319", "--span", "6e-3", "-m", "500", "-c", "50"]
+
+
+@pytest.mark.parametrize("cell,slots", [("mhcrop", 8), ("mhcrop", 32),
+                                        ("mhzoom", 8)])
+def test_mh_classify_at_the_mh_cells_matches_plain(cuda, cell, slots):
+    """classify_mh at the mhcrop cell (V = 8, the default, and V = 32, the
+    widest) and classify_ext_mh at mhzoom: one main-path pass at full lane
+    width from a state carried 2 passes, against classify_pass_mh_plain,
+    bitwise."""
+    argv = (MHCROP if cell == "mhcrop"
+            else ["-w", "1000", "-h", "1000", *ZOOM, "--sampler", "mh"])
+    cfg = cli.parse_args([*argv, "--mh-visit-slots", str(slots)])[0]
+    eng = CudaEngine(cfg, device=cuda)
+    spec = eng.mh_pass_spec()
+    ext = eng.extended
+    fn = cmh.classify_pass_ext_mh if ext else cmh.classify_pass_mh
+    state = eng.init_state(None)["lanes"]
+    assert state.vb.shape[0] == slots
+    for p in range(2):
+        fn(state, (1337, p), **spec)
+    a = type(state)(*(t.clone() for t in state))
+    b = type(state)(*(t.clone() for t in state))
+    ra = fn(a, (0xC0FFEE, 0xBADF00D), **spec)
+    wx0, wx1, wy0, wy1 = spec["window"]
+    cw, ch = spec["canvas_wh"]
+    rb = cmh.classify_pass_mh_plain(
+        ext, b, 0xC0FFEE, 0xBADF00D, None, fractal=spec["fractal"],
+        min_it=spec["min_it"], max_it=spec["max_it"],
+        chunks=spec["steps_per_pass"] // spec["steps_per_flush"],
+        windows=spec["steps_per_flush"] // spec["inner_unroll"],
+        unroll=spec["inner_unroll"], detect=True,
+        sample_domain=spec["sample_domain"],
+        window=(wx0, wx1, wy0, wy1, cw / (wx1 - wx0), ch / (wy1 - wy0)),
+        restart256=spec["restart256"], rep_cap=spec["rep_cap"],
+        canvas_wh=spec["canvas_wh"])
+    for f, x, y in zip(state._fields, ra.state, rb.state):
+        assert _same(x, y), f
+    for f in ("emit_it", "emit_rep", "emit_v", "emit_bins", "stats"):
+        assert _same(getattr(ra, f), getattr(rb, f)), f
+    assert int((ra.emit_it >= 0).sum()) > 0
+
+
+#: The study builds of the f32 MH classify kernel (csrc/classify_mh.cu):
+#: two lanes a thread, all reservoirs in registers, all three in shared
+#: memory, the window as a run-time loop.
+MH_BUILDS = {"two-lanes": ("CB_MH_LANES_PER_THREAD=2",),
+             "registers": ("CB_MH_SHARED_SLOTS=0",),
+             "shared-all": ("CB_MH_SHARED_SLOTS=2",),
+             "window-loop": ("CB_MH_WINDOW_UNROLL=0",)}
+
+
+@pytest.mark.parametrize("slots", [2, 8, 32])
+@pytest.mark.parametrize("name", sorted(FRACTALS))
+@pytest.mark.parametrize("build", sorted(MH_BUILDS))
+def test_classify_mh_study_builds_match_plain(cuda, monkeypatch, build,
+                                              name, slots):
+    """classify_mh's study builds against the plain version, bitwise, on
+    640 lanes (at two lanes a thread the last warp's second lanes are half
+    live)."""
+    lib = cmh._lib("classify_mh", MH_BUILDS[build])
+    monkeypatch.setattr(cmh, "_lib", lambda n: lib)
+    window = {"buddhabrot": (-0.78, -0.72, 0.05, 0.11),
+              "burning-ship": (-1.8, -1.6, -0.1, 0.1),
+              "anti-buddhabrot": (-0.6, 0.1, -0.4, 0.3)}[name]
+    band = (0, 64) if name == "anti-buddhabrot" else (20, 300)
+    rows, steps, flush, unroll = 5, 1024, 128, 4
+    fr = FRACTALS[name]
+    kw = dict(fractal=fr, min_it=band[0], max_it=band[1],
+              steps_per_pass=steps, steps_per_flush=flush,
+              inner_unroll=unroll, sample_domain=config.SAMPLE_DOMAIN,
+              window=window, restart256=16, rep_cap=24, canvas_wh=(40, 37))
+    state = cmh.init_mh_lane_state(rows, slots, cuda)
+    cmh.classify_pass_mh(state, (5, 6), **kw)
+    a = type(state)(*(t.clone() for t in state))
+    b = type(state)(*(t.clone() for t in state))
+    launches.reset()
+    ra = cmh.classify_pass_mh(a, (7, 8), **kw)
+    assert launches.COUNTS["classify_mh"] == 1
+    wx0, wx1, wy0, wy1 = window
+    rb = cmh.classify_pass_mh_plain(
+        False, b, 7, 8, None, fractal=fr, min_it=band[0], max_it=band[1],
+        chunks=steps // flush, windows=flush // unroll, unroll=unroll,
+        detect=fr.cycle_detect, sample_domain=config.SAMPLE_DOMAIN,
+        window=(wx0, wx1, wy0, wy1, 40 / (wx1 - wx0), 37 / (wy1 - wy0)),
+        restart256=16, rep_cap=24, canvas_wh=(40, 37))
+    for f, x, y in zip(state._fields, ra.state, rb.state):
+        assert _same(x, y), f
+    for f in ("emit_it", "emit_rep", "emit_v", "emit_bins", "stats"):
+        assert _same(getattr(ra, f), getattr(rb, f)), f
+    assert int(ra.stats[cmh.STAT_MH_ACCEPT].sum()) > 0
