@@ -27,8 +27,10 @@ Phases (each fails the run on any mismatch):
      call); replay_deposit_ext (df32) vs its
      plain version on the batch compacted from phase 2's df32 emissions;
      mh_deposit vs mh_scatter's plain version on phase 2's MH emissions,
-     as a flat (V, S) batch and as they lie in the emission buffers, beside
-     index_add_ of the materialized (bin, weight) stream.
+     as a flat (V, S) batch, as they lie in the emission buffers gated by
+     emit_it (the engine's call, adding into given totals) and on the tail
+     flush's batch of the pass's lane state, beside index_add_ of the
+     materialized (bin, weight) stream.
   4. The main paths through cudabrot_tpu_torch.cli.main at 1000x1000: the
      default band, [2000,20000), the extended-precision deep zoom
      (--precision extended, a 1e-5 window, band [500,20000)), and the two
@@ -44,11 +46,14 @@ Phases (each fails the run on any mismatch):
      --emit-filter canvas over the same 8x domain); two seeds of each must
      agree as measures (block correlation, bright-half mass ratio), and the
      deposited mass per second of both is printed.
-  5. Kernel times at each cell's main-path shapes (CUDA events) beside
-     their bounds, and at the default cell beside their plain versions and
-     torch.bincount of the replay's id stream; a torch.profiler profile of
-     16 engine passes per cell (8 at mhzoom; device ms per kernel, busy
-     share).
+  5. Kernel times at each cell's main-path shapes (CUDA events; the MH
+     deposit, whose call is bound by the host, by its kernel time in
+     torch.profiler, which must show the engine's deposit step as one
+     launch) beside their bounds (the df32 kernels' floors also with FFMA
+     two-products), and at the default cell beside their plain versions
+     and torch.bincount of the replay's id stream; a torch.profiler
+     profile of 16 engine passes per cell (8 at mhzoom; device ms per
+     kernel, busy share).
   6. The bigtiles route (--scatter bigtiles: replay_ids / replay_ids_ext,
      torch.sort, bigtiles_deposit) for histograms beyond the L2.
      bigtiles_deposit vs its plain version bitwise at 1000x1000, 6000x4500
@@ -76,6 +81,13 @@ Phases (each fails the run on any mismatch):
      side streams, as the driver runs them) against the same passes with
      a synchronize() after each and with the replay on the main stream:
      histogram and every stat bitwise at the default, deep and zoom cells.
+  9. render-color through cudabrot_tpu_torch.cli.main: the README's HSL
+     recipe (H 8000/1000, S 500/20, L 60000/45000, --normalize) at
+     6000x4500, 8 passes a band, with --interleave and one band after
+     another. Every band's histogram and stats must be equal bit for bit
+     between the two, its histogram sum equal to its on-canvas points, and
+     the two PNGs byte-identical; each band's ms per pass and each mode's
+     wall time are printed.
   Phases 2, 3 and 3b hold the two df32 replay kernels on a batch whose
   head orbit is set to 19,999 steps.
 
@@ -91,7 +103,12 @@ builds with a store per point, with on-canvas stores into a sentinel-filled
 stream and without the queue, each held word for word to it; its resident
 warps and takes), then times 16 engine passes of every cell on the host
 clock (synchronizing every 8, as the driver does; the big cells through
-both routes). ``--mh-study`` measures the f32 MH classify kernel at the
+both routes). ``--mh-deposit-study`` measures the MH deposit at the
+mhcrop and mhzoom cells: slots, depositable emissions, pairs and the
+distinct bins among each warp group's pairs; the kernel at 1..16 blocks
+per SM; the engine's deposit step on the host clock and in torch.profiler (device
+activities and ms a step); and each cell's pass. ``--mh-study`` runs it,
+then measures the f32 MH classify kernel at the
 mhcrop cell, at V = 8 and 32, in its package build and its study builds
 (two lanes a thread; the reservoirs all in registers or all in shared
 memory; the window as a run-time loop): with in-kernel
@@ -163,15 +180,19 @@ OPS_DEPOSIT_ID = 3
 OPS_THREEFRY_WORD = (70, 50)
 OPS_DRAW_EXT = (111, 54)
 OPS_REPLAY_POINT_EXT = 121
+#: Instructions a df32 step would spend fewer with each two-product's error
+#: as one fused multiply-add, fmaf(a, b, -p) (the same bits wherever the
+#: error is a normal float, tests/test_torch_df32.py): two_prod_sqr 10 -> 2
+#: twice and two_prod 13 -> 2 a step. The df32 kernels' floors are also
+#: printed with it.
+OPS_FFMA_SAVING = 27
 #: The MH kernels (csrc/mh.cuh): a finished proposal pays two Threefry
 #: calls (SASS, as above), and by hand count the chain boundary, the
 #: proposal draw, the sample's rebuild and cull, and up to three V-word
 #: reservoir moves (V = 8 here), 84; the df32 one adds the two df32 sums,
-#: 114. A deposited emission computes its total by long division (~30) and
-#: one share per recorded bin (~6 each, up to V).
+#: 114.
 OPS_DRAW_MH = (2 * 69 + 84, 2 * 49)
 OPS_DRAW_MH_EXT = (2 * 69 + 114, 2 * 49)
-OPS_MH_EMISSION = 78
 
 ZOOM = ["-m", "20000", "-c", "500", "--precision", "extended", "--center",
         "-0.743643887037151,0.131825904205330", "--span", "1e-5"]
@@ -199,6 +220,15 @@ BIG_CELLS = (
                    "2000"], 10),
     ("bigzoom", ["-w", "6000", "-h", "4500", *ZOOM], 32),
 )
+#: The colour phase: the README's flagship HSL recipe ("Color renders":
+#: H 8000/1000, S 500/20, L 60000/45000, --normalize, 6000x4500 over
+#: imaginary [-1.5, 1.5]) through cli.main render-color, COLOR_PASSES
+#: passes a band, interleaved and one band after another.
+COLOR_ARGS = ["render-color", "--mode", "hsl", "--normalize", "-w", "6000",
+              "-h", "4500", "--min-imag", "-1.5", "--max-imag", "1.5",
+              "--band", "H:8000:1000:-1:400", "--band", "S:500:20:-1:200",
+              "--band", "L:60000:45000:-1:1200"]
+COLOR_PASSES = 8
 #: The measure check of mhzoom: seeds, MH passes (the first MH_BURNIN are
 #: burn-in) and uniform comparator passes per seed.
 MEASURE_SEEDS = (1337, 4242)
@@ -241,7 +271,7 @@ KERNELS = {
                         "cudabrot_tpu/ops/pallas_kernels_mh.py:998",
                         "mhzoom"),
     "mh_deposit": ("cudabrot_tpu_torch/csrc/deposit.cu",
-                   "cudabrot_tpu/ops/binning.py:938", "mhzoom"),
+                   "cudabrot_tpu/ops/binning.py:938", "mhcrop"),
     "replay_ids": ("cudabrot_tpu_torch/csrc/deposit.cu",
                    "cudabrot_tpu/engines/pallas_engine.py:609", "bigcanvas"),
     "replay_ids_ext": ("cudabrot_tpu_torch/csrc/deposit_ext.cu",
@@ -281,6 +311,20 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Milliseconds per call on the host clock over ``reps`` calls, each
+    followed by a synchronize (launch overhead and device time)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def pass_ms(eng, state, first: int, reps: int) -> float:
@@ -589,11 +633,16 @@ def phase_deposit(dev, batches):
         plain = time_ms(lambda: binning.deposit_ids_plain(hp, ids), 5)
         lib = time_ms(lambda: torch.bincount(ids, minlength=nbins + 1), 5)
         b_ms, b_by = bound_ms(OPS_DEPOSIT_ID * n_ids, 4 * n_ids + 8 * nbins)
+        # The histogram atomics per ms this stream reaches: the rate the MH
+        # deposit's bound counts its pairs at (a measured rate, not a peak).
+        rate = int((ids < nbins).sum()) / ms
         records[(w, h)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                               bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-        log(f"  deposit_ids {w}x{h}, {n_ids} ids: kernel {ms:.4f} ms, "
-            f"index_add_ {plain:.4f} ms, bincount {lib:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+                               bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                               atomics_per_ms=rate)
+        log(f"  deposit_ids {w}x{h}, {n_ids} ids: kernel {ms:.4f} ms "
+            f"({rate:.4e} histogram atomics per ms), index_add_ "
+            f"{plain:.4f} ms, bincount {lib:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
 
     canvas = Canvas()
     fr = get_fractal("buddhabrot")
@@ -737,25 +786,87 @@ def mh_batch(res, t):
             res.emit_rep.reshape(-1))
 
 
-def mh_pairs(bins, t, rep):
-    """A flat MH batch as materialized (bin, weight) pairs: what one
-    index_add_ call, the library's form of the deposit, takes."""
+def mh_pairs(bins, t, rep, nbins):
+    """A flat MH batch as materialized (bin, weight) pairs, those the
+    deposit adds (a non-zero share to a bin of the histogram), and each
+    pair's column: what one index_add_ call, the library's form of the
+    deposit, takes."""
     import torch
 
     from cudabrot_tpu_torch.ops import binning
 
     d, n, _ = binning.mh_deposit_weights(t, rep, bins.shape[0])
     kidx = torch.arange(bins.shape[0], device=bins.device)[:, None]
-    take = (t > 1)[None] & (kidx < n[None])
-    return bins[take].to(torch.int64), d[take].to(torch.int32)
+    take = ((t > 1)[None] & (kidx < n[None]) & (d != 0) & (bins >= 0)
+            & (bins < nbins))
+    col = torch.nonzero(take, as_tuple=True)[1]
+    return bins[take].to(torch.int64), d[take].to(torch.int32), col
+
+
+def mh_profile(res, nbins):
+    """What a pass's MH emission buffers hand the deposit: slots scanned,
+    depositable emissions, (bin, weight) pairs, the warp groups (32 lanes
+    of one chunk, as the kernel walks them) that hold pairs and the
+    distinct bins among each group's pairs (the atomics an equal-bin sum
+    leaves), summed over the groups."""
+    import torch
+
+    t = torch.where(res.emit_it >= 0, res.emit_v, 0)
+    bins_c, t_c, rep_c = mh_batch(res, t)
+    idx, _, col = mh_pairs(bins_c, t_c, rep_c, nbins)
+    group = col // 32
+    return dict(slots=t.numel(), emissions=int((t > 1).sum()),
+                pairs=idx.numel(), groups=int(torch.unique(group).numel()),
+                distinct=int(torch.unique(group * nbins + idx).numel()))
+
+
+def mh_deposit_bound(prof, rate):
+    """The MH deposit's bound: the larger of its bytes (each slot's gate,
+    t and rep, a bin per pair) over the memory rate and its pairs over the
+    histogram atomic rate that deposit_ids reaches (``rate``, per ms): a
+    rate another kernel reaches, not a published or measured L2 peak."""
+    t_bytes = 1e3 * (12 * prof["slots"] + 4 * prof["pairs"]) / PEAK_BYTES
+    t_ops = prof["pairs"] / rate
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def atomic_rate(dev):
+    """Histogram atomics per ms that deposit_ids reaches on phase 3's
+    1000x1000 stream (2^24 random ids, 10% of them the sentinel)."""
+    import torch
+
+    from cudabrot_tpu_torch.ops import binning
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    nbins, n_ids = 1000 * 1000, 1 << 24
+    ids = torch.randint(0, nbins, (n_ids,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[torch.rand(n_ids, generator=gen, device=dev) < 0.1] = nbins
+    hist = torch.zeros(nbins, dtype=torch.int32, device=dev)
+    return int((ids < nbins).sum()) / time_ms(
+        lambda: binning.deposit_ids(hist, ids), 20)
+
+
+def mh_deposit_step(state, res):
+    """The engine's MH deposit step on one pass's emission buffers, as
+    cuda_engine._mh_core runs it: one gated launch adding into the
+    counters."""
+    from cudabrot_tpu_torch.ops import binning
+
+    return lambda: binning.mh_deposit(
+        state["hist"].view(-1), res.emit_bins, res.emit_v, res.emit_rep,
+        chunked=True, gate=res.emit_it,
+        totals=(state["points"], state["mh_deposited"]))
 
 
 def phase_mh_deposit(dev, res, name):
     """The mh_deposit kernel vs mh_scatter's plain version on the MH
-    emissions of phase 2: as a flat (V, S) batch, and as they lie in
-    the emission buffers (the main path's form); index_add_ of the
-    materialized (bin, weight) pairs, the library yardstick, must give the
-    same histogram. Returns the largest error."""
+    emissions of phase 2: as a flat (V, S) batch, as they lie in the
+    emission buffers gated by emit_it (the main path's call, adding into
+    given totals), and on the tail flush's flat (V, lanes) batch of the
+    pass's lane state gated by rep >= 1; index_add_ of the materialized
+    (bin, weight) pairs, the library yardstick, must give the same
+    histogram. Returns the largest error."""
     import torch
 
     from cudabrot_tpu_torch.ops import binning
@@ -766,24 +877,45 @@ def phase_mh_deposit(dev, res, name):
     hk, hk2, hp = (torch.zeros(nbins, dtype=torch.int32, device=dev)
                    for _ in range(3))
     dep_k, mass_k = binning.mh_deposit(hk, bins_c, t_c, rep_c)
-    dep_k2, mass_k2 = binning.mh_deposit(hk2, res.emit_bins, t, res.emit_rep,
-                                         chunked=True)
+    totals = tuple(torch.full((), 3, dtype=torch.int64, device=dev)
+                   for _ in range(2))
+    binning.mh_deposit(hk2, res.emit_bins, res.emit_v, res.emit_rep,
+                       chunked=True, gate=res.emit_it, totals=totals)
+    dep_k2, mass_k2 = (x - 3 for x in totals)
     _, dep_p, mass_p = binning.mh_scatter(hp, bins_c, t_c, rep_c)
     check(torch.equal(hk, hp), f"mh_deposit ({name}): flat batch bitwise")
     check(torch.equal(hk2, hp),
-          f"mh_deposit ({name}): emission buffers as they lie, bitwise")
+          f"mh_deposit ({name}): emission buffers as they lie, gated by "
+          f"emit_it, bitwise")
     check(int(dep_k) == int(dep_k2) == int(dep_p.sum()) > 0,
           f"mh_deposit ({name}): recorded-bin count {int(dep_k)}")
     check(int(mass_k) == int(mass_k2) == int(mass_p.sum())
           == int(hk.to(torch.int64).sum()) > 0,
           f"mh_deposit ({name}): mass {int(mass_k)} == histogram sum")
-    idx, w = mh_pairs(bins_c, t_c, rep_c)
+    idx, w, _ = mh_pairs(bins_c, t_c, rep_c, nbins)
     check(torch.equal(torch.zeros_like(hp).index_add_(0, idx, w), hp),
           f"mh_deposit ({name}): index_add_ of the pairs agrees")
+    # The tail flush: every chain's in-flight tenure.
+    lanes = res.state
+    slots = lanes.xb.shape[0]
+    ht, htp = (torch.zeros(nbins, dtype=torch.int32, device=dev)
+               for _ in range(2))
+    dep_t, mass_t = binning.mh_deposit(ht, lanes.xb, lanes.xv, lanes.rep,
+                                       gate=lanes.rep, gate_min=1)
+    _, dep_tp, mass_tp = binning.mh_scatter(
+        htp, lanes.xb.reshape(slots, -1),
+        torch.where(lanes.rep >= 1, lanes.xv, 0).reshape(-1),
+        lanes.rep.reshape(-1))
+    check(torch.equal(ht, htp) and int(dep_t) == int(dep_tp.sum()) > 0
+          and int(mass_t) == int(mass_tp.sum()) > 0,
+          f"mh_deposit ({name}): tail flush ({int(dep_t)} bins, mass "
+          f"{int(mass_t)}) bitwise")
     log(f"  mh_deposit ({name}): {int((t > 1).sum())} emissions, "
         f"{idx.numel()} (bin, weight) pairs")
     return max_abs_err(
-        [(hk, hp), (hk2, hp), (dep_k, dep_p.sum()), (mass_k, mass_p.sum())])
+        [(hk, hp), (hk2, hp), (dep_k, dep_p.sum()), (mass_k, mass_p.sum()),
+         (dep_k2, dep_p.sum()), (mass_k2, mass_p.sum()), (ht, htp),
+         (dep_t, dep_tp.sum()), (mass_t, mass_tp.sum())])
 
 
 def run_cli(args, stats_path):
@@ -858,6 +990,83 @@ def phase_main_path(dev):
         log(f"  {name} stats: {json.dumps(stats)}")
         results[name] = (stats, counts)
     return results
+
+
+def phase_color():
+    """Phase 9: render-color through cli.main, the README's HSL recipe at
+    6000x4500 (COLOR_ARGS), with --interleave and one band after another.
+    Each mode's launches are counted from zero: the f32 main path's
+    kernels launched, no plain version run. Every band's histogram and
+    stats equal between the modes, bit for bit, its histogram sum equals
+    its on_canvas_points, its drops stay within 1% of in-band; the two
+    PNGs are byte-identical, RGB 6000x4500. Logs each band's ms per pass
+    (the sequential render loop, CUDA passes ending in a synchronize) and
+    each mode's wall time (render loop, readback, tone mapping, the
+    normalize and combine, the PNG encode). The PNGs are then deleted."""
+    import numpy as np
+
+    from cudabrot_tpu_torch import cli, color
+    from cudabrot_tpu_torch.ops import launches
+
+    log("== phase 9: render-color, the README's HSL recipe at 6000x4500")
+    os.makedirs(OUT, exist_ok=True)
+    real = color.render_bands
+    runs, walls, pngs = {}, {}, {}
+    for mode in ("interleaved", "sequential"):
+        pngs[mode] = os.path.join(OUT, f"hsl_{mode}.png")
+        box = {}
+
+        def keep(*a, box=box, **k):
+            box["r"] = real(*a, **k)
+            return box["r"]
+
+        args = [*COLOR_ARGS, "--passes", str(COLOR_PASSES), "-o", pngs[mode],
+                *(["--interleave"] if mode == "interleaved" else [])]
+        launches.reset()
+        t0 = time.monotonic()
+        with mock.patch.object(color, "render_bands", keep):
+            rc = cli.main(args)
+        walls[mode] = time.monotonic() - t0
+        counts = launches.snapshot()
+        check(rc == 0, f"render-color ({mode}) exits 0")
+        for k in path_kernels("default"):
+            check(counts[k] >= 3 * COLOR_PASSES,
+                  f"render-color ({mode}): {k} kernel launched "
+                  f"({counts[k]} times)")
+        check(all(counts[f"{k}_plain"] == 0 for k in launches.KERNELS),
+              f"render-color ({mode}): no plain version ran")
+        runs[mode] = box["r"]
+    il, sq = runs["interleaved"], runs["sequential"]
+    for key in ("H", "S", "L"):
+        a, b = il[key], sq[key]
+        check(a.passes == b.passes == COLOR_PASSES
+              and np.array_equal(a.histogram, b.histogram)
+              and a.stats == b.stats,
+              f"band {key}: interleaved histogram and stats == sequential, "
+              f"bitwise")
+        total = int(b.histogram.sum(dtype=np.uint64))
+        check(total == b.stats["on_canvas_points"] > 0,
+              f"band {key}: histogram sum == on_canvas_points ({total})")
+        check(b.stats["replay_dropped"] <= 0.01 * b.stats["in_band"],
+              f"band {key}: replay_dropped {b.stats['replay_dropped']} <= "
+              f"1% of in_band {b.stats['in_band']}")
+        log(f"  band {key}: {b.passes} passes, "
+            f"{1e3 * b.elapsed_seconds / b.passes:.4f} ms a pass "
+            f"(sequential), {b.stats['emitted']} orbits kept, "
+            f"{b.stats['orbit_points']} orbit points, {total} on the canvas")
+    data = {m: open(p, "rb").read() for m, p in pngs.items()}
+    w, h = (int.from_bytes(data["sequential"][o:o + 4], "big")
+            for o in (16, 20))
+    check(data["interleaved"] == data["sequential"] and (w, h) == (6000, 4500)
+          and data["sequential"][25] == 2,
+          f"render-color: the two PNGs are byte-identical RGB {w}x{h} "
+          f"({len(data['sequential'])} bytes)")
+    for p in pngs.values():
+        os.remove(p)
+    log(f"  render-color wall time: interleaved {walls['interleaved']:.3f} s "
+        f"(render loop {il['H'].elapsed_seconds:.3f} s), sequential "
+        f"{walls['sequential']:.3f} s (render loops "
+        f"{sum(r.elapsed_seconds for r in sq.values()):.3f} s)")
 
 
 def phase_oracle(zoom_stats):
@@ -1170,6 +1379,11 @@ def cell_times(dev, name, with_plain):
         k2: dict(ms=k2_ms, bound_ms=k2_bound, bound_by=k2_by,
                  library_ms=None, floor_ms=floor_ms(*k2_ops)),
     }
+    if ext:
+        rec[k1]["ffma_floor_ms"] = floor_ms(
+            k1_ops[0] - OPS_FFMA_SAVING * lane_steps, *k1_ops[1:])
+        rec[k2]["ffma_floor_ms"] = floor_ms(
+            k2_ops[0] * (1 - OPS_FFMA_SAVING / c_point), *k2_ops[1:])
     if not with_plain:
         return rec
     plain_state = clone_state(lanes)
@@ -1208,11 +1422,14 @@ def cell_times(dev, name, with_plain):
     return rec
 
 
-def mh_cell_times(dev, name):
+def mh_cell_times(dev, name, rate):
     """The two kernels of an MH cell at its main-path shapes (CUDA events,
     from a lane state carried over some passes): the chain kernel and
-    mh_deposit on that pass's emission buffers, the deposit's plain version
-    and index_add_ of its materialized (bin, weight) pairs, a one-id
+    mh_deposit on that pass's emission buffers as the engine calls it (its
+    bound counts the pairs at ``rate``, deposit_ids' atomics per ms): its
+    kernel time from torch.profiler (the call must be one launch) and the
+    host time of the call, the deposit's plain version and index_add_ of
+    its materialized (bin, weight) pairs (device time), a one-id
     deposit_ids launch (the floor a deposit this small is up against), a
     whole engine pass, and the device's busy share."""
     import torch
@@ -1254,27 +1471,29 @@ def mh_cell_times(dev, name):
     k1_bound, k1_by = bound_ms(*k1_ops)
 
     nbins = cfg.canvas.num_pixels
+    # A launch this short is bound by the host's enqueue under CUDA events
+    # around back-to-back calls: its time is the profiler's kernel time.
+    deposit = mh_deposit_step(state, res)
+    k2_events = time_ms(deposit, 10)
+    k2_call = host_ms(deposit, 50)
+    got = profile_calls(deposit, 20)
+    check(not isinstance(got, str)
+          and got["per_call"] <= 1.0 and len(got["names"]) == 1
+          and "mh_deposit_kernel" in got["names"][0],
+          f"{name}: the profiler traced the engine's deposit step as one "
+          f"launch ({got if isinstance(got, str) else got['names']})")
+    k2_ms = got["ms_each"]
+    prof = mh_profile(res, nbins)
     t = torch.where(res.emit_it >= 0, res.emit_v, 0)
-    hist = torch.zeros(nbins, dtype=torch.int32, device=dev)
-
-    def deposit(h=hist):
-        return binning.mh_deposit(h, res.emit_bins, t, res.emit_rep,
-                                  chunked=True)
-
-    k2_ms = time_ms(deposit, 10)
-    emissions = int((t > 1).sum())
     bins_c, t_c, rep_c = mh_batch(res, t)
-    hp = torch.zeros_like(hist)
+    hp = torch.zeros(nbins, dtype=torch.int32, device=dev)
     k2_plain = time_ms(lambda: binning.mh_scatter(hp, bins_c, t_c, rep_c), 3)
-    idx, w = mh_pairs(bins_c, t_c, rep_c)
-    k2_lib = time_ms(lambda: hp.index_add_(0, idx, w), 10)
-    # What this pass's data makes the function move: t of every slot (a slot
-    # with t <= 1 ends there), rep of each emission that deposits, and per
-    # recorded (bin, weight) pair the bin and a read and a write of its
-    # histogram word. The histogram itself (4 MB) is not streamed.
-    k2_bound, k2_by = bound_ms(
-        OPS_MH_EMISSION * emissions,
-        4 * n_slots + 4 * emissions + 12 * idx.numel())
+    idx, w, _ = mh_pairs(bins_c, t_c, rep_c, nbins)
+    got = profile_calls(lambda: hp.index_add_(0, idx, w), 20)
+    check(not isinstance(got, str),
+          f"{name}: the profiler traced index_add_ ({got})")
+    k2_lib = got["ms_per_call"]
+    k2_bound, k2_by = mh_deposit_bound(prof, rate)
     # The cost of the smallest launch through the same binding: one id.
     one_id = torch.zeros(1, dtype=torch.int32, device=dev)
     launch_ms = time_ms(lambda: binning.deposit_ids(hp, one_id), 50)
@@ -1288,11 +1507,16 @@ def mh_cell_times(dev, name):
     log(f"  {k1}: {lane_steps} lane-steps, {draws} proposals resolved, "
         f"{int(st[cmh.STAT_MH_ACCEPT])} accepted; kernel {k1_ms:.4f} ms, "
         f"bound {k1_bound:.4f} ms ({k1_by})")
-    log(f"  mh_deposit: {emissions} emissions of {n_slots} slots, "
-        f"{idx.numel()} (bin, weight) pairs; kernel {k2_ms:.4f} ms, bound "
-        f"{k2_bound:.4f} ms ({k2_by}), plain version {k2_plain:.4f} ms, "
-        f"index_add_ of the materialized pairs {k2_lib:.4f} ms, a "
-        f"one-id deposit_ids launch {launch_ms:.4f} ms")
+    log(f"  mh_deposit: {prof['emissions']} emissions of {prof['slots']} "
+        f"slots, {prof['pairs']} (bin, weight) pairs in {prof['groups']} "
+        f"warp groups, {prof['distinct']} distinct (group, bin); kernel "
+        f"{k2_ms:.4f} device ms (torch.profiler, 20 calls), "
+        f"{k2_events:.4f} ms a call under CUDA events, {k2_call:.4f} ms a "
+        f"call with a synchronize (host clock); bound {k2_bound:.4f} ms "
+        f"({k2_by}: {rate:.4e} atomics per ms), plain version "
+        f"{k2_plain:.4f} ms, index_add_ of the materialized pairs "
+        f"{k2_lib:.4f} device ms, a one-id deposit_ids launch "
+        f"{launch_ms:.4f} ms")
     log(f"  {name} pass (CUDA events, 5 passes): {pass_time:.4f} ms")
     if busy is None:
         log(f"  {name} device profile: not measured ({span})")
@@ -1300,12 +1524,16 @@ def mh_cell_times(dev, name):
         parts = ", ".join(f"{g} {v:.4f}" for g, v in prof_ms.items() if v)
         log(f"  {name} device profile (torch.profiler): ms per pass {parts}; "
             f"busy {busy:.4f} of a {span:.3f} ms span (idle {1 - busy:.4f})")
-    return {
+    rec = {
         k1: dict(ms=k1_ms, bound_ms=k1_bound, bound_by=k1_by,
                  library_ms=None, floor_ms=floor_ms(*k1_ops)),
         "mh_deposit": dict(ms=k2_ms, bound_ms=k2_bound, bound_by=k2_by,
                            plain_ms=k2_plain, library_ms=k2_lib),
     }
+    if ext:
+        rec[k1]["ffma_floor_ms"] = floor_ms(
+            k1_ops[0] - OPS_FFMA_SAVING * lane_steps, *k1_ops[1:])
+    return rec
 
 
 
@@ -1318,7 +1546,8 @@ def phase_kernel_times(dev, main_runs, errs, ext_records, deposit_ids):
     comes from phases 2, 3 and 3b, which ran their plain versions at the
     zoom cell's shapes, and those of the two MH classify kernels at one
     whole pass of their cells."""
-    times = {name: (mh_cell_times(dev, name) if "--sampler" in args
+    rate = deposit_ids[(1000, 1000)].pop("atomics_per_ms")
+    times = {name: (mh_cell_times(dev, name, rate) if "--sampler" in args
                     else cell_times(dev, name, name == "default"))
              for name, args, _ in CELLS}
     times.update({name: big_cell_times(dev, name, name == "bigcanvas")
@@ -1345,6 +1574,11 @@ def phase_kernel_times(dev, main_runs, errs, ext_records, deposit_ids):
                 f"(operations / {PEAK_ISSUE:.3g}, the ALU's / "
                 f"{PEAK_INT:.3g}); kernel {r['ms']:.4f} ms, "
                 f"{floor / r['ms']:.3f} of it")
+        if "ffma_floor_ms" in r:
+            ffma = r["ffma_floor_ms"]
+            log(f"  {r['name']}: the floor with FFMA two-products "
+                f"({OPS_FFMA_SAVING} fewer instructions a df32 step) "
+                f"{ffma:.4f} ms, {ffma / r['ms']:.3f} of the kernel")
     return [{key: r[key] for key in keys} for r in records]
 
 
@@ -1653,7 +1887,10 @@ def big_cell_times(dev, name, with_plain):
         f"{'replay_deposit_ext' if ext else 'replay_deposit'} of the same "
         f"batch {fused_ms:.4f} ms")
     rec = {k_ids: dict(ms=ids_ms, bound_ms=ids_bound, bound_by=ids_by,
-                       library_ms=None, floor_ms=floor_ms(*ids_ops)),
+                       library_ms=None, floor_ms=floor_ms(*ids_ops),
+                       **({"ffma_floor_ms": floor_ms(
+                           (c_point - OPS_FFMA_SAVING) * n, *ids_ops[1:])}
+                          if ext else {})),
            "bigtiles_deposit": dict(ms=dep_ms, bound_ms=dep_bound,
                                     bound_by=dep_by, plain_ms=dep_plain,
                                     library_ms=lib_ms)}
@@ -1855,6 +2092,8 @@ STUDY_MH_BUILDS = (("the package's build", ()),
                    ("all reservoirs shared", ("CB_MH_SHARED_SLOTS=2",)),
                    ("window loop", ("CB_MH_WINDOW_UNROLL=0",)))
 STUDY_MH_SLOTS = (8, 32)
+#: binning.MH_DEPOSIT_BLOCKS_PER_SM values the MH deposit study sweeps.
+STUDY_MH_DEPOSIT_BLOCKS = (1, 2, 4, 8, 16)
 #: SASS opcodes by the SM sub-partition pipe that runs them: the integer
 #: ALU (16 lanes a clock, 64 per SM), the FMA pipe (f32 arithmetic and
 #: IMAD), the conversion unit; the rest (moves, memory, branches) apart.
@@ -2452,6 +2691,144 @@ def mh_study(dev, card):
                     f"{entry}: {line.strip()}")
 
 
+def profile_calls(fn, reps: int, only: str = ""):
+    """torch.profiler's device activities (kernels, memsets and copies;
+    with ``only``, those whose name holds it) over ``reps`` calls of
+    ``fn``: a dict of activities per call (``per_call``), device ms per
+    call and per activity (``ms_per_call``, ``ms_each``) and their names;
+    or the reason, a string, when it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trace = os.path.join(OUT, "calls_trace.json")
+    os.makedirs(OUT, exist_ok=True)
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f).get("traceEvents", [])
+    except Exception as e:  # noqa: BLE001 -- a measurement, not a check
+        return f"profiler failed: {e!r}"
+    finally:
+        if os.path.exists(trace):
+            os.remove(trace)
+    device = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memset", "gpu_memcpy") and only in e.get("name", "")]
+    if not device:
+        return f"the profiler recorded no device activity {only}".strip()
+    total = sum(float(e.get("dur", 0.0)) for e in device) / 1e3
+    return dict(per_call=len(device) / reps, ms_per_call=total / reps,
+                ms_each=total / len(device),
+                names=sorted({e.get("name", "")[:40] for e in device}))
+
+
+def mh_deposit_study(dev, card):
+    """What the MH deposit spends its time on, at the mhcrop and mhzoom
+    cells (a main-path pass's emission buffers after 6 passes): slots,
+    depositable emissions, pairs and the distinct bins of each warp
+    group's pairs; the kernel on those buffers as the engine calls it
+    (device ms a call from torch.profiler, least of 3 rounds of 20 calls:
+    back-to-back launches this short are bound by the host's enqueue under
+    CUDA events; held bitwise to mh_scatter), at each
+    STUDY_MH_DEPOSIT_BLOCKS blocks per SM;
+    the engine's whole deposit step (mh_deposit_step) on the host clock,
+    as enqueued and with a synchronize after each, and in torch.profiler
+    (device activities and device ms a step); and the cell's pass (CUDA
+    events) with its device profile. The bound counts the pairs at the
+    atomic rate deposit_ids reaches here."""
+    import torch
+
+    from cudabrot_tpu_torch.engines import cuda_engine as ce
+    from cudabrot_tpu_torch.ops import binning, prng
+    from cudabrot_tpu_torch.ops import classify_mh as cmh
+
+    log(f"== MH deposit study at mhcrop and mhzoom ({card})")
+    rate = atomic_rate(dev)
+    log(f"  deposit_ids at 1000x1000: {rate:.4e} histogram atomics per ms")
+    for name in ("mhcrop", "mhzoom"):
+        cfg = cell_config(name)
+        eng = ce.CudaEngine(cfg, device=dev)
+        state = eng.init_state(None)
+        for p in range(6):
+            eng.run_pass(state, p)
+        fn = (cmh.classify_pass_ext_mh if eng.extended
+              else cmh.classify_pass_mh)
+        res = fn(clone_state(state["lanes"]),
+                 prng.bits_host(prng.pass_key(cfg.seed, 0, 7), 2),
+                 **eng.mh_pass_spec())
+        nbins = cfg.canvas.num_pixels
+        prof = mh_profile(res, nbins)
+        bound, by = mh_deposit_bound(prof, rate)
+        log(f"  {name}: {prof['slots']} slots, {prof['emissions']} "
+            f"depositable emissions, {prof['pairs']} (bin, weight) pairs "
+            f"({prof['pairs'] / max(prof['emissions'], 1):.3f} an emission)"
+            f"; {prof['groups']} warp groups hold pairs, "
+            f"{prof['pairs'] / max(prof['groups'], 1):.3f} pairs and "
+            f"{prof['distinct'] / max(prof['groups'], 1):.3f} distinct bins "
+            f"a group ({prof['distinct']} distinct (group, bin)); bound "
+            f"{bound:.4f} ms ({by})")
+        t = torch.where(res.emit_it >= 0, res.emit_v, 0)
+        bins_c, t_c, rep_c = mh_batch(res, t)
+        want = torch.zeros(nbins, dtype=torch.int32, device=dev)
+        binning.mh_scatter(want, bins_c, t_c, rep_c)
+        hist = torch.zeros(nbins, dtype=torch.int32, device=dev)
+        totals = tuple(torch.zeros((), dtype=torch.int64, device=dev)
+                       for _ in range(2))
+
+        def kernel():
+            binning.mh_deposit(hist, res.emit_bins, res.emit_v, res.emit_rep,
+                               chunked=True, gate=res.emit_it, totals=totals)
+
+        def device_ms():
+            got = profile_calls(kernel, 20, "mh_deposit_kernel")
+            if isinstance(got, str):
+                check(False, f"mh_deposit {name}: the profiler timed the "
+                             f"kernel ({got})")
+            return got["ms_each"]
+
+        kernel()
+        check(torch.equal(hist, want),
+              f"mh_deposit {name}: bitwise == mh_scatter")
+        sweep = {}
+        for b in STUDY_MH_DEPOSIT_BLOCKS:
+            with mock.patch.object(binning, "MH_DEPOSIT_BLOCKS_PER_SM", b):
+                sweep[b] = min(device_ms() for _ in range(3))
+        log(f"  {name} mh_deposit kernel by blocks per SM (device ms a call "
+            f"from torch.profiler, least of 3 rounds of 20): " + ", ".join(
+                f"{b} {v:.4f} ms" for b, v in sweep.items()))
+        step = mh_deposit_step(state, res)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            step()
+        enq = (time.perf_counter() - t0) * 1e3 / 50
+        torch.cuda.synchronize()
+        synced = host_ms(step, 50)
+        got = profile_calls(step, 20)
+        log(f"  {name} deposit step: enqueued in {enq:.4f} ms a step, "
+            f"{synced:.4f} ms a step with a synchronize (host clock, 50 "
+            f"steps); " + (f"profile: {got}" if isinstance(got, str) else
+                           f"{got['per_call']:.2f} device activities and "
+                           f"{got['ms_per_call']:.4f} device ms a step "
+                           f"({got['names']})"))
+        pass_time = min(pass_ms(eng, state, 20 + 10 * r, 5) for r in range(2))
+        busy, span, prof_ms = device_profile(eng, state, 100,
+                                             8 if eng.extended else 16)
+        parts = ("not measured" if busy is None else ", ".join(
+            f"{g} {v:.4f}" for g, v in prof_ms.items() if v)
+            + f"; busy {busy:.4f}")
+        log(f"  {name} pass {pass_time:.4f} ms (CUDA events, least of 2 "
+            f"rounds of 5); device ms a pass: {parts}")
+        del eng, state, res
+        torch.cuda.empty_cache()
+
+
 def _nvcc_version():
     from cudabrot_tpu_torch.ops import _build
 
@@ -2796,7 +3173,9 @@ def main() -> int:
                                    phase_ids_study(dev, card),
                                    phase_pass_times(dev, card)),
         "--classify-study": lambda: classify_study(dev, card),
-        "--mh-study": lambda: mh_study(dev, card),
+        "--mh-study": lambda: (mh_deposit_study(dev, card),
+                               mh_study(dev, card)),
+        "--mh-deposit-study": lambda: mh_deposit_study(dev, card),
     }
     if sys.argv[1:]:
         unknown = [a for a in sys.argv[1:] if a not in studies]
@@ -2832,6 +3211,7 @@ def main() -> int:
         phase_oracle(main_runs["zoom"][0])
         phase_mh_measure()
         main_runs.update(phase_big_cells(dev))
+        phase_color()
         phase_replay_floor(dev, card)
         phase_overlap(dev)
         kernels = phase_kernel_times(

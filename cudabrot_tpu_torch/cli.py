@@ -18,7 +18,8 @@ pipeline (generate_hires_color_image.sh).
 
 Port of ``cudabrot_tpu/cli.py``: ``parse_args`` and the usage text are
 copies; ``run`` drives this package's engine, on ``cuda:<-d>`` unless the
-caller passes ``device="cpu"``. ``render-color`` is not yet ported.
+caller passes ``device="cpu"``; ``render-color`` dispatches to
+``color.main`` with the same ``device``.
 """
 
 from __future__ import annotations
@@ -668,8 +669,13 @@ def main(argv: list[str] | None = None, device=None) -> int:
     ``"cpu"`` to run the kernels' plain PyTorch versions."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "render-color":
-        print("render-color is not yet ported to cudabrot_tpu_torch.")
-        return 1
+        from cudabrot_tpu_torch import color
+
+        try:
+            return color.main(argv[1:], device=device)
+        except CliError as e:
+            print(e.message)
+            return 1
     try:
         cfg, extras = parse_args(argv)
     except CliError as e:

@@ -50,14 +50,31 @@
 //
 //  * cb_mh_deposit: the Metropolis-Hastings deposit, the function of
 //    ops/binning.py mh_scatter (an XLA scatter-add of a materialized
-//    (V, capacity) weight array in the JAX engine). One thread per
-//    emission: it computes the tenure's total q and its Bresenham spread
-//    over the recorded bins (mh.cuh mh_deposit_one, pure u32 arithmetic)
-//    and adds each share with atomicAdd; the recorded-bin count and the
-//    mass q are summed into two 64-bit device totals, so the engine's
-//    counters need no second pass and no (V, capacity) temporary exists.
-//    It reads the emission buffers in the classify kernel's own layout
-//    (chunks, V, lanes), so the engine deposits without compacting.
+//    (V, capacity) weight array in the JAX engine) and its two totals. It
+//    reads the emission buffers in the classify kernel's own layout
+//    (chunks, V, lanes), gated by emit_it itself (a slot with emit_it < 0
+//    deposits nothing), and adds its totals straight into the engine's two
+//    int64 counters: the engine's deposit step is this one launch. A grid
+//    sized to the SMs walks the slots in groups of 32 lanes of one chunk:
+//    each lane reads its slot's gate, t and rep (coalesced) and computes its
+//    tenure's n recorded bins and mass q (mh.cuh mh_slot, three u32
+//    divisions); a warp scan of n numbers the group's (emission, k) pairs,
+//    and the warp deals them out 32 at a time, each lane finding its pair's
+//    emission by a binary search over the scan (pair_owner), taking n and q
+//    from that emission's lane by shuffles and computing its own share d_k
+//    (mh_share), and adds it with one atomic. So the ~67% of depositable
+//    slots of a crop (n ~ 1.2) and the ~10% of a deep zoom (n ~ 6.4 of V =
+//    8) both fill the lanes, where a thread per slot loops to its own n
+//    while its warp waits for the longest. Each block reduces its totals and
+//    adds them with one atomic each: the earlier thread-per-slot kernel's
+//    warps each added two to the same two words, which took two thirds of
+//    its time at the mhcrop cell on an H100 (PERF.md). Summing a round's
+//    equal bins before one atomic (__match_any_sync) made the kernel
+//    slower there: fewer than 1 in 10,000 of a warp group's pairs share a
+//    bin at the mhcrop cell, 1 in 2,700 at mhzoom. Bound: max(bytes /
+//    3.35 TB/s, pairs / the histogram atomic rate deposit_ids reaches on a
+//    1000^2 histogram, a measured rate rather than a published peak),
+//    bytes = slots x 12 (gate, t, rep) + pairs x 4 (a bin).
 //
 // Bound. The deposit is a random read-modify-write per orbit point: the
 // floor is the atomic throughput of the L2 (a 1000^2 uint32 histogram is
@@ -66,7 +83,8 @@
 // point, in a dependent chain per orbit: a lone long orbit's chain is the
 // floor at deep bands. Integer adds commute, so the histogram equals the
 // plain PyTorch versions (ops/binning.py) bitwise whatever the order of the
-// atomics and whatever mapping of emissions to warps.
+// atomics, whatever mapping of emissions (and MH pairs) to warps, and
+// however equal bins are summed before their atomic.
 #include <cuda_runtime.h>
 
 #include "mh.cuh"
@@ -201,13 +219,82 @@ __global__ void __launch_bounds__(kQueueBlock)
   cb::warp_sum_add(hits, replay_queue(iters, k, take, next, body));
 }
 
-__global__ void __launch_bounds__(kBlock)
-    mh_deposit_kernel(cb::mh::MhDepositArgs a, unsigned long long* totals) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  uint32_t n = 0, q = 0;
-  if (e < a.n) cb::mh::mh_deposit_one(a, e, n, q);
-  cb::warp_sum_add(totals, n);
-  cb::warp_sum_add(totals + 1, q);
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMhBlock = 256;
+constexpr int kMhWarps = kMhBlock / 32;
+
+// pair_owner's read of lane j's prefix sum: a shuffle (device code only).
+struct WarpIncl {
+  uint32_t v;
+  CB_HD uint32_t operator()(int j) const {
+#if defined(__CUDA_ARCH__)
+    return __shfl_sync(kFull, v, j);
+#else
+    return v;
+#endif
+  }
+};
+
+__global__ void __launch_bounds__(kMhBlock)
+    mh_deposit_kernel(cb::mh::MhDepositArgs a, unsigned long long* dep_out,
+                      unsigned long long* mass_out) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t per_chunk = uint32_t(a.lanes + 31) / 32u;
+  const uint32_t groups = uint32_t(a.n / a.lanes) * per_chunk;
+  const uint32_t nwarps = gridDim.x * kMhWarps;
+  unsigned long long dep = 0, mass = 0;
+  for (uint32_t g = blockIdx.x * kMhWarps + (threadIdx.x >> 5); g < groups;
+       g += nwarps) {
+    // 32 lanes of one chunk: slot e = chunk * lanes + l.
+    const uint32_t chunk = g / per_chunk;
+    const uint32_t l0 = (g - chunk * per_chunk) * 32u, l = l0 + lane;
+    uint32_t n = 0, q = 0;
+    if (l < uint32_t(a.lanes))
+      cb::mh::mh_slot(a, (long long)chunk * a.lanes + l, n, q);
+    dep += n;
+    mass += q;
+    uint32_t incl = n;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const uint32_t total = __shfl_sync(kFull, incl, 31);
+    const int32_t* rows =
+        a.bins + (long long)chunk * a.slots * a.lanes + l0;
+    for (uint32_t p0 = 0; p0 < total; p0 += 32) {
+      const uint32_t p = p0 + lane;
+      const int j = cb::mh::pair_owner(p, WarpIncl{incl});
+      const uint32_t nj = __shfl_sync(kFull, n, j);
+      const uint32_t qj = __shfl_sync(kFull, q, j);
+      const uint32_t k = p - (__shfl_sync(kFull, incl, j) - nj);
+      if (p < total) {
+        const uint32_t d = cb::mh::mh_share(k, qj, nj);
+        const int32_t bin = rows[(long long)k * a.lanes + j];
+        if (d != 0 && bin >= 0 && bin < a.nbins) atomicAdd(a.hist + bin, d);
+      }
+    }
+  }
+  __shared__ unsigned long long part[2][kMhWarps];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    dep += __shfl_xor_sync(kFull, dep, o);
+    mass += __shfl_xor_sync(kFull, mass, o);
+  }
+  if (lane == 0) {
+    part[0][threadIdx.x >> 5] = dep;
+    part[1][threadIdx.x >> 5] = mass;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long sd = 0, sm = 0;
+    for (int w = 0; w < kMhWarps; ++w) {
+      sd += part[0][w];
+      sm += part[1][w];
+    }
+    if (sd != 0) atomicAdd(dep_out, sd);
+    if (sm != 0) atomicAdd(mass_out, sm);
+  }
 }
 
 // The queue's blocks: `warps` resident warps in all (iargs of the C
@@ -333,23 +420,29 @@ extern "C" int cb_replay_ids(int fractal, const void* cr, const void* ci,
   return int(cudaErrorInvalidValue);
 }
 
-// bins: (chunks, slots, lanes) int32; t, rep: (chunks * lanes,) int32 with
-// n = chunks * lanes emissions. totals: two uint64 the kernel adds the
-// recorded-bin count and the deposited mass to. Returns the cudaError_t of
-// the launch (0 = launched).
-extern "C" int cb_mh_deposit(const void* bins, const void* t, const void* rep,
+// bins: (chunks, slots, lanes) int32; gate (nullptr: none), t, rep:
+// (chunks * lanes,) int32 with n = chunks * lanes emissions; a slot with
+// gate < gate_min deposits nothing. deposits, mass: one int64 each, which
+// the kernel adds the recorded-bin count and the deposited mass to.
+// blocks: the grid (the SMs times the blocks per SM). Returns the
+// cudaError_t of the launch (0 = launched).
+extern "C" int cb_mh_deposit(const void* bins, const void* gate,
+                             int gate_min, const void* t, const void* rep,
                              long long n, int slots, int lanes, void* hist,
-                             int nbins, void* totals, void* stream) {
+                             int nbins, void* deposits, void* mass,
+                             int blocks, void* stream) {
   if (n <= 0) return 0;
-  if (slots <= 0 || lanes <= 0 || n % lanes != 0)
+  if (slots <= 0 || lanes <= 0 || n % lanes != 0 || blocks <= 0 ||
+      n / lanes * ((lanes + 31LL) / 32) >= (1LL << 31))
     return int(cudaErrorInvalidValue);
   const cb::mh::MhDepositArgs a{
       static_cast<const int32_t*>(bins), static_cast<const int32_t*>(t),
       static_cast<const int32_t*>(rep),  n, slots, lanes,
-      static_cast<uint32_t*>(hist),      nbins};
-  const long long grid = (n + kBlock - 1) / kBlock;
-  mh_deposit_kernel<<<unsigned(grid), kBlock, 0,
+      static_cast<uint32_t*>(hist),      nbins,
+      static_cast<const int32_t*>(gate), gate_min};
+  mh_deposit_kernel<<<unsigned(blocks), kMhBlock, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<unsigned long long*>(totals));
+      a, static_cast<unsigned long long*>(deposits),
+      static_cast<unsigned long long*>(mass));
   return int(cudaGetLastError());
 }

@@ -7,10 +7,10 @@
 // classify_ext and replay_deposit_ext kernels (classify_ext.cuh), the
 // Metropolis-Hastings lane functions and deposit (mh.cuh: classify_mh in an
 // emulation of its warps with their compacted draws, classify_ext_mh,
-// mh_deposit), the orbit loop of the replay kernels with
-// its id sinks (orbit.cuh: replay_ids' staged tile in an emulation of its
-// warps, and replay_ids_ext through classify_ext.cuh) and the run-length
-// deposit of the bigtiles kernel (bigtiles.cuh) are
+// mh_deposit in an emulation of its warps' spread), the orbit loop of the
+// replay kernels with its id sinks (orbit.cuh: replay_ids' staged tile in
+// an emulation of its warps, and replay_ids_ext through classify_ext.cuh)
+// and the run-length deposit of the bigtiles kernel (bigtiles.cuh) are
 // __host__ __device__; this file loops them over lanes on the CPU behind
 // the same C interface as the CUDA launchers, so a machine without a GPU
 // can hold them bitwise against the plain PyTorch versions. Build:
@@ -646,21 +646,59 @@ int cbh_classify_mh_warps(void** ptrs, const int* iargs, const float* fargs,
                                          iargs[14], iargs[15], a);
 }
 
-// The interface of cb_mh_deposit, emissions looped on the CPU.
-int cbh_mh_deposit(const void* bins, const void* t, const void* rep,
-                   long long n, int slots, int lanes, void* hist, int nbins,
-                   void* totals) {
+// The interface of cb_mh_deposit (without the grid and the stream), the
+// kernel's warps emulated in turn: each group of 32 lanes of one chunk
+// computes its slots' n and q (mh_slot), the inclusive scan of n numbers
+// their (emission, k) pairs, and each round of 32 pairs finds its owners
+// (pair_owner over the scan), computes the shares (mh_share) and adds
+// them, lane by lane; the totals are summed per group.
+int cbh_mh_deposit_warps(const void* bins, const void* gate, int gate_min,
+                         const void* t, const void* rep, long long n,
+                         int slots, int lanes, void* hist, int nbins,
+                         void* deposits, void* mass) {
+  if (n <= 0) return 0;
+  if (slots <= 0 || lanes <= 0 || n % lanes != 0) return 1;
   const cb::mh::MhDepositArgs a{
       static_cast<const int32_t*>(bins), static_cast<const int32_t*>(t),
       static_cast<const int32_t*>(rep),  n, slots, lanes,
-      static_cast<uint32_t*>(hist),      nbins};
-  auto* out = static_cast<unsigned long long*>(totals);
-  for (long long e = 0; e < n; ++e) {
-    uint32_t cnt = 0, q = 0;
-    cb::mh::mh_deposit_one(a, e, cnt, q);
-    out[0] += cnt;
-    out[1] += q;
+      static_cast<uint32_t*>(hist),      nbins,
+      static_cast<const int32_t*>(gate), gate_min};
+  const long long per_chunk = (lanes + 31) / 32;
+  const long long groups = n / lanes * per_chunk;
+  unsigned long long dep = 0, ms = 0;
+  for (long long g = 0; g < groups; ++g) {
+    const long long chunk = g / per_chunk, l0 = (g % per_chunk) * 32;
+    uint32_t nn[32], qq[32], incl[32];
+    for (int x = 0; x < 32; ++x) {
+      nn[x] = qq[x] = 0;
+      if (l0 + x < lanes)
+        cb::mh::mh_slot(a, chunk * lanes + l0 + x, nn[x], qq[x]);
+      dep += nn[x];
+      ms += qq[x];
+      incl[x] = nn[x] + (x > 0 ? incl[x - 1] : 0u);
+    }
+    const uint32_t total = incl[31];
+    const int32_t* rows = a.bins + chunk * slots * (long long)lanes + l0;
+    for (uint32_t p0 = 0; p0 < total; p0 += 32) {
+      bool on[32];
+      int32_t bin[32];
+      uint32_t d[32];
+      for (int x = 0; x < 32; ++x) {
+        const uint32_t p = p0 + uint32_t(x);
+        on[x] = p < total;
+        if (!on[x]) continue;
+        const int j = cb::mh::pair_owner(p, [&](int i) { return incl[i]; });
+        const uint32_t k = p - (incl[j] - nn[j]);
+        d[x] = cb::mh::mh_share(k, qq[j], nn[j]);
+        bin[x] = rows[(long long)k * lanes + j];
+        on[x] = d[x] != 0 && bin[x] >= 0 && bin[x] < nbins;
+      }
+      for (int x = 0; x < 32; ++x)
+        if (on[x]) a.hist[bin[x]] += d[x];
+    }
   }
+  *static_cast<long long*>(deposits) += (long long)dep;
+  *static_cast<long long*>(mass) += (long long)ms;
   return 0;
 }
 

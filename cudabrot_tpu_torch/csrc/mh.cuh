@@ -3,10 +3,10 @@
 // code: the two kernels of classify_mh.cu run the lane's functions (the
 // f32 and the df32 orbit are their Orbit policy), the df32 one with one
 // thread per lane, the f32 one with its warps' draws compacted,
-// deposit.cu runs mh_deposit_one with one thread per emission, and
-// host_harness.cpp loops both on the CPU so a g++ build can be held
-// bitwise against the plain PyTorch versions (ops/classify_mh.py,
-// ops/binning.py).
+// deposit.cu spreads each warp's emissions over its lanes (mh_slot,
+// pair_owner, mh_share), and host_harness.cpp loops these on the CPU so a
+// g++ build can be held bitwise against the plain PyTorch versions
+// (ops/classify_mh.py, ops/binning.py).
 //
 // The chain functions are the ones cudabrot_tpu/ops/pallas_kernels_mh.py
 // shares between its two kernels (_mh_propose, _mh_boundary,
@@ -757,54 +757,58 @@ struct MhDepositArgs {
   int slots, lanes;
   uint32_t* hist;
   int32_t nbins;
+  // A slot with gate[e] < gate_min deposits nothing (the classify pass's
+  // emit_it >= 0; the tail flush's rep >= 1); nullptr: every slot is open.
+  const int32_t* gate;
+  int32_t gate_min;
 };
 
-// Adds d to a histogram cell: an atomic on the device (threads share the
-// histogram), a plain add in the single-threaded host build.
-CB_HD void deposit_add(uint32_t* cell, uint32_t d) {
-#if defined(__CUDA_ARCH__)
-  atomicAdd(cell, d);
-#else
-  *cell += d;
-#endif
-}
-
-// Deposits emission e: v = (t - 1) / 256 visits, total q = floor(v * rep *
+// A tenure's deposit: v = (t - 1) / 256 visits, total q = floor(v * rep *
 // 65536 / t) in 1/256 histogram units by three u32 long-division steps
 // (t < 2^23, v <= 2^15 and rep < 2^17 keep every intermediate below 2^32),
-// spread over the n = min(v, V) recorded bins as d_k = floor((k+1) q / n)
-// - floor(k q / n), which sums to q exactly. Emissions with t <= 1 deposit
-// nothing; a bin outside [0, nbins) is dropped. Sets the recorded-bin
-// count and the mass q.
-CB_HD void mh_deposit_one(const MhDepositArgs& a, long long e, uint32_t& n_out,
-                          uint32_t& q_out) {
-  n_out = 0;
-  q_out = 0;
-  const int32_t t = a.t[e];
-  if (t <= 1) return;
+// spread over the n = min(v, V) recorded bins. t > 1 here.
+CB_HD void mh_tenure(int32_t t, int32_t rep, int slots, uint32_t& n,
+                     uint32_t& q) {
   const uint32_t tu = uint32_t(t);
   const uint32_t v = (tu - 1u) / uint32_t(kTargetVisit);
-  const int32_t rep = a.rep[e];
   const uint32_t rep_u = rep > 0 ? uint32_t(rep) : 0u;
-  uint32_t n = v < uint32_t(a.slots) ? v : uint32_t(a.slots);
+  n = v < uint32_t(slots) ? v : uint32_t(slots);
   if (n < 1u) n = 1u;
   const uint32_t big_n = v * rep_u;
   const uint32_t q1 = big_n / tu, r1 = big_n - q1 * tu;
   const uint32_t q2 = (r1 * 256u) / tu, r2 = r1 * 256u - q2 * tu;
   const uint32_t q3 = (r2 * 256u) / tu;
-  const uint32_t q = q1 * 65536u + q2 * 256u + q3;
-  const long long chunk = e / a.lanes, lane = e % a.lanes;
-  const int32_t* b = a.bins + chunk * a.slots * (long long)a.lanes + lane;
-  uint32_t prev = 0;
-  for (uint32_t k = 0; k < n; ++k) {
-    const uint32_t pref = ((k + 1u) * q) / n;
-    const int32_t bin = b[(long long)k * a.lanes];
-    if (pref != prev && bin >= 0 && bin < a.nbins)
-      deposit_add(a.hist + bin, pref - prev);
-    prev = pref;
-  }
-  n_out = n;
-  q_out = q;
+  q = q1 * 65536u + q2 * 256u + q3;
+}
+
+// Slot e's recorded-bin count n and mass q; both 0 where it deposits
+// nothing (a closed gate, t <= 1). The three words are read whatever they
+// hold, so a warp's loads are one coalesced access each.
+CB_HD void mh_slot(const MhDepositArgs& a, long long e, uint32_t& n,
+                   uint32_t& q) {
+  const int32_t g = a.gate != nullptr ? a.gate[e] : a.gate_min;
+  const int32_t t = a.t[e], rep = a.rep[e];
+  n = 0;
+  q = 0;
+  if (g >= a.gate_min && t > 1) mh_tenure(t, rep, a.slots, n, q);
+}
+
+// The share of the k-th of n recorded bins, d_k = floor((k+1) q / n) -
+// floor(k q / n): the n shares sum to q exactly.
+CB_HD uint32_t mh_share(uint32_t k, uint32_t q, uint32_t n) {
+  return ((k + 1u) * q) / n - (k * q) / n;
+}
+
+// The lane of a warp's 32 slots that owns pair p of their spread: the
+// first j with incl(j) > p, incl the inclusive prefix sum of the slots'
+// n (a binary search; `incl(j)` reads lane j's sum, a shuffle on the
+// device, which every lane runs). p must be below incl(31).
+template <class Incl>
+CB_HD int pair_owner(uint32_t p, const Incl& incl) {
+  int j = 0;
+  for (int s = 16; s > 0; s >>= 1)
+    if (incl(j + s - 1) <= p) j += s;
+  return j;
 }
 
 }  // namespace mh

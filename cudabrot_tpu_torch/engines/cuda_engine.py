@@ -548,17 +548,15 @@ class CudaEngine:
         classify = (cls_mh.classify_pass_ext_mh if self.extended
                     else cls_mh.classify_pass_mh)
         result = classify(state["lanes"], seed, **self.mh_pass_spec())
-        valid = result.emit_it >= 0
         if pass_index >= o.mh_burnin_passes:
             # Every emission fits (Tuning sizes the capacity so), and the
-            # deposit is order-free integer addition: it reads the emission
-            # buffers as they are. t <= 1 marks a slot that deposits nothing.
-            t = torch.where(valid, result.emit_v, 0)
-            deposits, mass = binning.mh_deposit(
-                state["hist"].view(-1), result.emit_bins, t,
-                result.emit_rep, chunked=True)
-            state["points"] += deposits
-            state["mh_deposited"] += mass
+            # deposit is order-free integer addition: one launch reads the
+            # emission buffers as they are (a slot with emit_it < 0 deposits
+            # nothing) and adds its totals straight into the counters.
+            binning.mh_deposit(
+                state["hist"].view(-1), result.emit_bins, result.emit_v,
+                result.emit_rep, chunked=True, gate=result.emit_it,
+                totals=(state["points"], state["mh_deposited"]))
         if pass_index == o.mh_burnin_passes - 1:
             state["lanes"].rep.zero_()
         st = result.stats.reshape(cls_mh.MH_STATS_ROWS, -1).sum(dim=1)
@@ -570,7 +568,7 @@ class CudaEngine:
             ("cycles", st[cls.STAT_CYCLES]),
             ("wasted", wasted),
             ("iters", self.steps_per_pass - wasted),
-            ("emitted", valid.sum()),
+            ("emitted", (result.emit_it >= 0).sum()),
             ("mh_accepts", st[cls_mh.STAT_MH_ACCEPT]),
             ("mh_merges", st[cls_mh.STAT_MH_MERGE]),
             ("mh_merged_rep", st[cls_mh.STAT_MH_MERGED_REP]),
@@ -586,13 +584,12 @@ class CudaEngine:
         unfinished tenure would vanish, and those are the stickiest, that
         is the brightest, states."""
         lanes = state["lanes"]
-        # Only tenures with visits (xv > 1) carry mass; xv == 1 is the
-        # in-band bridge state.
-        t = torch.where(lanes.rep > 0, lanes.xv, 0)
-        deposits, mass = binning.mh_deposit(
-            state["hist"].view(-1), lanes.xb, t, lanes.rep)
-        state["points"] += deposits
-        state["mh_deposited"] += mass
+        # Only tenures with rep > 0 and visits (xv > 1) carry mass; xv == 1
+        # is the in-band bridge state.
+        binning.mh_deposit(
+            state["hist"].view(-1), lanes.xb, lanes.xv, lanes.rep,
+            gate=lanes.rep, gate_min=1,
+            totals=(state["points"], state["mh_deposited"]))
         lanes.rep.zero_()
         return state
 

@@ -801,21 +801,36 @@ def mh_scatter(hist_flat, bins, t, rep):
     return hist_flat, torch.where(t > 1, n, 0).to(torch.int32), q
 
 
+#: Blocks per SM of the mh_deposit kernel's grid (256 threads each; its
+#: warps walk the emission slots 32 at a time): on an H100 the fastest of
+#: 1..16 at the mhcrop and mhzoom cells (chip_smoke.py --mh-deposit-study,
+#: which sweeps it). No result depends on it.
+MH_DEPOSIT_BLOCKS_PER_SM = 8
+
+
 def mh_deposit(hist_flat: torch.Tensor, bins: torch.Tensor, t: torch.Tensor,
-               rep: torch.Tensor, *, chunked: bool = False):
+               rep: torch.Tensor, *, chunked: bool = False,
+               gate: torch.Tensor | None = None, gate_min: int = 0,
+               totals: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Deposit MH emissions into ``hist_flat`` (in place).
 
     ``bins`` is int32 (V, *E) for emissions of shape E; with ``chunked`` it
     is (C, V, *E) for emissions of shape (C, *E) -- the classify pass's
     emission buffers as they are, one chunk per flush window. ``t``/``rep``
-    are int32 of the emissions' shape. Returns (deposits, mass): the
-    recorded-bin count and the deposited total, summed over the emissions,
-    as 0-dim int64 tensors on the histogram's device."""
+    are int32 of the emissions' shape. With ``gate`` (int32, the same
+    shape) a slot deposits only where ``gate >= gate_min`` (the pass's
+    ``emit_it >= 0``; the tail flush's ``rep >= 1``): the kernel reads it
+    itself. ``totals``: two 0-dim int64 tensors on the histogram's device
+    (the engine's counters) that the recorded-bin count and the deposited
+    total are added to; new zero ones when None. Returns the two totals."""
     _check_hist(hist_flat)
     if not (bins.dtype == t.dtype == rep.dtype == torch.int32):
         raise ValueError("bins, t and rep must be int32")
     if t.shape != rep.shape:
         raise ValueError("t and rep differ in shape")
+    if gate is not None and (gate.dtype != torch.int32
+                             or gate.shape != t.shape):
+        raise ValueError("gate must be int32 of the emissions' shape")
     want = bins.shape[:1] + bins.shape[2:] if chunked else bins.shape[1:]
     if bins.dim() < 2 + int(chunked) or want != t.shape:
         raise ValueError(
@@ -823,30 +838,49 @@ def mh_deposit(hist_flat: torch.Tensor, bins: torch.Tensor, t: torch.Tensor,
             f"{tuple(t.shape)}")
     chunks = bins.shape[0] if chunked else 1
     dev = hist_flat.device
-    if not (bins.device == t.device == rep.device == dev):
+    inputs = (bins, t, rep) + (() if gate is None else (gate,))
+    if not all(x.device == dev for x in inputs):
         raise ValueError("deposit inputs lie on different devices")
+    if totals is None:
+        totals = tuple(torch.zeros((), dtype=torch.int64, device=dev)
+                       for _ in range(2))
+    if not all(x.dtype == torch.int64 and x.numel() == 1
+               and x.device == dev for x in totals):
+        raise ValueError("totals must be two int64 scalars on the "
+                         "histogram's device")
+    deposits, mass = totals
     slots = bins.shape[1] if chunked else bins.shape[0]
     n = t.numel()
     if dev.type == "cpu":
         if chunked:
             bins = bins.reshape(chunks, slots, -1).transpose(0, 1)
-        _, deposits, mass = mh_scatter(
+        if gate is not None:
+            t = torch.where(gate >= gate_min, t, 0)
+        _, dep, m = mh_scatter(
             hist_flat, bins.reshape(slots, n), t.reshape(-1), rep.reshape(-1))
-        return deposits.sum(), mass.sum()
-    bins, t, rep = (x.contiguous() for x in (bins, t, rep))
-    totals = torch.zeros(2, dtype=torch.int64, device=dev)
+        deposits += dep.sum()
+        mass += m.sum()
+        return deposits, mass
     if n == 0:
-        return totals[0], totals[1]
-    lib = _lib()
+        return deposits, mass
+    bins, t, rep = (x.contiguous() for x in (bins, t, rep))
+    if gate is not None:
+        gate = gate.contiguous()
+    lanes = n // chunks
+    blocks = min(
+        torch.cuda.get_device_properties(dev).multi_processor_count
+        * MH_DEPOSIT_BLOCKS_PER_SM,
+        max(1, (chunks * ((lanes + 31) // 32) + 7) // 8))
     with torch.cuda.device(dev):
-        rc = lib.cb_mh_deposit(
-            _build.ptr(bins), _build.ptr(t), _build.ptr(rep), n, slots,
-            n // chunks, _build.ptr(hist_flat), hist_flat.numel(),
-            _build.ptr(totals), _build.stream_of(hist_flat),
+        rc = _lib().cb_mh_deposit(
+            _build.ptr(bins), None if gate is None else _build.ptr(gate),
+            gate_min, _build.ptr(t), _build.ptr(rep), n, slots, lanes,
+            _build.ptr(hist_flat), hist_flat.numel(), _build.ptr(deposits),
+            _build.ptr(mass), blocks, _build.stream_of(hist_flat),
         )
     _build.check(rc, "mh_deposit kernel")
     launches.COUNTS["mh_deposit"] += 1
-    return totals[0], totals[1]
+    return deposits, mass
 
 
 def _lib_ext():
@@ -894,7 +928,7 @@ def _lib(defines=()):
         ]
         lib.cb_replay_ids.restype = i
         lib.cb_mh_deposit.argtypes = [
-            vp, vp, vp, ctypes.c_longlong, i, i, vp, i, vp, vp,
+            vp, vp, i, vp, vp, ctypes.c_longlong, i, i, vp, i, vp, vp, i, vp,
         ]
         lib.cb_mh_deposit.restype = i
     return lib

@@ -72,9 +72,25 @@ def test_resolve_device():
         resolve_device("meta")
 
 
-def test_render_color_not_yet_ported(capsys):
-    assert cli.main(["render-color", "--mode", "hsl"]) == 1
-    assert "not yet ported" in capsys.readouterr().out
+@pytest.mark.parametrize("argv,device,message", [
+    ([], None, "CUDA is not available"),
+    (["--interleave"], None, "CUDA is not available"),
+    (["--replay", "host"], "cpu", "--replay host is not yet ported"),
+    (["--devices", "2"], "cpu", "num_devices > 1 is not yet ported"),
+])
+def test_render_color_refusals(capsys, tmp_path, argv, device, message):
+    """render-color without CUDA and without device="cpu" returns 1 with
+    the main command's CUDA message (it never falls back to the CPU), and a
+    forwarded flag the port refuses fails with the main command's message;
+    neither writes an image."""
+    if device is None and torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default device exists")
+    out = str(tmp_path / "c.png")
+    rc = cli.main(["render-color", "--mode", "hsl", "-w", "16", "-h", "16",
+                   "--passes", "1", "-o", out, *argv], device=device)
+    assert rc == 1
+    assert message in capsys.readouterr().out
+    assert not os.path.exists(out)
 
 
 @pytest.mark.parametrize("opts,match", [

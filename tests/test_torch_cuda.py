@@ -435,6 +435,109 @@ def test_mh_deposit_kernel_matches_plain(cuda, chunks, slots):
     dep2, mass2 = binning.mh_deposit(hk2, flat.contiguous(), t, rep)
     assert torch.equal(hk2, hp)
     assert (int(dep2), int(mass2)) == (int(dep_k), int(mass_k))
+    # A gate the kernel reads itself, and totals it adds into.
+    gate = torch.randint(-2, 3, (chunks, lanes), generator=g, device=cuda,
+                         dtype=torch.int32)
+    hk3, hp3 = torch.zeros_like(hk), torch.zeros_like(hk)
+    totals = (torch.full((), 11, dtype=torch.int64, device=cuda),
+              torch.full((), 13, dtype=torch.int64, device=cuda))
+    binning.mh_deposit(hk3, bins, t.view(chunks, lanes),
+                       rep.view(chunks, lanes), chunked=True, gate=gate,
+                       gate_min=1, totals=totals)
+    _, dep3, mass3 = binning.mh_scatter(
+        hp3, flat, torch.where(gate.reshape(-1) >= 1, t, 0), rep)
+    assert torch.equal(hk3, hp3)
+    assert (int(totals[0]), int(totals[1])) == (int(dep3.sum()) + 11,
+                                                int(mass3.sum()) + 13)
+
+
+def _mh_cell_buffers(cuda, cell, passes=3):
+    """A cell's engine and the emission buffers of one main-path pass
+    from a state carried ``passes`` passes."""
+    argv = (MHCROP if cell == "mhcrop"
+            else ["-w", "1000", "-h", "1000", *ZOOM, "--sampler", "mh"])
+    eng = CudaEngine(cli.parse_args(argv)[0], device=cuda)
+    state = eng.init_state(None)
+    for p in range(passes):
+        eng.run_pass(state, p)
+    fn = (cmh.classify_pass_ext_mh if eng.extended
+          else cmh.classify_pass_mh)
+    return eng, state, fn(state["lanes"], (77, 78), **eng.mh_pass_spec())
+
+
+@pytest.mark.parametrize("cell", ["mhcrop", "mhzoom"])
+def test_mh_deposit_at_the_mh_cells_matches_plain(cuda, cell):
+    """mh_deposit on a main-path pass's emission buffers at mhcrop and
+    mhzoom, gated by emit_it as the engine calls it, and on the tail
+    flush's flat (V, lanes) batch gated by rep: histogram and totals
+    against mh_scatter, bitwise."""
+    eng, state, res = _mh_cell_buffers(cuda, cell)
+    nbins = eng.cfg.canvas.num_pixels
+    lanes = state["lanes"]
+    slots = eng.visit_slots
+    cases = (
+        (res.emit_bins, res.emit_v, res.emit_rep, res.emit_it, 0,
+         res.emit_bins.shape[0], True),
+        (lanes.xb, lanes.xv, lanes.rep, lanes.rep, 1, 1, False),
+    )
+    for bins, t, rep, gate, gate_min, chunks, chunked in cases:
+        hk, hp = (torch.zeros(nbins, dtype=torch.int32, device=cuda)
+                  for _ in range(2))
+        dk, mk = (torch.zeros((), dtype=torch.int64, device=cuda)
+                  for _ in range(2))
+        binning.mh_deposit(hk, bins, t, rep, chunked=chunked, gate=gate,
+                           gate_min=gate_min, totals=(dk, mk))
+        flat = bins.reshape(chunks, slots, -1).transpose(0, 1).reshape(
+            slots, -1)
+        _, dp, mp = binning.mh_scatter(
+            hp, flat, torch.where(gate >= gate_min, t, 0).reshape(-1),
+            rep.reshape(-1))
+        assert torch.equal(hk, hp)
+        assert int(dk) == int(dp.sum()) > 0
+        assert int(mk) == int(mp.sum()) == int(hp.to(torch.int64).sum()) > 0
+
+
+def test_mh_deposit_hot_bins_match_plain(cuda):
+    """A stream whose pairs crowd a few bins (every bin one of 3, and one
+    chunk all one bin): the histogram equals mh_scatter's bitwise, wrapped
+    sums included."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    chunks, slots, lanes, nbins = 4, 8, 8192, 1000
+    n = chunks * lanes
+    v = torch.randint(1, 64, (n,), generator=g, device=cuda)
+    t = (256 * v + 1).to(torch.int32)
+    rep = torch.randint(1, 98304, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    bins = torch.randint(0, 3, (chunks, slots, lanes), generator=g,
+                         device=cuda, dtype=torch.int32) * 7
+    bins[1] = 500
+    hist0 = torch.randint(-(1 << 31), 1 << 31, (nbins,), generator=g,
+                          device=cuda, dtype=torch.int64).to(torch.int32)
+    hk, hp = hist0.clone(), hist0.clone()
+    dk, mk = (torch.zeros((), dtype=torch.int64, device=cuda)
+              for _ in range(2))
+    binning.mh_deposit(hk, bins, t.view(chunks, lanes),
+                       rep.view(chunks, lanes), chunked=True, totals=(dk, mk))
+    _, dp, mp = binning.mh_scatter(
+        hp, bins.transpose(0, 1).reshape(slots, n), t, rep)
+    assert torch.equal(hk, hp)
+    assert (int(dk), int(mk)) == (int(dp.sum()), int(mp.sum()))
+
+
+def test_mh_engine_pass_counts_equal_the_histogram(cuda):
+    """Engine passes at mhcrop, then the tail flush: one mh_deposit launch
+    a pass, and points == mh_deposited == the histogram's sum."""
+    eng = CudaEngine(cli.parse_args(MHCROP)[0], device=cuda)
+    state = eng.init_state(None)
+    launches.reset()
+    for p in range(3):
+        eng.run_pass(state, p)
+    assert launches.COUNTS["mh_deposit"] == 3 - eng.cfg.options.mh_burnin_passes
+    hist = eng.histogram(state)
+    st = eng.stats(state)
+    assert launches.COUNTS["mh_deposit"] == 4 - eng.cfg.options.mh_burnin_passes
+    assert int(hist.sum(dtype=np.uint64)) == st["mh_deposited"] > 0
+    assert st["orbit_points"] > 0
 
 
 @pytest.mark.parametrize("extended", [False, True])

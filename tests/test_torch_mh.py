@@ -10,8 +10,11 @@ seeds and cover the documented extremes: unseeded chains, the rep cap,
 occupied and empty pending slots, visits beyond the reservoir width,
 t <= 1, v above the reservoir width, v at the 32767 cap, rep at 98303.
 
-The g++ build of the deposit (csrc/mh.cuh mh_deposit_one, the function the
-CUDA kernel runs per emission) is held to the plain version too.
+The g++ build of the deposit is held to the plain version too: an
+emulation of the kernel's warps (host_harness.cpp cbh_mh_deposit_warps:
+each group of 32 slots spreads its (emission, k) pairs over the lanes), on
+fixed buffers and by a hypothesis property over t, rep, the reservoir
+width, gates, partial groups, out-of-range bins and streams of one bin.
 """
 
 import ctypes
@@ -20,6 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from cudabrot_tpu.ops import binning as jbin
 from cudabrot_tpu.ops import pallas_kernels_mh as pkm
@@ -286,8 +291,9 @@ def test_mh_deposit_validation():
 
 @pytest.mark.parametrize("chunks,slots", [(1, 2), (2, 8), (3, 32)])
 def test_header_mh_deposit_bitwise(harness, chunks, slots):  # noqa: F811
-    """csrc/mh.cuh mh_deposit_one, looped on the CPU, against the plain
-    version: histogram, recorded-bin count and mass."""
+    """csrc/mh.cuh's deposit functions in the kernel's warps, emulated on
+    the CPU, against the plain version: histogram, recorded-bin count and
+    mass."""
     rng = np.random.default_rng(slots)
     lanes, nbins = 256, 1000
     t, rep, _ = _deposit_inputs(seed=slots, extra=chunks * lanes - 14)
@@ -298,16 +304,104 @@ def test_header_mh_deposit_bitwise(harness, chunks, slots):  # noqa: F811
     dep, mass = binning.mh_deposit(
         hp, _t(bins), _t(t.reshape(chunks, lanes)),
         _t(rep.reshape(chunks, lanes)), chunked=True)
-    hist = np.zeros(nbins, np.uint32)
-    totals = (ctypes.c_ulonglong * 2)(0, 0)
-    vp = ctypes.c_void_p
-    harness.cbh_mh_deposit.argtypes = [
-        vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp,
-        ctypes.c_int, vp]
-    rc = harness.cbh_mh_deposit(
-        bins.ctypes.data, t.ctypes.data, rep.ctypes.data, t.size, slots,
-        lanes, hist.ctypes.data, nbins, ctypes.addressof(totals))
-    assert rc == 0
+    hist, got_dep, got_mass = _host_deposit_warps(
+        harness, bins, None, 0, t, rep, np.zeros(nbins, np.uint32))
     np.testing.assert_array_equal(hist.view(np.int32), hp.numpy())
-    assert totals[0] == int(dep) > 0
-    assert totals[1] == int(mass) > 0
+    assert got_dep == int(dep) > 0
+    assert got_mass == int(mass) > 0
+
+
+def test_mh_deposit_gate_and_totals():
+    """A gate closes slots as t <= 1 would (the engine's emit_it >= 0 and
+    the tail's rep >= 1), and given totals are added to in place."""
+    rng = np.random.default_rng(3)
+    slots, n, nbins = 8, 512, 700
+    t, rep, _ = _deposit_inputs(seed=3, extra=n - 14)
+    bins = rng.integers(0, nbins, (slots, n)).astype(np.int32)
+    gate = rng.integers(-2, 3, n).astype(np.int32)
+    for gate_min in (0, 1):
+        ha, hb = (torch.zeros(nbins, dtype=torch.int32) for _ in range(2))
+        totals = (torch.tensor(5, dtype=torch.int64),
+                  torch.tensor(7, dtype=torch.int64))
+        got = binning.mh_deposit(ha, _t(bins), _t(t), _t(rep), gate=_t(gate),
+                                 gate_min=gate_min, totals=totals)
+        assert got[0] is totals[0] and got[1] is totals[1]
+        dep, mass = binning.mh_deposit(
+            hb, _t(bins), _t(np.where(gate >= gate_min, t, 0)), _t(rep))
+        assert torch.equal(ha, hb) and int(hb.sum()) > 0
+        assert (int(totals[0]), int(totals[1])) == (int(dep) + 5,
+                                                    int(mass) + 7)
+    with pytest.raises(ValueError, match="gate"):
+        binning.mh_deposit(ha, _t(bins), _t(t), _t(rep),
+                           gate=_t(gate[:-1]))
+    with pytest.raises(ValueError, match="totals"):
+        binning.mh_deposit(ha, _t(bins), _t(t), _t(rep),
+                           totals=(totals[0], totals[1].to(torch.int32)))
+
+
+def _host_deposit_warps(harness, bins, gate, gate_min, t, rep, hist):
+    """The emulated kernel's deposit of (chunks, V, lanes) bins into a
+    copy of ``hist``: (histogram, deposits, mass)."""
+    chunks, slots, lanes = bins.shape
+    out = hist.copy()
+    totals = (ctypes.c_longlong * 2)(0, 0)
+    vp = ctypes.c_void_p
+    harness.cbh_mh_deposit_warps.argtypes = [
+        vp, vp, ctypes.c_int, vp, vp, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, vp, ctypes.c_int, vp, vp]
+    rc = harness.cbh_mh_deposit_warps(
+        bins.ctypes.data, None if gate is None else gate.ctypes.data,
+        gate_min, t.ctypes.data, rep.ctypes.data, t.size, slots, lanes,
+        out.ctypes.data, out.size, ctypes.addressof(totals),
+        ctypes.addressof(totals) + 8)
+    assert rc == 0
+    return out, totals[0], totals[1]
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(chunks=st.integers(1, 3), lanes=st.sampled_from([1, 31, 32, 40, 96]),
+       slots=st.sampled_from([1, 2, 8, 32]),
+       t_kind=st.sampled_from(["visits", "any", "mixed"]),
+       bin_kind=st.sampled_from(["spread", "one bin", "out of range"]),
+       gated=st.sampled_from([None, 0, 1]),
+       seed=st.integers(0, 2**16))
+def test_header_mh_deposit_warps_property(harness, chunks, lanes, slots,  # noqa: F811
+                                          t_kind, bin_kind, gated, seed):
+    """The kernel's warp spread over drawn emission buffers: t of the
+    chains' form 256 v + 1 (v up to the 32767 cap), any t in (1, 2^23),
+    or mixed with t <= 1; rep up to 98303 and below 1; n = min(v, V)
+    from 1 to 32; groups of 32 cut by the chunk's end; bins spread over
+    the histogram, all one bin (the u32 adds wrapping), or half outside
+    it; with and without a gate. Histogram (from random words),
+    recorded-bin count and mass equal mh_scatter's bitwise."""
+    rng = np.random.default_rng(seed)
+    n, nbins = chunks * lanes, 300
+    v = rng.choice([1, 2, 7, 8, 9, 31, 32, 33, 32767],
+                   n) if seed % 2 else rng.integers(1, 32768, n)
+    t = 256 * v + 1
+    if t_kind == "any":
+        t = rng.integers(2, 1 << 23, n)
+    elif t_kind == "mixed":
+        t = np.where(rng.random(n) < 0.4, rng.integers(-3, 2, n), t)
+    t = t.astype(np.int32).reshape(chunks, lanes)
+    rep = rng.choice([-2, 0, 1, 5, 4096, 98303], n) if seed % 3 else \
+        rng.integers(1, 98304, n)
+    rep = rep.astype(np.int32).reshape(chunks, lanes)
+    if bin_kind == "one bin":
+        bins = np.full((chunks, slots, lanes), nbins // 2, np.int32)
+    elif bin_kind == "out of range":
+        bins = rng.integers(-nbins, 2 * nbins, (chunks, slots, lanes))
+    else:
+        bins = rng.integers(0, nbins, (chunks, slots, lanes))
+    bins = bins.astype(np.int32)
+    gate = None if gated is None else \
+        rng.integers(-1, 3, (chunks, lanes)).astype(np.int32)
+    hist0 = rng.integers(0, 1 << 32, nbins, dtype=np.uint64).astype(np.uint32)
+    got, dep, mass = _host_deposit_warps(harness, bins, gate, gated or 0, t,
+                                         rep, hist0)
+    hp = _t(hist0.view(np.int32))
+    want_dep, want_mass = binning.mh_deposit(
+        hp, _t(bins), _t(t), _t(rep), chunked=True,
+        gate=None if gate is None else _t(gate), gate_min=gated or 0)
+    np.testing.assert_array_equal(got.view(np.int32), hp.numpy())
+    assert (dep, mass) == (int(want_dep), int(want_mass))
