@@ -15,11 +15,13 @@ Phases (each fails the run on any mismatch):
      threefry_bits vs its plain version at the default band's slot count;
      classify_ext (df32) vs its plain version the same way, one pass of
      the deep-zoom cell's geometry (4096 steps: eight flush windows with
-     refills, emissions and Brent saves) from a state carried 8 passes;
+     refills, emissions and Brent saves) from a state carried 8 passes,
+     in the package's build and each study build (STUDY_EXT_BUILDS);
      classify_mh and classify_ext_mh (the Metropolis-Hastings chain
      kernels) vs their plain version on one whole main-path pass of the
      mhcrop and the mhzoom cell (4096 steps in four flush windows; 16384
-     steps in one), from a state carried 4 passes.
+     steps in one), from a state carried 4 passes, classify_ext_mh also in
+     each study build (STUDY_EXT_MH_BUILDS).
   3. deposit_ids vs index_add_ bitwise on random ids with sentinels at
      1000x1000 and 6000x4500; replay_deposit vs its plain version bitwise
      on a compacted batch from phase 2, at the package's resident warps
@@ -49,8 +51,8 @@ Phases (each fails the run on any mismatch):
   5. Kernel times at each cell's main-path shapes (CUDA events; the MH
      deposit, whose call is bound by the host, by its kernel time in
      torch.profiler, which must show the engine's deposit step as one
-     launch) beside their bounds (the df32 kernels' floors also with FFMA
-     two-products), and at the default cell beside their plain versions
+     launch) beside their bounds and unfused issue floors, and at the
+     default cell beside their plain versions
      and torch.bincount of the replay's id stream; a torch.profiler
      profile of 16 engine passes per cell (8 at mhzoom; device ms per
      kernel, busy share).
@@ -121,9 +123,18 @@ measures the f32 classify kernel at the default cell: with in-kernel
 Threefry against the same pass fed its words, the draw profile, issue
 cycles per warp-step, the lanes-per-thread sweep (the study builds), the
 SASS counts of the refill draw and of the lane window (its inner step and
-boundary) by pipe, and an Nsight Compute probe. The study flags combine (one build, the studies in
-the order given), and build the study variants beside the package's
-libraries. Run from a copy of another commit's tree (the script beside its
+boundary) by pipe, and an Nsight Compute probe. ``--ext-study`` measures
+the two df32 classify kernels (ext_study): the SASS counts of the df32
+step, of classify_ext's boundary with and without a finished lane and of
+the MH df32 window, with the check that each df32 two-product's error is
+one FFMA and no other operation fused; the registers and spills of every
+build; each kernel's pass in every build at its cell (classify_ext at
+zoom, classify_ext_mh at mhzoom with V = 8 and 32); refills and proposals
+per lane-step and the share of warp-windows with a finished lane; the
+zoom and mhzoom passes; phase 7; and the zoom cell through cli.main at
+--inner-unroll 1, 2, 4 and 8, and mhzoom at its window and at U = 32. The
+study flags combine (one build, the studies in the order given), and
+build the study variants beside the package's libraries. Run from a copy of another commit's tree (the script beside its
 package), each gives that commit's numbers, so two commits compare within
 one call.
 
@@ -150,49 +161,66 @@ OUT = os.path.join(ROOT, "build", "chip_smoke")
 PEAK_OPS = 67e12
 PEAK_BYTES = 3.35e12
 #: The card's unfused issue rate: 132 SMs x 128 lanes x 1.98 GHz. The
-#: kernels build with -fmad=false, so each counted operation is one issued
-#: instruction and an operation-bound kernel cannot beat ops / PEAK_ISSUE
-#: (PEAK_OPS counts an FFMA as two operations).
+#: kernels build with -fmad=false, so each counted operation but the df32
+#: two-products' FFMAs is one issued instruction, and an operation-bound
+#: kernel cannot beat instructions / PEAK_ISSUE (PEAK_OPS counts an FFMA
+#: as two operations).
 PEAK_ISSUE = 33.5e12
 #: The integer ALU pipe (adds, logic, shifts, compares): 64 lanes a clock
 #: per SM, half the issue rate: 132 x 64 x 1.98 GHz.
 PEAK_INT = 16.7e12
-#: Operations per unit of work as (instructions, of which on the ALU pipe).
-#: A refill draw (Threefry-2x32 69 (49 ALU), the domain map of two words 11
-#: (2), the cull 13 (3)), a Threefry word of threefry_bits (the block and
-#: the xor), the df32 draw (Threefry and the df32 grid draw 42 (5)): SASS
-#: counts that chip_smoke.py --classify-study (sass_study) prints for
-#: sm_90a. A replayed orbit point (step + bin), a deposited id: hand counts
-#: from csrc/*.cu, all on the FMA pipe; the df32 point is the df32 step (89
-#: without |z|^2 and the survival count) plus the df32 bin offset and
-#: quantization (32). The f32 classify's inner step and window boundary
-#: (the default cell's thin-tracking window with Brent checks): SASS
-#: counts, as above, from the loop bodies of one window at U = 0, 1 and 2;
-#: at U = 1, the default cell's window, the two sum to the 43 (23 ALU) the
-#: loop spends on a window (hand count: 49). The df32 and MH ones cost the
-#: hand counts the engine's window choice uses (EXT_* and MH_* in
-#: engines/cuda_engine.py), counted as FMA-pipe work.
-OPS_STEP = (15, 9)
-OPS_BOUNDARY = (28, 14)
-OPS_DRAW = (93, 54)
-OPS_REPLAY_POINT = 15
+#: Operations per unit of work as (instructions, of which on the ALU pipe,
+#: of which FFMA). An FFMA is one instruction for the issue floor and two
+#: operations for the bound. A refill draw (Threefry-2x32 69 (49 ALU), the
+#: domain map of two words 11 (2), the cull 13 (3)), a Threefry word of
+#: threefry_bits (the block and the xor): SASS counts that chip_smoke.py
+#: --classify-study (sass_study) prints for sm_90a. The f32 classify's
+#: inner step and window boundary (the default cell's thin-tracking window
+#: with Brent checks): SASS counts, as above, from the loop bodies of one
+#: window at U = 0, 1 and 2. A replayed f32 orbit point (step + bin), a
+#: deposited id: hand counts from csrc/*.cu, all on the FMA pipe. The df32
+#: ones are SASS counts that --ext-study (ext_sass_study) prints: the
+#: classify_ext inner step (the df32 step, three FFMA two-products, with
+#: the survival count and the window's end), the boundary every lane-window
+#: takes (a warp with no finished lane pays only this), ext_finish (the
+#: rest of a finished lane's boundary and its refill draw, paid per
+#: refill), and the MH df32 window boundary. The MH df32 inner step is the
+#: df32 step (60, the same study) plus by hand the centre-relative window
+#: coordinates (6), the window test (7), the LCG (2) and the visit and
+#: survival counts (3): its loop body in the SASS (123) also holds the
+#: reservoir's take test and a recorded visit's bin, which few steps run.
+#: The df32 replay point is the df32 step plus the df32 bin offset and
+#: quantization by hand (27).
+OPS_STEP = (15, 9, 0)
+OPS_BOUNDARY = (28, 14, 0)
+OPS_DRAW = (93, 54, 0)
+OPS_REPLAY_POINT = (15, 0, 0)
 OPS_DEPOSIT_ID = 3
 OPS_THREEFRY_WORD = (70, 50)
-OPS_DRAW_EXT = (111, 54)
-OPS_REPLAY_POINT_EXT = 121
-#: Instructions a df32 step would spend fewer with each two-product's error
-#: as one fused multiply-add, fmaf(a, b, -p) (the same bits wherever the
-#: error is a normal float, tests/test_torch_df32.py): two_prod_sqr 10 -> 2
-#: twice and two_prod 13 -> 2 a step. The df32 kernels' floors are also
-#: printed with it.
-OPS_FFMA_SAVING = 27
+OPS_STEP_EXT = (67, 5, 3)
+OPS_BOUNDARY_EXT = (6, 5, 0)
+OPS_FINISH_EXT = (110, 69, 0)
+OPS_STEP_MH_EXT = (78, 0, 3)
+OPS_BOUNDARY_MH_EXT = (14, 8, 0)
+OPS_REPLAY_POINT_EXT = (87, 0, 3)
 #: The MH kernels (csrc/mh.cuh): a finished proposal pays two Threefry
 #: calls (SASS, as above), and by hand count the chain boundary, the
 #: proposal draw, the sample's rebuild and cull, and up to three V-word
 #: reservoir moves (V = 8 here), 84; the df32 one adds the two df32 sums,
-#: 114.
-OPS_DRAW_MH = (2 * 69 + 84, 2 * 49)
-OPS_DRAW_MH_EXT = (2 * 69 + 114, 2 * 49)
+#: 114. The f32 MH window's step and boundary are the hand counts of
+#: engines/cuda_engine.py (MH_*).
+OPS_DRAW_MH = (2 * 69 + 84, 2 * 49, 0)
+OPS_DRAW_MH_EXT = (2 * 69 + 114, 2 * 49, 0)
+
+
+def op_bounds(terms, nbytes):
+    """(bound ms, what bounds it, unfused issue floor ms) of the work
+    sum(count * n) over (count, n) terms, each count an OPS_* triple, with
+    ``nbytes`` of traffic."""
+    ins, alu, ffma = (sum(c[i] * n for c, n in terms) for i in range(3))
+    bound, by = bound_ms(ins + ffma, nbytes, alu)
+    return bound, by, floor_ms(ins, nbytes, alu)
+
 
 ZOOM = ["-m", "20000", "-c", "500", "--precision", "extended", "--center",
         "-0.743643887037151,0.131825904205330", "--span", "1e-5"]
@@ -421,18 +449,24 @@ def path_kernels(name, scatter="auto"):
 # ----------------------------------------------------------------------
 
 
-def phase_build(study=False):
-    """Phase 1; with ``study``, also the variant builds of the replay and
-    MH classify kernels that the studies time (STUDY_DEPOSIT_BUILDS,
-    STUDY_MH_BUILDS)."""
+def phase_build(studies=()):
+    """Phase 1: the package's libraries and the study builds phase 2 holds
+    to the plain versions (the classify kernel's lanes per thread, the
+    df32 classify builds); with the study flags ``studies``, also the
+    variant builds of the replay and f32 MH classify kernels those studies
+    time (STUDY_DEPOSIT_BUILDS for --replay-study, STUDY_MH_BUILDS for
+    --mh-study)."""
     from cudabrot_tpu_torch.ops import _build
 
     log("== phase 1: build")
     t0 = time.monotonic()
     variants = [("classify", d) for d in map(lanes_defines,
                                              STUDY_LANES_PER_THREAD) if d]
-    if study:
+    variants += [("classify_ext", d) for _, d in STUDY_EXT_BUILDS if d]
+    variants += [("classify_mh", d) for _, d in STUDY_EXT_MH_BUILDS if d]
+    if "--replay-study" in studies:
         variants += [("deposit", d) for _, d in STUDY_DEPOSIT_BUILDS if d]
+    if "--mh-study" in studies:
         variants += [("classify_mh", d) for _, d in STUDY_MH_BUILDS if d]
     _build.build_all(variants=variants)
     log(f"  built {', '.join(_build.LIBS)} and {len(variants)} study "
@@ -442,6 +476,20 @@ def phase_build(study=False):
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  [{name}{''.join(' -D' + x for x in d)}] "
                     f"{line.strip()}")
+
+
+@contextlib.contextmanager
+def ext_build(defines):
+    """classify_pass_ext runs the build with these -D macros inside (the
+    package's for none)."""
+    from cudabrot_tpu_torch.ops import classify_ext as cx
+
+    if not defines:
+        yield
+        return
+    lib = cx._lib(defines)
+    with mock.patch.object(cx, "_lib", lambda: lib):
+        yield
 
 
 def package_lanes() -> int:
@@ -590,6 +638,11 @@ def phase_classify_ext(dev):
            f"U={tn.inner_unroll} steps={tn.steps_per_pass} "
            f"lanes={tn.lanes}")
     err = check_classify(tag, cx.ExtLaneState._fields, ra, out["r"])
+    for label, d in STUDY_EXT_BUILDS[1:]:
+        with ext_build(d):
+            rs = cx.classify_pass_ext(clone_state(state), seed, **spec)
+        err = max(err, check_classify(f"{tag} {label}",
+                                      cx.ExtLaneState._fields, rs, out["r"]))
     for f, t in zip(cx.ExtLaneState._fields, ra.state):
         if t.dtype == torch.float32:
             check(bool(torch.isfinite(t).all()),
@@ -763,6 +816,14 @@ def phase_classify_mh(dev, name):
              *((getattr(ra, f), getattr(rb, f)) for f in MH_OUT_FIELDS)]
     for f, (x, y) in zip((*state._fields, *MH_OUT_FIELDS), pairs):
         check(same_bits(x, y), f"{tag}: {f} bitwise")
+    for label, d in (STUDY_EXT_MH_BUILDS[1:] if ext else ()):
+        with mh_build(d, kernel):
+            rs = classify(clone_state(state), seed, **spec)
+        more = [*zip(rs.state, rb.state),
+                *((getattr(rs, f), getattr(rb, f)) for f in MH_OUT_FIELDS)]
+        check(all(same_bits(x, y) for x, y in more),
+              f"{tag} {label}: lane state and emissions bitwise")
+        pairs += more
     for f, t in zip(state._fields, ra.state):
         if t.dtype == torch.float32:
             check(bool(torch.isfinite(t).all()),
@@ -1300,8 +1361,8 @@ def cell_times(dev, name, with_plain):
         classify, k1, k2 = cx.classify_pass_ext, "classify_ext", \
             "replay_deposit_ext"
         c_inner, c_boundary, c_draw, c_point = (
-            (ce.EXT_INNER_STEP_OPS, 0), (ce.EXT_BOUNDARY_OPS, 0),
-            OPS_DRAW_EXT, OPS_REPLAY_POINT_EXT)
+            OPS_STEP_EXT, OPS_BOUNDARY_EXT, OPS_FINISH_EXT,
+            OPS_REPLAY_POINT_EXT)
     else:
         classify, k1, k2 = cls.classify_pass, "classify", "replay_deposit"
         spec["thin_tracking"] = tn.thin_tracking
@@ -1318,12 +1379,9 @@ def cell_times(dev, name, with_plain):
     draws = int(res.stats[cls.STAT_DRAWN].sum())
     slots = tn.emission_slots
     state_words = len(lanes)
-    k1_ops = (c_inner[0] * lane_steps + c_boundary[0] * windows
-              + c_draw[0] * draws,
-              n_lanes * (2 * 4 * state_words + 20) + slots * 12,
-              c_inner[1] * lane_steps + c_boundary[1] * windows
-              + c_draw[1] * draws)
-    k1_bound, k1_by = bound_ms(*k1_ops)
+    k1_bound, k1_by, k1_floor = op_bounds(
+        ((c_inner, lane_steps), (c_boundary, windows), (c_draw, draws)),
+        n_lanes * (2 * 4 * state_words + 20) + slots * 12)
 
     cr, ci, it, _ = ce.compact(res.emit_c, res.emit_it, key,
                                tn.replay_capacity, tn.max_it)
@@ -1341,8 +1399,8 @@ def cell_times(dev, name, with_plain):
     k2_ms = time_ms(replay, 10)
     orbits = int((it >= 0).sum())
     points = int(torch.where(it >= 0, it + 1, 0).sum())
-    k2_ops = (c_point * points, 12 * cr.numel() + 8 * cfg.canvas.num_pixels)
-    k2_bound, k2_by = bound_ms(*k2_ops)
+    k2_bound, k2_by, k2_floor = op_bounds(
+        ((c_point, points),), 12 * cr.numel() + 8 * cfg.canvas.num_pixels)
 
     sel_key = prng.fold_in(key, 0x7711)
     k3_ms = time_ms(lambda: prng.bits(sel_key, slots, dev), 20)
@@ -1373,17 +1431,12 @@ def cell_times(dev, name, with_plain):
 
     rec = {
         k1: dict(ms=k1_ms, bound_ms=k1_bound, bound_by=k1_by,
-                 library_ms=None, floor_ms=floor_ms(*k1_ops)),
+                 library_ms=None, floor_ms=k1_floor),
         "threefry_bits": dict(ms=k3_ms, bound_ms=k3_bound, bound_by=k3_by,
                               library_ms=None),
         k2: dict(ms=k2_ms, bound_ms=k2_bound, bound_by=k2_by,
-                 library_ms=None, floor_ms=floor_ms(*k2_ops)),
+                 library_ms=None, floor_ms=k2_floor),
     }
-    if ext:
-        rec[k1]["ffma_floor_ms"] = floor_ms(
-            k1_ops[0] - OPS_FFMA_SAVING * lane_steps, *k1_ops[1:])
-        rec[k2]["ffma_floor_ms"] = floor_ms(
-            k2_ops[0] * (1 - OPS_FFMA_SAVING / c_point), *k2_ops[1:])
     if not with_plain:
         return rec
     plain_state = clone_state(lanes)
@@ -1459,16 +1512,16 @@ def mh_cell_times(dev, name, rate):
     st = res.stats.reshape(cmh.MH_STATS_ROWS, -1).sum(dim=1)
     draws = int(st[0])
     n_slots = tn.emission_slots
-    c_inner, c_boundary = ce.step_ops(ext, True)
+    if ext:
+        c_inner, c_boundary = OPS_STEP_MH_EXT, OPS_BOUNDARY_MH_EXT
+    else:
+        c_inner, c_boundary = ((c, 0, 0) for c in ce.step_ops(False, True))
     c_draw = OPS_DRAW_MH_EXT if ext else OPS_DRAW_MH
     state_words = len(lanes) - 2 + 2 * slots
-    # Visits that record a bin are not counted: the kernel reports visits
-    # per emission only, and they are few beside the inner steps.
-    k1_ops = (c_inner * lane_steps + c_boundary * windows + c_draw[0] * draws,
-              n_lanes * (2 * 4 * state_words + 4 * cmh.MH_STATS_ROWS)
-              + n_slots * (3 + slots) * 4,
-              c_draw[1] * draws)
-    k1_bound, k1_by = bound_ms(*k1_ops)
+    k1_bound, k1_by, k1_floor = op_bounds(
+        ((c_inner, lane_steps), (c_boundary, windows), (c_draw, draws)),
+        n_lanes * (2 * 4 * state_words + 4 * cmh.MH_STATS_ROWS)
+        + n_slots * (3 + slots) * 4)
 
     nbins = cfg.canvas.num_pixels
     # A launch this short is bound by the host's enqueue under CUDA events
@@ -1526,13 +1579,10 @@ def mh_cell_times(dev, name, rate):
             f"busy {busy:.4f} of a {span:.3f} ms span (idle {1 - busy:.4f})")
     rec = {
         k1: dict(ms=k1_ms, bound_ms=k1_bound, bound_by=k1_by,
-                 library_ms=None, floor_ms=floor_ms(*k1_ops)),
+                 library_ms=None, floor_ms=k1_floor),
         "mh_deposit": dict(ms=k2_ms, bound_ms=k2_bound, bound_by=k2_by,
                            plain_ms=k2_plain, library_ms=k2_lib),
     }
-    if ext:
-        rec[k1]["ffma_floor_ms"] = floor_ms(
-            k1_ops[0] - OPS_FFMA_SAVING * lane_steps, *k1_ops[1:])
     return rec
 
 
@@ -1574,11 +1624,6 @@ def phase_kernel_times(dev, main_runs, errs, ext_records, deposit_ids):
                 f"(operations / {PEAK_ISSUE:.3g}, the ALU's / "
                 f"{PEAK_INT:.3g}); kernel {r['ms']:.4f} ms, "
                 f"{floor / r['ms']:.3f} of it")
-        if "ffma_floor_ms" in r:
-            ffma = r["ffma_floor_ms"]
-            log(f"  {r['name']}: the floor with FFMA two-products "
-                f"({OPS_FFMA_SAVING} fewer instructions a df32 step) "
-                f"{ffma:.4f} ms, {ffma / r['ms']:.3f} of the kernel")
     return [{key: r[key] for key in keys} for r in records]
 
 
@@ -1868,8 +1913,8 @@ def big_cell_times(dev, name, with_plain):
     del lib_hist, ones
     fused_ms = time_ms(lambda: fused(hist, xr, xi, it, **kw), 5)
     c_point = OPS_REPLAY_POINT_EXT if ext else OPS_REPLAY_POINT
-    ids_ops = (c_point * n, 4 * n + 20 * xr.numel())
-    ids_bound, ids_by = bound_ms(*ids_ops)
+    ids_bound, ids_by, ids_floor = op_bounds(((c_point, n),),
+                                             4 * n + 20 * xr.numel())
     on_canvas = int(out["hits"])
     log(f"  geometry: {eng.lanes} lanes, {tn.steps_per_pass} steps per "
         f"pass, capacity {tn.replay_capacity}, canvas {cfg.canvas.width}x"
@@ -1887,10 +1932,7 @@ def big_cell_times(dev, name, with_plain):
         f"{'replay_deposit_ext' if ext else 'replay_deposit'} of the same "
         f"batch {fused_ms:.4f} ms")
     rec = {k_ids: dict(ms=ids_ms, bound_ms=ids_bound, bound_by=ids_by,
-                       library_ms=None, floor_ms=floor_ms(*ids_ops),
-                       **({"ffma_floor_ms": floor_ms(
-                           (c_point - OPS_FFMA_SAVING) * n, *ids_ops[1:])}
-                          if ext else {})),
+                       library_ms=None, floor_ms=ids_floor),
            "bigtiles_deposit": dict(ms=dep_ms, bound_ms=dep_bound,
                                     bound_by=dep_by, plain_ms=dep_plain,
                                     library_ms=lib_ms)}
@@ -2092,6 +2134,23 @@ STUDY_MH_BUILDS = (("the package's build", ()),
                    ("all reservoirs shared", ("CB_MH_SHARED_SLOTS=2",)),
                    ("window loop", ("CB_MH_WINDOW_UNROLL=0",)))
 STUDY_MH_SLOTS = (8, 32)
+#: The df32 classify study's builds of csrc/classify_ext.cu (label, -D
+#: macros; the first is the package's: one lane a thread) and of
+#: csrc/classify_mh.cu's df32 kernel (the package's: one lane a thread,
+#: all three reservoirs in shared memory, the window unrolled): two lanes a
+#: thread, all reservoirs in registers, the chain's two in shared memory,
+#: the window as a run-time loop. Phase 2 holds each to the plain version.
+STUDY_EXT_BUILDS = (("the package's build", ()),
+                    ("S=2", ("CB_EXT_LANES_PER_THREAD=2",)))
+STUDY_EXT_MH_BUILDS = (("the package's build", ()),
+                       ("S=2", ("CB_MH_EXT_LANES_PER_THREAD=2",)),
+                       ("reservoirs in registers",
+                        ("CB_MH_EXT_SHARED_SLOTS=0",)),
+                       ("the chain's reservoirs shared",
+                        ("CB_MH_EXT_SHARED_SLOTS=1",)),
+                       ("window loop", ("CB_MH_WINDOW_UNROLL=0",)))
+#: The --inner-unroll values the study renders the zoom cell at.
+STUDY_EXT_UNROLLS = (1, 2, 4, 8)
 #: binning.MH_DEPOSIT_BLOCKS_PER_SM values the MH deposit study sweeps.
 STUDY_MH_DEPOSIT_BLOCKS = (1, 2, 4, 8, 16)
 #: SASS opcodes by the SM sub-partition pipe that runs them: the integer
@@ -2161,6 +2220,84 @@ extern "C" __global__ void sass_window2(cb::ClassifyArgs a) { window_loop<2>(a);
 """
 
 
+#: The df32 lane functions, compiled with the kernels' flags into one
+#: cubin whose SASS the df32 study counts: the zoom cell's lane
+#: (buddhabrot, no visit window, Brent checks on) through a.windows
+#: windows, one loop iteration each, of ext_window at U = 1 and 2 (U = 0:
+#: the lane finishes at max_it without a window), a finished lane refilled
+#: with its own c (the part of the boundary every lane takes, with a
+#: trivial finish); ext_finish alone (the rest of a finished lane's
+#: boundary and its Threefry refill) less the same loads and stores; one
+#: df32 step; and the MH df32 window (mh_window, mh_advance) at U = 0, 1,
+#: 2 with its reservoirs in registers.
+SASS_EXT_STUDY_CU = r"""
+#include "classify_ext.cuh"
+#include "mh.cuh"
+template <int U> __device__ void ext_loop(cb::ClassifyExtArgs a) {
+  a.detect = 1;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  cb::ExtLane l = cb::load_ext_lane(a, i);
+#pragma unroll 1
+  for (int w = 0; w < a.windows; ++w) {
+    bool fin = l.it >= a.max_it;
+    if constexpr (U > 0) fin = cb::ext_window<cb::kBuddhabrot, false, U>(a, l);
+    if (fin) { l.it = 0; l.zr = l.cr; l.zi = l.ci; l.dead = 0; }
+  }
+  cb::flush_ext_lane(a, l, 0, i);
+  cb::store_ext_lane(a, l, i);
+}
+extern "C" __global__ void sass_ext0(cb::ClassifyExtArgs a) { ext_loop<0>(a); }
+extern "C" __global__ void sass_ext1(cb::ClassifyExtArgs a) { ext_loop<1>(a); }
+extern "C" __global__ void sass_ext2(cb::ClassifyExtArgs a) { ext_loop<2>(a); }
+template <bool FINISH> __device__ void ext_one(cb::ClassifyExtArgs a) {
+  a.detect = 1;
+  a.bits = nullptr;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  cb::ExtLane l = cb::load_ext_lane(a, i);
+  l.esc = l.dead & 1;
+  l.cyc = l.vis & 1;
+  l.needed = l.sv;
+  if (FINISH) cb::ext_finish<cb::kBuddhabrot, false>(a, l, i, l.it, 1);
+  cb::flush_ext_lane(a, l, 0, i);
+  cb::store_ext_lane(a, l, i);
+}
+extern "C" __global__ void sass_ext_base(cb::ClassifyExtArgs a) { ext_one<false>(a); }
+extern "C" __global__ void sass_ext_finish(cb::ClassifyExtArgs a) { ext_one<true>(a); }
+extern "C" __global__ void sass_df_step(float* z, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  cb::df::F2 zr{z[i], z[i + n]}, zi{z[i + 2 * n], z[i + 3 * n]};
+  const cb::df::F2 cr{z[i + 4 * n], z[i + 5 * n]}, ci{z[i + 6 * n], z[i + 7 * n]};
+  z[i + 8 * n] = cb::df::complex_sqr_add<cb::kBuddhabrot>(zr, zi, cr, ci);
+  z[i] = zr.hi; z[i + n] = zr.lo; z[i + 2 * n] = zi.hi; z[i + 3 * n] = zi.lo;
+}
+extern "C" __global__ void sass_df_base(float* z, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float x[8];
+  for (int k = 0; k < 8; ++k) x[k] = z[i + k * n];
+  z[i + 8 * n] = x[0] + x[2] + x[4] + x[6];
+  z[i] = x[1]; z[i + n] = x[3]; z[i + 2 * n] = x[5]; z[i + 3 * n] = x[7];
+}
+template <int U> __device__ void mh_loop(cb::mh::ClassifyMhArgs a) {
+  a.detect = 1;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  cb::mh::MhLane<8, cb::mh::OrbitDf> l;
+  cb::mh::load_mh_lane(a, i, l);
+#pragma unroll 1
+  for (int w = 0; w < a.windows; ++w) {
+    bool fin = l.it >= a.max_it;
+    if constexpr (U > 0) fin = cb::mh::mh_window<cb::kBuddhabrot, U>(a, l);
+    if (!fin) cb::mh::mh_advance(a, l, U);
+    else { l.it = 0; l.o.zr = l.o.cr; l.o.zi = l.o.ci; l.dead = 0; }
+  }
+  cb::mh::flush_mh_lane(a, l, 0, i);
+  cb::mh::store_mh_lane(a, l, i);
+}
+extern "C" __global__ void sass_mh0(cb::mh::ClassifyMhArgs a) { mh_loop<0>(a); }
+extern "C" __global__ void sass_mh1(cb::mh::ClassifyMhArgs a) { mh_loop<1>(a); }
+extern "C" __global__ void sass_mh2(cb::mh::ClassifyMhArgs a) { mh_loop<2>(a); }
+"""
+
+
 def sass_listing(text):
     """{function: [(address, opcode), ...]} of cuobjdump -sass output, NOPs
     left out; a branch's opcode is followed by its target, as
@@ -2220,6 +2357,51 @@ def pipe_counts(ops):
     return out
 
 
+def _cuobjdump():
+    import shutil
+
+    from cudabrot_tpu_torch.ops import _build
+
+    path = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    return path if os.path.exists(path) else (shutil.which("cuobjdump")
+                                              or path)
+
+
+def study_sass(name, source):
+    """cuobjdump -sass of ``source`` compiled with the kernels' flags
+    against csrc/ into one cubin; the source and the listing go to OUT."""
+    from cudabrot_tpu_torch.ops import _build
+
+    os.makedirs(OUT, exist_ok=True)
+    src = os.path.join(OUT, f"{name}.cu")
+    with open(src, "w") as f:
+        f.write(source)
+    cubin = os.path.join(OUT, f"{name}.cubin")
+    flags = [a for a in _build.NVCC_FLAGS
+             if a not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    subprocess.run([_build.nvcc_path(), *flags, "-cubin", "-I",
+                    str(_build.CSRC), "-o", cubin, src], check=True,
+                   capture_output=True, text=True)
+    text = subprocess.run([_cuobjdump(), "-sass", cubin], check=True,
+                          capture_output=True, text=True).stdout
+    with open(os.path.join(OUT, f"{name}.sass"), "w") as f:
+        f.write(text)
+    return text
+
+
+def lib_sass(lib, defines=()):
+    """cuobjdump -sass of a built kernel library (dumped to OUT)."""
+    from cudabrot_tpu_torch.ops import _build
+
+    text = subprocess.run([_cuobjdump(), "-sass",
+                           str(_build.lib_path(lib, defines))], check=True,
+                          capture_output=True, text=True).stdout
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, f"{lib}.sass"), "w") as f:
+        f.write(text)
+    return text
+
+
 def sass_study(dev):
     """The refill draw's instructions from the SASS: Threefry-2x32, the
     domain map of two words, the cull, and the df32 grid draw, each less the
@@ -2229,28 +2411,9 @@ def sass_study(dev):
     counter and refill, is the boundary); then the opcode mix of the built
     classify library's default-cell kernel. Dumps go to OUT."""
     import collections
-    import shutil
-
-    from cudabrot_tpu_torch.ops import _build
 
     log("== SASS counts of the refill draw (cuobjdump -sass)")
-    os.makedirs(OUT, exist_ok=True)
-    nvcc = _build.nvcc_path()
-    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    if not os.path.exists(cuobjdump):
-        cuobjdump = shutil.which("cuobjdump") or cuobjdump
-    src = os.path.join(OUT, "sass_study.cu")
-    with open(src, "w") as f:
-        f.write(SASS_STUDY_CU)
-    cubin = os.path.join(OUT, "sass_study.cubin")
-    flags = [a for a in _build.NVCC_FLAGS
-             if a not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
-    subprocess.run([nvcc, *flags, "-cubin", "-I", str(_build.CSRC), "-o",
-                    cubin, src], check=True, capture_output=True, text=True)
-    text = subprocess.run([cuobjdump, "-sass", cubin], check=True,
-                          capture_output=True, text=True).stdout
-    with open(os.path.join(OUT, "sass_study.sass"), "w") as f:
-        f.write(text)
+    text = study_sass("sass_study", SASS_STUDY_CU)
     funcs = {k: pipe_counts(v) for k, v in sass_functions(text).items()}
     base = funcs["sass_base"]
     counts = {}
@@ -2277,11 +2440,7 @@ def sass_study(dev):
     w1_mix.subtract(bodies[0])
     log(f"  window U = 1 loop-body opcodes less U = 0's: "
         f"{ {k: v for k, v in w1_mix.items() if v} }")
-    lib = _build.lib_path("classify")
-    text = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
-    with open(os.path.join(OUT, "classify.sass"), "w") as f:
-        f.write(text)
+    text = lib_sass("classify")
     # The default cell's variant (buddhabrot, thin tracking, no visit
     # window; U = 1 where the kernel has a U argument).
     for name, ops in sorted(sass_functions(text).items()):
@@ -2535,15 +2694,16 @@ def mh_study_bits(dev, seed, spec, rows):
 
 
 @contextlib.contextmanager
-def mh_build(defines):
-    """classify_pass_mh runs the build with these -D macros inside (the
+def mh_build(defines, name="classify_mh"):
+    """classify_pass_mh (classify_pass_ext_mh with ``name``
+    "classify_ext_mh") runs the build with these -D macros inside (the
     package's for none)."""
     from cudabrot_tpu_torch.ops import classify_mh as cmh
 
     if not defines:
         yield
         return
-    lib = cmh._lib("classify_mh", defines)
+    lib = cmh._lib(name, defines)
     with mock.patch.object(cmh, "_lib", lambda name: lib):
         yield
 
@@ -2689,6 +2849,343 @@ def mh_study(dev, card):
             elif entry and ("registers" in line or "spill" in line):
                 log(f"  [classify_mh{''.join(' -D' + x for x in d)}] "
                     f"{entry}: {line.strip()}")
+
+
+def sass_counts(ops):
+    """pipe_counts of a SASS opcode list, with its FFMA count."""
+    out = pipe_counts(ops)
+    out["ffma"] = sum(op == "FFMA" for op in ops)
+    return out
+
+
+def _less(x, *ys):
+    return {k: x[k] - sum(y[k] for y in ys) for k in x}
+
+
+def _fmt(c):
+    return (f"{c['all']} instructions ({c['ffma']} FFMA, {c['alu']} ALU, "
+            f"{c['fma']} FMA pipe, {c['xu']} conversion, {c['other']} "
+            f"other)")
+
+
+def ext_sass_study():
+    """The df32 lane's instructions from the SASS (SASS_EXT_STUDY_CU): one
+    df32 step (less the same loads and stores); the classify_ext window
+    from the loop bodies of sass_ext0/1/2 (U = 2 less U = 1 is one inner
+    step; U = 1 less the step and less U = 0's loop is the boundary every
+    lane takes, the one a warp with no finished lane pays); ext_finish (the
+    rest of a finished lane's boundary with its Threefry refill), so the
+    boundary with a finished lane is the two together; the MH df32 window
+    the same way (sass_mh0/1/2). Checks that a df32 step holds exactly one
+    FFMA per two-product (three) and that FFMAs appear nowhere else in the
+    lane: the boundaries, the finish and its draw have none, and in the
+    built libraries every df32 kernel's count is a multiple of three
+    (3 x lanes a thread x U where the window is unrolled). (The f32
+    kernels' FFMAs are the Newton steps of __fdiv_rn, a correctly rounded
+    division.) Returns the counts."""
+    import re
+
+    log("== SASS counts of the df32 lane (cuobjdump -sass)")
+    text = study_sass("sass_ext_study", SASS_EXT_STUDY_CU)
+    listing = sass_listing(text)
+    funcs = sass_functions(text)
+    c = {"step": _less(sass_counts(funcs["sass_df_step"]),
+                       sass_counts(funcs["sass_df_base"]))}
+    for pre, name in (("sass_ext", "ext"), ("sass_mh", "mh")):
+        b0, b1, b2 = (sass_counts(loop_body(listing[f"{pre}{u}"]))
+                      for u in (0, 1, 2))
+        c[f"{name}_inner"] = _less(b2, b1)
+        c[f"{name}_boundary"] = _less(b1, b0, c[f"{name}_inner"])
+        log(f"  {name} loop bodies U = 0, 1, 2: {b0['all']}, {b1['all']}, "
+            f"{b2['all']} instructions ({b0['ffma']}, {b1['ffma']}, "
+            f"{b2['ffma']} FFMA)")
+    c["ext_finish"] = _less(sass_counts(funcs["sass_ext_finish"]),
+                            sass_counts(funcs["sass_ext_base"]))
+    c["ext_boundary_full"] = {k: c["ext_boundary"][k] + c["ext_finish"][k]
+                              for k in c["ext_finish"]}
+    for name, what in (
+            ("step", "one df32 step (complex_sqr_add)"),
+            ("ext_inner", "classify_ext inner step"),
+            ("ext_boundary", "classify_ext boundary, no lane finished"),
+            ("ext_finish", "ext_finish (a finished lane, with its draw)"),
+            ("ext_boundary_full", "classify_ext boundary of a finished lane"),
+            ("mh_inner", "classify_ext_mh inner step (its loop body, a "
+                         "recorded visit's bin included)"),
+            ("mh_boundary", "classify_ext_mh window boundary")):
+        log(f"  {what}: {_fmt(c[name])}")
+    check(c["step"]["ffma"] == 3 and c["ext_inner"]["ffma"] == 3
+          and c["mh_inner"]["ffma"] == 3,
+          "a df32 step compiles to three FFMA, one per two-product")
+    check(c["ext_boundary"]["ffma"] == 0 and c["ext_finish"]["ffma"] == 0
+          and c["mh_boundary"]["ffma"] == 0,
+          "no FFMA outside the two-products (boundaries, finish, draw)")
+    unrolled = re.compile(r"classify_ext_kernelILi\d+ELb[01]ELi(\d)ELi(\d+)EE")
+    bad, shown = [], []
+    for lib, sub in (("classify_ext", "classify_ext_kernel"),
+                     ("classify_mh", "classify_ext_mh_kernel"),
+                     ("deposit_ext", "replay")):
+        for name, ops in sass_functions(lib_sass(lib)).items():
+            if sub not in name:
+                continue
+            n = sum(op == "FFMA" for op in ops)
+            m = unrolled.search(name)
+            if m and int(m.group(2)) > 0:
+                want = 3 * int(m.group(1)) * int(m.group(2))
+                ok = n == want
+                shown.append(f"{name} {n} (3 x {m.group(1)} x "
+                             f"{m.group(2)} = {want})")
+            else:
+                ok = n % 3 == 0 and n > 0
+                if "ILi0ELi8ELi16EE" in name or "replay" in name:
+                    shown.append(f"{name} {n}")
+            if not ok:
+                bad.append(f"{name}: {n}")
+    for line in shown:
+        if "ILi0E" in line or "replay" in line:
+            log(f"  FFMA in {line}")
+    check(not bad, f"every df32 kernel's FFMAs are its two-products' "
+          f"({bad[:4]})")
+    return c
+
+
+def get_fractal_of(cfg):
+    from cudabrot_tpu_torch.models.fractals import get_fractal
+
+    return get_fractal(cfg.fractal)
+
+
+def ptxas_entries(lib, defines=()):
+    """[(kernel, registers, spill store bytes, spill load bytes)] of a
+    library's last build (nvcc -Xptxas -v)."""
+    import re
+
+    from cudabrot_tpu_torch.ops import _build
+
+    out, entry, spill = [], None, (0, 0)
+    for line in _build.ptxas_report(lib, defines).splitlines():
+        if "Compiling entry function" in line:
+            entry, spill = line.split("'")[1], (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append((entry, int(m.group(1)), *spill))
+            entry = None
+    return out
+
+
+def ext_study(dev, card):
+    """What the two df32 classify kernels spend their time on: the SASS
+    counts (ext_sass_study); the
+    registers and spills of every build; classify_ext at the zoom cell (its
+    lanes after 8 engine passes): the main-path pass in each build
+    (STUDY_EXT_BUILDS, bitwise equal), a STUDY_STEPS-step pass with
+    in-kernel Threefry against the same pass fed its words (the refill's
+    cost), refills per lane-step, the mean lane lifetime, and the share of
+    warp-windows with a finished lane (one-window launches fed the same
+    words) at one and two lanes a thread; classify_ext_mh at mhzoom (its
+    chains after 4 passes) at V = 8 and 32: the main-path pass in each
+    build (STUDY_EXT_MH_BUILDS, bitwise equal), proposals per lane-step and
+    the share of warp-windows with a finished lane; the zoom and mhzoom
+    engine passes (CUDA events, least of 3 rounds); phase 7 (the df32
+    replays and their lone-orbit floor); and the zoom cell through cli.main
+    at each STUDY_EXT_UNROLLS window, and mhzoom at its own and at
+    U = 32, twice each: deposited points/s, lane-steps/s, mean lane
+    lifetime."""
+    import torch
+
+    from cudabrot_tpu_torch import cli
+    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
+    from cudabrot_tpu_torch.ops import prng
+    from cudabrot_tpu_torch.ops import classify as cls
+    from cudabrot_tpu_torch.ops import classify_ext as cx
+    from cudabrot_tpu_torch.ops import classify_mh as cmh
+
+    log(f"== df32 classify study ({card})")
+    ext_sass_study()
+    builds, mh_builds = STUDY_EXT_BUILDS, STUDY_EXT_MH_BUILDS
+    for lib, blds, sub in (("classify_ext", builds, "classify_ext_kernel"),
+                           ("classify_mh", mh_builds,
+                            "classify_ext_mh_kernel")):
+        for label, d in blds:
+            for entry, regs, st, ld in ptxas_entries(lib, d):
+                if sub in entry and "ILi0E" in entry:
+                    log(f"  [{lib} {label}] {entry}: {regs} registers, "
+                        f"spill stores {st} B, loads {ld} B")
+
+    def same(x, y, fields):
+        return (all(same_bits(a, b) for a, b in zip(x.state, y.state))
+                and all(same_bits(getattr(x, f), getattr(y, f))
+                        for f in fields))
+
+    # classify_ext at the zoom cell.
+    cfg = cell_config("zoom")
+    eng = CudaEngine(cfg, device=dev)
+    tn = eng.tuning
+    state = eng.init_state(None)
+    for p in range(8):
+        eng.run_pass(state, p)
+    eng.synchronize()
+    lanes0 = clone_state(state["lanes"])
+    del state, eng
+    n = lanes0.kr.numel()
+    spec = dict(fractal=get_fractal_of(cfg), min_it=tn.min_it,
+                max_it=tn.max_it, steps_per_pass=tn.steps_per_pass,
+                steps_per_flush=tn.steps_per_flush, cycle_detection=True,
+                inner_unroll=tn.inner_unroll,
+                sample_domain=cfg.sample_domain)
+    seed = tuple(prng.bits_host(prng.pass_key(cfg.seed, 0, 9), 2))
+    ext_fields = ("emit_c", "emit_it", "stats")
+    best, ref = {}, None
+    for _ in range(2):
+        for label, d in builds:
+            def call(st, d=d):
+                with ext_build(d):
+                    return cx.classify_pass_ext(st, seed, **spec)
+            t, _, r = time_from(lanes0, call, 5)
+            ref = r if ref is None else ref
+            check(same(r, ref, ext_fields),
+                  f"classify_ext {label}: the pass bitwise == the package's")
+            best[label] = min(best.get(label, 1e9), t)
+    log(f"  classify_ext zoom pass (U={tn.inner_unroll}, "
+        f"{tn.steps_per_pass} steps x {n} lanes), least of 2 rounds of 5: "
+        + ", ".join(f"{label} {t:.4f} ms" for label, t in best.items()))
+    drawn = int(ref.stats[cls.STAT_DRAWN].sum())
+    lane_steps = n * tn.steps_per_pass
+    log(f"  refills per lane-step {drawn / lane_steps:.6f} ({drawn} "
+        f"refills); mean lane lifetime {lane_steps / max(drawn, 1):.1f} "
+        f"lane-steps")
+    short = dict(spec, steps_per_pass=STUDY_STEPS,
+                 steps_per_flush=min(tn.steps_per_flush, STUDY_STEPS))
+    bits = study_bits(dev, seed, short, lanes0.kr.shape[0])
+    t_tf, _, r_tf = time_from(
+        lanes0, lambda st: cx.classify_pass_ext(st, seed, **short), 5)
+    t_b, _, r_b = time_from(
+        lanes0, lambda st: cx.classify_pass_ext(st, seed, bits, **short), 5)
+    check(same(r_tf, r_b, ext_fields),
+          "classify_ext: threefry and bits passes bitwise equal")
+    log(f"  {STUDY_STEPS} steps: threefry {t_tf:.4f} ms, bits {t_b:.4f} ms; "
+        f"Threefry share {(t_tf - t_b) / t_tf:.4f}")
+    U = short["inner_unroll"]
+    one = dict(short, steps_per_pass=U, steps_per_flush=U)
+    st = clone_state(lanes0)
+    fins = []
+    chunks, windows = bits.shape[:2]
+    for c in range(chunks):
+        for w in range(windows):
+            word = bits[c, w][None, None].contiguous()
+            r = cx.classify_pass_ext(st, seed, word, **one)
+            fins.append(r.stats[cls.STAT_DRAWN].reshape(-1) > 0)
+    check(all(same_bits(a, b) for a, b in zip(st, r_tf.state)),
+          "classify_ext: one-window launches leave the pass's lane state")
+    fin = torch.stack(fins)
+    G = fin.shape[0]
+    for S in (1, 2):
+        per = fin.reshape(G, n // (32 * S), 32 * S).sum(-1)
+        log(f"  S={S}: share of warp-windows with a finished lane "
+            f"{float((per > 0).float().mean()):.5f}, finished lanes per such "
+            f"window {float(per.sum() / max(int((per > 0).sum()), 1)):.3f}")
+    del bits, fin, fins, ref, r_tf, r_b, lanes0
+    torch.cuda.empty_cache()
+
+    # classify_ext_mh at the mhzoom cell.
+    mh_fields = MH_OUT_FIELDS
+    for slots in STUDY_MH_SLOTS:
+        cfg = cli.parse_args([*cell_args("mhzoom"), "--mh-visit-slots",
+                              str(slots)])[0]
+        eng = CudaEngine(cfg, device=dev)
+        spec = eng.mh_pass_spec()
+        lanes0 = eng.init_state(None)["lanes"]
+        del eng
+        for p in range(4):
+            cmh.classify_pass_ext_mh(lanes0, (1337, p), **spec)
+        n = lanes0.kr.numel()
+        best, ref = {}, None
+        for _ in range(2):
+            for label, d in mh_builds:
+                def call(st, d=d):
+                    with mh_build(d, "classify_ext_mh"):
+                        return cmh.classify_pass_ext_mh(st, seed, **spec)
+                t, _, r = time_from(lanes0, call, 3)
+                ref = r if ref is None else ref
+                check(same(r, ref, mh_fields),
+                      f"classify_ext_mh V={slots} {label}: the pass bitwise "
+                      f"== the package's")
+                best[label] = min(best.get(label, 1e9), t)
+        log(f"  classify_ext_mh mhzoom pass V={slots} (U="
+            f"{spec['inner_unroll']}, {spec['steps_per_pass']} steps x {n} "
+            f"lanes), least of 2 rounds of 3: " + ", ".join(
+                f"{label} {t:.4f} ms" for label, t in best.items()))
+        drawn = int(ref.stats[cmh.STAT_DRAWN].sum())
+        log(f"  V={slots}: proposals per lane-step "
+            f"{drawn / (n * spec['steps_per_pass']):.6f} ({drawn} resolved)")
+        short = dict(spec, steps_per_pass=STUDY_STEPS,
+                     steps_per_flush=min(spec["steps_per_flush"],
+                                         STUDY_STEPS))
+        bits = mh_study_bits(dev, seed, short, lanes0.kr.shape[0])
+        r_all = cmh.classify_pass_ext_mh(clone_state(lanes0), seed, bits,
+                                         **short)
+        U = short["inner_unroll"]
+        one = dict(short, steps_per_pass=U, steps_per_flush=U)
+        st = clone_state(lanes0)
+        fins = []
+        chunks, windows = bits.shape[:2]
+        for c in range(chunks):
+            for w in range(windows):
+                word = bits[c, w][None, None].contiguous()
+                r = cmh.classify_pass_ext_mh(st, seed, word, **one)
+                fins.append(r.stats[cmh.STAT_DRAWN].reshape(-1) > 0)
+        check(all(same_bits(a, b) for a, b in zip(st, r_all.state)),
+              f"classify_ext_mh V={slots}: one-window launches leave the "
+              f"pass's lane state")
+        fin = torch.stack(fins)
+        G = fin.shape[0]
+        for S in (1, 2):
+            per = fin.reshape(G, n // (32 * S), 32 * S).sum(-1)
+            log(f"  V={slots} S={S}: share of warp-windows with a finished "
+                f"lane {float((per > 0).float().mean()):.5f}")
+        del bits, fin, fins, ref, r_all, lanes0
+        torch.cuda.empty_cache()
+
+    # The two cells' engine passes.
+    for name, reps in (("zoom", 10), ("mhzoom", 5)):
+        eng = CudaEngine(cell_config(name), device=dev)
+        state = eng.init_state(None)
+        for p in range(6):
+            eng.run_pass(state, p)
+        t = min(pass_ms(eng, state, 10 + 20 * r, reps) for r in range(3))
+        log(f"  {name} pass (CUDA events), least of 3 rounds of {reps}: "
+            f"{t:.4f} ms")
+        del eng, state
+        torch.cuda.empty_cache()
+
+    phase_replay_floor(dev, card)
+
+    # Through cli.main: the zoom cell at each window, and mhzoom.
+    os.makedirs(OUT, exist_ok=True)
+    runs = [("zoom", ["--inner-unroll", str(u)]) for u in STUDY_EXT_UNROLLS]
+    runs += [("mhzoom", []), ("mhzoom", ["--inner-unroll", "32"])]
+    for rnd in range(2):
+        for name, extra in runs:
+            passes = dict((n_, p_) for n_, _, p_ in CELLS)[name]
+            stats_path = os.path.join(OUT, f"ext_study_{name}.json")
+            stats, _ = run_cli(
+                [*cell_args(name), *extra, "--passes", str(passes), "-t",
+                 "-1", "-o", os.path.join(OUT, f"ext_study_{name}.pgm"),
+                 "--stats-json", stats_path], stats_path)
+            el = stats["elapsed_seconds"]
+            steps = stats["classify_iters"] + stats["wasted_steps"]
+            pts = stats["on_canvas_points"] / (256 if name == "mhzoom"
+                                                else 1)
+            log(f"  round {rnd} {name} {' '.join(extra)}: {passes} passes "
+                f"in {el:.4f} s, {pts / el:.4e} deposited "
+                f"{'mass' if name == 'mhzoom' else 'points'}/s, "
+                f"{steps / el:.4e} lane-steps/s, mean lane lifetime "
+                f"{steps / max(stats['samples'], 1):.1f} lane-steps, "
+                f"{stats['in_band']} in band, {stats['replay_dropped']} "
+                f"dropped")
 
 
 def profile_calls(fn, reps: int, only: str = ""):
@@ -3003,7 +3500,8 @@ def phase_ids_study(dev, card):
             calls[label] = call
         del ref
         orbits = int((it >= 0).sum())
-        bound, by = bound_ms(OPS_REPLAY_POINT * n, 4 * n + 20 * cr.numel())
+        bound, by = bound_ms(OPS_REPLAY_POINT[0] * n,
+                             4 * n + 20 * cr.numel())
         log(f"  {name} batch: {orbits} orbits, {n} ids, longest "
             f"{int(it[0]) + 1}; bound {bound:.4f} ms ({by})")
         best = {}
@@ -3176,6 +3674,7 @@ def main() -> int:
         "--mh-study": lambda: (mh_deposit_study(dev, card),
                                mh_study(dev, card)),
         "--mh-deposit-study": lambda: mh_deposit_study(dev, card),
+        "--ext-study": lambda: ext_study(dev, card),
     }
     if sys.argv[1:]:
         unknown = [a for a in sys.argv[1:] if a not in studies]
@@ -3184,7 +3683,7 @@ def main() -> int:
                   f"{', '.join(studies)}", file=sys.stderr)
             return 2
         try:
-            phase_build(study=True)
+            phase_build(sys.argv[1:])
             for flag in sys.argv[1:]:
                 studies[flag]()
         except SmokeFailure as e:

@@ -9,23 +9,34 @@
 // df32; escape tracking is always the survival counter; Brent compares hi
 // parts only; the cull runs on the f32 approximation of c; the emission
 // payload is the 24-bit grid indices (kr, ki), which round-trip exactly to
-// the replay.
+// the replay. The window centre and the pitches are kernel arguments.
 //
-// Design. As in classify.cu, one thread is one lane: the 16 state words,
-// the pending emission triple and the 5 counters live in registers across
-// the whole pass, loaded and stored once; the TPU's sequential chunk grid
-// and its VMEM pending scratch become the loops over chunks and windows
-// inside the thread (classify_ext.cuh holds the lane function, shared with
-// the host harness). All arrays are lane-contiguous, so a warp's loads and
-// stores coalesce. The window centre and the pitches are kernel arguments
-// (the TPU kernel's SMEM constants guard against XLA constant folding, a
-// matter that does not arise here).
+// Layout. As in classify.cu, each thread carries S = kLanesPerThread
+// lanes: thread t of global warp g holds lanes (g * S + j) * 32 + t, so
+// every load and store of a warp is 32 consecutive lanes of a
+// lane-contiguous array. A lane's 16 state words, its pending emission and
+// its 5 counters live in registers across the pass, loaded and stored
+// once; the chunk grid is a loop inside the thread, flushing the emission
+// slots after each chunk. With S = 2 a thread carries two independent df32
+// chains, whose dependent operations the compiler interleaves; the
+// package's build carries one (below).
 //
-// Bound. Operations: 94 f32 operations per df32 lane-step against the
-// card's f32 rate; memory traffic is a few bytes per lane per chunk. The
-// df32 step is a long dependent chain (two_prod -> error sum ->
-// quick_two_sum, three times over), so latency, not issue rate, limits a
-// thread; enough resident warps hide it only while registers allow.
+// The window. U df32 updates, unrolled for U in {1, 2, 4, 8, 16, 32} (a
+// run-time loop otherwise), then the part of the boundary every lane
+// takes (classify_ext.cuh ext_window): the finish test, the counter and
+// the Brent save, as selects. A lane that did not finish adds nothing to
+// any stat. The rest of the boundary (the band filter, the pending
+// emission, the stats and the refill, ext_finish) only a finished lane
+// needs: the warp votes, and a warp with no finished lane skips it. At the
+// deep zoom a lane lives ~460 steps, so at U = 1 93% of warp-windows skip
+// it. A finished lane draws its own refill (Threefry of (lane, window)):
+// Threefry is 2.7% of the kernel there, too little to compact.
+//
+// Bound. Operations: the df32 step (FFMA two-products, df32.cuh) and the
+// skipped boundary per lane-step, the whole boundary and the draw per
+// refill, against the card's f32 rate; memory traffic is a few bytes per
+// lane per chunk. The df32 step is a long dependent chain, so latency
+// limits a thread: the resident warps hide it.
 //
 // Arithmetic rounds once per operation, so this kernel equals
 // ops/classify_ext.classify_pass_ext_plain bitwise.
@@ -35,24 +46,97 @@
 
 namespace {
 
-template <int FR, bool VISIT>
-__global__ void __launch_bounds__(256)
+constexpr int kBlock = 128;  // 4 warps
+
+// Lanes per thread. 1 (40 registers, no spills) was faster than 2 (72) at
+// the zoom cell on an NVIDIA H100 80GB HBM3, 700.00 W (least of 2 rounds
+// of 5 passes, PERF.md section 6): 3.83 against 4.01 ms a pass at U = 1,
+// and than 2 held to 64 registers (8 blocks an SM, spilling; 3.84) or to
+// 4 blocks an SM (3.88); at U = 2, 3.38-3.42 against 3.42-3.57
+// (chip_smoke.py --ext-study, which builds the other with
+// -DCB_EXT_LANES_PER_THREAD): the resident warps hide the df32 chain's
+// latency better than a second chain in the thread.
+#ifndef CB_EXT_LANES_PER_THREAD
+#define CB_EXT_LANES_PER_THREAD 1
+#endif
+constexpr int kLanesPerThread = CB_EXT_LANES_PER_THREAD;
+static_assert(kLanesPerThread == 1 || kLanesPerThread == 2,
+              "CB_EXT_LANES_PER_THREAD must be 1 or 2");
+
+template <int FR, bool VISIT, int S, int U>
+__global__ void __launch_bounds__(kBlock)
     classify_ext_kernel(cb::ClassifyExtArgs a) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < a.lanes) cb::classify_ext_lane<FR, VISIT>(a, lane);
+  const int t = threadIdx.x & 31;
+  const int warp = (blockIdx.x * kBlock + threadIdx.x) >> 5;
+  if (warp * S * 32 >= a.lanes) return;  // warp-uniform
+  const int u = U > 0 ? U : a.unroll;
+
+  int lane[S];
+  bool live[S];
+  cb::ExtLane L[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    lane[j] = (warp * S + j) * 32 + t;
+    live[j] = lane[j] < a.lanes;
+    L[j] = cb::load_ext_lane(a, live[j] ? lane[j] : 0);
+  }
+
+  for (int chunk = 0; chunk < a.chunks; ++chunk) {
+    for (int w = 0; w < a.windows; ++w) {
+      bool fin[S];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        fin[j] = cb::ext_window<FR, VISIT, U>(a, L[j]) && live[j];
+        any = any || fin[j];
+      }
+      // Every lane of the warp reaches the vote; lanes past a.lanes take
+      // part with fin false.
+      if (!__any_sync(0xffffffffu, any)) continue;
+      const int gwin = chunk * a.windows + w;
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        if (fin[j]) cb::ext_finish<FR, VISIT>(a, L[j], lane[j], gwin, u);
+    }
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+      if (live[j]) cb::flush_ext_lane(a, L[j], chunk, lane[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+    if (live[j]) cb::store_ext_lane(a, L[j], lane[j]);
 }
 
-template <int FR, bool VISIT>
+template <int FR, bool VISIT, int U>
 cudaError_t launch(const cb::ClassifyExtArgs& a, cudaStream_t stream) {
-  const int block = 256;
-  const int grid = (a.lanes + block - 1) / block;
-  classify_ext_kernel<FR, VISIT><<<grid, block, 0, stream>>>(a);
+  constexpr int S = kLanesPerThread;
+  const int warps = (a.lanes + 32 * S - 1) / (32 * S);
+  const int grid = (warps + kBlock / 32 - 1) / (kBlock / 32);
+  classify_ext_kernel<FR, VISIT, S, U><<<grid, kBlock, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+using LaunchFn = cudaError_t (*)(const cb::ClassifyExtArgs&, cudaStream_t);
+
+// The instantiation for a window of `unroll` updates: unrolled for the
+// powers of two up to 32, a run-time loop (U = 0) otherwise.
+template <int FR, bool VISIT>
+LaunchFn pick_unroll(int unroll) {
+  switch (unroll) {
+    case 1: return launch<FR, VISIT, 1>;
+    case 2: return launch<FR, VISIT, 2>;
+    case 4: return launch<FR, VISIT, 4>;
+    case 8: return launch<FR, VISIT, 8>;
+    case 16: return launch<FR, VISIT, 16>;
+    case 32: return launch<FR, VISIT, 32>;
+  }
+  return launch<FR, VISIT, 0>;
+}
+
 template <int FR>
-cudaError_t pick(int visit, const cb::ClassifyExtArgs& a, cudaStream_t s) {
-  return visit ? launch<FR, true>(a, s) : launch<FR, false>(a, s);
+LaunchFn pick(int visit, int unroll) {
+  return visit ? pick_unroll<FR, true>(unroll)
+               : pick_unroll<FR, false>(unroll);
 }
 
 }  // namespace
@@ -64,14 +148,18 @@ extern "C" int cb_classify_ext(void** ptrs, const int* iargs,
                                void* stream) {
   const cb::ClassifyExtArgs a =
       cb::classify_ext_args(ptrs, iargs, fargs, k0, k1);
-  if (a.lanes <= 0) return int(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
   const int visit = iargs[1];
+  LaunchFn fn = nullptr;
   switch (iargs[0]) {
-    case cb::kBuddhabrot: return int(pick<cb::kBuddhabrot>(visit, a, s));
-    case cb::kBurningShip: return int(pick<cb::kBurningShip>(visit, a, s));
+    case cb::kBuddhabrot: fn = pick<cb::kBuddhabrot>(visit, a.unroll); break;
+    case cb::kBurningShip:
+      fn = pick<cb::kBurningShip>(visit, a.unroll);
+      break;
     case cb::kAntiBuddhabrot:
-      return int(pick<cb::kAntiBuddhabrot>(visit, a, s));
+      fn = pick<cb::kAntiBuddhabrot>(visit, a.unroll);
+      break;
   }
-  return int(cudaErrorInvalidValue);
+  if (fn == nullptr || a.lanes <= 0 || a.unroll <= 0)
+    return int(cudaErrorInvalidValue);
+  return int(fn(a, static_cast<cudaStream_t>(stream)));
 }

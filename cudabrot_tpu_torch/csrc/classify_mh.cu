@@ -23,47 +23,42 @@
 // kernel exists for.
 //
 // Design. mh.cuh holds the lane's functions, templates on the orbit
-// policy, shared with the host harness. A lane's 18 scalar state words (22
-// at df32), the pending triple and the 8 counters live in registers across
-// the pass, loaded and stored once; the TPU's sequential chunk grid and its
-// VMEM pending scratch become loops and registers in the thread. Each
-// kernel is a template on V in {2, 4, 8, 16, 32}. The three reservoirs (vb,
-// xb and the pending bins, V words each): the df32 kernel keeps them in
-// registers (mh.cuh RegSlots: the run-time slot's write an unrolled
-// predicated select), the f32 kernel the chain's two in one column of
-// shared memory per lane (SharedSlots). All arrays are lane-contiguous.
+// policy, shared with the host harness, and both kernels run one warp
+// template (mh_pass below). A lane's 18 scalar state words (22 at df32),
+// the pending triple and the 8 counters live in registers across the pass,
+// loaded and stored once; the TPU's sequential chunk grid and its VMEM
+// pending scratch become loops and registers in the thread. Each kernel is
+// a template on V in {2, 4, 8, 16, 32} and on the window's U, unrolled at
+// compile time. Thread t of warp g carries S lanes, (g * S + j) * 32 + t,
+// so all lane-contiguous arrays load and store coalesced. The three
+// V-word reservoirs (vb, xb and the pending bins) live in registers or in
+// one column of shared memory per lane, as each kernel's build says.
 //
-// The f32 kernel compacts its warps' boundary draws, as classify.cu does
+// Both kernels compact their warps' boundary draws, as classify.cu does
 // its refills. A finished proposal needs two Threefry-2x32 blocks (~70
 // instructions each); at the crop cell 94% of warp-windows have a finished
 // lane, so with the draw inside the lane's branch the whole warp paid both
-// blocks at nearly every window. Here thread t of warp g carries
-// S = kLanesPerThread lanes, (g * S + j) * 32 + t; after the window the
-// warp ballots its finished lanes, each writes its lane id at the slot the
-// popcounts give it (classify.cuh refill_slot), and after a __syncwarp the
-// warp computes the 2F blocks of its F finished lanes in ceil(2F / 32)
-// full passes (entry q: lane q_lane[q / 2], block q % 2, mh.cuh mh_block);
-// after a second __syncwarp each finished lane reads its four words back
-// and resolves (mh_resolve). A block is Threefry of (lane, window),
-// whichever thread computes it, so the words, and the pass, are the
-// one-thread-per-lane kernel's bit for bit. But a window there is 16 steps
-// and a lane resolves a proposal every ~190: the compaction saved 4-7% of
-// the one-thread-per-lane kernel. The window's steps cost more, so the kernel
-// also unrolls the window at compile time and keeps the chain's two
-// reservoirs in shared memory, which leaves a lane 64 registers at V = 8.
-// The df32
-// kernel keeps one thread per lane and the run-time window
-// (mh.cuh classify_mh_lane): its df32 step (~50 registers, ~110
-// instructions) leaves the draws a small share.
+// blocks at nearly every window. After the window the warp ballots its
+// finished lanes, each writes its lane id at the slot the popcounts give
+// it (classify.cuh refill_slot), and after a __syncwarp the warp computes
+// the 2F blocks of its F finished lanes in ceil(2F / 32) full passes
+// (entry q: lane q_lane[q / 2], block q % 2, mh.cuh mh_block); after a
+// second __syncwarp each finished lane reads its four words back and
+// resolves (mh_resolve). A block is Threefry of (lane, window), whichever
+// thread computes it, so the words, and the pass, are those of a lane
+// that draws its own, bit for bit: the compaction saved 4-7% of the f32
+// kernel at mhcrop. At mhzoom 79% of the df32 kernel's warp-windows have
+// a finished lane (a proposal every ~340 lane-steps, a window of 16), and
+// compacted it was 1-2% faster at V = 8, level at V = 32.
 //
-// Bound. Operations: the orbit step (f32, or 94 f32 operations at df32
-// plus the centre-relative window coordinates), the window test, the LCG
-// and the reservoir test per inner step, the chain boundary per window,
-// against the card's f32 rate, and the Threefry blocks on the integer ALU;
-// memory traffic is a few words per lane per chunk. Warps still diverge in
-// mh_resolve (only finished lanes resolve) and in record_visit (only
-// in-window steps quantize a bin); the df32 step is a long dependent chain,
-// so latency limits a thread.
+// Bound. Operations: the orbit step (f32, or the df32 step with FFMA
+// two-products plus the centre-relative window coordinates), the window
+// test, the LCG and the reservoir test per inner step, the chain boundary
+// per window, against the card's f32 rate, and the Threefry blocks on the
+// integer ALU; memory traffic is a few words per lane per chunk. Warps
+// still diverge in mh_resolve (only finished lanes resolve) and in
+// record_visit (only in-window steps quantize a bin); the df32 step is a
+// long dependent chain, so latency limits a thread.
 //
 // Arithmetic rounds once per operation, so these kernels equal
 // ops/classify_mh.classify_pass_mh_plain (ext = False, True) bitwise.
@@ -83,55 +78,95 @@ using cb::mh::OrbitF32;
 constexpr int kBlock = 128;  // 4 warps
 constexpr int kWarps = kBlock / 32;
 
-// Lanes per thread of the f32 kernel: 1, faster than 2 at the mhcrop cell
-// (chip_smoke.py --mh-study builds 2 with -DCB_MH_LANES_PER_THREAD).
+// Each kernel's build, chosen by measurement (chip_smoke.py --mh-study for
+// the f32 kernel at the mhcrop cell, --ext-study for the df32 one at
+// mhzoom; the study builds set the macros with -D).
+//  * Lanes per thread: CB_MH_LANES_PER_THREAD (f32) and
+//    CB_MH_EXT_LANES_PER_THREAD (df32), 1 or 2. At f32, 1 was faster than
+//    2 at mhcrop.
+//  * Where a lane's three V-word reservoirs live, CB_MH_SHARED_SLOTS and
+//    CB_MH_EXT_SHARED_SLOTS: 0 all in registers (mh.cuh RegSlots, the
+//    run-time slot's write an unrolled predicated select); 1 the chain's
+//    xb and p_b, which only a boundary touches, in shared memory
+//    (SharedSlots) and the visit reservoir vb in registers; 2 all three in
+//    shared memory, so record_visit's write is one indexed store. At f32, 1
+//    was the fastest at V = 8 by 1-2% (64 registers, against 80 and 54-56),
+//    2 at V = 32. At df32, 2 was the fastest at mhzoom at both widths (on
+//    an NVIDIA H100 80GB HBM3, 700.00 W, least of 2 rounds of 3 passes in
+//    each of two runs, PERF.md section 6): V = 8 14.61 and 14.70 ms a pass
+//    against 15.41-15.51 with 1 and 15.75-15.86 with 0; V = 32
+//    16.39-16.46 against 18.93-19.02 and 19.68-19.78. The df32 orbit's
+//    registers leave the reservoirs none (80 registers with 1 at V = 8,
+//    158 at V = 32). Two lanes a thread spilled (255 registers) and took
+//    19.67-19.68 ms at V = 8, 20.88-21.01 at V = 32.
+//  * The window, CB_MH_WINDOW_UNROLL (both kernels): 1 unrolls it at
+//    compile time for U in {4, 8, 16, 32} (6-8% faster a pass at mhcrop,
+//    U = 16; at mhzoom, the same card and runs, 14.61-14.70 ms against
+//    15.87-15.96 as a loop at V = 8, and level at V = 32, 16.31-16.39 as
+//    a loop); 0 runs the loop at the run-time U.
 #ifndef CB_MH_LANES_PER_THREAD
 #define CB_MH_LANES_PER_THREAD 1
 #endif
-constexpr int kLanesPerThread = CB_MH_LANES_PER_THREAD;
-static_assert(kLanesPerThread == 1 || kLanesPerThread == 2,
-              "CB_MH_LANES_PER_THREAD must be 1 or 2");
-
-// Where the f32 kernel keeps a lane's three V-word reservoirs: 1 (the
-// package's) the chain's xb and p_b, which only a boundary touches, in
-// shared memory and the visit reservoir vb in registers (64 registers at
-// V = 8, 96 at V = 32); the study builds (-DCB_MH_SHARED_SLOTS) 0, all in
-// registers (80 and 154), and 2, all three in shared memory, so
-// record_visit's write is one indexed store (54-56 at every V). 1 was the
-// fastest at the mhcrop cell (V = 8) by 1-2%, 2 at V = 32 (chip_smoke.py
-// --mh-study).
 #ifndef CB_MH_SHARED_SLOTS
 #define CB_MH_SHARED_SLOTS 1
 #endif
-static_assert(CB_MH_SHARED_SLOTS >= 0 && CB_MH_SHARED_SLOTS <= 2,
-              "CB_MH_SHARED_SLOTS must be 0, 1 or 2");
-template <int V>
-using ChainSlots = std::conditional_t<(CB_MH_SHARED_SLOTS >= 1),
-                                      cb::mh::SharedSlots,
-                                      cb::mh::RegSlots<V>>;
-template <int V>
-using VisitSlots = std::conditional_t<(CB_MH_SHARED_SLOTS >= 2),
-                                      cb::mh::SharedSlots,
-                                      cb::mh::RegSlots<V>>;
-// Shared-memory reservoirs of a lane, and the bytes of a block's.
-constexpr int kSharedSlotArrays = CB_MH_SHARED_SLOTS == 0   ? 0
-                                  : CB_MH_SHARED_SLOTS == 1 ? 2
-                                                            : 3;
-constexpr size_t slot_bytes(int V, int S) {
-  return size_t(kSharedSlotArrays) * V * kBlock * S * sizeof(int32_t);
-}
-
-// The f32 kernel's window: 1 (the package's) unrolls it at compile time
-// for U in {4, 8, 16, 32}, so the steps of a window are scheduled together
-// (6-8% faster a pass at the mhcrop cell, U = 16); the study build
-// -DCB_MH_WINDOW_UNROLL=0 runs the loop at the run-time U, as the df32
-// kernel does.
+#ifndef CB_MH_EXT_LANES_PER_THREAD
+#define CB_MH_EXT_LANES_PER_THREAD 1
+#endif
+#ifndef CB_MH_EXT_SHARED_SLOTS
+#define CB_MH_EXT_SHARED_SLOTS 2
+#endif
 #ifndef CB_MH_WINDOW_UNROLL
 #define CB_MH_WINDOW_UNROLL 1
 #endif
 
-template <int FR, int V, int S, int U>
-__global__ void __launch_bounds__(kBlock) classify_mh_kernel(Args a) {
+template <class Orbit>
+struct Build;
+template <>
+struct Build<OrbitF32> {
+  static constexpr int S = CB_MH_LANES_PER_THREAD;
+  static constexpr int shared = CB_MH_SHARED_SLOTS;
+};
+template <>
+struct Build<OrbitDf> {
+  static constexpr int S = CB_MH_EXT_LANES_PER_THREAD;
+  static constexpr int shared = CB_MH_EXT_SHARED_SLOTS;
+};
+static_assert(Build<OrbitF32>::S == 1 || Build<OrbitF32>::S == 2,
+              "CB_MH_LANES_PER_THREAD must be 1 or 2");
+static_assert(Build<OrbitDf>::S == 1 || Build<OrbitDf>::S == 2,
+              "CB_MH_EXT_LANES_PER_THREAD must be 1 or 2");
+static_assert(Build<OrbitF32>::shared >= 0 && Build<OrbitF32>::shared <= 2,
+              "CB_MH_SHARED_SLOTS must be 0, 1 or 2");
+static_assert(Build<OrbitDf>::shared >= 0 && Build<OrbitDf>::shared <= 2,
+              "CB_MH_EXT_SHARED_SLOTS must be 0, 1 or 2");
+
+template <class Orbit, int V>
+using ChainSlots = std::conditional_t<(Build<Orbit>::shared >= 1),
+                                      cb::mh::SharedSlots,
+                                      cb::mh::RegSlots<V>>;
+template <class Orbit, int V>
+using VisitSlots = std::conditional_t<(Build<Orbit>::shared >= 2),
+                                      cb::mh::SharedSlots,
+                                      cb::mh::RegSlots<V>>;
+
+// The bytes of a block's shared reservoirs.
+template <class Orbit>
+constexpr size_t slot_bytes(int V) {
+  constexpr int arrays = Build<Orbit>::shared == 0   ? 0
+                         : Build<Orbit>::shared == 1 ? 2
+                                                     : 3;
+  return size_t(arrays) * V * kBlock * Build<Orbit>::S * sizeof(int32_t);
+}
+
+// One block's share of a pass: S lanes a thread, thread t of global warp
+// g holding lanes (g * S + j) * 32 + t. Each window: the lanes' windows
+// (mh_window, unrolled for U > 0), mh_advance for the unfinished, then the
+// finished lanes' boundary draws, compacted, and mh_resolve.
+template <class Orbit, int FR, int V, int U>
+__device__ __forceinline__ void mh_pass(const Args& a) {
+  using B = Build<Orbit>;
+  constexpr int S = B::S;
   __shared__ int q_lane[kWarps][32 * S];
   __shared__ uint2 q_words[kWarps][64 * S];
   // The shared reservoirs: array r's word k of the lane in column c at
@@ -142,42 +177,44 @@ __global__ void __launch_bounds__(kBlock) classify_mh_kernel(Args a) {
   const int warp = (blockIdx.x * kBlock + threadIdx.x) >> 5;
   if (warp * S * 32 >= a.lanes) return;  // warp-uniform
 
+  using CS = ChainSlots<Orbit, V>;
+  using VS = VisitSlots<Orbit, V>;
   int lane[S];
   bool live[S];
-  cb::mh::MhLane<V, OrbitF32, VisitSlots<V>, ChainSlots<V>> L[S];
+  cb::mh::MhLane<V, Orbit, VS, CS> L[S];
 #pragma unroll
   for (int j = 0; j < S; ++j) {
     lane[j] = (warp * S + j) * 32 + t;
     live[j] = lane[j] < a.lanes;
     const int stride = kBlock * S;
     int32_t* col = slots_s + j * kBlock + threadIdx.x;
-    if constexpr (std::is_same_v<ChainSlots<V>, cb::mh::SharedSlots>) {
+    if constexpr (std::is_same_v<CS, cb::mh::SharedSlots>) {
       L[j].ch.xb = {col, stride};
       L[j].ch.p_b = {col + V * stride, stride};
     }
-    if constexpr (std::is_same_v<VisitSlots<V>, cb::mh::SharedSlots>)
+    if constexpr (std::is_same_v<VS, cb::mh::SharedSlots>)
       L[j].vb = {col + 2 * V * stride, stride};
     cb::mh::load_mh_lane(a, live[j] ? lane[j] : 0, L[j]);
   }
 
   for (int chunk = 0; chunk < a.chunks; ++chunk) {
     for (int w = 0; w < a.windows; ++w) {
+      const int gwin = chunk * a.windows + w;
       bool fin[S];
-      uint32_t mask[S];
-      int F = 0;
 #pragma unroll
       for (int j = 0; j < S; ++j) {
         fin[j] = cb::mh::mh_window<FR, U>(a, L[j]);
         if (!fin[j]) cb::mh::mh_advance(a, L[j], U > 0 ? U : a.unroll);
         fin[j] = fin[j] && live[j];
       }
+      uint32_t mask[S];
+      int F = 0;
 #pragma unroll
       for (int j = 0; j < S; ++j) {
         mask[j] = __ballot_sync(0xffffffffu, fin[j]);
         F += __popc(mask[j]);
       }
       if (F == 0) continue;  // warp-uniform
-      const int gwin = chunk * a.windows + w;
       int slot[S];
 #pragma unroll
       for (int j = 0; j < S; ++j) {
@@ -208,46 +245,48 @@ __global__ void __launch_bounds__(kBlock) classify_mh_kernel(Args a) {
     if (live[j]) cb::mh::store_mh_lane(a, L[j], lane[j]);
 }
 
-template <int FR, int V>
-__global__ void __launch_bounds__(256) classify_ext_mh_kernel(Args a) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < a.lanes) cb::mh::classify_mh_lane<FR, V, OrbitDf>(a, lane);
+template <int FR, int V, int U>
+__global__ void __launch_bounds__(kBlock) classify_mh_kernel(Args a) {
+  mh_pass<OrbitF32, FR, V, U>(a);
 }
 
 template <int FR, int V, int U>
-cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
-  constexpr int S = kLanesPerThread;
+__global__ void __launch_bounds__(kBlock) classify_ext_mh_kernel(Args a) {
+  mh_pass<OrbitDf, FR, V, U>(a);
+}
+
+template <class Orbit, int FR, int V, int U>
+cudaError_t launch_u(const Args& a, cudaStream_t stream) {
+  constexpr int S = Build<Orbit>::S;
   const int warps = (a.lanes + 32 * S - 1) / (32 * S);
   const int grid = (warps + kWarps - 1) / kWarps;
-  constexpr size_t smem = slot_bytes(V, S);
+  constexpr size_t smem = slot_bytes<Orbit>(V);
+  auto kernel = [] {
+    if constexpr (std::is_same_v<Orbit, OrbitDf>)
+      return classify_ext_mh_kernel<FR, V, U>;
+    else
+      return classify_mh_kernel<FR, V, U>;
+  }();
   if (smem > 0) {
     const cudaError_t e = cudaFuncSetAttribute(
-        classify_mh_kernel<FR, V, S, U>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return e;
   }
-  classify_mh_kernel<FR, V, S, U><<<grid, kBlock, smem, stream>>>(a);
+  kernel<<<grid, kBlock, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <class Orbit, int FR, int V>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  if constexpr (std::is_same_v<Orbit, OrbitDf>) {
-    const int block = 256;
-    const int grid = (a.lanes + block - 1) / block;
-    classify_ext_mh_kernel<FR, V><<<grid, block, 0, stream>>>(a);
-    return cudaGetLastError();
-  } else {
 #if CB_MH_WINDOW_UNROLL
-    switch (a.unroll) {
-      case 4: return launch_f32<FR, V, 4>(a, stream);
-      case 8: return launch_f32<FR, V, 8>(a, stream);
-      case 16: return launch_f32<FR, V, 16>(a, stream);
-      case 32: return launch_f32<FR, V, 32>(a, stream);
-    }
-#endif
-    return launch_f32<FR, V, 0>(a, stream);
+  switch (a.unroll) {
+    case 4: return launch_u<Orbit, FR, V, 4>(a, stream);
+    case 8: return launch_u<Orbit, FR, V, 8>(a, stream);
+    case 16: return launch_u<Orbit, FR, V, 16>(a, stream);
+    case 32: return launch_u<Orbit, FR, V, 32>(a, stream);
   }
+#endif
+  return launch_u<Orbit, FR, V, 0>(a, stream);
 }
 
 template <class Orbit, int FR>

@@ -8,12 +8,17 @@
 // (plain operators; build host code with -ffp-contract=off). So the
 // error-free transformations hold without the JAX module's runtime-zero
 // product seal, which is dropped here as in ops/df32.py: p = RN(a * b).
+// A product's error is the one fused operation: cb::ffma, spelled
+// __fmaf_rn on the device (-fmad=false keeps every other product and sum
+// apart) and std::fmaf on the host (glibc's rounds once).
 // Everything is __host__ __device__, so g++ can build the functions into a
 // CPU harness (tests/test_torch_df32.py) and hold them bitwise against the
 // PyTorch versions.
 #pragma once
 
 #include <string.h>
+
+#include <cmath>
 
 #include "orbit.cuh"
 
@@ -23,6 +28,15 @@ namespace df {
 struct F2 {
   float hi, lo;
 };
+
+// RN(a * b + c), rounded once.
+CB_HD float ffma(float a, float b, float c) {
+#if defined(__CUDA_ARCH__)
+  return __fmaf_rn(a, b, c);
+#else
+  return std::fmaf(a, b, c);
+#endif
+}
 
 CB_HD uint32_t float_bits(float a) {
 #if defined(__CUDA_ARCH__)
@@ -60,30 +74,26 @@ CB_HD F2 quick_two_sum(float a, float b) {
 }
 
 // Bitmask Veltkamp split: hi keeps the top 12 mantissa bits, lo = a - hi
-// is exact; all partial products of two halves fit 24 bits exactly.
+// is exact; all partial products of two halves fit 24 bits exactly. The
+// two-products below no longer need it (one FFMA gives their error); it
+// stays the JAX module's split, function for function with ops/df32.py.
 CB_HD F2 split(float a) {
   const float hi = bits_float(float_bits(a) & 0xFFFFF000u);
   return {hi, fsub(a, hi)};
 }
 
-// p = RN(a * b), p + e == a * b (modulo <= 1 ulp of e).
+// p = RN(a * b) and its exact error e = RN(a * b - p), one fused
+// multiply-add: p + e == a * b wherever the product does not overflow and
+// the error is not subnormal. ops/df32.two_prod computes the same bits in
+// float64 everywhere (signed zeros, subnormal errors, inf and NaN).
 CB_HD F2 two_prod(float a, float b) {
   const float p = fmul(a, b);
-  const F2 x = split(a), y = split(b);
-  float e = fsub(fmul(x.hi, y.hi), p);
-  e = fadd(e, fmul(x.hi, y.lo));
-  e = fadd(e, fmul(x.lo, y.hi));
-  e = fadd(e, fmul(x.lo, y.lo));
-  return {p, e};
+  return {p, ffma(a, b, -p)};
 }
 
 CB_HD F2 two_prod_sqr(float a) {
   const float p = fmul(a, a);
-  const F2 x = split(a);
-  float e = fsub(fmul(x.hi, x.hi), p);
-  e = fadd(e, fmul(2.0f, fmul(x.hi, x.lo)));
-  e = fadd(e, fmul(x.lo, x.lo));
-  return {p, e};
+  return {p, ffma(a, a, -p)};
 }
 
 CB_HD F2 add(F2 a, F2 b) {

@@ -21,6 +21,7 @@
 // (-ffp-contract=off: every product and sum must round once, as
 // __fmul_rn/__fadd_rn do on the device.) Nothing in the package loads it;
 // tests/test_torch_df32.py builds it when g++ is present.
+#include <tuple>
 #include <type_traits>
 #include <vector>
 
@@ -33,45 +34,17 @@ using cb::df::F2;
 
 namespace {
 
-// One MH classify pass, lanes looped on the CPU: the instantiation is
-// picked by reservoir width, then by fractal.
-template <int FR, class Orbit>
-int mh_lanes(int slots, const cb::mh::ClassifyMhArgs& a) {
-  for (int lane = 0; lane < a.lanes; ++lane) {
-    switch (slots) {
-      case 2: cb::mh::classify_mh_lane<FR, 2, Orbit>(a, lane); break;
-      case 4: cb::mh::classify_mh_lane<FR, 4, Orbit>(a, lane); break;
-      case 8: cb::mh::classify_mh_lane<FR, 8, Orbit>(a, lane); break;
-      case 16: cb::mh::classify_mh_lane<FR, 16, Orbit>(a, lane); break;
-      case 32: cb::mh::classify_mh_lane<FR, 32, Orbit>(a, lane); break;
-      default: return 1;
-    }
-  }
-  return 0;
-}
-
-template <class Orbit>
-int mh_fractal(int fractal, int slots,
-                      const cb::mh::ClassifyMhArgs& a) {
-  switch (fractal) {
-    case cb::kBuddhabrot: return mh_lanes<cb::kBuddhabrot, Orbit>(slots, a);
-    case cb::kBurningShip: return mh_lanes<cb::kBurningShip, Orbit>(slots, a);
-    case cb::kAntiBuddhabrot:
-      return mh_lanes<cb::kAntiBuddhabrot, Orbit>(slots, a);
-  }
-  return 1;
-}
-
-// One pass of the f32 MH classify kernel (classify_mh.cu) with S lanes
+// One pass of an MH classify kernel (classify_mh.cu mh_pass) with S lanes
 // per thread, its warps emulated in turn: each warp's 32 threads run their
-// S lanes' windows (mh_window), the finished lanes queue their ids at the
-// slots refill_slot gives them, the 2F boundary blocks are computed in
-// passes of 32 (entry q: lane q / 2's block q % 2, as thread q takes
-// entries q, q + 32, ...), and each finished lane resolves with its own
-// four words (mh_resolve). SH places the reservoirs as the kernel's
-// CB_MH_SHARED_SLOTS does: 0 registers, 1 xb and p_b in columns of a
-// shared array, 2 vb too; UC > 0 runs the window unrolled for U = UC, as
-// the kernel's CB_MH_WINDOW_UNROLL build does.
+// S lanes' windows (mh_window), mh_advance for the unfinished, the
+// finished lanes queue their ids at the slots refill_slot gives them, the
+// 2F boundary blocks are computed in passes of 32 (entry q: lane q / 2's
+// block q % 2, as thread q takes entries q, q + 32, ...), and each
+// finished lane resolves with its own four words (mh_resolve). SH places the
+// reservoirs as the kernel's CB_MH_SHARED_SLOTS (CB_MH_EXT_SHARED_SLOTS)
+// does: 0 registers, 1 xb and p_b in columns of a shared array, 2 vb too;
+// UC > 0 runs the window unrolled for U = UC, as the kernel's
+// CB_MH_WINDOW_UNROLL build does.
 template <int FR, int V, int S, int SH, int UC, class Orbit>
 void mh_warps(const cb::mh::ClassifyMhArgs& a) {
   using CS = std::conditional_t<(SH >= 1), cb::mh::SharedSlots,
@@ -142,45 +115,55 @@ void mh_warps(const cb::mh::ClassifyMhArgs& a) {
   }
 }
 
-// mh_warps with the instantiation picked by lanes per thread, reservoir
-// places, the window's unrolling (at U = 4 only), reservoir width (2, 8
-// and 32: the narrowest, the default, the widest) and fractal.
-template <class Orbit>
+// A build of an MH kernel as the emulation takes it: lanes per thread,
+// reservoirs in shared memory, the window unrolled (at U = 4 only).
+template <int S_, int SH_, int UC_>
+struct MhBuild {
+  static constexpr int S = S_, SH = SH_, UC = UC_;
+};
+
+// The builds each kernel's tests emulate: the f32 kernel's package build
+// and its study builds, and the df32 kernel's.
+using F32Builds = std::tuple<MhBuild<1, 1, 4>, MhBuild<2, 1, 0>,
+                             MhBuild<1, 0, 0>, MhBuild<1, 2, 0>,
+                             MhBuild<1, 1, 0>>;
+using DfBuilds = std::tuple<MhBuild<1, 2, 4>, MhBuild<2, 2, 4>,
+                            MhBuild<1, 0, 4>, MhBuild<1, 1, 4>,
+                            MhBuild<1, 2, 0>>;
+
+// mh_warps with the instantiation picked by build (one of Builds; unroll
+// is the build's UC), reservoir width (one of Vs) and fractal; returns 1
+// for an instantiation it lacks.
+template <class Orbit, class Builds, int... Vs>
 int mh_warps_pick(int fractal, int slots, int per_thread, int shared,
-                  int unrolled, const cb::mh::ClassifyMhArgs& a) {
-  auto by_s = [&](auto fr, auto v) {
+                  int unroll, const cb::mh::ClassifyMhArgs& a) {
+  int rc = 1;
+  auto run = [&](auto fr, auto v, auto build) {
     constexpr int FR = decltype(fr)::value, V = decltype(v)::value;
-    if (unrolled) {
-      if (per_thread != 1 || shared != 1 || a.unroll != 4) return 1;
-      mh_warps<FR, V, 1, 1, 4, Orbit>(a);
-      return 0;
-    }
-    switch (per_thread * 4 + shared) {
-      case 4: mh_warps<FR, V, 1, 0, 0, Orbit>(a); return 0;
-      case 5: mh_warps<FR, V, 1, 1, 0, Orbit>(a); return 0;
-      case 6: mh_warps<FR, V, 1, 2, 0, Orbit>(a); return 0;
-      case 9: mh_warps<FR, V, 2, 1, 0, Orbit>(a); return 0;
-    }
-    return 1;
+    using B = decltype(build);
+    if (B::S != per_thread || B::SH != shared || B::UC != unroll) return;
+    mh_warps<FR, V, B::S, B::SH, B::UC, Orbit>(a);
+    rc = 0;
+  };
+  auto by_build = [&](auto fr, auto v) {
+    std::apply([&](auto... b) { (run(fr, v, b), ...); }, Builds{});
   };
   auto by_v = [&](auto fr) {
-    using std::integral_constant;
-    switch (slots) {
-      case 2: return by_s(fr, integral_constant<int, 2>());
-      case 8: return by_s(fr, integral_constant<int, 8>());
-      case 32: return by_s(fr, integral_constant<int, 32>());
-    }
-    return 1;
+    ((slots == Vs ? by_build(fr, std::integral_constant<int, Vs>()) : void()),
+     ...);
   };
   switch (fractal) {
     case cb::kBuddhabrot:
-      return by_v(std::integral_constant<int, cb::kBuddhabrot>());
+      by_v(std::integral_constant<int, cb::kBuddhabrot>());
+      break;
     case cb::kBurningShip:
-      return by_v(std::integral_constant<int, cb::kBurningShip>());
+      by_v(std::integral_constant<int, cb::kBurningShip>());
+      break;
     case cb::kAntiBuddhabrot:
-      return by_v(std::integral_constant<int, cb::kAntiBuddhabrot>());
+      by_v(std::integral_constant<int, cb::kAntiBuddhabrot>());
+      break;
   }
-  return 1;
+  return rc;
 }
 
 // One df32 replay of emission i into the sink, for its own length (a
@@ -298,6 +281,88 @@ int classify_warps_by_variant(int thin, int visit, int per_thread,
                  : classify_warps_by_s<FR, false, false>(per_thread, a);
   return visit ? classify_warps_by_s<FR, true, true>(per_thread, a)
                : classify_warps_by_s<FR, true, false>(per_thread, a);
+}
+
+// One pass of the df32 classify kernel (classify_ext.cu) with S lanes per
+// thread, its warps emulated in turn: each warp's 32 threads run their S
+// lanes' windows (ext_window, unrolled for U > 0, a run-time loop for
+// U = 0); a warp with no finished live lane goes on to its next window, as
+// the kernel's vote has it; otherwise each finished lane takes the rest of
+// its boundary and its refill (ext_finish).
+template <int FR, bool VISIT, int S, int U>
+void classify_ext_warps(const cb::ClassifyExtArgs& a) {
+  const int warps = (a.lanes + 32 * S - 1) / (32 * S);
+  const int u = U > 0 ? U : a.unroll;
+  std::vector<cb::ExtLane> L(32 * S);
+  for (int g = 0; g < warps; ++g) {
+    auto lane = [&](int t, int j) { return (g * S + j) * 32 + t; };
+    auto live = [&](int t, int j) { return lane(t, j) < a.lanes; };
+    for (int t = 0; t < 32; ++t)
+      for (int j = 0; j < S; ++j)
+        L[t * S + j] = cb::load_ext_lane(a, live(t, j) ? lane(t, j) : 0);
+    for (int chunk = 0; chunk < a.chunks; ++chunk) {
+      for (int w = 0; w < a.windows; ++w) {
+        bool fin[32][S];
+        bool any = false;
+        for (int t = 0; t < 32; ++t)
+          for (int j = 0; j < S; ++j) {
+            fin[t][j] = cb::ext_window<FR, VISIT, U>(a, L[t * S + j]) &&
+                        live(t, j);
+            any = any || fin[t][j];
+          }
+        if (!any) continue;
+        const int gwin = chunk * a.windows + w;
+        for (int t = 0; t < 32; ++t)
+          for (int j = 0; j < S; ++j)
+            if (fin[t][j])
+              cb::ext_finish<FR, VISIT>(a, L[t * S + j], lane(t, j), gwin, u);
+      }
+      for (int t = 0; t < 32; ++t)
+        for (int j = 0; j < S; ++j)
+          if (live(t, j))
+            cb::flush_ext_lane(a, L[t * S + j], chunk, lane(t, j));
+    }
+    for (int t = 0; t < 32; ++t)
+      for (int j = 0; j < S; ++j)
+        if (live(t, j)) cb::store_ext_lane(a, L[t * S + j], lane(t, j));
+  }
+}
+
+// classify_ext_warps with the instantiation picked by fractal, visit
+// window, lanes per thread (1 or 2) and window (0: run-time loop; 1 or 4
+// unrolled).
+int classify_ext_warps_pick(int fractal, int visit, int per_thread, int unroll,
+                            const cb::ClassifyExtArgs& a) {
+  int rc = 1;
+  auto by_u = [&](auto fr, auto vis, auto s) {
+    constexpr int FR = decltype(fr)::value, S = decltype(s)::value;
+    constexpr bool VISIT = decltype(vis)::value;
+    switch (unroll) {
+      case 0: classify_ext_warps<FR, VISIT, S, 0>(a); rc = 0; break;
+      case 1: classify_ext_warps<FR, VISIT, S, 1>(a); rc = 0; break;
+      case 4: classify_ext_warps<FR, VISIT, S, 4>(a); rc = 0; break;
+    }
+  };
+  auto by_s = [&](auto fr, auto vis) {
+    if (per_thread == 1) by_u(fr, vis, std::integral_constant<int, 1>());
+    if (per_thread == 2) by_u(fr, vis, std::integral_constant<int, 2>());
+  };
+  auto by_visit = [&](auto fr) {
+    if (visit) by_s(fr, std::true_type());
+    else by_s(fr, std::false_type());
+  };
+  switch (fractal) {
+    case cb::kBuddhabrot:
+      by_visit(std::integral_constant<int, cb::kBuddhabrot>());
+      break;
+    case cb::kBurningShip:
+      by_visit(std::integral_constant<int, cb::kBurningShip>());
+      break;
+    case cb::kAntiBuddhabrot:
+      by_visit(std::integral_constant<int, cb::kAntiBuddhabrot>());
+      break;
+  }
+  return rc;
 }
 
 }  // namespace
@@ -472,27 +537,25 @@ void cbh_complex_sqr_add(int fold_abs, const float* const* z,
   }
 }
 
-// The interface of cb_classify_ext, lanes looped on the CPU.
+// The interface of cb_classify_ext, the kernel's warps emulated on the
+// CPU: one lane a thread, the window a run-time loop.
 int cbh_classify_ext(void** ptrs, const int* iargs, const float* fargs,
                      uint32_t k0, uint32_t k1) {
   const cb::ClassifyExtArgs a =
       cb::classify_ext_args(ptrs, iargs, fargs, k0, k1);
-  const int fractal = iargs[0], visit = iargs[1];
-  for (int lane = 0; lane < a.lanes; ++lane) {
-    if (fractal == cb::kBuddhabrot) {
-      visit ? cb::classify_ext_lane<cb::kBuddhabrot, true>(a, lane)
-            : cb::classify_ext_lane<cb::kBuddhabrot, false>(a, lane);
-    } else if (fractal == cb::kBurningShip) {
-      visit ? cb::classify_ext_lane<cb::kBurningShip, true>(a, lane)
-            : cb::classify_ext_lane<cb::kBurningShip, false>(a, lane);
-    } else if (fractal == cb::kAntiBuddhabrot) {
-      visit ? cb::classify_ext_lane<cb::kAntiBuddhabrot, true>(a, lane)
-            : cb::classify_ext_lane<cb::kAntiBuddhabrot, false>(a, lane);
-    } else {
-      return 1;
-    }
-  }
-  return 0;
+  return classify_ext_warps_pick(iargs[0], iargs[1], 1, 0, a);
+}
+
+// The same with iargs[9] lanes per thread (the kernel's
+// CB_EXT_LANES_PER_THREAD, 1 or 2) and, where iargs[10] is set, the window
+// unrolled at compile time for a.unroll (1 or 4, as the kernel's launcher
+// picks it; the package unrolls 1, 2, 4, 8, 16 and 32).
+int cbh_classify_ext_warps(void** ptrs, const int* iargs, const float* fargs,
+                           uint32_t k0, uint32_t k1) {
+  const cb::ClassifyExtArgs a =
+      cb::classify_ext_args(ptrs, iargs, fargs, k0, k1);
+  return classify_ext_warps_pick(iargs[0], iargs[1], iargs[9],
+                                 iargs[10] ? a.unroll : 0, a);
 }
 
 // The interface of cb_replay_deposit_ext, emissions looped on the CPU.
@@ -624,26 +687,36 @@ int cbh_bigtiles_deposit(const int32_t* ids, long long n, int chunk,
 }
 
 // The interface of cb_classify_mh (ext = 0) and cb_classify_ext_mh
-// (ext = 1), lanes looped on the CPU.
+// (ext = 1), one lane a thread, at every reservoir width, all reservoirs
+// in registers, the window a run-time loop.
 int cbh_classify_mh(int ext, void** ptrs, const int* iargs,
                     const float* fargs, uint32_t k0, uint32_t k1) {
   const cb::mh::ClassifyMhArgs a =
       cb::mh::classify_mh_args(ext != 0, ptrs, iargs, fargs, k0, k1);
-  return ext ? mh_fractal<cb::mh::OrbitDf>(iargs[0], iargs[1], a)
-             : mh_fractal<cb::mh::OrbitF32>(iargs[0], iargs[1], a);
+  using One = std::tuple<MhBuild<1, 0, 0>>;
+  return ext ? mh_warps_pick<cb::mh::OrbitDf, One, 2, 4, 8, 16, 32>(
+                   iargs[0], iargs[1], 1, 0, 0, a)
+             : mh_warps_pick<cb::mh::OrbitF32, One, 2, 4, 8, 16, 32>(
+                   iargs[0], iargs[1], 1, 0, 0, a);
 }
 
-// The interface of cb_classify_mh, the f32 kernel's warps emulated on the
-// CPU with iargs[13] lanes per thread, iargs[14] reservoirs in shared
-// memory and iargs[15] the window unrolled (the kernel's
-// CB_MH_LANES_PER_THREAD, CB_MH_SHARED_SLOTS and CB_MH_WINDOW_UNROLL: S = 1
-// with 0, 1 or 2, S = 2 with 1; unrolled at S = 1 with 1 and U = 4).
-int cbh_classify_mh_warps(void** ptrs, const int* iargs, const float* fargs,
-                          uint32_t k0, uint32_t k1) {
+// The interface of cb_classify_mh (ext = 0) and cb_classify_ext_mh
+// (ext = 1), the kernel's warps emulated on the CPU in one of its builds:
+// iargs[13] lanes per thread, iargs[14] reservoirs in shared memory,
+// iargs[15] the window unrolled (the kernel's CB_MH_LANES_PER_THREAD or
+// CB_MH_EXT_LANES_PER_THREAD, CB_MH_SHARED_SLOTS or
+// CB_MH_EXT_SHARED_SLOTS, and CB_MH_WINDOW_UNROLL), at reservoir widths 2,
+// 8 and 32 (the narrowest, the default, the widest); the unrolled window
+// at U = 4. F32Builds and DfBuilds list the builds.
+int cbh_classify_mh_warps(int ext, void** ptrs, const int* iargs,
+                          const float* fargs, uint32_t k0, uint32_t k1) {
   const cb::mh::ClassifyMhArgs a =
-      cb::mh::classify_mh_args(false, ptrs, iargs, fargs, k0, k1);
-  return mh_warps_pick<cb::mh::OrbitF32>(iargs[0], iargs[1], iargs[13],
-                                         iargs[14], iargs[15], a);
+      cb::mh::classify_mh_args(ext != 0, ptrs, iargs, fargs, k0, k1);
+  const int unroll = iargs[15] ? a.unroll : 0;
+  return ext ? mh_warps_pick<cb::mh::OrbitDf, DfBuilds, 2, 8, 32>(
+                   iargs[0], iargs[1], iargs[13], iargs[14], unroll, a)
+             : mh_warps_pick<cb::mh::OrbitF32, F32Builds, 2, 8, 32>(
+                   iargs[0], iargs[1], iargs[13], iargs[14], unroll, a);
 }
 
 // The interface of cb_mh_deposit (without the grid and the stream), the

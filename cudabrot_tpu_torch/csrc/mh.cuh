@@ -1,8 +1,7 @@
-// Metropolis-Hastings chain functions, the lane function of the two MH
+// Metropolis-Hastings chain functions, the lane functions of the two MH
 // classify kernels, and the weighted bin deposit, as __host__ __device__
 // code: the two kernels of classify_mh.cu run the lane's functions (the
-// f32 and the df32 orbit are their Orbit policy), the df32 one with one
-// thread per lane, the f32 one with its warps' draws compacted,
+// f32 and the df32 orbit are their Orbit policy) in one warp template,
 // deposit.cu spreads each warp's emissions over its lanes (mh_slot,
 // pair_owner, mh_share), and host_harness.cpp loops these on the CPU so a
 // g++ build can be held bitwise against the plain PyTorch versions
@@ -569,178 +568,6 @@ CB_HD void store_mh_lane(const ClassifyMhArgs& a,
   const int counts[kStats] = {l.n_drawn,  l.n_cull,      l.n_band,
                               l.n_cyc,    l.n_waste,     l.ch.n_acc,
                               l.ch.n_merge, l.ch.n_merged_rep};
-  for (int s = 0; s < kStats; ++s) a.stats[size_t(s) * L + lane] = counts[s];
-}
-
-// One lane of an MH classify pass, alone, as the df32 kernel runs it (one
-// thread a lane): the persistent-lane scaffolding of the uniform kernels
-// (thin escape tracking, windowed boundaries, Brent on the boundary
-// schedule) with the refill replaced by the chain logic. A finished
-// proposal draws its four words itself, resolves against the chain
-// (boundary), then the next proposal is drawn from the updated chain state
-// (propose) and installed. The same steps as mh_window, mh_block,
-// mh_resolve and mh_advance, which the f32 kernel's compacted warps run,
-// written as one loop: split into those calls, the df32 kernel took 1-2%
-// longer a pass, bitwise the same.
-template <int FR, int V, class Orbit>
-CB_HD void classify_mh_lane(const ClassifyMhArgs& a, int lane) {
-  using T = Traits<FR>;
-  const size_t L = size_t(a.lanes);
-  const int U = a.unroll;
-
-  Orbit o;
-  o.load(a, lane);
-  float kr = a.kr[lane], ki = a.ki[lane];
-  float sr = a.sr[lane], si = a.si[lane];
-  int it = a.it[lane], sv = a.sv[lane], dead = a.dead[lane];
-  int vcnt = a.vcnt[lane];
-  uint32_t rsv = uint32_t(a.rsv[lane]);
-  Chain<V> ch;
-  ch.xkr = a.xkr[lane];
-  ch.xki = a.xki[lane];
-  ch.xv = a.xv[lane];
-  ch.xit = a.xit[lane];
-  ch.rep = a.rep[lane];
-  ch.p_it = -1;
-  ch.p_rep = 0;
-  ch.p_v = 0;
-  ch.n_acc = ch.n_merge = ch.n_merged_rep = 0;
-  RegSlots<V> vb;
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    vb.set(k, a.vb[size_t(k) * L + lane]);
-    ch.xb.set(k, a.xb[size_t(k) * L + lane]);
-    ch.p_b.set(k, 0);
-  }
-  int n_drawn = 0, n_cull = 0, n_band = 0, n_cyc = 0, n_waste = 0;
-
-  for (int chunk = 0; chunk < a.chunks; ++chunk) {
-    for (int w = 0; w < a.windows; ++w) {
-      // --- inner window: U updates, survival-counter tracking, in-window
-      // counting and visit-bin recording. `<= 4` so the NaNs an escaped
-      // lane coasts into count as escaped; NaN is also outside the window
-      // (all four compares false).
-      int nesc = 0;
-      int jv = vcnt;
-      for (int k = 0; k < U; ++k) {
-        nesc += o.template step<FR>() <= 4.0f;
-        const float dr = o.win_r(a), di = o.win_i(a);
-        const bool vis = dr >= a.win.x0 && dr < a.win.x1 &&
-                         di >= a.win.y0 && di < a.win.y1;
-        record_visit<V>(vis, dr, di, jv, rsv, vb, a.win);
-        jv += vis;
-      }
-      const bool esc = nesc < U;
-      int needed = it + nesc;
-      const bool cyc =
-          a.detect && o.hi_r() == sr && o.hi_i() == si && !esc;
-
-      // --- boundary: proposal resolution ---
-      const int it_new = it + U;
-      const bool maxed = it_new >= a.max_it;
-      const bool deadb = dead != 0;
-      const bool fin = esc || cyc || maxed || deadb;
-      bool cand;
-      if (T::interior) {
-        // Anti-Buddhabrot: candidates finish without escaping within the
-        // cap; their orbit is the full capped one.
-        const bool esc_in_cap = esc && needed < a.max_it;
-        cand = (cyc || maxed) && !esc_in_cap && !deadb;
-        if (cand) needed = a.max_it - 1;
-      } else {
-        cand = esc && !deadb && needed >= a.min_it && needed < a.max_it;
-      }
-      // The bridge target: 256 per (capped) visit plus 1 for being in
-      // band, 0 otherwise.
-      const int32_t v_prop =
-          cand ? imin(jv, kVisitCap) * kTargetVisit + 1 : 0;
-      n_band += v_prop > 0;
-      n_cyc += cyc && !deadb;
-      if (deadb) n_waste += U;
-      if (esc && !deadb) n_waste += it_new - needed - 1;
-
-      if (fin) {
-        // Four words per boundary: mutation mantissas, the acceptance
-        // word, the control word. The second Threefry call sets bit 30 of
-        // the lane word (lane ids are below 2^24).
-        uint32_t rb_r, rb_i, rb_a, rb_b;
-        const int gwin = chunk * a.windows + w;
-        if (a.bits != nullptr) {
-          const size_t base = size_t(gwin) * 4 * L + lane;
-          rb_r = a.bits[base];
-          rb_i = a.bits[base + L];
-          rb_a = a.bits[base + 2 * L];
-          rb_b = a.bits[base + 3 * L];
-        } else {
-          rb_r = uint32_t(lane);
-          rb_i = uint32_t(gwin);
-          threefry2x32(a.k0, a.k1, rb_r, rb_i);
-          rb_a = uint32_t(lane) | 0x40000000u;
-          rb_b = uint32_t(gwin);
-          threefry2x32(a.k0, a.k1, rb_a, rb_b);
-        }
-        boundary<V>(ch, v_prop, needed, kr, ki, vb, rb_a, rb_b, a.rep_cap);
-        const Proposal p = propose(ch.xkr, ch.xki, ch.xv, rb_r, rb_i, rb_b,
-                                   a.restart256);
-        kr = float(p.kr);
-        ki = float(p.ki);
-        const bool in_set = o.refill(a, kr, ki);
-        const bool ncull = (T::use_cull && in_set) || p.oob;
-        it = 0;
-        sr = kBig;
-        si = kBig;
-        sv = kSave0;
-        dead = ncull;
-        vcnt = 0;
-        n_drawn += 1;
-        n_cull += ncull;
-      } else {
-        if (a.detect && it_new >= sv) {
-          sr = o.hi_r();
-          si = o.hi_i();
-          sv = sv * 2;
-        }
-        it = it_new;
-        vcnt = jv;
-      }
-    }
-    // Flush this chunk's pending emission and clear it.
-    const size_t e = size_t(chunk) * L + lane;
-    a.emit_it[e] = ch.p_it;
-    a.emit_rep[e] = ch.p_rep;
-    a.emit_v[e] = ch.p_v;
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      a.emit_b[(size_t(chunk) * V + k) * L + lane] = ch.p_b.get(k);
-      ch.p_b.set(k, 0);
-    }
-    ch.p_it = -1;
-    ch.p_rep = 0;
-    ch.p_v = 0;
-  }
-
-  o.store(a, lane);
-  a.kr[lane] = kr;
-  a.ki[lane] = ki;
-  a.sr[lane] = sr;
-  a.si[lane] = si;
-  a.it[lane] = it;
-  a.sv[lane] = sv;
-  a.dead[lane] = dead;
-  a.vcnt[lane] = vcnt;
-  a.rsv[lane] = int32_t(rsv);
-  a.xkr[lane] = ch.xkr;
-  a.xki[lane] = ch.xki;
-  a.xv[lane] = ch.xv;
-  a.xit[lane] = ch.xit;
-  a.rep[lane] = ch.rep;
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    a.vb[size_t(k) * L + lane] = vb.get(k);
-    a.xb[size_t(k) * L + lane] = ch.xb.get(k);
-  }
-  const int counts[kStats] = {n_drawn, n_cull,   n_band,     n_cyc,
-                              n_waste, ch.n_acc, ch.n_merge, ch.n_merged_rep};
   for (int s = 0; s < kStats; ++s) a.stats[size_t(s) * L + lane] = counts[s];
 }
 

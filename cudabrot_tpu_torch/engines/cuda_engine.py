@@ -96,18 +96,23 @@ REPLAY_STREAMS = 2
 #: configuration alone, so CPU and CUDA runs tune alike.
 INNER_STEP_OPS = 9.0
 BOUNDARY_OPS = 40.0
-#: The same two counts for the extended-precision kernel, from
-#: csrc/df32.cuh and csrc/classify_ext.cuh: a df32 step is two squares
-#: (16 operations each), one product (20), three sums (11 each), two
-#: negations, the doubling (2), |z|^2 of the hi parts (3) and the survival
-#: count (2); the boundary is the f32 one plus the two lo-part moves.
-EXT_INNER_STEP_OPS = 94.0
-EXT_BOUNDARY_OPS = 42.0
+#: The same two counts for the extended-precision kernel, SASS
+#: instructions of csrc/classify_ext.cu for sm_90a (chip_smoke.py
+#: --ext-study, OPS_STEP_EXT and OPS_BOUNDARY_EXT + OPS_FINISH_EXT there):
+#: a df32 step with three FFMA two-products is 67; a window's boundary is
+#: 6 where no lane of the warp finished and 6 + 110 (band filter, stats,
+#: refill draw) where one did, which at the rate model's lifetimes (under
+#: ten steps) is nearly every window, so the boundary weighs 116.
+EXT_INNER_STEP_OPS = 67.0
+EXT_BOUNDARY_OPS = 116.0
 #: The counts of the two MH kernels, from csrc/mh.cuh: an inner step adds
 #: the window test (7), the LCG (2) and the visit count (1) to the orbit
 #: step, and at df32 the centre-relative window coordinates (6); the
 #: boundary adds the target (4). The chain resolution and the draw are paid
-#: per finished proposal, not per window.
+#: per finished proposal, not per window. The df32 ones stay the hand
+#: counts of the first df32 MH kernel: the SASS counts (78 and 14) pick
+#: the same window at the measured cell (U = 16 at mhzoom) but move it at
+#: bands no card run has measured.
 MH_INNER_STEP_OPS = 19.0
 MH_BOUNDARY_OPS = 44.0
 EXT_MH_INNER_STEP_OPS = 110.0
@@ -215,10 +220,14 @@ class Tuning:
         self.extended = o.precision == "extended"
         if o.inner_unroll > 0:
             self.inner_unroll = o.inner_unroll
-        elif rate > 1e-4 and not self.mh:
+        elif rate > 1e-4 and not self.mh and not self.extended:
             # Emission-heavy bands: samples finish within a few steps, a
             # window would mostly coast. (MH proposals are long orbits next
-            # to in-band states: they are scored like deep bands.)
+            # to in-band states: they are scored like deep bands. So are
+            # df32 bands, whose warps pay the whole boundary only where a
+            # lane finished: the score picks U = 4 at the deep-zoom cell,
+            # the most deposited points a second of U = 1, 2, 4 and 8 on
+            # an NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py --ext-study.)
             self.inner_unroll = 1
         else:
             candidates = (

@@ -16,8 +16,15 @@ contraction — and both drop it: ``p = RN(a*b)``. The functions therefore
 take no ``zero`` operand. The one observable difference is the sign of a
 product that is exactly zero (``-0.0 + 0.0`` is ``+0.0``); against the
 JAX functions called with ``zero = -0.0``, an identity for every value,
-these agree bit for bit (tests/test_torch_df32.py). ``split`` stays the
-bitmask Veltkamp split, so partial products of the halves are exact.
+these agree bit for bit (tests/test_torch_df32.py). A product's error is
+``RN(a*b - p)``, what one fused multiply-add ``fmaf(a, b, -p)`` returns
+and the CUDA header computes: in float64 the product of two floats and
+its difference from ``p`` are exact, so the one rounding is the
+conversion back, and the bits are the FMA's everywhere (signed zeros,
+subnormal errors, overflow, NaN). Wherever the product does not overflow
+and its error is not subnormal, this is the JAX module's Veltkamp-split
+error bit for bit. ``split`` stays the JAX module's bitmask Veltkamp
+split, whose halves multiply exactly.
 
 Overflow/NaN: once a component overflows (escaped orbits coasting to the
 window edge), hi propagates inf/NaN through every operation; ``mag2 <= 4``
@@ -60,21 +67,17 @@ def split(a):
 
 
 def two_prod(a, b):
-    """p, e with p = RN(a * b) and p + e == a * b (exact modulo <= 1 ulp
-    of e from the truncating split, below 2^-46 relative)."""
+    """p, e with p = RN(a * b) and e = RN(a * b - p), fmaf(a, b, -p):
+    p + e == a * b exactly wherever the product does not overflow and the
+    error is not subnormal."""
     p = a * b
-    ah, al = split(a)
-    bh, bl = split(b)
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    e = (a.double() * b.double() - p.double()).float()
     return p, e
 
 
 def two_prod_sqr(a):
-    """p, e with p + e == a * a; one split instead of two."""
-    p = a * a
-    ah, al = split(a)
-    e = ((ah * ah - p) + 2.0 * (ah * al)) + al * al
-    return p, e
+    """two_prod(a, a)."""
+    return two_prod(a, a)
 
 
 def add(ah, al, bh, bl):

@@ -15,8 +15,11 @@ in its last bits for about half the lanes after two windows), and the
 integer quantities that do not depend on the orbit (the LCG state, the
 restart installs in bits mode) are held exactly.
 
-Against the g++ build. ``classify_mh_lane`` is the function each CUDA
-thread runs; ``host_harness.cpp`` loops it over the lanes. g++ with
+Against the g++ build. ``host_harness.cpp`` runs the lane functions of
+``csrc/mh.cuh`` (``mh_window``, ``mh_advance``, ``mh_block``,
+``mh_resolve``) one lane a thread over the lanes, with the reservoirs in
+registers and each finished lane drawing its own words (the kernels' warps
+and builds: tests/test_torch_classify_mh_warps.py). g++ with
 ``-ffp-contract=off`` rounds every operation once, as ``__fmul_rn`` and
 ``__fadd_rn`` do on the device, so lane state, emissions and stats must
 equal the plain version bit for bit, at f32 and df32, for every fractal and

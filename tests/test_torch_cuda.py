@@ -326,6 +326,55 @@ def test_engine_pass_on_card_matches_cpu(cuda, extended):
         assert _same(x, y)
 
 
+#: The df32 classify kernel's builds (csrc/classify_ext.cu): lanes per
+#: thread; the package's is 1.
+EXT_BUILDS = {1: (), 2: ("CB_EXT_LANES_PER_THREAD=2",)}
+
+
+@pytest.mark.parametrize("name,domain,band,visit", [
+    ("buddhabrot", DEEP, (50, 3000), False),
+    ("buddhabrot", FAST, (20, 400), True),
+    ("burning-ship", SHIP, (5, 500), False),
+    ("anti-buddhabrot", config.SAMPLE_DOMAIN, (0, 64), True),
+])
+@pytest.mark.parametrize("unroll", [1, 2, 4, 8])
+@pytest.mark.parametrize("per_thread", sorted(EXT_BUILDS))
+def test_classify_ext_builds_match_plain(cuda, monkeypatch, per_thread,
+                                         unroll, name, domain, band, visit):
+    """classify_ext built with one and two lanes a thread, its window
+    unrolled at U = 1, 2, 4 and 8, against the plain version, bitwise, on
+    640 lanes (at two lanes a thread the last warp's second lanes are half
+    live), from a carried state."""
+    lib = cx._lib(EXT_BUILDS[per_thread])
+    monkeypatch.setattr(cx, "_lib", lambda: lib)
+    rows, flush = 5, 16 * unroll
+    kw = dict(fractal=FRACTALS[name], min_it=band[0], max_it=band[1],
+              steps_per_pass=4 * flush, steps_per_flush=flush,
+              inner_unroll=unroll, sample_domain=domain,
+              visit_window=(-1.5, 0.5, -1.0, 1.0) if visit else None)
+    state = cx.init_ext_lane_state(rows, cuda)
+    # A carried, mid-flight state, beyond the band's cap: at the deep zoom
+    # lanes live ~1000 steps.
+    cx.classify_pass_ext(state, (5, 6), **dict(
+        kw, steps_per_pass=-(-3200 // flush) * flush))
+    a = cx.ExtLaneState(*(t.clone() for t in state))
+    b = cx.ExtLaneState(*(t.clone() for t in state))
+    launches.reset()
+    ra = cx.classify_pass_ext(a, (7, 8), **kw)
+    assert launches.COUNTS["classify_ext"] == 1
+    rb = cx.classify_pass_ext_plain(
+        b, 7, 8, None, fractal=kw["fractal"], min_it=band[0],
+        max_it=band[1], chunks=4, windows=16, unroll=unroll,
+        detect=FRACTALS[name].cycle_detect, sample_domain=domain,
+        visit_window=kw["visit_window"])
+    for f, x, y in zip(cx.ExtLaneState._fields, ra.state, rb.state):
+        assert _same(x, y), f
+    assert _same(ra.emit_c, rb.emit_c)
+    assert _same(ra.emit_it, rb.emit_it)
+    assert _same(ra.stats, rb.stats)
+    assert int(ra.stats[cls.STAT_DRAWN].sum()) > 0
+
+
 _SEA = (-0.743643887, 0.131825904)
 
 
@@ -387,6 +436,55 @@ def test_classify_mh_kernels_match_plain(cuda, ext, name, domain, window,
         ext, b, 7, 8, bits, fractal=fr, min_it=band[0], max_it=band[1],
         chunks=chunks, windows=windows, unroll=unroll,
         detect=fr.cycle_detect, sample_domain=domain,
+        window=(wx0, wx1, wy0, wy1, 40 / (wx1 - wx0), 37 / (wy1 - wy0)),
+        restart256=16, rep_cap=24, canvas_wh=(40, 37))
+    for f, x, y in zip(state._fields, ra.state, rb.state):
+        assert _same(x, y), f
+    for f in ("emit_it", "emit_rep", "emit_v", "emit_bins", "stats"):
+        assert _same(getattr(ra, f), getattr(rb, f)), f
+    assert int((ra.emit_it >= 0).sum()) > 0
+    assert int(ra.stats[cmh.STAT_MH_ACCEPT].sum()) > 0
+
+
+#: The df32 MH classify kernel's builds (csrc/classify_mh.cu): the
+#: package's (all reservoirs in shared memory), two lanes a thread, the
+#: reservoirs all in registers, the chain's two in shared memory, the
+#: window as a run-time loop.
+EXT_MH_BUILDS = {"package": (),
+                 "two-lanes": ("CB_MH_EXT_LANES_PER_THREAD=2",),
+                 "registers": ("CB_MH_EXT_SHARED_SLOTS=0",),
+                 "chain-shared": ("CB_MH_EXT_SHARED_SLOTS=1",),
+                 "window-loop": ("CB_MH_WINDOW_UNROLL=0",)}
+
+
+@pytest.mark.parametrize("slots", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("build", sorted(EXT_MH_BUILDS))
+def test_classify_ext_mh_builds_match_plain(cuda, monkeypatch, build, slots):
+    """classify_ext_mh in each build at every reservoir width against the
+    plain version, bitwise, on 640 lanes from a carried state at a
+    seahorse-valley zoom (U = 16, as at the mhzoom cell)."""
+    if EXT_MH_BUILDS[build]:
+        lib = cmh._lib("classify_ext_mh", EXT_MH_BUILDS[build])
+        monkeypatch.setattr(cmh, "_lib", lambda n: lib)
+    domain, window = _deep_mh(1e-3)
+    rows, steps, flush, unroll = 5, 2048, 256, 16
+    fr = FRACTALS["buddhabrot"]
+    kw = dict(fractal=fr, min_it=50, max_it=1000, steps_per_pass=steps,
+              steps_per_flush=flush, inner_unroll=unroll,
+              sample_domain=domain, window=window, restart256=16,
+              rep_cap=24, canvas_wh=(40, 37))
+    state = cmh.init_ext_mh_lane_state(rows, slots, cuda)
+    cmh.classify_pass_ext_mh(state, (5, 6), **kw)
+    a = type(state)(*(t.clone() for t in state))
+    b = type(state)(*(t.clone() for t in state))
+    launches.reset()
+    ra = cmh.classify_pass_ext_mh(a, (7, 8), **kw)
+    assert launches.COUNTS["classify_ext_mh"] == 1
+    wx0, wx1, wy0, wy1 = window
+    rb = cmh.classify_pass_mh_plain(
+        True, b, 7, 8, None, fractal=fr, min_it=50, max_it=1000,
+        chunks=steps // flush, windows=flush // unroll, unroll=unroll,
+        detect=True, sample_domain=domain,
         window=(wx0, wx1, wy0, wy1, 40 / (wx1 - wx0), 37 / (wy1 - wy0)),
         restart256=16, rep_cap=24, canvas_wh=(40, 37))
     for f, x, y in zip(state._fields, ra.state, rb.state):

@@ -99,6 +99,15 @@ FUNCTIONS = [
 ]
 
 
+def _exact_error(a, b, p):
+    """RN(a*b - p) in float32 from float64 arithmetic, where the product of
+    two floats and its difference from p are exact (inf and NaN as IEEE
+    gives them)."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        return (a.astype(np.float64) * b.astype(np.float64)
+                - p.astype(np.float64)).astype(np.float32)
+
+
 @pytest.mark.parametrize("name,fn,jfn,nargs,sealed", FUNCTIONS,
                          ids=[f[0] for f in FUNCTIONS])
 def test_function_bitwise_vs_eager_jax(name, fn, jfn, nargs, sealed):
@@ -106,6 +115,15 @@ def test_function_bitwise_vs_eager_jax(name, fn, jfn, nargs, sealed):
     got = fn(*_t(*args))
     jargs = [jnp.asarray(a) for a in args]
     want = jfn(*jargs, NEG_ZERO) if sealed else jfn(*jargs)
+    if name.startswith("two_prod"):
+        # Where the product overflows, the JAX module's split partial
+        # products overflow too and its error is inf - inf, NaN; the port's
+        # is the exact error, an infinity (test_two_prod_edge_cases). Every
+        # finite product's error is the JAX module's, bit for bit.
+        a, b = (args * 2)[:2]
+        p, e = (np.asarray(w) for w in want)
+        assert (~np.isfinite(p)).sum() > 0
+        want = (p, np.where(np.isfinite(p), e, _exact_error(a, b, p)))
     for g, w in zip(got, want):
         _same(g, w)
 
@@ -155,10 +173,11 @@ def test_split_is_exact_and_narrow():
 @pytest.mark.parametrize("square", [False, True])
 def test_two_prod_error_is_the_exact_product_error(square):
     """On 10^6 seeded pairs with exponents in [-30, 30) (products and their
-    errors in the normal range) the split two-products' error equals the
-    exact error RN(a*b - p), which one fused multiply-add, fmaf(a, b, -p),
-    returns: computed here in float64, where a*b is exact. The same bits
-    at fewer operations, the claim the df32 floors of PERF.md rest on."""
+    errors in the normal range) the port's two-products, whose error is the
+    exact RN(a*b - p) that one fused multiply-add, fmaf(a, b, -p), returns,
+    equal the JAX package's eager Veltkamp-split two-products bit for bit:
+    the same bits at fewer operations, which is what lets csrc/df32.cuh
+    spend one FFMA on each product's error."""
     rng = np.random.default_rng(8 + square)
     n = 1_000_000
 
@@ -166,13 +185,87 @@ def test_two_prod_error_is_the_exact_product_error(square):
         m = rng.uniform(1.0, 2.0, n) * rng.choice([-1.0, 1.0], n)
         return (m * 2.0 ** rng.integers(-30, 30, n)).astype(np.float32)
 
-    a = torch.from_numpy(draw())
-    b = a if square else torch.from_numpy(draw())
-    p, e = df32.two_prod_sqr(a) if square else df32.two_prod(a, b)
-    assert torch.equal(p, a * b)
-    exact = ((a.double() * b.double()) - p.double()).float()
-    assert torch.equal(e.view(torch.int32), exact.view(torch.int32))
+    a = draw()
+    b = a if square else draw()
+    p, e = (df32.two_prod_sqr(*_t(a)) if square
+            else df32.two_prod(*_t(a, b)))
+    jp, je = (jdf.two_prod_sqr(jnp.asarray(a), NEG_ZERO) if square
+              else jdf.two_prod(jnp.asarray(a), jnp.asarray(b), NEG_ZERO))
+    _same(p, np.asarray(jp))
+    _same(e, np.asarray(je))
     assert int((e != 0).sum()) > n // 2
+
+
+def _edge_pairs(square=False):
+    """Two-product inputs at the edges of the FMA error: signed zeros,
+    exact products, infinities and NaN, products that overflow, products
+    whose error is subnormal or underflows to a signed zero, subnormal
+    products; the last three also as 4096 seeded pairs each. ``square``:
+    pairs (a, a) with the same ranges of products."""
+    inf, nan = np.inf, np.nan
+    fixed = [(0.0, 1.0), (-0.0, 1.0), (0.0, -1.0), (-0.0, -0.0), (0.0, inf),
+             (inf, 2.0), (-inf, 2.0), (inf, -inf), (nan, 1.0), (1.0, nan),
+             (1.5, 2.0), (-1.5, 2.0), (2.0**100, 1.5 * 2.0**30),
+             (-(2.0**100), 1.5 * 2.0**30), (3.4e38, 1.0000001),
+             (1e20, -1e20), (1e-30, 1e-15), (1.17549435e-38, 0.5),
+             (1.17549435e-38, 1.0000001), (1e-45, 1.5), (-3e-39, 0.75)]
+    rng = np.random.default_rng(77)
+    n = 4096
+
+    def mant():
+        return rng.uniform(1.0, 2.0, n) * rng.choice([-1.0, 1.0], n)
+
+    cols = [np.array([x for x, _ in fixed]), np.array([y for _, y in fixed])]
+    if square:
+        cols[1] = cols[0]
+    for lo, hi in ((-150, -120), (-128, -100), (120, 135)):
+        if square:
+            x = mant() * 2.0 ** (rng.integers(lo, hi, n) / 2.0)
+            cols = [np.concatenate([c, x]) for c in cols]
+            continue
+        ea = rng.integers(-60, 60, n)
+        eb = rng.integers(lo, hi, n) - ea
+        cols[0] = np.concatenate([cols[0], mant() * 2.0**ea])
+        cols[1] = np.concatenate([cols[1], mant() * 2.0**eb])
+    with np.errstate(over="ignore"):  # some overflow pairs hold an inf
+        return cols[0].astype(np.float32), cols[1].astype(np.float32)
+
+
+def _fraction_error(a, b):
+    """(p, RN(a*b - p)) from exact rational arithmetic (fractions), one
+    rounding to float32 at the end; IEEE's inf and NaN where an input or
+    the product is not finite."""
+    from fractions import Fraction
+
+    with np.errstate(invalid="ignore", over="ignore"):
+        p = (a * b).astype(np.float32)
+    e = np.empty_like(p)
+    for i, (x, y, q) in enumerate(zip(a.tolist(), b.tolist(), p.tolist())):
+        if np.isfinite(q):
+            exact = Fraction(x) * Fraction(y) - Fraction(q)
+            e[i] = np.float32(float(exact)) if exact else np.float32(0.0)
+        elif np.isnan(q) or not (np.isfinite(x) and np.isfinite(y)):
+            e[i] = np.nan if np.isnan(q) or np.isinf(q) else q
+        else:
+            e[i] = -q  # overflow: a*b - inf is -inf
+    return p, e
+
+
+@pytest.mark.parametrize("square", [False, True])
+def test_two_prod_edge_cases(square):
+    """The plain two-products are p = RN(a*b) and the FMA error RN(a*b - p)
+    everywhere: held against exact rational arithmetic at signed zeros,
+    subnormal errors and products, overflow to +-inf, and NaN."""
+    a, b = _edge_pairs(square)
+    p, e = df32.two_prod_sqr(*_t(a)) if square else df32.two_prod(*_t(a, b))
+    wp, we = _fraction_error(a, b)
+    _same(p, wp)
+    _same(e, we)
+    fin = np.isfinite(wp)
+    assert (we[fin] != 0).sum() > 0 and (np.abs(we[fin]) < 1.17549435e-38
+                                         ).sum() > 1000
+    assert np.isinf(we).sum() > 100 and np.isnan(we).sum() > 0
+    assert (np.signbit(we) & (we == 0)).sum() > 0
 
 
 def _df_from64(x64):
@@ -285,6 +378,24 @@ def test_header_elementary_functions_bitwise(harness):
         getattr(harness, cname)(*map(_p, ins), N, _p(x), _p(y))
         for g, w in zip((x, y), fn(*_t(*ins))):
             _same(g, w.numpy())
+
+
+@pytest.mark.parametrize("square", [False, True])
+def test_header_two_prod_edge_cases_bitwise(harness, square):
+    """The header's FFMA two-products (g++, std::fmaf) against the plain
+    ones at test_two_prod_edge_cases' inputs: signed zeros, subnormal
+    errors, overflow to +-inf, NaN."""
+    a, b = _edge_pairs(square)
+    n = a.size
+    p, e = _outs(2, n)
+    if square:
+        harness.cbh_two_prod_sqr(_p(a), n, _p(p), _p(e))
+        want = df32.two_prod_sqr(*_t(a))
+    else:
+        harness.cbh_two_prod(_p(a), _p(b), n, _p(p), _p(e))
+        want = df32.two_prod(*_t(a, b))
+    _same(p, want[0].numpy())
+    _same(e, want[1].numpy())
 
 
 def test_header_df_functions_bitwise(harness):

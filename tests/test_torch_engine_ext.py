@@ -207,15 +207,17 @@ def test_extended_tuning_and_refusals():
         options=tcfg.EngineOptions(precision="extended"))
     tn = Tuning(cfg)
     assert tn.extended and tn.lanes == 262144
+    # The df32 kernel is scored at every band (no emission-heavy shortcut
+    # to U = 1): a window of four.
     assert (tn.steps_per_flush, tn.inner_unroll, tn.steps_per_pass,
-            tn.replay_capacity) == (512, 1, 4096, 1 << 21)
+            tn.replay_capacity) == (512, 4, 4096, 1 << 21)
     f32 = Tuning(dataclasses.replace(cfg, options=tcfg.EngineOptions()))
     assert not f32.extended and f32.steps_per_pass == tn.steps_per_pass
     sparse = Tuning(tcfg.RenderConfig(
         band=tcfg.IterationBand(max_escape_iterations=20000,
                                 min_escape_iterations=2000),
         options=tcfg.EngineOptions(precision="extended")))
-    assert sparse.inner_unroll == 2  # f32 picks 8: the df32 step dominates
+    assert sparse.inner_unroll == 4  # f32 picks 8: the df32 step dominates
     eng = CudaEngine(cfg, device="cpu")
     dev_bytes, _ = eng.memory_estimate()
     f32_bytes, _ = CudaEngine(
