@@ -90,9 +90,33 @@ Phases (each fails the run on any mismatch):
      between the two, its histogram sum equal to its on-canvas points, and
      the two PNGs byte-identical; each band's ms per pass and each mode's
      wall time are printed.
+  10. Multi-device and multi-process rendering on the one card: the
+     data-parallel engine over [cuda:0, cuda:0] against two single engines
+     at RNG ordinals 0 and 1, summed (default, zoom and mhcrop, the MH
+     tails flushed); the row-sharded engine over 2 and 3 shards of cuda:0
+     (the replay kernels' row window) against the data-parallel engine
+     over the same ordinals (default and zoom on the fused route,
+     bigcanvas on the bigtiles route; 3 shards split 1000 and 4500 rows
+     unevenly); cli.main in two processes (torch.distributed, gloo, on
+     localhost; -d 0 --devices 2) against the single-process data-parallel
+     render: histograms, stats, the checkpoint and the PGM bytes bitwise,
+     the second process silent, each path's kernels launched and no plain
+     version run. Then the replicated replay_deposit (default) and
+     replay_deposit_ext (zoom) in five rounds beside the times recorded
+     before the row window (RECORDED_REPLAY_MS), a pass of DP x2 on one
+     card beside a single engine's, the row-sharded pass with and
+     without re-sorting its gathered batch (LongestFirst, here only), and
+     the allocator's peak on cuda:0 while four row shards of the
+     northstar canvas are built and run (the shards, never a whole canvas
+     more).
   Phases 2, 3 and 3b hold the two df32 replay kernels on a batch whose
   head orbit is set to 19,999 steps.
 
+``--multi`` builds and runs phase 10 alone; ``--replay-retime`` only its
+re-timing of the two fused replays on the replicated histogram (which an
+older tree's package runs too, for a before/after in one call).
+``--cards`` (on a host with several cards) runs the
+multi-device engines across every card (cards_study).
 ``--ext-budget-sweep`` instead builds and times deep-zoom engine passes at
 2^27..2^30 lane-steps per pass (the measurement behind keeping
 ``cuda_engine.LANE_STEP_BUDGET`` at extended precision).
@@ -468,6 +492,8 @@ def phase_build(studies=()):
         variants += [("deposit", d) for _, d in STUDY_DEPOSIT_BUILDS if d]
     if "--mh-study" in studies:
         variants += [("classify_mh", d) for _, d in STUDY_MH_BUILDS if d]
+    if studies and set(studies) <= PACKAGE_ONLY:
+        variants = []
     _build.build_all(variants=variants)
     log(f"  built {', '.join(_build.LIBS)} and {len(variants)} study "
         f"builds in {time.monotonic() - t0:.1f} s")
@@ -3610,6 +3636,485 @@ def phase_overlap(dev):
               f"({so['on_canvas_points']})")
 
 
+# ----------------------------------------------------------------------
+# Phase 10: multi-device and multi-process rendering on one card.
+
+#: Cells and passes of phase 10's data-parallel check (every replica on
+#: cuda:0), its row-sharded checks (cell, --scatter route), and the
+#: passes of each.
+MULTI_DP_CELLS = ("default", "zoom", "mhcrop")
+MULTI_ROWS_CELLS = (("default", "auto"), ("zoom", "auto"),
+                    ("bigcanvas", "bigtiles"))
+MULTI_PASSES = 3
+#: The two fused replays' times at their cells before the row window
+#: (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W), which the window
+#: must not slow; and the rounds phase 10 re-times them in.
+RECORDED_REPLAY_MS = {"replay_deposit": 1.5695, "replay_deposit_ext": 1.8665}
+RETIME_ROUNDS = 5
+
+#: The cell, and shards, of phase 10's memory check.
+MULTI_MEMORY_CELL, MULTI_MEMORY_SHARDS = "northstar", 4
+
+#: Study flags that need the package's libraries alone.
+PACKAGE_ONLY = {"--multi", "--replay-retime", "--cards"}
+
+MULTI_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from cudabrot_tpu_torch.cli import main
+sys.exit(main(sys.argv[2:]))
+"""
+
+
+def engine_run(eng, passes, first=0):
+    """``passes`` passes of an engine from a new state; returns
+    (histogram, stats, state)."""
+    state = eng.init_state(None)
+    for p in range(first, first + passes):
+        eng.run_pass(state, p)
+    return eng.histogram(state), eng.stats(state), state
+
+
+def summed_singles(cfg, dev, ordinals, passes, scatter_kw=None):
+    """The histogram and stats of single CudaEngine renders at the given
+    RNG ordinals, summed (uint32 wrapping; stats by
+    data_parallel.sum_stats)."""
+    import numpy as np
+
+    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
+    from cudabrot_tpu_torch.parallel.data_parallel import sum_stats
+
+    total, stats = np.zeros(cfg.canvas.shape, np.uint32), []
+    for ordinal in ordinals:
+        eng = CudaEngine(cfg, device=dev)
+        state = eng.init_state(None)
+        for p in range(passes):
+            eng.core(state, p, ordinal)
+        total += eng.histogram(state)
+        stats.append(eng.stats(state))
+    return total, sum_stats(stats)
+
+
+def counted_run(eng, passes, kernels, what):
+    """``engine_run`` with the launch counts set to 0 before it and read
+    after: every kernel of ``kernels`` launched, no plain version run."""
+    from cudabrot_tpu_torch.ops import launches
+
+    launches.reset()
+    out = engine_run(eng, passes)
+    counts = launches.snapshot()
+    check(all(counts[k] > 0 for k in kernels)
+          and not any(v for k, v in counts.items() if k.endswith("_plain")),
+          f"{what}: launched {', '.join(f'{k} x{counts[k]}' for k in kernels)}"
+          f", no plain version")
+    return out, counts
+
+
+def retime_replays(dev, card):
+    """The two fused replays on the replicated histogram (the window
+    (0, height)) at the cells and shapes of phase 5, RETIME_ROUNDS rounds
+    of 10 calls, beside RECORDED_REPLAY_MS."""
+    import torch
+
+    from cudabrot_tpu_torch.ops import binning
+
+    out = {}
+    for name, kname, warm in (("default", "replay_deposit", 4),
+                              ("zoom", "replay_deposit_ext", 8)):
+        eng, _, (xr, xi, it) = kept_batch(dev, name, warm=warm)
+        cfg = eng.cfg
+        hist = torch.zeros(cfg.canvas.num_pixels, dtype=torch.int32,
+                           device=dev)
+        kw = dict(canvas=cfg.canvas, fractal=eng.fractal)
+        if eng.extended:
+            kw["sample_domain"] = cfg.sample_domain
+        fn = (binning.replay_deposit_ext if eng.extended
+              else binning.replay_deposit)
+        rounds = [time_ms(lambda: fn(hist, xr, xi, it, **kw), 10)
+                  for _ in range(RETIME_ROUNDS)]
+        out[kname] = rounds
+        log(f"  {kname} at {name}, replicated window: rounds "
+            f"{', '.join(f'{r:.4f}' for r in rounds)} ms (least "
+            f"{min(rounds):.4f}, spread {max(rounds) - min(rounds):.4f}); "
+            f"before the window: {RECORDED_REPLAY_MS[kname]:.4f} ms "
+            f"[{card}]")
+    return out
+
+
+def longest_first_engine():
+    """The row-sharded engine with each gathered batch re-sorted by
+    descending orbit length (stable; unused slots, iters -1, last), so the
+    replay queue starts the longest orbits first again: phase 10 times it
+    beside the package's engine, which replays the D runs as gathered."""
+    import torch
+
+    from cudabrot_tpu_torch.parallel.sharded_hist import (
+        ShardedHistogramEngine,
+    )
+
+    class LongestFirst(ShardedHistogramEngine):
+        @staticmethod
+        def gather(batches, dev):
+            cr, ci, it = ShardedHistogramEngine.gather(batches, dev)
+            order = torch.sort(it, descending=True, stable=True).indices
+            return cr[order], ci[order], it[order]
+
+    return LongestFirst
+
+
+def rows_memory(dev, card):
+    """The allocator's peak on ``dev`` while MULTI_MEMORY_SHARDS row shards
+    of the MULTI_MEMORY_CELL canvas are built (init_state) and run for two
+    passes, above what was allocated before: the shards add up to one
+    canvas, and no shard's state passes through a canvas-sized
+    histogram, so building them stays below 1.125 canvases."""
+    import torch
+
+    from cudabrot_tpu_torch.parallel.sharded_hist import (
+        ShardedHistogramEngine,
+    )
+
+    cfg = cell_config(MULTI_MEMORY_CELL)
+    eng = ShardedHistogramEngine(cfg, devices=[dev] * MULTI_MEMORY_SHARDS)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = eng.init_state(None)
+    torch.cuda.synchronize(dev)
+    built = torch.cuda.max_memory_allocated(dev) - base
+    for p in range(2):
+        eng.run_pass(state, p)
+    eng.synchronize()
+    passes = torch.cuda.max_memory_allocated(dev) - base
+    mib = 1 << 20
+    canvas = cfg.canvas.num_pixels * 4
+    shard = eng.rows_per_shard * cfg.canvas.width * 4
+    check(canvas <= built < canvas + canvas // 8,
+          f"{MULTI_MEMORY_CELL}: {MULTI_MEMORY_SHARDS} row shards on one "
+          f"card: the allocator's peak {built / mib:.1f} MiB while built, "
+          f"{passes / mib:.1f} MiB over two passes; the canvas "
+          f"{canvas / mib:.1f} MiB, a shard {shard / mib:.1f} MiB; below "
+          f"1.125 canvases [{card}]")
+    del state, eng
+    return {"built_mib": built / mib, "passes_mib": passes / mib,
+            "canvas_mib": canvas / mib}
+
+
+def two_process_run(dev, tmp):
+    """cli.main in two processes on cuda:0 (CUDABROT_COORDINATOR on
+    localhost, --devices 2: one replica each, ordinals 0 and 1) against
+    the single-process data-parallel render over [cuda:0, cuda:0]: the
+    checkpoint bitwise, the PGM bytes, process 1 silent."""
+    import socket
+
+    import numpy as np
+
+    from cudabrot_tpu_torch import driver
+    from cudabrot_tpu_torch.io import checkpoint as ckpt
+    from cudabrot_tpu_torch.io import pgm
+    from cudabrot_tpu_torch.ops import tonemap
+    from cudabrot_tpu_torch.parallel.data_parallel import DataParallelEngine
+
+    args = [*cell_args("default"), "-d", "0", "--devices", "2", "--passes",
+            "4", "-t", "-1", "-s", os.path.join(tmp, "multi.ckpt"),
+            "-o", os.path.join(tmp, "multi.pgm")]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for pid in range(2):
+        env = dict(os.environ, CUDABROT_COORDINATOR=f"127.0.0.1:{port}",
+                   CUDABROT_NUM_PROCESSES="2", CUDABROT_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MULTI_CHILD, ROOT, *args], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    t0 = time.monotonic()
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.monotonic() - t0
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            log(f"  process {pid} stdout:\n{out[-2000:]}\nstderr:\n"
+                f"{err[-3000:]}")
+        check(p.returncode == 0, f"two processes: process {pid} exits 0")
+    check("Buddhabrot passes took" in outs[0][0]
+          and outs[1][0].strip() == "",
+          "two processes: the primary reports, process 1 prints nothing")
+    cfg = cell_config("default").replace(
+        max_passes=4, seconds_to_run=-1.0,
+        inprogress_file=os.path.join(tmp, "single.ckpt"))
+    eng = DataParallelEngine(cfg, devices=[dev, dev])
+    res = driver.run_render(cfg, engine=eng, log=lambda *_: None)
+    pgm.write_pgm(os.path.join(tmp, "single.pgm"),
+                  tonemap.tonemap(res.histogram, cfg.gamma).image)
+    h_multi, m_multi = ckpt.load(os.path.join(tmp, "multi.ckpt"), cfg)
+    h_single, m_single = ckpt.load(cfg.inprogress_file, cfg)
+    check(np.array_equal(h_multi, h_single) and h_single.sum() > 0
+          and m_multi["passes"] == m_single["passes"] == 4,
+          f"two processes == one process over [cuda:0, cuda:0]: the "
+          f"checkpoint bitwise (sum {int(h_single.sum(dtype=np.uint64))}; "
+          f"{wall:.1f} s for both processes)")
+    with open(os.path.join(tmp, "multi.pgm"), "rb") as a, \
+            open(os.path.join(tmp, "single.pgm"), "rb") as b:
+        check(a.read() == b.read(), "two processes: PGM bytes identical")
+
+
+def phase_multi(dev, card):
+    """Phase 10: the data-parallel engine over [cuda:0, cuda:0] against
+    single engines at ordinals 0 and 1, summed (default, zoom, mhcrop);
+    the row-sharded engine over 2 and 3 shards of cuda:0 against the
+    data-parallel engine over the same ordinals (default and zoom on the
+    fused route, bigcanvas on the bigtiles route); two processes against
+    one; each bitwise. Then the times: the replicated fused replays
+    against their recorded times, a pass of DP x2 against a single engine's, and the
+    row-sharded pass with and without re-sorting the gathered batch."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cudabrot_tpu_torch import cli
+    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
+    from cudabrot_tpu_torch.parallel.data_parallel import DataParallelEngine
+    from cudabrot_tpu_torch.parallel.sharded_hist import (
+        ShardedHistogramEngine,
+    )
+
+    log("== phase 10: multi-device and multi-process rendering on one card")
+    t0 = time.monotonic()
+    counts = {}
+    for name in MULTI_DP_CELLS:
+        cfg = cell_config(name)
+        (h, st, _), c = counted_run(
+            DataParallelEngine(cfg, devices=[dev, dev]), MULTI_PASSES,
+            path_kernels(name), f"{name}: DP x2 on cuda:0")
+        counts[f"dp {name}"] = c
+        hs, sts = summed_singles(cfg, dev, (0, 1), MULTI_PASSES)
+        check(np.array_equal(h, hs) and st == sts
+              and int(h.sum(dtype=np.uint64)) == st["on_canvas_points"] > 0,
+              f"{name}: DP x2 == single engines at ordinals 0 and 1 summed, "
+              f"histogram and every stat bitwise (on_canvas_points "
+              f"{st['on_canvas_points']})")
+    for name, scatter in MULTI_ROWS_CELLS:
+        cfg = cell_config(name, scatter)
+        for shards in (2, 3):
+            devs = [dev] * shards
+            (hr, sr, _), c = counted_run(
+                ShardedHistogramEngine(cfg, devices=devs), MULTI_PASSES,
+                path_kernels(name, scatter),
+                f"{name} {scatter}: rows x{shards} on cuda:0")
+            counts[f"rows{shards} {name}"] = c
+            hd, sd, _ = engine_run(DataParallelEngine(cfg, devices=devs),
+                                   MULTI_PASSES)
+            same_stats = {k: v for k, v in sr.items()
+                          if k != "histogram_sharding"} == sd
+            check(np.array_equal(hr, hd) and same_stats
+                  and int(hr.sum(dtype=np.uint64))
+                  == sr["on_canvas_points"] > 0,
+                  f"{name} {scatter}: rows x{shards} == DP x{shards}, "
+                  f"histogram and every stat bitwise; on_canvas_points == "
+                  f"histogram sum ({sr['on_canvas_points']})")
+    os.makedirs(OUT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        two_process_run(dev, tmp)
+        want = torch.cuda.device_count() + 1
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([*cell_args("default"), "--devices", str(want),
+                           "--passes", "1", "-t", "-1",
+                           "-o", os.path.join(tmp, "none.pgm")])
+        check(rc == 1 and f"Requested {want} devices starting at device 0 "
+              f"but only {want - 1} are available there." in out.getvalue()
+              and not os.path.exists(os.path.join(tmp, "none.pgm")),
+              f"--devices {want} on {want - 1} card(s): exit code 1 and the "
+              f"JAX package's message, no image")
+    log(f"  phase 10 checks took {time.monotonic() - t0:.1f} s")
+
+    log(f"-- phase 10 times [{card}]")
+    retime = retime_replays(dev, card)
+    times = {"replay_rounds_ms": retime}
+    for name in ("default", "zoom"):
+        cfg = cell_config(name)
+        single = CudaEngine(cfg, device=dev)
+        dp = DataParallelEngine(cfg, devices=[dev, dev])
+        t_single = pass_ms(single, single.init_state(None), 0, 10)
+        t_dp = pass_ms(dp, dp.init_state(None), 0, 10)
+        rows = {True: longest_first_engine()(cfg, devices=[dev, dev]),
+                False: ShardedHistogramEngine(cfg, devices=[dev, dev])}
+        t_rows = {}
+        for resort in (True, False, True, False):
+            eng = rows[resort]
+            t_rows.setdefault(resort, []).append(
+                pass_ms(eng, eng.init_state(None), 0, 10))
+        times[name] = dict(single_ms=t_single, dp2_ms=t_dp,
+                           rows2_resort_ms=t_rows[True],
+                           rows2_unsorted_ms=t_rows[False])
+        log(f"  {name}: ms a pass, one engine {t_single:.4f}; DP x2 on one "
+            f"card {t_dp:.4f} (two engines' passes, same card: not "
+            f"scaling); rows x2 re-sorted "
+            f"{', '.join(f'{t:.4f}' for t in t_rows[True])}, unsorted "
+            f"{', '.join(f'{t:.4f}' for t in t_rows[False])}")
+    times["rows_memory"] = rows_memory(dev, card)
+    log(f"phase 10 record: {json.dumps(times)}")
+    return counts
+
+
+#: The multi-card study's cells: name, --scatter route, passes timed.
+CARDS_CELLS = (("default", "auto", 10), ("zoom", "auto", 10),
+               ("bigcanvas", "auto", 10), ("northstar", "auto", 5))
+
+
+def host_pass_ms(eng, state, first: int, reps: int) -> float:
+    """Milliseconds per engine pass on the host clock over ``reps`` passes
+    after one warm pass, the engine synchronizing every device it runs on
+    before and after (CUDA events would time one device's stream)."""
+    eng.run_pass(state, first)
+    eng.synchronize()
+    t0 = time.perf_counter()
+    for p in range(reps):
+        eng.run_pass(state, first + 1 + p)
+    eng.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def cards_study(card):
+    """--cards: the multi-device engines over every card of the host (run
+    it with several cards). The data-parallel engine against single
+    engines, each on its own card at its own ordinal, summed; the row
+    shards (the gathered batches copied between cards) against the
+    replicas; two processes with half the cards each against one process;
+    each bitwise. Then ms a pass on the host clock of one card's engine, of
+    the data-parallel engine over all cards and of the row shards, at the
+    default, zoom, bigcanvas and northstar cells."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
+    from cudabrot_tpu_torch.io import checkpoint as ckpt
+    from cudabrot_tpu_torch.parallel.data_parallel import (
+        DataParallelEngine,
+        sum_stats,
+    )
+    from cudabrot_tpu_torch.parallel.sharded_hist import (
+        ShardedHistogramEngine,
+    )
+
+    n = torch.cuda.device_count()
+    log(f"== multi-card study: {n} cards [{card}]")
+    check(n >= 2 and n % 2 == 0, f"{n} cards: an even number of at least 2")
+    devs = [torch.device("cuda", i) for i in range(n)]
+    for name in ("default", "zoom"):
+        cfg = cell_config(name)
+        hd, sd, _ = engine_run(DataParallelEngine(cfg, devices=devs),
+                               MULTI_PASSES)
+        total, stats = np.zeros(cfg.canvas.shape, np.uint32), []
+        for i, dev in enumerate(devs):
+            eng = CudaEngine(cfg, device=dev)
+            st = eng.init_state(None)
+            for p in range(MULTI_PASSES):
+                eng.core(st, p, i)
+            total += eng.histogram(st)
+            stats.append(eng.stats(st))
+        check(np.array_equal(hd, total) and sd == sum_stats(stats),
+              f"{name}: DP over {n} cards == {n} single engines, each on "
+              f"its own card at its ordinal, summed; bitwise")
+    for name, scatter in (("default", "auto"), ("zoom", "auto"),
+                          ("bigcanvas", "bigtiles")):
+        cfg = cell_config(name, scatter)
+        hr, sr, _ = engine_run(ShardedHistogramEngine(cfg, devices=devs),
+                               MULTI_PASSES)
+        hd, sd, _ = engine_run(DataParallelEngine(cfg, devices=devs),
+                               MULTI_PASSES)
+        sr.pop("histogram_sharding")
+        check(np.array_equal(hr, hd) and sr == sd
+              and int(hr.sum(dtype=np.uint64)) == sr["on_canvas_points"],
+              f"{name} {scatter}: rows over {n} cards == replicas, bitwise")
+    os.makedirs(OUT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+
+        def args(d, tag):
+            return [*cell_args("default"), "-d", str(d), "--devices",
+                    str(n), "--passes", "4", "-t", "-1",
+                    "-s", os.path.join(tmp, f"{tag}.ckpt"),
+                    "-o", os.path.join(tmp, f"{tag}.pgm")]
+
+        single = subprocess.run(
+            [sys.executable, "-c", MULTI_CHILD, ROOT, *args(0, "one")],
+            capture_output=True, text=True, timeout=300)
+        check(single.returncode == 0, f"one process over {n} cards exits 0")
+        procs = []
+        for pid in range(2):
+            env = dict(os.environ,
+                       CUDABROT_COORDINATOR=f"127.0.0.1:{port}",
+                       CUDABROT_NUM_PROCESSES="2",
+                       CUDABROT_PROCESS_ID=str(pid))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", MULTI_CHILD, ROOT,
+                 *args(pid * n // 2, "two")], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(all(p.returncode == 0 for p in procs),
+              f"two processes, {n // 2} cards each, exit 0")
+        cfg = cell_config("default")
+        h1, _ = ckpt.load(os.path.join(tmp, "one.ckpt"), cfg)
+        h2, _ = ckpt.load(os.path.join(tmp, "two.ckpt"), cfg)
+        with open(os.path.join(tmp, "one.pgm"), "rb") as a, \
+                open(os.path.join(tmp, "two.pgm"), "rb") as b:
+            same_pgm = a.read() == b.read()
+        check(np.array_equal(h1, h2) and same_pgm and outs[1][0] == "",
+              f"two processes x {n // 2} cards == one process x {n} cards: "
+              f"checkpoint and PGM bitwise, process 1 silent")
+
+    times = {}
+    for name, scatter, reps in CARDS_CELLS:
+        cfg = cell_config(name, scatter)
+        one = CudaEngine(cfg, device=devs[0])
+        t1 = host_pass_ms(one, one.init_state(None), 0, reps)
+        del one
+        dp = DataParallelEngine(cfg, devices=devs)
+        tn = host_pass_ms(dp, dp.init_state(None), 0, reps)
+        del dp
+        for d in devs:
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
+        base = max(torch.cuda.memory_allocated(d) for d in devs)
+        rows = ShardedHistogramEngine(cfg, devices=devs)
+        tr = host_pass_ms(rows, rows.init_state(None), 0, reps)
+        # Each card's peak while the rows engine was built and run: its
+        # shard, its engine's buffers and the gathered batch.
+        peak = (max(torch.cuda.max_memory_allocated(d) for d in devs)
+                - base) / (1 << 20)
+        shard = rows.rows_per_shard * cfg.canvas.width * 4 / (1 << 20)
+        del rows
+        times[name] = dict(one_card_ms=t1, dp_ms=tn, rows_ms=tr,
+                           rows_peak_mib=peak, shard_mib=shard)
+        log(f"  {name}: ms a pass (host clock, {reps} passes): one card "
+            f"{t1:.4f}; DP x{n} {tn:.4f} ({n * t1 / tn:.3f}x one card's "
+            f"throughput); rows x{n} {tr:.4f} ({n * t1 / tr:.3f}x); rows' "
+            f"peak a card {peak:.1f} MiB, its shard {shard:.1f} MiB "
+            f"[{card}]")
+    log(f"multi-card record: {json.dumps(times)}")
+
+
 def ext_budget_sweep(dev):
     """Deep-zoom engine passes at 2^27..2^30 lane-steps per pass: ms per
     pass and lane-steps per second (CUDA events over 8 passes, after
@@ -3675,6 +4180,9 @@ def main() -> int:
                                mh_study(dev, card)),
         "--mh-deposit-study": lambda: mh_deposit_study(dev, card),
         "--ext-study": lambda: ext_study(dev, card),
+        "--multi": lambda: phase_multi(dev, card),
+        "--replay-retime": lambda: retime_replays(dev, card),
+        "--cards": lambda: cards_study(card),
     }
     if sys.argv[1:]:
         unknown = [a for a in sys.argv[1:] if a not in studies]
@@ -3713,6 +4221,7 @@ def main() -> int:
         phase_color()
         phase_replay_floor(dev, card)
         phase_overlap(dev)
+        multi_runs = phase_multi(dev, card)
         kernels = phase_kernel_times(
             dev, main_runs, errs,
             dict(classify_ext=ext_classify, replay_deposit_ext=ext_replay,
@@ -3727,6 +4236,8 @@ def main() -> int:
     log("main-path launches: " + ", ".join(
         f"{name} {json.dumps(main_runs[name][1])}"
         for name, _, _ in (*CELLS, *BIG_CELLS)))
+    log("phase 10 launches: " + ", ".join(
+        f"{name} {json.dumps(c)}" for name, c in multi_runs.items()))
     log(f"chip_smoke took {time.monotonic() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

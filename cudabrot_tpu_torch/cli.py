@@ -116,7 +116,9 @@ TPU-native extensions:
   --passes <n>: Stop after exactly n engine passes (deterministic
              alternative to -t).
   --devices <n>: Data-parallelize over n devices (default: 1; 'all'
-             uses every visible device).
+             uses every visible device from -d). In a multi-process
+             launch (CUDABROT_COORDINATOR, CUDABROT_NUM_PROCESSES,
+             CUDABROT_PROCESS_ID) n counts the devices of every process.
   --checkpoint-interval <n>: With -s, also write the checkpoint every n
              passes (default: only at exit, like the reference).
   --preview <file>: with --checkpoint-interval, write a tone-mapped PNG
@@ -597,12 +599,7 @@ def run(cfg: RenderConfig, extras: CliExtras, log=print, device=None) -> int:
     """Render + tone-map + save (the main() sequence, cudabrot.cu:762-791).
 
     Runs on ``cuda:<cfg.device_index>`` unless ``device`` is given."""
-    from cudabrot_tpu_torch import driver
-    from cudabrot_tpu_torch.engines import make_engine
-    from cudabrot_tpu_torch.io import checkpoint as _ckpt
-    from cudabrot_tpu_torch.io import pgm as pgm_io
-    from cudabrot_tpu_torch.ops import tonemap as tonemap_op
-    from cudabrot_tpu_torch.utils.device import DeviceError
+    from cudabrot_tpu_torch.parallel import distributed
 
     if extras.calibration:
         log(
@@ -610,6 +607,33 @@ def run(cfg: RenderConfig, extras: CliExtras, log=print, device=None) -> int:
             "tuning has no measured cost constants)."
         )
         return 1
+    # Before any engine is built: a multi-process launch
+    # (parallel/distributed.py) joins its group here. Single-process runs
+    # are untouched.
+    try:
+        joined = distributed.initialize_from_env(log)
+    except distributed.DistributedError as e:
+        log(str(e))
+        return 1
+    try:
+        return _render(cfg, extras, log, device)
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _render(cfg: RenderConfig, extras: CliExtras, log, device) -> int:
+    from cudabrot_tpu_torch import driver
+    from cudabrot_tpu_torch.engines import make_engine
+    from cudabrot_tpu_torch.io import checkpoint as _ckpt
+    from cudabrot_tpu_torch.io import pgm as pgm_io
+    from cudabrot_tpu_torch.ops import tonemap as tonemap_op
+    from cudabrot_tpu_torch.parallel import distributed
+    from cudabrot_tpu_torch.utils.device import DeviceError
+
+    primary = distributed.is_primary()
+    if not primary:
+        log = lambda *_a, **_k: None  # noqa: E731 -- non-primary is silent
     log(
         f"Creating {cfg.canvas.width}x{cfg.canvas.height} image, "
         f"{cfg.band.max_escape_iterations} max iterations."
@@ -623,6 +647,10 @@ def run(cfg: RenderConfig, extras: CliExtras, log=print, device=None) -> int:
         # with a clean message instead of a traceback.
         log(str(e))
         return 1
+    if not primary:
+        # The others' samples are in the primary's merged histogram;
+        # output is the primary's job.
+        return 0
 
     mapped = tonemap_op.tonemap(result.histogram, cfg.gamma)
     log(f"Max value: {mapped.max_count}, scale: {mapped.linear_scale:f}")

@@ -282,17 +282,18 @@ Options:
   --interleave: stream all bands concurrently (round-robin pass
         dispatch), so time budgets overlap (wall = max, not sum).
         Per-band output is bitwise identical to sequential --passes runs.
-  -d/--engine/--scatter/--seed/--devices/--precision/--sample-domain/
-  --fractal/--refill-rng/--replay-capacity/--sampler/--mh-restart/
-  --mh-rep-cap/--mh-burnin/--replay/--replay-threads/--emit-filter/
-  --lane-rows/--steps-per-pass/--steps-per-flush/--inner-unroll:
+  -d/--engine/--scatter/--seed/--devices/--hist-sharding/--precision/
+  --sample-domain/--fractal/--refill-rng/--replay-capacity/--sampler/
+  --mh-restart/--mh-rep-cap/--mh-burnin/--replay/--replay-threads/
+  --emit-filter/--lane-rows/--steps-per-pass/--steps-per-flush/
+  --inner-unroll:
         forwarded to the renderer (e.g. --precision extended +
         --sample-domain for color deep zooms, or --sampler mh for
         importance-sampled color crops). The bands render on CUDA
-        device -d (default 0). Forwarded values the main command
-        refuses (--replay host, --devices above 1, the TPU's --engine
-        pallas, --scatter pallas/sorted and --refill-rng hardware) fail
-        with its message.
+        device -d (default 0), or on --devices cards from it. Forwarded values the main command
+        refuses (--replay host, --devices beyond the cards present, the
+        TPU's --engine pallas, --scatter pallas/sorted and --refill-rng
+        hardware) fail with its message.
   --keep-bands: also save each band's grayscale PGM.
 """
 
@@ -337,7 +338,7 @@ def main(argv: list[str], device=None) -> int:
             canvas_args += [arg, _val(f"Argument {arg} needs a value.")]
             i += 2
         elif arg in ("-d", "--engine", "--scatter", "--seed", "--devices",
-                     "--precision", "--sample-domain", "--fractal",
+                     "--hist-sharding", "--precision", "--sample-domain", "--fractal",
                      "--refill-rng", "--replay-capacity", "--sampler",
                      "--mh-restart", "--mh-rep-cap", "--mh-burnin",
                      "--replay", "--replay-threads", "--emit-filter",

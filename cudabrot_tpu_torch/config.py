@@ -452,11 +452,6 @@ _NOT_YET_PORTED = (
     ("--replay host", lambda o: o.replay == "host"),
     ("--replay-device-share", lambda o: o.replay_device_share >= 0),
     ("--hist-dtype uint64", lambda o: o.hist_dtype == "uint64"),
-    (
-        "num_devices > 1",
-        lambda o: o.num_devices is not None and o.num_devices > 1,
-    ),
-    ("--hist-sharding rows", lambda o: o.histogram_sharding == "rows"),
 )
 
 

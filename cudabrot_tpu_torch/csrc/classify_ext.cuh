@@ -284,8 +284,9 @@ struct ReplayExtArgs {
   df::CanvasQDf q;
 };
 
-// iargs: fractal, k, width, height (the kernels' launchers also read
-//        iargs[4], the resident warps).
+// iargs: fractal, k, width, height, the resident warps (read by the
+//        kernels' launchers), and the histogram's row window: its first
+//        row and its rows ((0, height) for a whole canvas).
 // fargs: centre (rh, rl, ih, il), step_r, step_i, canvas minimum (rh, rl,
 //        ih, il), inverse pitches (re, im).
 inline ReplayExtArgs replay_ext_args(const void* kr, const void* ki,
@@ -307,6 +308,8 @@ inline ReplayExtArgs replay_ext_args(const void* kr, const void* ki,
   a.q.inv_d_im = fargs[11];
   a.q.width = iargs[2];
   a.q.height = iargs[3];
+  a.q.row_start = iargs[5];
+  a.q.row_count = iargs[6];
   return a;
 }
 
@@ -324,8 +327,8 @@ inline ReplayExtArgs replay_ext_args(const void* kr, const void* ki,
 // s + 1 is taken, so the binning (which the orbit never reads) and the
 // next step's dependent df32 chain sit in one iteration and the compiler
 // interleaves them. The points and their bins are those of the plain
-// loop.
-template <int FR, class Sink>
+// loop. WINDOW: df32.cuh bin_id_df's instantiation.
+template <int FR, bool WINDOW, class Sink>
 CB_HD uint32_t replay_ext_one(const ReplayExtArgs& a, int i, int n,
                               int steps, const Sink& sink) {
   const df::F2 cr = grid_sample(a.center_r, a.kr[i], a.step_r);
@@ -336,7 +339,7 @@ CB_HD uint32_t replay_ext_one(const ReplayExtArgs& a, int i, int n,
   for (int s = 0; s < steps; ++s) {
     const df::F2 pr = zr, pi = zi;
     df::complex_sqr_add<FR>(zr, zi, cr, ci);
-    const int64_t bin = df::bin_id_df(a.q, pr, pi);
+    const int64_t bin = df::bin_id_df<WINDOW>(a.q, pr, pi);
     const int64_t b = s <= n ? bin : -1;
     sink(s, b);
     local += b >= 0;

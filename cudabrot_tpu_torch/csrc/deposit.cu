@@ -32,6 +32,10 @@
 //    replay_ids' bigcanvas batch 4-5% faster (chip_smoke.py
 //    --replay-study).
 //
+//  * Both replays bin into a row window of the canvas (orbit.cuh CanvasQ):
+//    the whole canvas, or the rows of one shard of a row-sharded histogram
+//    (parallel/sharded_hist.py), whose ids are local to the shard.
+//
 //  * cb_replay_ids: the same queue writing ids instead of adding them, for
 //    the bigtiles route: emission i writes the bin id of each of its
 //    iters + 1 steps, or the sentinel nbins off the canvas, at off[i] + s of
@@ -180,7 +184,7 @@ __global__ void __launch_bounds__(kQueueBlock)
                       const long long* off, int k, int32_t* ids,
                       cb::CanvasQ q, int take, unsigned long long* next,
                       unsigned long long* hits) {
-  const int32_t nbins = q.width * q.height;
+  const int32_t nbins = q.width * q.row_count;  // the sentinel
 #if CB_IDS_STORE == 0
   // Per warp: the tile, and each row's orbit (its first slot and length).
   __shared__ int32_t tile[kQueueWarps][cb::kTile * cb::kTileStride];
@@ -350,20 +354,25 @@ extern "C" int cb_deposit_ids(const void* ids, long long n, void* hist,
   return int(cudaGetLastError());
 }
 
-// warps: the resident warps to launch (the SMs times the warps per SM);
-// take: the groups of 32 a warp takes from the queue at once; next: one
-// zeroed uint64, the queue's counter; hits: one uint64 the kernel adds the
-// on-canvas point count to. Returns the cudaError_t of the launch
-// (0 = launched).
+// row_start, row_count: the rows of the canvas the histogram holds,
+// (0, height) for a whole canvas or a shard's window (hist then holds
+// row_count * width cells); warps: the resident warps to launch (the SMs
+// times the warps per SM); take: the groups of 32 a warp takes from the
+// queue at once; next: one zeroed uint64, the queue's counter; hits: one
+// uint64 the kernel adds the count of points deposited into the histogram
+// to. Returns the cudaError_t of the launch (0 = launched).
 extern "C" int cb_replay_deposit(int fractal, const void* cr, const void* ci,
                                  const void* iters, int k, void* hist,
                                  float min_re, float min_im, float d_re,
                                  float d_im, int width, int height,
-                                 int warps, int take, void* next, void* hits,
+                                 int row_start, int row_count, int warps,
+                                 int take, void* next, void* hits,
                                  void* stream) {
   if (k <= 0) return 0;
-  if (warps <= 0 || take <= 0) return int(cudaErrorInvalidValue);
-  const cb::CanvasQ q{min_re, min_im, d_re, d_im, width, height};
+  if (warps <= 0 || take <= 0 || row_count < 0)
+    return int(cudaErrorInvalidValue);
+  const cb::CanvasQ q{min_re, min_im, d_re, d_im,
+                      width, height, row_start, row_count};
   const auto* pcr = static_cast<const float*>(cr);
   const auto* pci = static_cast<const float*>(ci);
   const auto* pit = static_cast<const int32_t*>(iters);
@@ -388,16 +397,20 @@ extern "C" int cb_replay_deposit(int fractal, const void* cr, const void* ci,
 // The id-stream replay of the bigtiles route: arguments as
 // cb_replay_deposit, with off (k,) int64 the first slot of each emission in
 // ids, the int32 stream of off[k-1] + iters[k-1] + 1 slots, in place of the
-// histogram. Returns the cudaError_t of the launch (0 = launched).
+// histogram; the sentinel is row_count * width. Returns the cudaError_t of
+// the launch (0 = launched).
 extern "C" int cb_replay_ids(int fractal, const void* cr, const void* ci,
                              const void* iters, const void* off, int k,
                              void* ids, float min_re, float min_im,
                              float d_re, float d_im, int width, int height,
-                             int warps, int take, void* next, void* hits,
+                             int row_start, int row_count, int warps,
+                             int take, void* next, void* hits,
                              void* stream) {
   if (k <= 0) return 0;
-  if (warps <= 0 || take <= 0) return int(cudaErrorInvalidValue);
-  const cb::CanvasQ q{min_re, min_im, d_re, d_im, width, height};
+  if (warps <= 0 || take <= 0 || row_count < 0)
+    return int(cudaErrorInvalidValue);
+  const cb::CanvasQ q{min_re, min_im, d_re, d_im,
+                      width, height, row_start, row_count};
   const auto* pcr = static_cast<const float*>(cr);
   const auto* pci = static_cast<const float*>(ci);
   const auto* pit = static_cast<const int32_t*>(iters);

@@ -41,15 +41,18 @@
 // replay_ext_one) with the on-canvas id sink (orbit.cuh CanvasIdSink):
 // emission i writes the bin id of each on-canvas step s at off[i] + s of a
 // flat int32 stream that the wrapper filled with the sentinel
-// width * height beforehand, so the stream equals, word for word, the one
-// a store per point (orbit.cuh IdSink) writes, and the bigtiles route
-// sorts and counts it (csrc/bigtiles.cu). At the deep zoom 99.3% of the
-// points are off the canvas: they cost no store. Every slot is written at
+// row_count * width beforehand (width * height for a whole canvas), so the
+// stream equals, word for word, the one a store per point (orbit.cuh
+// IdSink) writes, and the bigtiles route sorts and counts it
+// (csrc/bigtiles.cu). At the deep zoom 99.3% of the points are off the
+// canvas: they cost no store. Every slot is written at
 // most once, so no atomics. It replaces the scan of pallas_engine.py
 // _blocked_replay_ext that materializes the ids for the TPU's scatter.
 // Bound: the same 121 operations per point, plus 4 bytes per id for the
 // fill and 4 per on-canvas id.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "classify_ext.cuh"
 
@@ -63,8 +66,9 @@ constexpr int kBlock = 32 * kWarpsPerBlock;
 // lane 0, so the loop's exit is warp-uniform and every lane reaches the
 // warp sum. The lanes replay their orbits in step, for the group's longest
 // orbit; a lane past the batch's end runs the group's first emission and
-// records nothing (n = -1).
-template <int FR, class SinkOf>
+// records nothing (n = -1). W: the row window's instantiation of the
+// binning (df32.cuh bin_id_df).
+template <int FR, bool W, class SinkOf>
 __device__ __forceinline__ void replay_queue(const cb::ReplayExtArgs& a,
                                              unsigned long long* next,
                                              unsigned long long* hits,
@@ -82,26 +86,26 @@ __device__ __forceinline__ void replay_queue(const cb::ReplayExtArgs& a,
     const int n = i < a.k ? a.iters[i] : -1;
     const int steps = __reduce_max_sync(0xffffffffu, n) + 1;
     if (steps > 0)
-      local += cb::replay_ext_one<FR>(a, e, n, steps, sink_of(e));
+      local += cb::replay_ext_one<FR, W>(a, e, n, steps, sink_of(e));
   }
   cb::warp_sum_add(hits, local);
 }
 
-template <int FR>
+template <int FR, bool W>
 __global__ void __launch_bounds__(kBlock)
     replay_deposit_ext_kernel(cb::ReplayExtArgs a, unsigned long long* next,
                               unsigned long long* hits) {
-  replay_queue<FR>(a, next, hits,
-                   [&](int) { return cb::DepositSink{a.hist}; });
+  replay_queue<FR, W>(a, next, hits,
+                      [&](int) { return cb::DepositSink{a.hist}; });
 }
 
-template <int FR>
+template <int FR, bool W>
 __global__ void __launch_bounds__(kBlock)
     replay_ids_ext_kernel(cb::ReplayExtArgs a, const long long* off,
                           int32_t* ids, unsigned long long* next,
                           unsigned long long* hits) {
-  replay_queue<FR>(a, next, hits,
-                   [&](int i) { return cb::CanvasIdSink{ids + off[i]}; });
+  replay_queue<FR, W>(a, next, hits,
+                      [&](int i) { return cb::CanvasIdSink{ids + off[i]}; });
 }
 
 // Blocks of the launch: `warps` resident warps (iargs[4]), no more than
@@ -112,31 +116,35 @@ int blocks(const cb::ReplayExtArgs& a, int warps) {
   return (w + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
 
-template <int FR>
-cudaError_t launch(const cb::ReplayExtArgs& a, int warps,
-                   unsigned long long* next, unsigned long long* hits,
-                   cudaStream_t stream) {
-  replay_deposit_ext_kernel<FR>
-      <<<blocks(a, warps), kBlock, 0, stream>>>(a, next, hits);
-  return cudaGetLastError();
-}
-
-template <int FR>
-cudaError_t launch_ids(const cb::ReplayExtArgs& a, int warps,
-                       const long long* off, int32_t* ids,
-                       unsigned long long* next, unsigned long long* hits,
-                       cudaStream_t stream) {
-  replay_ids_ext_kernel<FR>
-      <<<blocks(a, warps), kBlock, 0, stream>>>(a, off, ids, next, hits);
-  return cudaGetLastError();
+// Calls launch(fr, w) with the fractal's and the window's instantiation
+// tags (std::integral_constant): w false for the whole canvas, true for a
+// shard's row window (df32.cuh bin_id_df).
+template <class Launch>
+cudaError_t dispatch(const cb::ReplayExtArgs& a, int fractal,
+                     const Launch& launch) {
+  auto by_window = [&](auto fr) {
+    return cb::df::is_window(a.q) ? launch(fr, std::true_type())
+                                  : launch(fr, std::false_type());
+  };
+  switch (fractal) {
+    case cb::kBuddhabrot:
+      return by_window(std::integral_constant<int, cb::kBuddhabrot>());
+    case cb::kBurningShip:
+      return by_window(std::integral_constant<int, cb::kBurningShip>());
+    case cb::kAntiBuddhabrot:
+      return by_window(std::integral_constant<int, cb::kAntiBuddhabrot>());
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Arguments as classify_ext.cuh replay_ext_args documents them, and
-// iargs[4]: the resident warps to launch. next: one zeroed uint64, the
-// queue's counter; hits: one uint64 the kernel adds the on-canvas point
-// count to. Returns the cudaError_t of the launch (0 = launched).
+// Arguments as classify_ext.cuh replay_ext_args documents them (iargs[4]:
+// the resident warps to launch; iargs[5], iargs[6]: the histogram's row
+// window, whose row_count * width cells hist holds). next: one zeroed
+// uint64, the queue's counter; hits: one uint64 the kernel adds the count
+// of points deposited into the histogram to. Returns the cudaError_t of the
+// launch (0 = launched).
 extern "C" int cb_replay_deposit_ext(const void* kr, const void* ki,
                                      const void* iters, void* hist,
                                      const int* iargs, const float* fargs,
@@ -144,26 +152,22 @@ extern "C" int cb_replay_deposit_ext(const void* kr, const void* ki,
   const cb::ReplayExtArgs a =
       cb::replay_ext_args(kr, ki, iters, hist, iargs, fargs);
   if (a.k <= 0) return 0;
-  if (iargs[4] <= 0) return int(cudaErrorInvalidValue);
+  if (iargs[4] <= 0 || a.q.row_count < 0) return int(cudaErrorInvalidValue);
   auto* pn = static_cast<unsigned long long*>(next);
   auto* ph = static_cast<unsigned long long*>(hits);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (iargs[0]) {
-    case cb::kBuddhabrot:
-      return int(launch<cb::kBuddhabrot>(a, iargs[4], pn, ph, s));
-    case cb::kBurningShip:
-      return int(launch<cb::kBurningShip>(a, iargs[4], pn, ph, s));
-    case cb::kAntiBuddhabrot:
-      return int(launch<cb::kAntiBuddhabrot>(a, iargs[4], pn, ph, s));
-  }
-  return int(cudaErrorInvalidValue);
+  return int(dispatch(a, iargs[0], [&](auto fr, auto w) {
+    replay_deposit_ext_kernel<decltype(fr)::value, decltype(w)::value>
+        <<<blocks(a, iargs[4]), kBlock, 0, s>>>(a, pn, ph);
+    return cudaGetLastError();
+  }));
 }
 
 // The id-stream replay: arguments as cb_replay_deposit_ext (hist unused);
 // off: (k,) int64 first slot of each emission; ids: the int32 stream,
-// off[k-1] + iters[k-1] + 1 slots, filled with the sentinel width * height
-// (the kernel writes only on-canvas ids). Returns the cudaError_t of the
-// launch.
+// off[k-1] + iters[k-1] + 1 slots, filled with the sentinel
+// row_count * width (the kernel writes only the window's ids). Returns the
+// cudaError_t of the launch.
 extern "C" int cb_replay_ids_ext(const void* kr, const void* ki,
                                  const void* iters, const void* off,
                                  void* ids, const int* iargs,
@@ -172,21 +176,15 @@ extern "C" int cb_replay_ids_ext(const void* kr, const void* ki,
   const cb::ReplayExtArgs a =
       cb::replay_ext_args(kr, ki, iters, nullptr, iargs, fargs);
   if (a.k <= 0) return 0;
-  if (iargs[4] <= 0) return int(cudaErrorInvalidValue);
+  if (iargs[4] <= 0 || a.q.row_count < 0) return int(cudaErrorInvalidValue);
   const auto* po = static_cast<const long long*>(off);
   auto* pi = static_cast<int32_t*>(ids);
   auto* pn = static_cast<unsigned long long*>(next);
   auto* ph = static_cast<unsigned long long*>(hits);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (iargs[0]) {
-    case cb::kBuddhabrot:
-      return int(launch_ids<cb::kBuddhabrot>(a, iargs[4], po, pi, pn, ph, s));
-    case cb::kBurningShip:
-      return int(
-          launch_ids<cb::kBurningShip>(a, iargs[4], po, pi, pn, ph, s));
-    case cb::kAntiBuddhabrot:
-      return int(
-          launch_ids<cb::kAntiBuddhabrot>(a, iargs[4], po, pi, pn, ph, s));
-  }
-  return int(cudaErrorInvalidValue);
+  return int(dispatch(a, iargs[0], [&](auto fr, auto w) {
+    replay_ids_ext_kernel<decltype(fr)::value, decltype(w)::value>
+        <<<blocks(a, iargs[4]), kBlock, 0, s>>>(a, po, pi, pn, ph);
+    return cudaGetLastError();
+  }));
 }

@@ -147,19 +147,31 @@ CB_HD float grid_offset(float k, float step) {
   return fmul(fsub(k, 8388608.0f), step);
 }
 
-// Canvas quantization of a df32 point (ops/binning.points_to_bin_ids_df):
-// the offset from the canvas minimum is taken in df32, its hi part is
-// multiplied by the rounded inverse pitch and truncated. The range test
-// runs on the float product (for x >= 0, trunc(x) < n iff x < n), so no
-// out-of-range float is converted. Returns -1 off-canvas (NaN included).
-// Written with selects, not early returns: inside the replay's orbit loop
-// a branch would split the loop body the compiler interleaves.
+// Canvas quantization of a df32 point (ops/binning.points_to_bin_ids_df,
+// and points_to_bin_ids_df_sharded for a row window): the offset from the
+// canvas minimum is taken in df32, its hi part is multiplied by the rounded
+// inverse pitch and truncated. The range test runs on the float product
+// (for x >= 0, trunc(x) < n iff x < n), so no out-of-range float is
+// converted. The histogram holds rows row_start .. row_start + row_count - 1
+// (orbit.cuh CanvasQ): the global range test first, then the window's.
+// Returns -1 off the canvas (NaN included) or outside the window. Written
+// with selects, not early returns: inside the replay's orbit loop a branch
+// would split the loop body the compiler interleaves.
+//
+// WINDOW is a compile-time switch: false compiles the whole canvas's test
+// alone (the window is then (0, height)). The df32 replays run at their
+// lone orbit's issue floor, where the window's two integer operations a
+// point made the deep-zoom cell's replay_deposit_ext 4% slower on an H100
+// (chip_smoke.py --replay-retime), so the kernels take the window's
+// instantiation for a shard only (deposit_ext.cu dispatch).
 struct CanvasQDf {
   F2 min_re, min_im;
   float inv_d_re, inv_d_im;
   int width, height;
+  int row_start, row_count;
 };
 
+template <bool WINDOW>
 CB_HD int64_t bin_id_df(const CanvasQDf& q, F2 re, F2 im) {
   const float dx = add(re, neg(q.min_re)).hi;
   const float dy = add(im, neg(q.min_im)).hi;
@@ -168,7 +180,19 @@ CB_HD int64_t bin_id_df(const CanvasQDf& q, F2 re, F2 im) {
   const bool ok = (dx >= 0.0f) & (dy >= 0.0f) & (col < float(q.width)) &
                   (row < float(q.height));
   const int32_t c = int32_t(ok ? col : 0.0f), r = int32_t(ok ? row : 0.0f);
-  return ok ? int64_t(r) * q.width + c : -1;
+  if constexpr (WINDOW) {
+    const int32_t lr = r - q.row_start;
+    // 0 <= lr < row_count as one unsigned compare (row_count >= 0).
+    const bool in = ok & (uint32_t(lr) < uint32_t(q.row_count));
+    return in ? int64_t(lr) * q.width + c : -1;
+  } else {
+    return ok ? int64_t(r) * q.width + c : -1;
+  }
+}
+
+// Whether a df32 replay needs the window's instantiation of bin_id_df.
+CB_HD bool is_window(const CanvasQDf& q) {
+  return q.row_start != 0 || q.row_count != q.height;
 }
 
 }  // namespace df

@@ -168,27 +168,37 @@ int mh_warps_pick(int fractal, int slots, int per_thread, int shared,
 
 // One df32 replay of emission i into the sink, for its own length (a
 // kernel's warp runs its lanes for the longest one's); adds its on-canvas
-// count to total.
-template <int FR, class Sink>
+// count to total. W: the binning's window instantiation.
+template <int FR, bool W, class Sink>
 void replay_ext_own(const cb::ReplayExtArgs& a, int i, const Sink& sink,
                     unsigned long long& total) {
   const int n = a.iters[i];
-  if (n >= 0) total += cb::replay_ext_one<FR>(a, i, n, n + 1, sink);
+  if (n >= 0) total += cb::replay_ext_one<FR, W>(a, i, n, n + 1, sink);
 }
 
-// replay_ext_own with the instantiation picked by fractal.
+template <int FR, class Sink>
+void replay_ext_window(const cb::ReplayExtArgs& a, int i, const Sink& sink,
+                       unsigned long long& total) {
+  if (cb::df::is_window(a.q))
+    replay_ext_own<FR, true>(a, i, sink, total);
+  else
+    replay_ext_own<FR, false>(a, i, sink, total);
+}
+
+// replay_ext_own with the instantiation picked by fractal and window, as
+// deposit_ext.cu dispatch picks it.
 template <class Sink>
 int replay_ext_by_fractal(int fractal, const cb::ReplayExtArgs& a, int i,
                           const Sink& sink, unsigned long long& total) {
   switch (fractal) {
     case cb::kBuddhabrot:
-      replay_ext_own<cb::kBuddhabrot>(a, i, sink, total);
+      replay_ext_window<cb::kBuddhabrot>(a, i, sink, total);
       return 0;
     case cb::kBurningShip:
-      replay_ext_own<cb::kBurningShip>(a, i, sink, total);
+      replay_ext_window<cb::kBurningShip>(a, i, sink, total);
       return 0;
     case cb::kAntiBuddhabrot:
-      replay_ext_own<cb::kAntiBuddhabrot>(a, i, sink, total);
+      replay_ext_window<cb::kAntiBuddhabrot>(a, i, sink, total);
       return 0;
   }
   return 1;
@@ -418,8 +428,10 @@ int cbh_refill_slots(int per_thread, const uint32_t* masks, int* slots) {
 int cbh_replay_deposit(int fractal, const float* cr, const float* ci,
                        const int32_t* iters, int k, uint32_t* hist,
                        float min_re, float min_im, float d_re, float d_im,
-                       int width, int height, void* hits) {
-  const cb::CanvasQ q{min_re, min_im, d_re, d_im, width, height};
+                       int width, int height, int row_start, int row_count,
+                       void* hits) {
+  const cb::CanvasQ q{min_re, min_im, d_re,      d_im,
+                      width,  height, row_start, row_count};
   const cb::DepositSink sink{hist};
   unsigned long long total = 0;
   for (int g = 0; g * 32 < k; ++g) {
@@ -578,7 +590,7 @@ int cbh_replay_ids_ext(const void* kr, const void* ki, const void* iters,
       cb::replay_ext_args(kr, ki, iters, nullptr, iargs, fargs);
   const auto* po = static_cast<const long long*>(off);
   auto* pi = static_cast<int32_t*>(ids);
-  const int32_t nbins = a.q.width * a.q.height;
+  const int32_t nbins = a.q.width * a.q.row_count;
   return replay_ext_all(
       iargs[0], a,
       [&](int i) { return cb::IdSink{pi + po[i], nbins, a.iters[i]}; },
@@ -612,10 +624,11 @@ int cbh_replay_ids_ext_canvas(const void* kr, const void* ki,
 int cbh_replay_ids(int fractal, const float* cr, const float* ci,
                    const int32_t* iters, const long long* off, int k,
                    int32_t* ids, float min_re, float min_im, float d_re,
-                   float d_im, int width, int height, int poison,
-                   void* hits) {
-  const cb::CanvasQ q{min_re, min_im, d_re, d_im, width, height};
-  const int32_t nbins = width * height;
+                   float d_im, int width, int height, int row_start,
+                   int row_count, int poison, void* hits) {
+  const cb::CanvasQ q{min_re, min_im, d_re,      d_im,
+                      width,  height, row_start, row_count};
+  const int32_t nbins = width * row_count;
   std::vector<int32_t> tile(cb::kTile * cb::kTileStride, poison);
   unsigned long long total = 0;
   auto warps = [&](auto tag) {
@@ -773,6 +786,35 @@ int cbh_mh_deposit_warps(const void* bins, const void* gate, int gate_min,
   *static_cast<long long*>(deposits) += (long long)dep;
   *static_cast<long long*>(mass) += (long long)ms;
   return 0;
+}
+
+// orbit.cuh bin_id over n points in the row window (row_start,
+// row_count): ids[i] = the local id, or -1.
+void cbh_bin_id(const float* re, const float* im, int n, float min_re,
+                float min_im, float d_re, float d_im, int width, int height,
+                int row_start, int row_count, long long* ids) {
+  const cb::CanvasQ q{min_re, min_im, d_re,      d_im,
+                      width,  height, row_start, row_count};
+  for (int i = 0; i < n; ++i) ids[i] = cb::bin_id(q, re[i], im[i]);
+}
+
+// df32.cuh bin_id_df's window instantiation over n df32 points: iargs
+// width, height, row_start, row_count; fargs the canvas minimum (rh, rl,
+// ih, il) and the inverse pitches (re, im).
+void cbh_bin_id_df(const float* reh, const float* rel, const float* imh,
+                   const float* iml, int n, const int* iargs,
+                   const float* fargs, long long* ids) {
+  cb::df::CanvasQDf q;
+  q.min_re = {fargs[0], fargs[1]};
+  q.min_im = {fargs[2], fargs[3]};
+  q.inv_d_re = fargs[4];
+  q.inv_d_im = fargs[5];
+  q.width = iargs[0];
+  q.height = iargs[1];
+  q.row_start = iargs[2];
+  q.row_count = iargs[3];
+  for (int i = 0; i < n; ++i)
+    ids[i] = cb::df::bin_id_df<true>(q, {reh[i], rel[i]}, {imh[i], iml[i]});
 }
 
 }  // extern "C"

@@ -100,16 +100,21 @@ CB_HD float u32_to_domain(uint32_t bits, float lo, float span) {
   return fadd(fmul(u, span), lo);
 }
 
-// Canvas quantization (ops/binning.points_to_bin_ids): points below the
-// minimum are off the canvas; col/row truncate; the range test runs on the
-// float quotient (trunc(x) < n  <=>  x < n for x >= 0). Returns -1
-// off-canvas. Without a branch: the quotients are taken for every point
-// and the tests select, so a warp whose lanes land on and off the canvas
-// does not diverge, and a float reaches the integer conversion only in
-// range.
+// Canvas quantization (ops/binning.points_to_bin_ids, and
+// points_to_bin_ids_sharded for a row window): points below the minimum are
+// off the canvas; col/row truncate; the range test runs on the float
+// quotient (trunc(x) < n  <=>  x < n for x >= 0). The histogram holds rows
+// row_start .. row_start + row_count - 1 of the canvas: (0, height) for a
+// whole canvas, a shard's window for a row-sharded one. The global range
+// test comes first, then the window's; the id is (row - row_start) * width
+// + col. Returns -1 off the canvas or outside the window. Without a branch:
+// the quotients are taken for every point and the tests select, so a warp
+// whose lanes land on and off the canvas does not diverge, and a float
+// reaches the integer conversion only in range.
 struct CanvasQ {
   float min_re, min_im, d_re, d_im;
   int width, height;
+  int row_start, row_count;
 };
 
 CB_HD int64_t bin_id(const CanvasQ& q, float re, float im) {
@@ -117,9 +122,11 @@ CB_HD int64_t bin_id(const CanvasQ& q, float re, float im) {
   const float row = fdiv(fsub(im, q.min_im), q.d_im);
   const bool on = (re >= q.min_re) & (im >= q.min_im) &
                   (col < float(q.width)) & (row < float(q.height));
-  const int64_t b = int64_t(int32_t(on ? row : 0.0f)) * q.width +
-                    int32_t(on ? col : 0.0f);
-  return on ? b : -1;
+  const int32_t r = int32_t(on ? row : 0.0f) - q.row_start;
+  // 0 <= r < row_count as one unsigned compare (row_count >= 0).
+  const bool in = on & (uint32_t(r) < uint32_t(q.row_count));
+  const int64_t b = int64_t(r) * q.width + int32_t(on ? col : 0.0f);
+  return in ? b : -1;
 }
 
 // Adds v to a histogram cell: an atomic on the device (threads share the

@@ -14,7 +14,12 @@ lifecycle in main (cudabrot.cu:762-791):
   * PyTorch launches asynchronously, so the loop keeps up to
     ``pipeline_depth`` passes in flight and synchronizes once per depth
     (the reference synchronizes every launch, cudabrot.cu:487);
-  * checkpoints can be written every N passes.
+  * checkpoints can be written every N passes;
+  * in a multi-process run (``parallel.distributed``) every process runs
+    the same passes: the stop verdict of each pass is the primary's (its
+    clock, its pass count, its SIGINT) or any process's SIGINT
+    (``any_flag``); every process reads the histogram at each readback
+    (a collective) and only the primary writes files.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import numpy as np
 from cudabrot_tpu_torch import engines
 from cudabrot_tpu_torch.config import RenderConfig
 from cudabrot_tpu_torch.io import checkpoint as ckpt
+from cudabrot_tpu_torch.parallel import distributed
 
 #: In-flight passes between synchronizations at pipeline_depth 0 (auto).
 DEFAULT_PIPELINE_DEPTH = 8
@@ -111,9 +117,12 @@ def run_render(
 
     Runs on CUDA unless ``device`` (or the given engine's device) says
     otherwise. Image tone-mapping and encoding are left to the caller
-    (cli.run), so library users get the raw histogram.
+    (cli.run), so library users get the raw histogram. A resume loads on
+    every process; the engine counts the loaded histogram once.
     """
     engine = engine or engines.make_engine(cfg, device=device)
+    multiproc = distributed.process_count() > 1
+    primary = distributed.is_primary()
 
     hist0 = None
     resumed_passes = 0
@@ -167,6 +176,12 @@ def run_render(
                 and (time.monotonic() - start) > cfg.seconds_to_run
             ):
                 stop = True
+            if multiproc:
+                # The primary contributes the whole verdict (its clock owns
+                # the time box); the others their own SIGINT, so ctrl+C on
+                # any process stops every one on the same pass.
+                stop = distributed.any_flag(
+                    stop if primary else flag.triggered)
             if stop:
                 break
             state = engine.run_pass(state, resumed_passes + passes)
@@ -189,15 +204,17 @@ def run_render(
                 and passes % cfg.checkpoint_interval == 0
                 and (cfg.inprogress_file or cfg.preview_file)
             ):
+                # A collective in multi-process runs: every process reads,
+                # only the primary writes.
                 snapshot = engine.histogram(state)
-                if cfg.inprogress_file:
+                if primary and cfg.inprogress_file:
                     ckpt.save(
                         cfg.inprogress_file,
                         snapshot,
                         cfg,
                         resumed_passes + passes,
                     )
-                if cfg.preview_file:
+                if primary and cfg.preview_file:
                     _write_preview(cfg, snapshot)
         interrupted = flag.triggered
 
@@ -235,7 +252,7 @@ def run_render(
             "if this grows, the band/crop combination is degenerate."
         )
 
-    if cfg.inprogress_file:
+    if cfg.inprogress_file and primary:
         log(f"Saving in-progress buffer to {cfg.inprogress_file}.")
         ckpt.save(cfg.inprogress_file, hist, cfg, resumed_passes + passes)
 

@@ -393,10 +393,17 @@ class CudaEngine:
 
     # -- engine interface ---------------------------------------------------
 
-    def init_state(self, hist0: np.ndarray | None) -> dict:
-        shape = self.cfg.canvas.shape
+    def init_state(self, hist0: np.ndarray | None,
+                   rows: int | None = None) -> dict:
+        """A new state; ``hist0`` the histogram to resume from. ``rows``:
+        the canvas rows the new histogram holds when there is no
+        ``hist0`` (a row shard of ``parallel.sharded_hist``; None, the
+        whole canvas)."""
+        cv = self.cfg.canvas
         if hist0 is None:
-            hist = torch.zeros(shape, dtype=torch.int32, device=self.device)
+            hist = torch.zeros((cv.height if rows is None else rows,
+                                cv.width), dtype=torch.int32,
+                               device=self.device)
         else:
             h = np.ascontiguousarray(hist0, dtype=np.uint32).view(np.int32)
             hist = torch.from_numpy(h.copy()).to(self.device)
@@ -432,12 +439,28 @@ class CudaEngine:
         return state
 
     def core(self, state: dict, pass_index: int, ordinal: int = 0) -> dict:
-        """One pass, entirely on the device; updates ``state`` in place."""
+        """One pass, entirely on the device; updates ``state`` in place:
+        ``classify_and_compact``, ``replay`` of the kept batch into the
+        histogram, ``add_pass_stats``."""
+        if self.mh:
+            return self._mh_core(state, pass_index, ordinal)
+        batch, result, n_valid = self.classify_and_compact(
+            state, pass_index, ordinal)
+        self.replay(state, pass_index, batch)
+        self.add_pass_stats(state, result, n_valid, batch[2])
+        return state
+
+    def classify_and_compact(self, state: dict, pass_index: int,
+                             ordinal: int = 0):
+        """A uniform pass's classify kernel (advancing ``state["lanes"]``)
+        and compaction, keyed by ``pass_key(seed, ordinal, pass_index)``:
+        returns ``(batch, result, n_valid)``, the kept ``(cr, ci, iters)``
+        (grid indices at extended precision), the classify result and the
+        count of valid emissions. The JAX engine's
+        ``_classify_and_compact``."""
         cfg, tn = self.cfg, self.tuning
         key = prng.pass_key(cfg.seed, ordinal, pass_index)
         seed = prng.bits_host(key, 2)
-        if self.mh:
-            return self._mh_core(state, pass_index, seed)
         spec = dict(
             fractal=self.fractal,
             min_it=tn.min_it,
@@ -460,17 +483,32 @@ class CudaEngine:
             result.emit_c, result.emit_it, key, self.replay_capacity,
             tn.max_it,
         )
-        kw = dict(canvas=cfg.canvas, fractal=self.fractal)
+        return (cr_c, ci_c, it_c), result, n_valid
+
+    def replay(self, state: dict, pass_index: int, batch,
+               rows: tuple[int, int] | None = None) -> None:
+        """Replays a kept batch into ``state["hist"]`` through the
+        configured route, adding the deposited points to ``dev_hits``.
+        ``rows``: the histogram's row window (a shard of
+        ``parallel.sharded_hist``; None, the whole canvas)."""
+        cfg = self.cfg
+        kw = dict(canvas=cfg.canvas, fractal=self.fractal, rows=rows)
         if self.extended:
             kw["sample_domain"] = cfg.sample_domain
         if self.scatter_backend == "bigtiles":
             # A kept orbit records at most max_it points.
             replay = (binning.replay_bigtiles_ext if self.extended
                       else binning.replay_bigtiles)
-            state["dev_hits"] += replay(state["hist"].view(-1), cr_c, ci_c,
-                                        it_c, max_len=tn.max_it, **kw)
+            state["dev_hits"] += replay(state["hist"].view(-1), *batch,
+                                        max_len=self.tuning.max_it, **kw)
         else:
-            self._replay_fused(state, pass_index, (cr_c, ci_c, it_c), kw)
+            self._replay_fused(state, pass_index, batch, kw)
+
+    def add_pass_stats(self, state: dict, result, n_valid,
+                       iters: torch.Tensor) -> None:
+        """Adds a uniform pass's counters to ``state``: the classify
+        result's stat rows, the kept and dropped emissions and the orbit
+        points of its kept ``iters``."""
         st = result.stats.reshape(cls.STATS_ROWS, -1).sum(dim=1)
         wasted = st[cls.STAT_WASTED]
         emitted = torch.clamp(n_valid, max=self.replay_capacity)
@@ -483,10 +521,9 @@ class CudaEngine:
             ("iters", self.steps_per_pass - wasted),
             ("emitted", emitted),
             ("replay_dropped", n_valid - emitted),
-            ("points", torch.where(it_c >= 0, it_c + 1, 0).sum()),
+            ("points", torch.where(iters >= 0, iters + 1, 0).sum()),
         ):
             state[k] += v
-        return state
 
     def _replay_fused(self, state: dict, pass_index: int, batch, kw) -> None:
         """The fused replay-deposit of one pass's kept batch, adding its
@@ -547,13 +584,15 @@ class CudaEngine:
             canvas_wh=(cv.width, cv.height),
         )
 
-    def _mh_core(self, state: dict, pass_index: int, seed) -> dict:
+    def _mh_core(self, state: dict, pass_index: int, ordinal: int) -> dict:
         """The MH pass: the chain kernel, then the weighted deposit of its
         emissions. While ``pass_index < mh_burnin_passes`` the chains
         advance and nothing is deposited; on the last burn-in pass every
         tenure counter is zeroed, so mass gathered during burn-in cannot
         deposit later."""
         o = self.cfg.options
+        seed = prng.bits_host(prng.pass_key(self.cfg.seed, ordinal,
+                                            pass_index), 2)
         classify = (cls_mh.classify_pass_ext_mh if self.extended
                     else cls_mh.classify_pass_mh)
         result = classify(state["lanes"], seed, **self.mh_pass_spec())

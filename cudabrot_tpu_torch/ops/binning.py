@@ -1,8 +1,8 @@
 """Orbit-point -> histogram-bin math and the deposit kernels.
 
 Port of ``cudabrot_tpu/ops/binning.py`` (``points_to_bin_ids``,
-``points_to_bin_ids_df``, ``scatter_xla``, ``scatter_pallas``,
-``bigtiles_layout``, ``scatter_bigtiles``, ``scatter_bigtiles_padded``,
+``points_to_bin_ids_df`` and their row-sharded forms, ``scatter_xla``,
+``scatter_pallas``, ``bigtiles_layout``, ``scatter_bigtiles``, ``scatter_bigtiles_padded``,
 ``select_scatter_backend``, ``mh_deposit_weights``, ``mh_scatter``) and of
 the replay semantics of ``engines/pallas_engine.py`` (``_batched_replay``/
 ``_blocked_replay``, and ``_blocked_replay_ext`` for df32 orbits).
@@ -29,6 +29,12 @@ package's ``jax.lax.sort``, outside its kernel too), and count it with the
 equal ids. Both give the same histogram bit for bit. The bigtiles route
 reads the pass's orbit-length sums back to size its id buffers: one host
 synchronization per pass, where the fused route has none.
+
+The four replay kernels take a row window ``rows=(row_start, row_count)``:
+the histogram then holds those rows of the canvas only (a shard of the
+row-sharded engine, ``parallel/sharded_hist.py``), a point's id is local
+to them and the ids' sentinel is ``row_count * width``. ``rows=None`` is
+the whole canvas, the window ``(0, height)``.
 """
 
 from __future__ import annotations
@@ -71,6 +77,26 @@ def points_to_bin_ids(canvas: Canvas, re, im, valid):
     return torch.where(ok, flat, canvas.num_pixels).to(torch.int32)
 
 
+def points_to_bin_ids_sharded(canvas: Canvas, re, im, valid, row_start: int,
+                              row_count: int):
+    """``points_to_bin_ids`` for a row-sharded histogram holding canvas
+    rows [row_start, row_start + row_count): the canvas's range test
+    first, then the window's; the local id is (row - row_start) * width +
+    col and everything else maps to the local sentinel row_count * width
+    (the JAX function of the same name)."""
+    ids = points_to_bin_ids(canvas, re, im, valid)
+    return _window(ids, canvas, row_start, row_count)
+
+
+def _window(ids, canvas: Canvas, row_start: int, row_count: int):
+    """Whole-canvas ids (sentinel ``canvas.num_pixels``) as ids local to the
+    rows [row_start, row_start + row_count), sentinel row_count * width."""
+    w = canvas.width
+    local = ids - row_start * w
+    ok = (ids < canvas.num_pixels) & (local >= 0) & (local < row_count * w)
+    return torch.where(ok, local, row_count * w).to(torch.int32)
+
+
 def points_to_bin_ids_df(canvas: Canvas, reh, rel, imh, iml, valid, mr, mi):
     """``points_to_bin_ids`` for df32 orbit points: the offset from the
     canvas minimum is taken in df32 (its hi part accurate to ~2^-48
@@ -93,6 +119,35 @@ def points_to_bin_ids_df(canvas: Canvas, reh, rel, imh, iml, valid, mr, mi):
     row = torch.where(ok, rowf, 0.0).to(torch.int32)
     flat = row * canvas.width + col
     return torch.where(ok, flat, canvas.num_pixels).to(torch.int32)
+
+
+def points_to_bin_ids_df_sharded(canvas: Canvas, reh, rel, imh, iml, valid,
+                                 mr, mi, row_start: int, row_count: int):
+    """``points_to_bin_ids_df`` for a row-sharded histogram: the df32
+    quantization with ``points_to_bin_ids_sharded``'s window (the JAX
+    function of the same name)."""
+    ids = points_to_bin_ids_df(canvas, reh, rel, imh, iml, valid, mr, mi)
+    return _window(ids, canvas, row_start, row_count)
+
+
+def _check_rows(canvas: Canvas, rows) -> tuple[int, int]:
+    """The row window ``rows`` ((0, height) for None), checked."""
+    if rows is None:
+        return 0, canvas.height
+    row_start, row_count = (int(v) for v in rows)
+    if row_count < 0 or row_start < 0:
+        raise ValueError(f"invalid row window {rows}")
+    return row_start, row_count
+
+
+def _check_window_hist(hist_flat, canvas: Canvas, rows) -> tuple[int, int]:
+    """The window of a replay into ``hist_flat``, which must hold its
+    rows."""
+    _check_hist(hist_flat)
+    row_start, row_count = _check_rows(canvas, rows)
+    if hist_flat.numel() != row_count * canvas.width:
+        raise ValueError("histogram size does not match the canvas rows")
+    return row_start, row_count
 
 
 def _check_hist(hist_flat: torch.Tensor) -> None:
@@ -177,19 +232,19 @@ def replay_deposit(
     canvas: Canvas,
     fractal: FractalMap,
     hits: torch.Tensor | None = None,
+    rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Replay each emission's orbit and deposit its on-canvas points into
-    ``hist_flat`` (in place). Emissions with ``iters < 0`` are inactive;
-    an active one records z_1..z_{iters+1} with z_0 = c (steps s <= iters,
+    ``hist_flat`` (in place), which holds the canvas rows of the window
+    ``rows`` (the whole canvas for None). Emissions with ``iters < 0`` are
+    inactive; an active one records z_1..z_{iters+1} with z_0 = c (steps s <= iters,
     the escape point included). Adds the on-canvas point count to
     ``hits``, a 0-dim int64 tensor on the histogram's device (the kernel
     adds with atomics; a new zero one when None), and returns it. The
     kernel's warps take the batch's groups of 32 emissions in order from a
     queue (``replay_launch``), so a batch ordered by descending orbit
     length starts its longest orbits first."""
-    _check_hist(hist_flat)
-    if hist_flat.numel() != canvas.num_pixels:
-        raise ValueError("histogram size does not match the canvas")
+    row_start, row_count = _check_window_hist(hist_flat, canvas, rows)
     if cr.dtype != torch.float32 or ci.dtype != torch.float32:
         raise ValueError("c values must be float32")
     if iters.dtype != torch.int32:
@@ -197,7 +252,7 @@ def replay_deposit(
     hits = _hits(hits, hist_flat.device)
     if hist_flat.device.type == "cpu":
         return replay_deposit_plain(hist_flat, cr, ci, iters, canvas=canvas,
-                                    fractal=fractal, hits=hits)
+                                    fractal=fractal, hits=hits, rows=rows)
     dev = hist_flat.device
     cr, ci, iters = (t.reshape(-1).contiguous() for t in (cr, ci, iters))
     if not (cr.device == ci.device == iters.device == dev):
@@ -214,8 +269,8 @@ def replay_deposit(
             fractal.kernel_id, _build.ptr(cr), _build.ptr(ci),
             _build.ptr(iters), cr.numel(), _build.ptr(hist_flat),
             canvas.min_real, canvas.min_imag, canvas.delta_real,
-            canvas.delta_imag, canvas.width, canvas.height,
-            warps, take, _build.ptr(queue), _build.ptr(hits),
+            canvas.delta_imag, canvas.width, canvas.height, row_start,
+            row_count, warps, take, _build.ptr(queue), _build.ptr(hits),
             _build.stream_of(hist_flat),
         )
     _build.check(rc, "replay_deposit kernel")
@@ -223,18 +278,24 @@ def replay_deposit(
     return hits
 
 
-def orbit_bins(cr, ci, iters, *, canvas: Canvas, fractal: FractalMap):
+def orbit_bins(cr, ci, iters, *, canvas: Canvas, fractal: FractalMap,
+               rows=None):
     """The replay kernels' orbit loop step-major in plain PyTorch: yields
     ``(s, ids)`` for every step s, ``ids`` the bin ids of step s's points,
     with the sentinel ``canvas.num_pixels`` where a point is off the canvas
     or an emission is past its ``iters``. Every emission advances one step
-    per iteration (finished ones coast, unrecorded)."""
+    per iteration (finished ones coast, unrecorded). With a row window
+    ``rows`` the ids are ``points_to_bin_ids_sharded``'s."""
     cr, ci, iters = (t.reshape(-1) for t in (cr, ci, iters))
     n_steps = int(iters.max().item()) + 1 if iters.numel() else 0
     zr, zi = cr, ci
     for s in range(n_steps):
         zr, zi = step(fractal, zr, zi, cr, ci)
-        yield s, points_to_bin_ids(canvas, zr, zi, iters >= s)
+        if rows is None:
+            yield s, points_to_bin_ids(canvas, zr, zi, iters >= s)
+        else:
+            yield s, points_to_bin_ids_sharded(canvas, zr, zi, iters >= s,
+                                               *rows)
 
 
 def _hits(hits, dev) -> torch.Tensor:
@@ -277,13 +338,14 @@ def _write_steps(iters, off, n_ids: int, nbins: int, steps):
 
 
 def replay_deposit_plain(hist_flat, cr, ci, iters, *, canvas: Canvas,
-                         fractal: FractalMap, hits=None) -> torch.Tensor:
+                         fractal: FractalMap, hits=None,
+                         rows=None) -> torch.Tensor:
     """The replay kernel's function step-major in plain PyTorch: the
     points still inside their recording window deposit through
     ``index_add_``."""
     launches.COUNTS["replay_deposit_plain"] += 1
-    return _deposit_steps(hist_flat, orbit_bins(cr, ci, iters, canvas=canvas,
-                                                 fractal=fractal), hits)
+    return _deposit_steps(hist_flat, orbit_bins(
+        cr, ci, iters, canvas=canvas, fractal=fractal, rows=rows), hits)
 
 
 # ----------------------------------------------------------------------
@@ -308,19 +370,19 @@ def replay_deposit_ext(
     fractal: FractalMap,
     sample_domain: tuple,
     hits: torch.Tensor | None = None,
+    rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """``replay_deposit`` for extended-precision emissions: ``kr``/``ki``
     are the 24-bit grid indices (as f32) the df32 classify pass emitted
     over ``sample_domain``. c is rebuilt as the pass drew it
     (``classify_ext.grid_sample``), the orbit runs in df32 and every point
-    bins through ``points_to_bin_ids_df``. Adds the on-canvas point count
-    to ``hits`` (as ``replay_deposit``) and returns it. The kernel's warps
+    bins through ``points_to_bin_ids_df`` (``_sharded`` in a row window
+    ``rows``). Adds the deposited point count to ``hits`` (as
+    ``replay_deposit``) and returns it. The kernel's warps
     take the batch's groups of 32 emissions in order from a queue
     (``REPLAY_EXT_WARPS_PER_SM``), so a batch ordered by descending orbit
     length starts its longest orbits first."""
-    _check_hist(hist_flat)
-    if hist_flat.numel() != canvas.num_pixels:
-        raise ValueError("histogram size does not match the canvas")
+    _check_window_hist(hist_flat, canvas, rows)
     if kr.dtype != torch.float32 or ki.dtype != torch.float32:
         raise ValueError("grid indices must be float32")
     if iters.dtype != torch.int32:
@@ -329,7 +391,7 @@ def replay_deposit_ext(
     if hist_flat.device.type == "cpu":
         return replay_deposit_ext_plain(
             hist_flat, kr, ki, iters, canvas=canvas, fractal=fractal,
-            sample_domain=sample_domain, hits=hits)
+            sample_domain=sample_domain, hits=hits, rows=rows)
     dev = hist_flat.device
     kr, ki, iters = (t.reshape(-1).contiguous() for t in (kr, ki, iters))
     if not (kr.device == ki.device == iters.device == dev):
@@ -339,7 +401,7 @@ def replay_deposit_ext(
     if kr.numel() == 0:
         return hits
     iargs, fargs = _replay_ext_args(dev, kr.numel(), canvas, fractal,
-                                    sample_domain)
+                                    sample_domain, rows)
     queue = torch.zeros(1, dtype=torch.int64, device=dev)
     lib = _lib_ext()
     with torch.cuda.device(dev):
@@ -355,13 +417,13 @@ def replay_deposit_ext(
 
 def replay_deposit_ext_plain(hist_flat, kr, ki, iters, *, canvas: Canvas,
                              fractal: FractalMap, sample_domain: tuple,
-                             hits=None) -> torch.Tensor:
+                             hits=None, rows=None) -> torch.Tensor:
     """The df32 replay kernel's function step-major in plain PyTorch, as
     ``replay_deposit_plain``."""
     launches.COUNTS["replay_deposit_ext_plain"] += 1
     return _deposit_steps(hist_flat, orbit_bins_ext(
         kr, ki, iters, canvas=canvas, fractal=fractal,
-        sample_domain=sample_domain), hits)
+        sample_domain=sample_domain, rows=rows), hits)
 
 
 #: Resident warps per SM of the df32 replay kernels' queue
@@ -371,24 +433,26 @@ REPLAY_EXT_WARPS_PER_SM = 4
 
 
 def _replay_ext_args(dev, k: int, canvas: Canvas, fractal: FractalMap,
-                     sample_domain: tuple):
+                     sample_domain: tuple, rows=None):
     """The C arguments (iargs, fargs) of the df32 replay kernels on CUDA
-    device ``dev``."""
+    device ``dev``, binning into the row window ``rows``."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     c0r, c0i, step_r, step_i = grid_params(sample_domain)
     mr, mi, inv_dr, inv_di = _canvas_df(canvas)
-    iargs = (ctypes.c_int * 5)(fractal.kernel_id, k, canvas.width,
-                               canvas.height, sms * REPLAY_EXT_WARPS_PER_SM)
+    iargs = (ctypes.c_int * 7)(fractal.kernel_id, k, canvas.width,
+                               canvas.height, sms * REPLAY_EXT_WARPS_PER_SM,
+                               *_check_rows(canvas, rows))
     fargs = (ctypes.c_float * 12)(*c0r, *c0i, step_r, step_i, *mr, *mi,
                                   inv_dr, inv_di)
     return iargs, fargs
 
 
 def orbit_bins_ext(kr, ki, iters, *, canvas: Canvas, fractal: FractalMap,
-                   sample_domain: tuple):
+                   sample_domain: tuple, rows=None):
     """``orbit_bins`` for df32 emissions: c rebuilt from the grid indices
     as the classify pass drew it, one df32 step per iteration, points
-    binned through ``points_to_bin_ids_df``."""
+    binned through ``points_to_bin_ids_df`` (``_sharded`` in a row window
+    ``rows``)."""
     kr, ki, iters = (t.reshape(-1) for t in (kr, ki, iters))
     dev = kr.device
     c0r, c0i, step_r, step_i = grid_params(sample_domain)
@@ -403,8 +467,12 @@ def orbit_bins_ext(kr, ki, iters, *, canvas: Canvas, fractal: FractalMap,
     for s in range(n_steps):
         zr, zrl, zi, zil, _ = df32.complex_sqr_add(
             zr, zrl, zi, zil, crh, crl, cih, cil, fold_abs=fractal.fold_abs)
-        yield s, points_to_bin_ids_df(canvas, zr, zrl, zi, zil, iters >= s,
-                                      mr, mi)
+        if rows is None:
+            yield s, points_to_bin_ids_df(canvas, zr, zrl, zi, zil,
+                                          iters >= s, mr, mi)
+        else:
+            yield s, points_to_bin_ids_df_sharded(
+                canvas, zr, zrl, zi, zil, iters >= s, mr, mi, *rows)
 
 
 # ----------------------------------------------------------------------
@@ -548,10 +616,11 @@ def _check_replay_ids(xr, xi, iters, off, what: str):
 
 
 def replay_ids(cr, ci, iters, off, n_ids: int, *, canvas: Canvas,
-               fractal: FractalMap):
+               fractal: FractalMap, rows=None):
     """Replay each emission's orbit into an id stream: emission e writes
     the bin id of each of its ``iters[e] + 1`` steps (the sentinel
-    ``canvas.num_pixels`` where a point is off the canvas) at
+    ``canvas.num_pixels`` where a point is off the canvas; with a row
+    window ``rows``, the window's local ids and sentinel) at
     ``off[e] + s`` of a new int32 tensor of ``n_ids`` slots. ``off`` is
     int64, the exclusive prefix sum of max(iters + 1, 0), so every slot is
     written once (``id_offsets``); ``n_ids`` must cover the last
@@ -562,14 +631,14 @@ def replay_ids(cr, ci, iters, off, n_ids: int, *, canvas: Canvas,
     cr, ci, iters, off = _check_replay_ids(cr, ci, iters, off, "c values")
     if cr.device.type == "cpu":
         return replay_ids_plain(cr, ci, iters, off, n_ids, canvas=canvas,
-                                fractal=fractal)
+                                fractal=fractal, rows=rows)
     ids = torch.empty(n_ids, dtype=torch.int32, device=cr.device)
     return ids, _replay_ids_launch(_lib(), ids, cr, ci, iters, off,
-                                   canvas=canvas, fractal=fractal)
+                                   canvas=canvas, fractal=fractal, rows=rows)
 
 
 def _replay_ids_launch(lib, ids, cr, ci, iters, off, *, canvas: Canvas,
-                       fractal: FractalMap) -> torch.Tensor:
+                       fractal: FractalMap, rows=None) -> torch.Tensor:
     """Launches ``lib``'s replay_ids kernel into ``ids`` (checked,
     contiguous inputs on one CUDA device); returns the on-canvas count.
     chip_smoke.py's study passes the variant builds of csrc/deposit.cu."""
@@ -585,8 +654,8 @@ def _replay_ids_launch(lib, ids, cr, ci, iters, off, *, canvas: Canvas,
             _build.ptr(iters), _build.ptr(off), cr.numel(), _build.ptr(ids),
             canvas.min_real, canvas.min_imag, canvas.delta_real,
             canvas.delta_imag, canvas.width, canvas.height,
-            warps, take, _build.ptr(queue), _build.ptr(hits),
-            _build.stream_of(ids),
+            *_check_rows(canvas, rows), warps, take, _build.ptr(queue),
+            _build.ptr(hits), _build.stream_of(ids),
         )
     _build.check(rc, "replay_ids kernel")
     launches.COUNTS["replay_ids"] += 1
@@ -594,15 +663,21 @@ def _replay_ids_launch(lib, ids, cr, ci, iters, off, *, canvas: Canvas,
 
 
 def replay_ids_plain(cr, ci, iters, off, n_ids: int, *, canvas: Canvas,
-                     fractal: FractalMap):
+                     fractal: FractalMap, rows=None):
     """``replay_ids`` step-major in plain PyTorch."""
     launches.COUNTS["replay_ids_plain"] += 1
-    return _write_steps(iters, off, n_ids, canvas.num_pixels, orbit_bins(
-        cr, ci, iters, canvas=canvas, fractal=fractal))
+    return _write_steps(iters, off, n_ids, _sentinel(canvas, rows),
+                        orbit_bins(cr, ci, iters, canvas=canvas,
+                                   fractal=fractal, rows=rows))
+
+
+def _sentinel(canvas: Canvas, rows) -> int:
+    """The ids' sentinel in the row window ``rows``: its cells' count."""
+    return _check_rows(canvas, rows)[1] * canvas.width
 
 
 def replay_ids_ext(kr, ki, iters, off, n_ids: int, *, canvas: Canvas,
-                   fractal: FractalMap, sample_domain: tuple):
+                   fractal: FractalMap, sample_domain: tuple, rows=None):
     """``replay_ids`` for extended-precision emissions (24-bit grid indices
     over ``sample_domain``): the df32 orbits of ``replay_deposit_ext``, and
     its queue. The stream is filled with the sentinel first and the kernel
@@ -613,15 +688,15 @@ def replay_ids_ext(kr, ki, iters, off, n_ids: int, *, canvas: Canvas,
     if kr.device.type == "cpu":
         return replay_ids_ext_plain(kr, ki, iters, off, n_ids, canvas=canvas,
                                     fractal=fractal,
-                                    sample_domain=sample_domain)
+                                    sample_domain=sample_domain, rows=rows)
     dev = kr.device
-    ids = torch.full((n_ids,), canvas.num_pixels, dtype=torch.int32,
+    ids = torch.full((n_ids,), _sentinel(canvas, rows), dtype=torch.int32,
                      device=dev)
     hits = torch.zeros((), dtype=torch.int64, device=dev)
     if kr.numel() == 0:
         return ids, hits
     iargs, fargs = _replay_ext_args(dev, kr.numel(), canvas, fractal,
-                                    sample_domain)
+                                    sample_domain, rows)
     queue = torch.zeros(1, dtype=torch.int64, device=dev)
     lib = _lib_ext()
     with torch.cuda.device(dev):
@@ -636,12 +711,15 @@ def replay_ids_ext(kr, ki, iters, off, n_ids: int, *, canvas: Canvas,
 
 
 def replay_ids_ext_plain(kr, ki, iters, off, n_ids: int, *, canvas: Canvas,
-                         fractal: FractalMap, sample_domain: tuple):
+                         fractal: FractalMap, sample_domain: tuple,
+                         rows=None):
     """``replay_ids_ext`` step-major in plain PyTorch."""
     launches.COUNTS["replay_ids_ext_plain"] += 1
-    return _write_steps(iters, off, n_ids, canvas.num_pixels, orbit_bins_ext(
-        kr, ki, iters, canvas=canvas, fractal=fractal,
-        sample_domain=sample_domain))
+    return _write_steps(iters, off, n_ids, _sentinel(canvas, rows),
+                        orbit_bins_ext(kr, ki, iters, canvas=canvas,
+                                       fractal=fractal,
+                                       sample_domain=sample_domain,
+                                       rows=rows))
 
 
 def _replay_sorted(hist_flat, iters, write_ids, max_len: int,
@@ -695,19 +773,19 @@ def replay_bigtiles(
     fractal: FractalMap,
     max_len: int = MAX_ORBIT_LEN,
     budget: int = 0,
+    rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """``replay_deposit`` through the bigtiles route: the same histogram,
     bit for bit, and the same on-canvas count (0-dim int64). ``max_len``
     bounds the points of one orbit (the band's max_it); ``budget`` the ids
-    of one group (0: ``BIGTILES_ID_BUDGET``)."""
-    _check_hist(hist_flat)
-    if hist_flat.numel() != canvas.num_pixels:
-        raise ValueError("histogram size does not match the canvas")
+    of one group (0: ``BIGTILES_ID_BUDGET``); ``rows`` the histogram's row
+    window."""
+    _check_window_hist(hist_flat, canvas, rows)
     cr, ci, iters = (t.reshape(-1) for t in (cr, ci, iters))
 
     def write(sl, off, n_ids):
         return replay_ids(cr[sl], ci[sl], iters[sl], off, n_ids,
-                          canvas=canvas, fractal=fractal)
+                          canvas=canvas, fractal=fractal, rows=rows)
 
     return _replay_sorted(hist_flat, iters, write, max_len, budget)
 
@@ -723,18 +801,17 @@ def replay_bigtiles_ext(
     sample_domain: tuple,
     max_len: int = MAX_ORBIT_LEN,
     budget: int = 0,
+    rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """``replay_deposit_ext`` through the bigtiles route (``replay_ids_ext``
     for the ids): the same histogram and count, bit for bit."""
-    _check_hist(hist_flat)
-    if hist_flat.numel() != canvas.num_pixels:
-        raise ValueError("histogram size does not match the canvas")
+    _check_window_hist(hist_flat, canvas, rows)
     kr, ki, iters = (t.reshape(-1) for t in (kr, ki, iters))
 
     def write(sl, off, n_ids):
         return replay_ids_ext(kr[sl], ki[sl], iters[sl], off, n_ids,
                               canvas=canvas, fractal=fractal,
-                              sample_domain=sample_domain)
+                              sample_domain=sample_domain, rows=rows)
 
     return _replay_sorted(hist_flat, iters, write, max_len, budget)
 
@@ -920,11 +997,12 @@ def _lib(defines=()):
         lib.cb_deposit_ids.argtypes = [vp, ctypes.c_longlong, vp, i, vp]
         lib.cb_deposit_ids.restype = i
         lib.cb_replay_deposit.argtypes = [
-            i, vp, vp, vp, i, vp, f, f, f, f, i, i, i, i, vp, vp, vp,
+            i, vp, vp, vp, i, vp, f, f, f, f, i, i, i, i, i, i, vp, vp, vp,
         ]
         lib.cb_replay_deposit.restype = i
         lib.cb_replay_ids.argtypes = [
-            i, vp, vp, vp, vp, i, vp, f, f, f, f, i, i, i, i, vp, vp, vp,
+            i, vp, vp, vp, vp, i, vp, f, f, f, f, i, i, i, i, i, i, vp, vp,
+            vp,
         ]
         lib.cb_replay_ids.restype = i
         lib.cb_mh_deposit.argtypes = [

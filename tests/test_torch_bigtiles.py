@@ -360,13 +360,14 @@ def _host_ids(harness, cr, ci, it, canvas, fractal, shift=0,  # noqa: F811
     hits = ctypes.c_ulonglong(0)
     vp, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
     harness.cbh_replay_ids.argtypes = [
-        i, vp, vp, vp, vp, i, vp, f, f, f, f, i, i, i, vp]
+        i, vp, vp, vp, vp, i, vp, f, f, f, f, i, i, i, i, i, vp]
     offs = off.numpy()
     assert harness.cbh_replay_ids(
         fractal.kernel_id, cr.ctypes.data, ci.ctypes.data, it.ctypes.data,
         offs.ctypes.data, it.size, buf.ctypes.data + 4 * shift,
         canvas.min_real, canvas.min_imag, canvas.delta_real,
-        canvas.delta_imag, canvas.width, canvas.height, -99,
+        canvas.delta_imag, canvas.width, canvas.height, 0, canvas.height,
+        -99,
         ctypes.addressof(hits)) == 0
     outside = np.concatenate([buf[:shift], buf[shift + n:]])
     return buf[shift:shift + n], hits.value, outside
@@ -444,8 +445,8 @@ def _host_ids_ext(harness, fn, name, prefill):  # noqa: F811
     ids = np.full(n, prefill, np.int32)
     hits = ctypes.c_ulonglong(0)
     c0r, c0i, step_r, step_i = cx.grid_params(FAST)
-    iargs = (ctypes.c_int * 4)(FRACTALS[name].kernel_id, k, canvas.width,
-                               canvas.height)
+    iargs = (ctypes.c_int * 7)(FRACTALS[name].kernel_id, k, canvas.width,
+                               canvas.height, 0, 0, canvas.height)
     fargs = (ctypes.c_float * 12)(
         *c0r, *c0i, step_r, step_i, *df32.from_float(canvas.min_real),
         *df32.from_float(canvas.min_imag),

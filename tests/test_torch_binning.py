@@ -179,11 +179,85 @@ def test_header_replay_queue_bitwise(harness, name, k, order):  # noqa: F811
     hits = ctypes.c_ulonglong(0)
     vp, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
     harness.cbh_replay_deposit.argtypes = [i, vp, vp, vp, i, vp, f, f, f, f,
-                                           i, i, vp]
+                                           i, i, i, i, vp]
     assert harness.cbh_replay_deposit(
         fr.kernel_id, cr.ctypes.data, ci.ctypes.data, it.ctypes.data, k,
         hist.ctypes.data, canvas.min_real, canvas.min_imag,
         canvas.delta_real, canvas.delta_imag, canvas.width, canvas.height,
-        ctypes.addressof(hits)) == 0
+        0, canvas.height, ctypes.addressof(hits)) == 0
     np.testing.assert_array_equal(hist.view(np.int32), hist_p.numpy())
     assert hits.value == int(hits_p) == int(hist.sum()) > 0
+
+
+#: Row windows over a 29-row canvas: the whole canvas, shards of an uneven
+#: split, one row, a shard past the canvas's end, an empty window.
+ROW_WINDOWS = [(0, 29), (0, 8), (8, 8), (24, 8), (28, 1), (13, 3), (32, 8),
+               (5, 0)]
+
+
+def _window_points(canvas, row_start, row_count, seed):
+    """Points on the rows row_start - 1, row_start, row_start + row_count
+    - 1, row_start + row_count and height (centres and lower edges), -1
+    too, and random points around the canvas; NaN and inf among them."""
+    rows = [row_start - 1, row_start, row_start + row_count - 1,
+            row_start + row_count, canvas.height, -1, canvas.height - 1]
+    rng = np.random.default_rng(seed)
+    ims, res = [], []
+    for r in rows:
+        for frac in (0.0, 0.5, 0.999):
+            ims += [canvas.min_imag + (r + frac) * canvas.delta_imag] * 8
+            res += list(rng.uniform(canvas.min_real - 0.1,
+                                    canvas.max_real + 0.1, 8))
+    re = np.concatenate([np.asarray(res), rng.uniform(-2.2, 2.2, 2000)])
+    im = np.concatenate([np.asarray(ims), rng.uniform(-2.2, 2.2, 2000)])
+    re, im = re.astype(np.float32), im.astype(np.float32)
+    re[-3:] = [np.nan, np.inf, -np.inf]
+    return re, im
+
+
+@pytest.mark.parametrize("rows", ROW_WINDOWS)
+def test_header_bin_id_row_window_bitwise(harness, rows):  # noqa: F811
+    """orbit.cuh bin_id and df32.cuh bin_id_df with a row window (the four
+    replay kernels' binning) against the plain sharded quantizers
+    (points_to_bin_ids_sharded, _df_sharded), bitwise, at the window's
+    edge rows; -1 is the plain versions' sentinel row_count * width."""
+    from cudabrot_tpu_torch.ops import df32
+
+    canvas = Canvas(**CANVASES[2])
+    r0, n = rows
+    re, im = _window_points(canvas, r0, n, r0 * 31 + n)
+    k = re.size
+    sentinel = n * canvas.width
+    got = np.empty(k, np.int64)
+    f, i, vp = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+    harness.cbh_bin_id.argtypes = [vp, vp, i, f, f, f, f, i, i, i, i, vp]
+    harness.cbh_bin_id(re.ctypes.data, im.ctypes.data, k, canvas.min_real,
+                       canvas.min_imag, canvas.delta_real, canvas.delta_imag,
+                       canvas.width, canvas.height, r0, n, got.ctypes.data)
+    want = tb.points_to_bin_ids_sharded(
+        canvas, torch.from_numpy(re), torch.from_numpy(im),
+        torch.ones(k, dtype=torch.bool), r0, n).numpy()
+    np.testing.assert_array_equal(np.where(got < 0, sentinel, got), want)
+    inside = int(((want >= 0) & (want < sentinel)).sum())
+    assert inside == 0 if n == 0 or r0 >= canvas.height else inside > 8
+
+    rel = (re * np.float32(2.0 ** -27)).astype(np.float32)
+    iml = (im * np.float32(-2.0 ** -29)).astype(np.float32)
+    mr, mi = df32.from_float(canvas.min_real), df32.from_float(canvas.min_imag)
+    inv = (np.float32(1.0 / canvas.delta_real),
+           np.float32(1.0 / canvas.delta_imag))
+    got_df = np.empty(k, np.int64)
+    harness.cbh_bin_id_df.argtypes = [vp, vp, vp, vp, i,
+                                      ctypes.POINTER(i), ctypes.POINTER(f),
+                                      vp]
+    harness.cbh_bin_id_df(
+        re.ctypes.data, rel.ctypes.data, im.ctypes.data, iml.ctypes.data, k,
+        (i * 4)(canvas.width, canvas.height, r0, n),
+        (f * 6)(*mr, *mi, *inv), got_df.ctypes.data)
+    want_df = tb.points_to_bin_ids_df_sharded(
+        canvas, *(torch.from_numpy(x) for x in (re, rel, im, iml)),
+        torch.ones(k, dtype=torch.bool),
+        tuple(torch.tensor(v) for v in mr),
+        tuple(torch.tensor(v) for v in mi), r0, n).numpy()
+    np.testing.assert_array_equal(np.where(got_df < 0, sentinel, got_df),
+                                  want_df)

@@ -76,7 +76,8 @@ def test_resolve_device():
     ([], None, "CUDA is not available"),
     (["--interleave"], None, "CUDA is not available"),
     (["--replay", "host"], "cpu", "--replay host is not yet ported"),
-    (["--devices", "2"], "cpu", "num_devices > 1 is not yet ported"),
+    (["--devices", "2", "--sampler", "mh", "--hist-sharding", "rows"], "cpu",
+     "incompatible with row-sharded histograms"),
 ])
 def test_render_color_refusals(capsys, tmp_path, argv, device, message):
     """render-color without CUDA and without device="cpu" returns 1 with
@@ -103,15 +104,17 @@ def test_render_color_refusals(capsys, tmp_path, argv, device, message):
     (dict(sampler="mh", hist_dtype="uint64"),
      "--hist-dtype uint64 is not yet ported"),
     (dict(sampler="mh", replay="host"), "--replay host is not yet ported"),
-    (dict(precision="extended", sampler="mh", num_devices=2),
-     "num_devices > 1 is not yet ported"),
+    (dict(precision="extended", sampler="mh", num_devices=2,
+          replay_device_share=0.5), "--replay-device-share is not yet"),
     (dict(precision="extended", replay="host"),
      "--replay host is not yet ported"),
     (dict(replay="host"), "--replay host is not yet ported"),
     (dict(replay_device_share=0.5), "--replay-device-share is not yet"),
     (dict(hist_dtype="uint64"), "--hist-dtype uint64 is not yet ported"),
-    (dict(num_devices=4), "num_devices > 1 is not yet ported"),
-    (dict(histogram_sharding="rows"), "--hist-sharding rows is not yet"),
+    (dict(num_devices=4, hist_dtype="uint64"),
+     "--hist-dtype uint64 is not yet ported"),
+    (dict(histogram_sharding="rows", replay="host"),
+     "--replay host is not yet ported"),
 ])
 def test_unported_options_refused(opts, match):
     with pytest.raises(config.ConfigError, match=match):

@@ -1166,3 +1166,141 @@ def test_classify_mh_study_builds_match_plain(cuda, monkeypatch, build,
     for f in ("emit_it", "emit_rep", "emit_v", "emit_bins", "stats"):
         assert _same(getattr(ra, f), getattr(rb, f)), f
     assert int(ra.stats[cmh.STAT_MH_ACCEPT].sum()) > 0
+
+
+# -- the replay kernels' row window, and the multi-device engines -----------
+
+WINDOWS = [None, (0, 200), (0, 100), (100, 100), (67, 67), (134, 67),
+           (199, 1), (150, 80), (250, 10), (0, 0)]
+
+
+def _window_batch(cuda, ext, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    k = 1 << 14
+    if ext:
+        xr = torch.randint(0, 1 << 24, (k,), generator=g, device=cuda).float()
+        xi = torch.randint(0, 1 << 24, (k,), generator=g, device=cuda).float()
+    else:
+        xr = torch.rand(k, generator=g, device=cuda) * 3.0 - 2.0
+        xi = torch.rand(k, generator=g, device=cuda) * 3.0 - 1.5
+    it = torch.randint(-1, 200, (k,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    return xr, xi, torch.sort(it, descending=True).values
+
+
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("rows", WINDOWS)
+def test_replay_kernels_with_a_row_window_match_plain(cuda, ext, rows):
+    """The four replay kernels binning into a row window (the row-sharded
+    engine's shards, uneven and past the canvas too) equal their plain
+    versions bitwise: the fused histogram, the id stream and the count; the
+    window (0, height) equals the whole canvas's plain replay (the
+    replicated output, rows=None)."""
+    canvas = config.Canvas(width=300, height=200, min_real=-2.0,
+                           max_real=1.0, min_imag=-1.2, max_imag=1.2)
+    xr, xi, it = _window_batch(cuda, ext, 6)
+    kw = dict(canvas=canvas, fractal=FRACTALS["buddhabrot"], rows=rows)
+    if ext:
+        kw["sample_domain"] = FAST
+        fused, fused_p = (binning.replay_deposit_ext,
+                          binning.replay_deposit_ext_plain)
+        ids_fn, ids_p_fn = binning.replay_ids_ext, binning.replay_ids_ext_plain
+    else:
+        fused, fused_p = binning.replay_deposit, binning.replay_deposit_plain
+        ids_fn, ids_p_fn = binning.replay_ids, binning.replay_ids_plain
+    cells = (canvas.height if rows is None else rows[1]) * canvas.width
+    hk = torch.zeros(cells, dtype=torch.int32, device=cuda)
+    hp = torch.zeros_like(hk)
+    launches.reset()
+    hits_k = fused(hk, xr, xi, it, **kw)
+    hits_p = fused_p(hp, xr, xi, it, **kw)
+    assert torch.equal(hk, hp)
+    assert int(hits_k) == int(hits_p) == int(hk.to(torch.int64).sum())
+    off, n = _offsets(it)
+    ids_k, ids_hits = ids_fn(xr, xi, it, off, n, **kw)
+    ids_p, _ = ids_p_fn(xr, xi, it, off, n, **kw)
+    assert torch.equal(ids_k, ids_p)
+    assert int(ids_hits) == int(hits_p) == int((ids_k < cells).sum())
+    counts = launches.snapshot()
+    name = "replay_deposit_ext" if ext else "replay_deposit"
+    assert counts[name] == 1 and counts[name.replace("deposit", "ids")] == 1
+    if rows == (0, canvas.height):
+        whole = torch.zeros_like(hk)
+        fused_p(whole, xr, xi, it, **{**kw, "rows": None})
+        assert torch.equal(hk, whole)
+
+
+@pytest.mark.parametrize("extended", [False, True])
+def test_row_shards_equal_the_replicas_on_the_card(cuda, extended):
+    """On cuda:0: the data-parallel engine over two replicas equals two
+    single engines at ordinals 0 and 1 summed, and three row shards equal
+    three replicas, histogram and stats bitwise (chip_smoke.py phase 10 at
+    a small geometry)."""
+    import numpy as np
+
+    from cudabrot_tpu_torch.parallel.data_parallel import (
+        DataParallelEngine,
+        sum_stats,
+    )
+    from cudabrot_tpu_torch.parallel.sharded_hist import (
+        ShardedHistogramEngine,
+    )
+
+    opts = dict(lane_rows=16, steps_per_pass=256, steps_per_flush=32,
+                replay_capacity=1 << 14)
+    cfg = config.RenderConfig(
+        canvas=config.Canvas(width=200, height=100),
+        band=config.IterationBand(max_escape_iterations=200,
+                                  min_escape_iterations=5),
+        options=config.EngineOptions(**opts))
+    if extended:
+        cfg = cfg.replace(sample_domain=FAST, options=config.EngineOptions(
+            precision="extended", **opts))
+
+    def run(eng, passes=3):
+        state = eng.init_state(None)
+        for p in range(passes):
+            eng.run_pass(state, p)
+        return eng.histogram(state), eng.stats(state)
+
+    h2, s2 = run(DataParallelEngine(cfg, devices=[cuda, cuda]))
+    singles, stats = np.zeros(h2.shape, np.uint32), []
+    for ordinal in (0, 1):
+        eng = CudaEngine(cfg, device=cuda)
+        state = eng.init_state(None)
+        for p in range(3):
+            eng.core(state, p, ordinal)
+        singles += eng.histogram(state)
+        stats.append(eng.stats(state))
+    assert np.array_equal(h2, singles) and s2 == sum_stats(stats)
+    hd, sd = run(DataParallelEngine(cfg, devices=[cuda] * 3))
+    hr, sr = run(ShardedHistogramEngine(cfg, devices=[cuda] * 3))
+    assert sr.pop("histogram_sharding") == "rows"
+    assert np.array_equal(hr, hd) and sr == sd
+    assert sd["on_canvas_points"] == int(hd.sum()) > 0
+
+
+def test_row_shards_allocate_no_canvas_on_the_card(cuda):
+    """Building four row shards of an 8000x8000 canvas (256 MB) on cuda:0
+    raises the allocator's peak by the four shards and the engines' lane
+    states, not by a whole canvas more: no shard's state passes through a
+    canvas-sized histogram."""
+    from cudabrot_tpu_torch.parallel.sharded_hist import (
+        ShardedHistogramEngine,
+    )
+
+    cfg = config.RenderConfig(
+        canvas=config.Canvas(width=8000, height=8000),
+        options=config.EngineOptions(lane_rows=16, steps_per_pass=256,
+                                     steps_per_flush=32,
+                                     replay_capacity=1 << 14))
+    eng = ShardedHistogramEngine(cfg, devices=[cuda] * 4)
+    torch.cuda.synchronize(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    state = eng.init_state(None)
+    torch.cuda.synchronize(cuda)
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    canvas = cfg.canvas.num_pixels * 4
+    assert [tuple(st["hist"].shape) for st in state] == [(2000, 8000)] * 4
+    assert canvas <= peak < canvas + canvas // 8

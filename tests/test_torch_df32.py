@@ -499,8 +499,8 @@ def test_header_replay_ext_bitwise(harness, name):
     hist = np.zeros(canvas.num_pixels, np.uint32)
     hits = ctypes.c_ulonglong(0)
     c0r, c0i, step_r, step_i = cx.grid_params(domain)
-    iargs = (ctypes.c_int * 4)(FRACTALS[name].kernel_id, k, canvas.width,
-                               canvas.height)
+    iargs = (ctypes.c_int * 7)(FRACTALS[name].kernel_id, k, canvas.width,
+                               canvas.height, 0, 0, canvas.height)
     fargs = (ctypes.c_float * 12)(
         *c0r, *c0i, step_r, step_i, *df32.from_float(canvas.min_real),
         *df32.from_float(canvas.min_imag),
@@ -513,5 +513,43 @@ def test_header_replay_ext_bitwise(harness, name):
         kr.ctypes.data, ki.ctypes.data, iters.ctypes.data, hist.ctypes.data,
         iargs, fargs, ctypes.addressof(hits))
     assert rc == 0
+    np.testing.assert_array_equal(hist.view(np.int32), hist_p.numpy())
+    assert hits.value == int(hits_p) == int(hist.sum()) > 0
+
+
+@pytest.mark.parametrize("rows", [(0, 40), (0, 17), (17, 17), (24, 17)])
+def test_header_replay_ext_row_window_bitwise(harness, rows):
+    """The df32 replay with a row window (classify_ext.cuh replay_ext_one,
+    bin_id_df's window instantiation for a shard, the whole-canvas one for
+    (0, height)) against replay_deposit_ext_plain with that window: the
+    shard's histogram and its count."""
+    domain = (-0.75 - 5e-7, -0.75 + 5e-7, 0.055 - 5e-7, 0.055 + 5e-7)
+    canvas = tcfg.Canvas(width=48, height=40)
+    rng = np.random.default_rng(4)
+    k = 300
+    kr = rng.integers(0, 1 << 24, k).astype(np.float32)
+    ki = rng.integers(0, 1 << 24, k).astype(np.float32)
+    iters = rng.integers(-1, 70, k).astype(np.int32)
+    cells = rows[1] * canvas.width
+    hist_p = torch.zeros(cells, dtype=torch.int32)
+    hits_p = binning.replay_deposit_ext_plain(
+        hist_p, *_t(kr, ki), torch.from_numpy(iters), canvas=canvas,
+        fractal=FRACTALS["buddhabrot"], sample_domain=domain, rows=rows)
+    hist = np.zeros(cells, np.uint32)
+    hits = ctypes.c_ulonglong(0)
+    c0r, c0i, step_r, step_i = cx.grid_params(domain)
+    iargs = (ctypes.c_int * 7)(FRACTALS["buddhabrot"].kernel_id, k,
+                               canvas.width, canvas.height, 0, *rows)
+    fargs = (ctypes.c_float * 12)(
+        *c0r, *c0i, step_r, step_i, *df32.from_float(canvas.min_real),
+        *df32.from_float(canvas.min_imag),
+        np.float32(1.0 / canvas.delta_real),
+        np.float32(1.0 / canvas.delta_imag))
+    vp = ctypes.c_void_p
+    harness.cbh_replay_deposit_ext.argtypes = [
+        vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int), FP, vp]
+    assert harness.cbh_replay_deposit_ext(
+        kr.ctypes.data, ki.ctypes.data, iters.ctypes.data, hist.ctypes.data,
+        iargs, fargs, ctypes.addressof(hits)) == 0
     np.testing.assert_array_equal(hist.view(np.int32), hist_p.numpy())
     assert hits.value == int(hits_p) == int(hist.sum()) > 0

@@ -92,10 +92,16 @@ def test_make_engine_gates():
     with pytest.raises(ConfigError, match="cuda engine only"):
         make_engine(_mh_cfg(options={"engine": "oracle"}), device="cpu")
     for bad in ({"hist_dtype": "uint64"}, {"replay": "host"},
-                {"num_devices": 2}, {"histogram_sharding": "rows"},
                 {"replay_device_share": 0.5}):
         with pytest.raises(ConfigError, match="not yet ported"):
             _mh_cfg(options=bad)
+    # MH runs data-parallel, never on row shards (the JAX message).
+    with pytest.raises(ConfigError, match="incompatible with row-sharded"):
+        make_engine(_mh_cfg(options={"num_devices": 2,
+                                     "histogram_sharding": "rows"}),
+                    device="cpu")
+    assert make_engine(_mh_cfg(options={"num_devices": 2}),
+                       device="cpu").name == "dp(cuda)"
     with pytest.raises(ConfigError, match="hardware generator"):
         _mh_cfg(options={"refill_rng": "hardware_rw"})
     eng = make_engine(_mh_cfg(), device="cpu")
