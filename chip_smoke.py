@@ -109,10 +109,30 @@ Phases (each fails the run on any mismatch):
      the allocator's peak on cuda:0 while four row shards of the
      northstar canvas are built and run (the shards, never a whole canvas
      more).
+  11. The host orbit replay through cudabrot_tpu_torch.cli.main: the
+     native library's build (g++, beside the nvcc builds of phase 1); the
+     calibration probe with --quick (its constants printed, and the auto
+     share they give the default cell); the default cell with --replay
+     host at device shares 0, 0.3 and the probe's auto share, the zoom
+     (the f64 replay of df32 payloads), mhcrop with --hist-dtype uint64
+     (auto resolves to host) and with --replay host, and bigcanvas at
+     share 0 (the DRAM regime), each against the device-mode render of the
+     same seed and passes: every count but on_canvas_points bitwise, the
+     histogram's sum equal to on_canvas_points, the mass placed
+     differently (half the L1 distance) reported, and below
+     HOST_EDGE_SHARE at default; mhcrop's uint64 == uint32 == device
+     histograms bitwise; DP host over [cuda:0, cuda:0] == single host
+     engines at ordinals 0 and 1, summed; two cli.main processes with
+     --replay host == one process (checkpoint and PGM bytes). Then ms a
+     pass on the host clock by mode (device, host, hybrid 0.3) at default,
+     zoom and bigcanvas, the worker's fetch and replay seconds, host
+     replay points/s, payload bytes a pass, and a host-mode pass's device
+     busy share (torch.profiler), with the host's CPU and cores.
   Phases 2, 3 and 3b hold the two df32 replay kernels on a batch whose
   head orbit is set to 19,999 steps.
 
-``--multi`` builds and runs phase 10 alone; ``--replay-retime`` only its
+``--host`` builds and runs phase 11 alone. ``--multi`` builds and runs
+phase 10 alone; ``--replay-retime`` only its
 re-timing of the two fused replays on the replicated histogram (which an
 older tree's package runs too, for a before/after in one call).
 ``--cards`` (on a host with several cards) runs the
@@ -480,6 +500,9 @@ def phase_build(studies=()):
     variant builds of the replay and f32 MH classify kernels those studies
     time (STUDY_DEPOSIT_BUILDS for --replay-study, STUDY_MH_BUILDS for
     --mh-study)."""
+    import concurrent.futures
+
+    from cudabrot_tpu_torch.io import native
     from cudabrot_tpu_torch.ops import _build
 
     log("== phase 1: build")
@@ -494,9 +517,14 @@ def phase_build(studies=()):
         variants += [("classify_mh", d) for _, d in STUDY_MH_BUILDS if d]
     if studies and set(studies) <= PACKAGE_ONLY:
         variants = []
-    _build.build_all(variants=variants)
+    # The host replay's library builds with g++ beside the nvcc builds.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(native.load)
+        _build.build_all(variants=variants)
+        native_build.result()
     log(f"  built {', '.join(_build.LIBS)} and {len(variants)} study "
-        f"builds in {time.monotonic() - t0:.1f} s")
+        f"builds in {time.monotonic() - t0:.1f} s; the native host replay "
+        f"(g++) in {native.build_seconds:.1f} s")
     for name, d in [(n, ()) for n in _build.LIBS] + variants:
         for line in _build.ptxas_report(name, d).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -3656,7 +3684,7 @@ RETIME_ROUNDS = 5
 MULTI_MEMORY_CELL, MULTI_MEMORY_SHARDS = "northstar", 4
 
 #: Study flags that need the package's libraries alone.
-PACKAGE_ONLY = {"--multi", "--replay-retime", "--cards"}
+PACKAGE_ONLY = {"--multi", "--replay-retime", "--cards", "--host"}
 
 MULTI_CHILD = """
 import sys
@@ -4115,6 +4143,310 @@ def cards_study(card):
     log(f"multi-card record: {json.dumps(times)}")
 
 
+#: Phase 11's runs through cli.main: tag, cell, extra arguments, passes.
+#: "share" runs compare with the device-mode render of the same seed; the
+#: auto-share run reads the --quick probe's calibration.
+HOST_RUNS = (
+    ("default host", "default", ["--replay-device-share", "0"], 20),
+    ("default hybrid 0.3", "default", ["--replay-device-share", "0.3"], 20),
+    ("default auto share", "default", [], 20),
+    ("zoom host", "zoom", [], 16),
+    ("mhcrop uint64", "mhcrop", ["--hist-dtype", "uint64"], 8),
+    ("mhcrop host", "mhcrop", ["--replay", "host"], 8),
+    ("bigcanvas host", "bigcanvas", ["--replay-device-share", "0"], 6),
+)
+#: The bound on the mass host and device replays place differently at the
+#: default cell (bin edges: the native replay multiplies by a float32
+#: reciprocal of the pitch, the device replay divides), as a share of the
+#: histogram's mass. The mass placed differently is half the histograms'
+#: L1 distance: each point that moved bins, once.
+HOST_EDGE_SHARE = 1e-4
+#: Stats only a host-mode render reports, or that count differently.
+HOST_ONLY_STATS = ("replay", "replay_fetch_seconds", "replay_busy_seconds",
+                   "on_canvas_points", "elapsed_seconds", "max_count")
+
+
+def with_options(cfg, **opts):
+    """``cfg`` with some engine options replaced."""
+    import dataclasses
+
+    return cfg.replace(options=dataclasses.replace(cfg.options, **opts))
+
+
+def host_cli(args, tag, tmp):
+    """cli.main over ``args`` with a checkpoint and stats; returns (stats,
+    histogram, launch counts)."""
+    import numpy as np
+
+    ckpt = os.path.join(tmp, f"{tag.replace(' ', '_')}.ckpt")
+    stats_path = os.path.join(tmp, f"{tag.replace(' ', '_')}.json")
+    out = [*args, "-t", "-1", "-s", ckpt, "--stats-json", stats_path,
+           "-o", os.path.join(tmp, "host.pgm")]
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    stats, counts = run_cli(out, stats_path)
+    return stats, np.load(ckpt)["hist"], counts
+
+
+def host_timing(eng, passes: int) -> dict:
+    """ms a pass on the host clock over ``passes`` passes after one warm
+    pass, ending when the card and the worker are done; the worker's fetch
+    and replay seconds and points in that span."""
+    w = eng._worker
+
+    def done():
+        eng.synchronize()
+        if w is not None:
+            w.drain()
+
+    state = eng.init_state(None)
+    eng.run_pass(state, 0)
+    done()
+    f0 = w.fetch_seconds if w else 0.0
+    r0 = w.replay_seconds if w else 0.0
+    p0 = w.points if w else 0
+    t0 = time.perf_counter()
+    for p in range(passes):
+        eng.run_pass(state, 1 + p)
+    done()
+    ms = (time.perf_counter() - t0) * 1e3 / passes
+    out = {"pass_ms": ms}
+    if w is not None:
+        out.update(fetch_s=w.fetch_seconds - f0,
+                   replay_s=w.replay_seconds - r0,
+                   host_points_per_s=(w.points - p0)
+                   / max(w.replay_seconds - r0, 1e-9))
+    return out
+
+
+def phase_host(dev, card):
+    """Phase 11: the host orbit replay through cli.main on the card. The
+    native library's build; the calibration probe (--quick); the
+    HOST_RUNS against device-mode renders of the same seed: every count
+    but on_canvas_points bitwise, each histogram's sum == on_canvas_points,
+    the mass placed differently reported (under HOST_EDGE_SHARE at
+    default); uint64 == uint32 at mhcrop; DP host over [cuda:0, cuda:0] ==
+    two single host engines at ordinals 0 and 1, summed; two processes ==
+    one (checkpoint and PGM bytes). Then the pass times on the host clock
+    by mode, the worker's fetch and replay seconds, host replay points/s,
+    payload bytes and the device busy share of a host-mode pass."""
+    import dataclasses
+    import platform
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    from cudabrot_tpu_torch import driver
+    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
+    from cudabrot_tpu_torch.engines.host_replay import available_cores
+    from cudabrot_tpu_torch.io import checkpoint as ckpt
+    from cudabrot_tpu_torch.io import native, pgm
+    from cudabrot_tpu_torch.ops import tonemap
+    from cudabrot_tpu_torch.parallel.data_parallel import (
+        DataParallelHostReplayEngine,
+        sum_stats,
+    )
+    from cudabrot_tpu_torch.utils import calibrate, calibration
+
+    log(f"== phase 11: host orbit replay on the card [{card}]")
+    t0 = time.monotonic()
+    mach = calibrate.machine()
+    log(f"  host: {mach['host_cpu']}, {mach['host_cores']} cores "
+        f"(python {platform.python_version()}); native library "
+        f"{native.lib_path().name}, built in {native.build_seconds:.2f} s")
+    record = {"machine": mach, "native_build_s": native.build_seconds}
+    os.makedirs(OUT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        cal_path = os.path.join(tmp, "calibration.json")
+        tc = time.monotonic()
+        cal, probe = calibrate.calibrate(dev, True, (0, 0), log=log)
+        calibration.save(cal_path, cal)
+        log(f"  calibration probe --quick ({time.monotonic() - tc:.1f} s): "
+            f"{json.dumps(dataclasses.asdict(cal))}")
+        record["calibration_quick"] = dataclasses.asdict(cal)
+        calibration.activate(cal_path)
+        auto = CudaEngine(with_options(cell_config("default"),
+                                       replay="host"), device=dev)
+        log(f"  auto share at default with the probe's calibration: "
+            f"{auto.device_share:.4f} (length cut {auto.split_threshold}, "
+            f"host prefix {auto.host_payload_slots} of "
+            f"{auto.replay_capacity} slots)")
+        record["auto_share_default"] = auto.device_share
+        del auto
+        calibration.activate("")
+        refs = {}
+        runs = {}
+        for tag, cell, extra, passes in HOST_RUNS:
+            key = (cell, passes)
+            if key not in refs:
+                refs[key] = host_cli([*cell_args(cell), "--passes",
+                                      str(passes)], f"{cell} device", tmp)
+            args = [*cell_args(cell), "--passes", str(passes), *extra]
+            if "--replay" not in extra and "--hist-dtype" not in extra:
+                args += ["--replay", "host"]
+            if tag == "default auto share":
+                args += ["--calibration", cal_path]
+            stats, hist, counts = host_cli(args, tag, tmp)
+            dstats, dhist, _ = refs[key]
+            total = int(hist.sum(dtype=np.uint64))
+            check(total == stats["on_canvas_points"] > 0,
+                  f"{tag}: histogram sum == on_canvas_points ({total})")
+            same = {k: v for k, v in stats.items()
+                    if k not in HOST_ONLY_STATS} == {
+                k: v for k, v in dstats.items() if k not in HOST_ONLY_STATS}
+            check(same, f"{tag}: every count but on_canvas_points equals "
+                  f"the device-mode render's bitwise")
+            kernels = [k for k in path_kernels(cell)
+                       if not k.startswith(("replay_deposit", "mh_deposit"))]
+            if stats["replay"] == "hybrid":
+                kernels += [k for k in path_kernels(cell)
+                            if k.startswith("replay_deposit")]
+            check(all(counts[k] > 0 for k in kernels)
+                  and not any(v for k, v in counts.items()
+                              if k.endswith("_plain")),
+                  f"{tag}: launched "
+                  f"{', '.join(f'{k} x{counts[k]}' for k in kernels)}, no "
+                  f"plain version")
+            diff = int(np.abs(hist.astype(np.int64)
+                              - dhist.astype(np.int64)).sum()) / 2
+            share = diff / max(int(dhist.sum(dtype=np.uint64)), 1)
+            if cell == "default":
+                check(share < HOST_EDGE_SHARE,
+                      f"{tag}: mass placed differently from device mode "
+                      f"{diff} ({share:.3e} of the histogram) < "
+                      f"{HOST_EDGE_SHARE}")
+            log(f"  {tag}: replay {stats['replay']}, {passes} passes in "
+                f"{stats['elapsed_seconds']:.3f} s; on_canvas_points "
+                f"{stats['on_canvas_points']} vs device "
+                f"{dstats['on_canvas_points']}; placed differently "
+                f"{diff} ({share:.3e}); worker fetch "
+                f"{stats['replay_fetch_seconds']} s, replay "
+                f"{stats['replay_busy_seconds']} s")
+            runs[tag] = (stats, hist)
+            record[tag] = dict(
+                replay=stats["replay"], elapsed_s=stats["elapsed_seconds"],
+                diff=diff, diff_share=share,
+                fetch_s=stats["replay_fetch_seconds"],
+                replay_s=stats["replay_busy_seconds"], launches=counts)
+        s64, h64 = runs["mhcrop uint64"]
+        s32, h32 = runs["mhcrop host"]
+        check(h64.dtype == np.uint64 and np.array_equal(h64, h32)
+              and {k: v for k, v in s64.items() if k not in HOST_ONLY_STATS}
+              == {k: v for k, v in s32.items() if k not in HOST_ONLY_STATS},
+              "mhcrop: --hist-dtype uint64 (auto: host) == uint32 host, "
+              "histogram and counts bitwise")
+        check(np.array_equal(h32, refs[("mhcrop", 8)][1]),
+              "mhcrop: the host's MH deposit == the device's, bitwise")
+
+        cfg = with_options(cell_config("default"), replay="host",
+                           replay_device_share=0.0)
+        dp = DataParallelHostReplayEngine(cfg, devices=[dev, dev])
+        (hd, sd, _), _ = counted_run(dp, MULTI_PASSES, ("classify",),
+                                     "default: DP host x2 on cuda:0")
+        total, parts = np.zeros(cfg.canvas.shape, np.uint32), []
+        for ordinal in (0, 1):
+            eng = CudaEngine(cfg, device=dev)
+            st = eng.init_state(None)
+            for p in range(MULTI_PASSES):
+                eng._worker.make_room()
+                eng._worker.submit(eng.stage(*eng.host_pass(st, p, ordinal)))
+            total += eng.histogram(st)
+            parts.append(eng.stats(st))
+        want = sum_stats(
+            {k: v for k, v in st_.items() if k not in HOST_ONLY_STATS}
+            for st_ in parts)
+        got = {k: v for k, v in sd.items() if k not in HOST_ONLY_STATS}
+        check(np.array_equal(hd, total) and got == want and sd["replay"]
+              == "host" and int(hd.sum(dtype=np.uint64))
+              == sd["on_canvas_points"],
+              "default: DP host x2 == single host engines at ordinals 0 and "
+              "1 summed, histogram and counts bitwise")
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        args = [*cell_args("default"), "-d", "0", "--devices", "2",
+                "--replay", "host", "--replay-device-share", "0",
+                "--passes", "4", "-t", "-1"]
+        procs = []
+        for pid in range(2):
+            env = dict(os.environ, CUDABROT_COORDINATOR=f"127.0.0.1:{port}",
+                       CUDABROT_NUM_PROCESSES="2",
+                       CUDABROT_PROCESS_ID=str(pid))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", MULTI_CHILD, ROOT, *args, "-s",
+                 os.path.join(tmp, "two.ckpt"), "-o",
+                 os.path.join(tmp, "two.pgm")], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                log(f"  process {pid} stdout:\n{out[-2000:]}\nstderr:\n"
+                    f"{err[-3000:]}")
+        check(all(p.returncode == 0 for p in procs)
+              and outs[1][0].strip() == "",
+              "two host-replay processes exit 0, process 1 silent")
+        one = cfg.replace(max_passes=4, seconds_to_run=-1.0,
+                          inprogress_file=os.path.join(tmp, "one.ckpt"))
+        res = driver.run_render(
+            one, engine=DataParallelHostReplayEngine(one, devices=[dev, dev]),
+            log=lambda *_: None)
+        pgm.write_pgm(os.path.join(tmp, "one.pgm"),
+                      tonemap.tonemap(res.histogram, one.gamma).image)
+        h1, _ = ckpt.load(os.path.join(tmp, "one.ckpt"), cfg)
+        h2, _ = ckpt.load(os.path.join(tmp, "two.ckpt"), cfg)
+        with open(os.path.join(tmp, "one.pgm"), "rb") as a, \
+                open(os.path.join(tmp, "two.pgm"), "rb") as b:
+            same_pgm = a.read() == b.read()
+        check(np.array_equal(h1, h2) and h1.sum() > 0 and same_pgm,
+              "two host-replay processes == one process: checkpoint and "
+              "PGM bitwise")
+    log(f"  phase 11 checks took {time.monotonic() - t0:.1f} s")
+
+    log(f"-- phase 11 times [{card}; {mach['host_cpu']} x "
+        f"{available_cores()}]")
+    times = {}
+    for cell, modes in (("default", (("device", "device", -1.0),
+                                     ("host", "host", 0.0),
+                                     ("hybrid 0.3", "host", 0.3))),
+                        ("zoom", (("device", "device", -1.0),
+                                  ("host", "host", 0.0))),
+                        ("bigcanvas", (("device", "device", -1.0),
+                                       ("host", "host", 0.0),
+                                       ("hybrid 0.3", "host", 0.3)))):
+        for name, mode, share in modes:
+            eng = CudaEngine(with_options(cell_config(cell), replay=mode,
+                                          replay_device_share=share),
+                             device=dev)
+            tm = host_timing(eng, 4)
+            if eng._worker is not None:
+                n_valid_payload = eng.host_pass(eng.init_state(None), 99)
+                tm["payload_bytes"] = (n_valid_payload[1].numel()
+                                       * n_valid_payload[1].element_size())
+            times[f"{cell} {name}"] = tm
+            log(f"  {cell} {name}: {json.dumps(tm)}")
+            del eng
+    eng = CudaEngine(with_options(cell_config("default"), replay="host",
+                                  replay_device_share=0.0), device=dev)
+    state = eng.init_state(None)
+    busy, span, ms = device_profile(eng, state, 0, 8)
+    eng.histogram(state)
+    times["default host busy"] = busy
+    log(f"  default host: device busy share {busy} over {span} ms; "
+        f"device ms a pass {json.dumps(ms)}")
+    record["times"] = times
+    log(f"phase 11 record: {json.dumps(record)}")
+    return {tag: v["launches"] for tag, v in record.items()
+            if isinstance(v, dict) and "launches" in v}
+
+
 def ext_budget_sweep(dev):
     """Deep-zoom engine passes at 2^27..2^30 lane-steps per pass: ms per
     pass and lane-steps per second (CUDA events over 8 passes, after
@@ -4183,6 +4515,7 @@ def main() -> int:
         "--multi": lambda: phase_multi(dev, card),
         "--replay-retime": lambda: retime_replays(dev, card),
         "--cards": lambda: cards_study(card),
+        "--host": lambda: phase_host(dev, card),
     }
     if sys.argv[1:]:
         unknown = [a for a in sys.argv[1:] if a not in studies]
@@ -4222,6 +4555,7 @@ def main() -> int:
         phase_replay_floor(dev, card)
         phase_overlap(dev)
         multi_runs = phase_multi(dev, card)
+        host_runs = phase_host(dev, card)
         kernels = phase_kernel_times(
             dev, main_runs, errs,
             dict(classify_ext=ext_classify, replay_deposit_ext=ext_replay,
@@ -4238,6 +4572,8 @@ def main() -> int:
         for name, _, _ in (*CELLS, *BIG_CELLS)))
     log("phase 10 launches: " + ", ".join(
         f"{name} {json.dumps(c)}" for name, c in multi_runs.items()))
+    log("phase 11 launches: " + ", ".join(
+        f"{name} {json.dumps(c)}" for name, c in host_runs.items()))
     log(f"chip_smoke took {time.monotonic() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -126,9 +126,10 @@ TPU-native extensions:
              point a viewer at it for a live preview).
   --png: Additionally save the image as 16-bit PNG next to the PGM.
   --stats-json <file>: Write render statistics as JSON.
-  --replay <mode>: orbit replay execution: auto (default), host
-             (native C++ engine overlapped with classification), or
-             device.
+  --replay <mode>: orbit replay execution: auto (default: device, or
+             host with --hist-dtype uint64), host (native C++ engine
+             overlapped with classification; built with g++ at first
+             use), or device.
   --replay-threads <n>: threads for the native host replay engine
              (per-thread private histograms, deterministic merge).
              Defaults to one per available core.
@@ -173,9 +174,9 @@ TPU-native extensions:
              this deposit on a uniform reservoir subsample (full mass;
              a variance knob, not a bias).
   --calibration <file>: machine-constant calibration JSON written by
-             tools/calibrate.py; feeds the kernel cost model and the
+             python -m cudabrot_tpu_torch.utils.calibrate; feeds the
              hybrid replay-share solver (also honored via the
-             CUDABROT_TPU_CALIBRATION env var).
+             CUDABROT_TPU_TORCH_CALIBRATION env var).
   --hist-sharding <mode>: multi-device histogram layout: replicated
              (default) or rows (row-sharded across the mesh; canvas
              memory and scatter throughput scale with devices).
@@ -601,11 +602,13 @@ def run(cfg: RenderConfig, extras: CliExtras, log=print, device=None) -> int:
     Runs on ``cuda:<cfg.device_index>`` unless ``device`` is given."""
     from cudabrot_tpu_torch.parallel import distributed
 
-    if extras.calibration:
-        log(
-            "--calibration is not yet ported to cudabrot_tpu_torch (its "
-            "tuning has no measured cost constants)."
-        )
+    from cudabrot_tpu_torch.utils import calibration
+
+    # Installed before any engine is built: the hybrid share solve reads it.
+    try:
+        calibration.activate(extras.calibration)
+    except (OSError, ValueError, TypeError) as e:
+        log(f"Invalid calibration file: {e}")
         return 1
     # Before any engine is built: a multi-process launch
     # (parallel/distributed.py) joins its group here. Single-process runs
@@ -626,6 +629,7 @@ def _render(cfg: RenderConfig, extras: CliExtras, log, device) -> int:
     from cudabrot_tpu_torch import driver
     from cudabrot_tpu_torch.engines import make_engine
     from cudabrot_tpu_torch.io import checkpoint as _ckpt
+    from cudabrot_tpu_torch.io import native
     from cudabrot_tpu_torch.io import pgm as pgm_io
     from cudabrot_tpu_torch.ops import tonemap as tonemap_op
     from cudabrot_tpu_torch.parallel import distributed
@@ -642,7 +646,8 @@ def _render(cfg: RenderConfig, extras: CliExtras, log, device) -> int:
     try:
         engine = make_engine(cfg, device=device)
         result = driver.run_render(cfg, engine=engine, log=log)
-    except (_ckpt.CheckpointError, ConfigError, DeviceError) as e:
+    except (_ckpt.CheckpointError, ConfigError, DeviceError,
+            native.NativeError) as e:
         # Fatal like the reference's size check (cudabrot.cu:239-245), but
         # with a clean message instead of a traceback.
         log(str(e))

@@ -291,9 +291,9 @@ Options:
         --sample-domain for color deep zooms, or --sampler mh for
         importance-sampled color crops). The bands render on CUDA
         device -d (default 0), or on --devices cards from it. Forwarded values the main command
-        refuses (--replay host, --devices beyond the cards present, the
-        TPU's --engine pallas, --scatter pallas/sorted and --refill-rng
-        hardware) fail with its message.
+        refuses (--replay host with --hist-sharding rows, --devices
+        beyond the cards present, the TPU's --engine pallas, --scatter
+        pallas/sorted and --refill-rng hardware) fail with its message.
   --keep-bands: also save each band's grayscale PGM.
 """
 
@@ -395,6 +395,7 @@ def main(argv: list[str], device=None) -> int:
 
     from cudabrot_tpu_torch.config import ConfigError
     from cudabrot_tpu_torch.io.checkpoint import CheckpointError
+    from cudabrot_tpu_torch.io.native import NativeError
     from cudabrot_tpu_torch.ops import tonemap as tonemap_op
     from cudabrot_tpu_torch.utils.device import DeviceError
 
@@ -415,7 +416,7 @@ def main(argv: list[str], device=None) -> int:
     except main_cli.CliError as e:
         print(e.message)
         return 1
-    except (CheckpointError, ConfigError, DeviceError) as e:
+    except (CheckpointError, ConfigError, DeviceError, NativeError) as e:
         print(str(e))
         return 1
 

@@ -11,10 +11,11 @@ the driver.
 
 A copy of ``cudabrot_tpu.config`` with the same dataclasses, defaults
 (except ``lane_rows``, sized for an H100) and validation messages. Two
-kinds of values are refused with a clean ``ConfigError``: options that
-exist only on the TPU (its hardware PRNG, its Mosaic scatter backends,
-the blocked-replay geometry) and options whose engines are not yet ported
-(``_NOT_YET_PORTED``).
+kinds of values are refused with a clean ``ConfigError`` here: options
+that exist only on the TPU (its hardware PRNG, its Mosaic scatter
+backends, the blocked-replay geometry). Combinations an engine cannot run
+(uint64 without the host replay, a device share with MH) are refused where
+the engine is built, with the JAX package's messages.
 """
 
 from __future__ import annotations
@@ -439,20 +440,6 @@ class EngineOptions:
                 "--engine pallas is the TPU engine; the CUDA port's engine "
                 "is cuda (auto)."
             )
-        for name, bad in _NOT_YET_PORTED:
-            if bad(self):
-                raise ConfigError(
-                    f"{name} is not yet ported to cudabrot_tpu_torch."
-                )
-
-
-#: Options whose engines later slices of the port bring, as (what the
-#: message names, predicate on EngineOptions).
-_NOT_YET_PORTED = (
-    ("--replay host", lambda o: o.replay == "host"),
-    ("--replay-device-share", lambda o: o.replay_device_share >= 0),
-    ("--hist-dtype uint64", lambda o: o.hist_dtype == "uint64"),
-)
 
 
 @dataclasses.dataclass(frozen=True)

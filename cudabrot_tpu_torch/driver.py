@@ -100,6 +100,38 @@ def _write_preview(cfg: RenderConfig, hist: np.ndarray) -> None:
         raise
 
 
+def _warn_calibration_drift(cfg: RenderConfig, engine, log) -> None:
+    """One line when the host worker's measured replay rate differs 2x or
+    more from the calibration's ``host_replay_dram_rate``, the constant
+    that sizes the big-canvas hybrid share (the JAX driver's check). Only
+    canvases of 256 MiB and more: smaller ones replay from the LLC, whose
+    rate varies with orbit length, and the solve uses another constant
+    there."""
+    from cudabrot_tpu_torch.engines.cuda_engine import BIG_HISTOGRAM_BYTES
+    from cudabrot_tpu_torch.utils import calibration
+
+    worker = getattr(engine, "_worker", None)
+    if worker is None:
+        return
+    # Enough work for a stable rate.
+    if worker.points < 1_000_000 or worker.replay_seconds < 0.5:
+        return
+    if cfg.canvas.histogram_nbytes < BIG_HISTOGRAM_BYTES:
+        return
+    expected = calibration.active().host_replay_dram_rate
+    observed = worker.points / worker.replay_seconds
+    ratio = observed / expected
+    if 0.5 < ratio < 2.0:
+        return
+    log(
+        f"Calibration drift: host replay measured {observed:.2e} pts/s vs "
+        f"the model's {expected:.2e} (DRAM regime, x{ratio:.2f}). "
+        "Auto-tuned replay shares may be mis-sized on this machine — run "
+        "python -m cudabrot_tpu_torch.utils.calibrate and pass "
+        "--calibration (or set CUDABROT_TPU_TORCH_CALIBRATION)."
+    )
+
+
 def resolve_pipeline_depth(cfg: RenderConfig) -> int:
     """Passes in flight between synchronizations (explicit, else 8)."""
     if cfg.options.pipeline_depth > 0:
@@ -229,6 +261,7 @@ def run_render(
     hist = engine.histogram(state)
     log(f"{passes} Buddhabrot passes took {elapsed:f} seconds.")
     stats = engine.stats(state)
+    _warn_calibration_drift(cfg, engine, log)
     dropped = int(stats.get("replay_dropped", 0))
     in_band = int(stats.get("in_band", 0))
     if dropped > 0.01 * max(in_band, 1):

@@ -36,8 +36,10 @@ def make_engine(cfg: RenderConfig, device=None):
     of a ``parallel.distributed`` group; None takes every card from ``-d``)
     it is a ``DataParallelEngine``, or with ``--hist-sharding rows`` a
     ``ShardedHistogramEngine`` (the cuda engine only, as the JAX package's
-    rows need its pallas engine). Asking for more cards than there are is
-    an error, never a render on fewer."""
+    rows need its pallas engine), or with the host replay (``--replay
+    host``, or ``auto`` at ``--hist-dtype uint64``) a
+    ``DataParallelHostReplayEngine``: one worker per process. Asking for
+    more cards than there are is an error, never a render on fewer."""
     from cudabrot_tpu_torch.parallel import distributed, mesh
     from cudabrot_tpu_torch.parallel.sharded_hist import MH_ROWS
 
@@ -62,6 +64,11 @@ def make_engine(cfg: RenderConfig, device=None):
         )
 
         return ShardedHistogramEngine(cfg, devices=devices)
-    from cudabrot_tpu_torch.parallel.data_parallel import DataParallelEngine
+    from cudabrot_tpu_torch.parallel import data_parallel
 
-    return DataParallelEngine(cfg, devices=devices)
+    host = o.replay == "host" or (o.replay == "auto"
+                                  and o.hist_dtype == "uint64")
+    if host and o.engine != "oracle":
+        return data_parallel.DataParallelHostReplayEngine(cfg,
+                                                          devices=devices)
+    return data_parallel.DataParallelEngine(cfg, devices=devices)

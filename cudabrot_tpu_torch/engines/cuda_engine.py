@@ -47,6 +47,18 @@ order-free integer deposit needs no compaction. Histogram counts are then
 in 1/256 units (``weight_scale``). Reading the histogram first deposits
 every chain's unfinished tenure (``mh_tail_core``).
 
+With ``--replay host`` (and ``auto`` at ``--hist-dtype uint64``) the
+orbits replay on the host: ``host_pass`` classifies and compacts on the
+card, packs the kept batch into the JAX engine's payload layouts, and the
+pass ships it through a ring of pinned buffers to the native replay worker
+(``engines/host_replay.py``), which accumulates in uint32 or uint64 while
+the card runs the next pass. With a device share (``--replay-device-share``
+or the calibrated auto share, ``Tuning.auto_device_share``) the short
+orbits of each batch replay on the card instead (the hybrid split) and only
+the host's prefix of the batch is copied. ``--replay auto`` stays on the
+device: the JAX package takes the host whenever its library loads, because
+the TPU has no scatter hardware, and the H100 has.
+
 The pass key is ``fold_in(fold_in(key(seed), ordinal), pass)`` as in the
 JAX engine, so at equal geometry both engines draw the same samples.
 On the fused route nothing in a pass waits for the device: stats
@@ -72,7 +84,7 @@ from cudabrot_tpu_torch.ops import binning, df32, prng
 from cudabrot_tpu_torch.ops import classify as cls
 from cudabrot_tpu_torch.ops import classify_ext as cls_ext
 from cudabrot_tpu_torch.ops import classify_mh as cls_mh
-from cudabrot_tpu_torch.utils import counters
+from cudabrot_tpu_torch.utils import calibration, counters
 from cudabrot_tpu_torch.utils.device import resolve_device
 
 #: Fold-in word of the compaction's selection key (pallas_engine).
@@ -117,6 +129,13 @@ MH_INNER_STEP_OPS = 19.0
 MH_BOUNDARY_OPS = 44.0
 EXT_MH_INNER_STEP_OPS = 110.0
 EXT_MH_BOUNDARY_OPS = 46.0
+#: Threads of a block of the f32 replay kernels (csrc/deposit.cu
+#: kQueueBlock): the granule below which a device share of a pass's
+#: emissions does not pay (Tuning.auto_device_share).
+REPLAY_BLOCK = 128
+#: Histograms from this size on are DRAM-bound on the host (the JAX
+#: engine's threshold): the share solve takes the DRAM rates there.
+BIG_HISTOGRAM_BYTES = 256 << 20
 
 
 def step_ops(extended: bool, mh: bool) -> tuple[float, float]:
@@ -178,15 +197,19 @@ class Tuning:
         #: Acceptance depends on the crop; the rate is sized for the high
         #: end (0.3 per proposal).
         self.mh = o.sampler == "mh"
+        #: Interior (anti-Buddhabrot) orbits are all max_it long, so the
+        #: length split of the hybrid does not apply: interior renders stay
+        #: host-only.
+        self.interior = fr.emit == "interior"
+        if self.interior:
+            in_band_len = float(self.max_it)
+        else:
+            mi_b = max(self.min_it, 2)
+            ma_b = max(self.max_it, mi_b + 1)
+            # E[len | in band] for the ~1/t^2 escape-time tail.
+            in_band_len = (mi_b * ma_b / (ma_b - mi_b)) * float(
+                np.log(ma_b / mi_b))
         if self.mh:
-            if fr.emit == "interior":
-                in_band_len = float(self.max_it)
-            else:
-                mi_b = max(self.min_it, 2)
-                ma_b = max(self.max_it, mi_b + 1)
-                # E[len | in band] for the ~1/t^2 escape-time tail.
-                in_band_len = (mi_b * ma_b / (ma_b - mi_b)) * float(
-                    np.log(ma_b / mi_b))
             lifetime = 0.5 * in_band_len + lifetime
             rate = 0.3 / lifetime
         if cfg.sample_domain != SAMPLE_DOMAIN and not self.mh:
@@ -286,6 +309,99 @@ class Tuning:
                             MAX_REPLAY_CAPACITY)),
                 self.emission_slots,
             )
+        # Classify operations and expected orbit points a pass: the inputs
+        # of the hybrid share solve (auto_device_share), which turns them
+        # into seconds with the calibrated rates.
+        c_inner, c_boundary = step_ops(self.extended, self.mh)
+        self.classify_ops = self.steps_per_pass * lanes * (
+            c_inner + c_boundary / self.inner_unroll)
+        self.expected_points = self.expected_emissions * in_band_len
+        #: Whether host-replay emissions pack into two 32-bit words (24-bit
+        #: default-domain grid indices + the split 16-bit iters + 1) or ride
+        #: the 12-byte three-row float32 layout.
+        self.packed_payload = (
+            self.max_it <= 0xFFFF
+            and cfg.sample_domain == SAMPLE_DOMAIN
+            and not self.extended
+            and not self.mh
+        )
+
+    def auto_device_share(self, hist_bytes: int,
+                          scatter_backend: str = "fused") -> float:
+        """Orbit-point share the device should replay in host mode (the
+        hybrid split), from the active calibration. The JAX engine's solve
+        (pallas_engine.Tuning.auto_device_share), with the port's fused
+        replay in the place of its hand-written Mosaic scatter.
+
+        0 for interior, extended and MH renders (the length split does not
+        apply, or the rate model covers the f32 replay only), and where a
+        pass emits fewer than four replay blocks of orbits. Big canvases
+        (the host accumulator DRAM-bound): the share that balances the
+        device's classify plus its share against the host's replay of the
+        rest. Smaller ones, on the fused route only: a grid search over the
+        pass model, the host side the larger of its replay and the payload
+        copy, the device side classify, the per-pass overhead and its
+        share; the argmin is derated 20% toward the host (overshooting is a
+        device-bound cliff). Never above 0.9."""
+        if self.interior or self.extended or self.mh:
+            return 0.0
+        big = hist_bytes >= BIG_HISTOGRAM_BYTES
+        if not big and scatter_backend != "fused":
+            return 0.0
+        if self.expected_emissions < 4 * REPLAY_BLOCK:
+            return 0.0
+        cal = calibration.active()
+        p = self.expected_points
+        if p <= 0:
+            return 0.0
+        classify_s = self.classify_ops / cal.classify_op_rate
+        if big:
+            t_host_all = p / cal.host_replay_dram_rate
+            s = (t_host_all - classify_s) / (
+                p / cal.device_replay_rate + t_host_all)
+            return float(np.clip(s, 0.0, 0.9))
+        t_fixed = classify_s + cal.pass_overhead_seconds
+        slot_bytes = 8 if self.packed_payload else 12
+        best_s = 0.0
+        best_wall = None
+        for step in range(19):
+            s = step * 0.05
+            ks = self.host_payload_slots(self.split_threshold(s))
+            fetch_t = ks * slot_bytes / cal.link_rate_bytes
+            host_t = max((1.0 - s) * p / cal.host_replay_llc_rate, fetch_t)
+            dev_t = t_fixed + s * p / cal.device_replay_rate
+            wall = max(host_t, dev_t)
+            if best_wall is None or wall < best_wall - 1e-12:
+                best_wall, best_s = wall, s
+        return float(np.clip(0.8 * best_s, 0.0, 0.9))
+
+    def host_payload_slots(self, theta: int) -> int:
+        """Host-payload width for a hybrid split at length threshold
+        ``theta``. The compaction orders the kept batch by descending
+        length, so the host's orbits (length >= theta) are a prefix of it;
+        its expected width follows the ~1/t^2 escape-time tail, rounded up
+        to 128. A pass whose long orbits overflow the prefix replays the
+        excess on the device: under-sizing costs device time, never
+        mass."""
+        cap = self.replay_capacity
+        if theta <= 0:
+            return cap
+        mi = max(self.min_it, 2)
+        ma = max(self.max_it, mi + 1)
+        th = min(max(theta, mi), ma)
+        frac = (1.0 / th - 1.0 / ma) / (1.0 / mi - 1.0 / ma)
+        k = int(np.ceil(frac * cap / 128.0)) * 128
+        return int(np.clip(k, min(1024, cap), cap))
+
+    def split_threshold(self, point_share: float) -> int:
+        """Orbit-length cut below which the device replays (hybrid mode).
+        Orbit-point mass is roughly uniform in log(length) for the ~1/t^2
+        tail, so a point share s maps to min * (max/min)^s."""
+        if point_share <= 0 or self.interior:
+            return 0
+        mi = max(self.min_it, 2)
+        ma = max(self.max_it, mi + 1)
+        return int(mi * (ma / mi) ** min(point_share, 0.95))
 
 
 def compact(emit_c, emit_it, key, capacity: int, max_it: int):
@@ -332,7 +448,11 @@ class CudaEngine:
 
     name = "cuda"
 
-    def __init__(self, cfg: RenderConfig, device=None):
+    def __init__(self, cfg: RenderConfig, device=None,
+                 replay_mode: str | None = None, worker=None):
+        """``replay_mode``: host or device in place of ``--replay``;
+        ``worker``: a ``HostReplayWorker`` to feed in host mode, shared with
+        other engines (the data-parallel host replay), else its own."""
         cfg.options.validate()
         if cfg.options.precision == "float64":
             raise ConfigError(
@@ -390,6 +510,90 @@ class CudaEngine:
                 cv.min_real - lo_r, cv.max_real + pad_r,
                 cv.min_imag - lo_i, cv.max_imag + pad_i,
             )
+        self.replay_mode = self._resolve_replay(replay_mode)
+        self._worker = None
+        self._stage = None
+        #: Host mode's split: the orbit-point share the device replays,
+        #: the length below which an orbit goes there (0: none), and the
+        #: host payload's width.
+        self.device_share = 0.0
+        self.split_threshold = 0
+        self.host_payload_slots = self.replay_capacity
+        if self.replay_mode == "host":
+            self._setup_host(worker)
+
+    def _resolve_replay(self, replay_mode: str | None) -> str:
+        """host or device, with the JAX engine's refusals. ``auto`` is
+        device, but for uint64 histograms, which only the host replay
+        accumulates."""
+        o = self.cfg.options
+        mode = replay_mode or o.replay
+        if self.mh:
+            # MH deposits are kernel-recorded bins, so there is no replay to
+            # split; the host worker exists for uint64 or --replay host.
+            if o.replay_device_share > 0:
+                raise ConfigError(
+                    "--replay-device-share does not apply to --sampler "
+                    "mh (deposits are kernel-recorded bins; there is no "
+                    "replay to split)"
+                )
+        if mode == "auto":
+            mode = "host" if o.hist_dtype == "uint64" else "device"
+        if self.extended and o.replay_device_share > 0:
+            raise ConfigError(
+                "--replay-device-share does not apply to extended-"
+                "precision renders (deep-zoom bands are emission-light; "
+                "the hybrid split's rate model covers the f32 engines "
+                "only)."
+            )
+        if o.hist_dtype == "uint64" and mode != "host":
+            raise ConfigError(
+                "uint64 histograms require host replay (the device "
+                "scatter path accumulates in uint32); use --replay host."
+            )
+        return mode
+
+    def _setup_host(self, worker) -> None:
+        from cudabrot_tpu_torch.engines.host_replay import (
+            HostReplayWorker,
+            PinnedStage,
+        )
+
+        cfg, o = self.cfg, self.cfg.options
+        if o.replay_device_share >= 0:
+            share = o.replay_device_share
+        elif o.hist_dtype == "uint64":
+            share = 0.0  # the device share accumulates in uint32
+        else:
+            share = self.tuning.auto_device_share(
+                cfg.canvas.histogram_nbytes, self.scatter_backend)
+        self.device_share = share
+        self.split_threshold = self.tuning.split_threshold(share)
+        self.host_payload_slots = self.tuning.host_payload_slots(
+            self.split_threshold)
+        if o.hist_dtype == "uint64" and self.split_threshold > 0:
+            raise ConfigError(
+                "uint64 histograms cannot use a device replay share "
+                "(the device prefix accumulates in uint32)."
+            )
+        if worker is None:
+            grid_decode = None
+            if self.extended and not self.mh:
+                # The exact f64 value of the df32 window centre and the f32
+                # pitches: host c agrees with the kernel's df32 c to the
+                # renormalization error.
+                c0r, c0i, step_r, step_i = cls_ext.grid_params(
+                    cfg.sample_domain)
+                grid_decode = (df32.to_float64(*c0r), df32.to_float64(*c0i),
+                               step_r, step_i)
+            worker = HostReplayWorker(
+                cfg.canvas, burning_ship=self.fractal.fold_abs,
+                num_threads=o.replay_threads, dtype=np.dtype(o.hist_dtype),
+                grid_decode=grid_decode,
+                mh_bins=self.visit_slots if self.mh else None)
+        self._worker = worker
+        if self.device.type == "cuda":
+            self._stage = PinnedStage(self.device, worker.max_queue + 1)
 
     # -- engine interface ---------------------------------------------------
 
@@ -400,6 +604,13 @@ class CudaEngine:
         ``hist0`` (a row shard of ``parallel.sharded_hist``; None, the
         whole canvas)."""
         cv = self.cfg.canvas
+        if self._worker is not None:
+            # Host mode: the resumed mass lives in the host accumulator; the
+            # device histogram holds the device share alone.
+            self._worker.reset()
+            if hist0 is not None:
+                self._worker.add_resumed(hist0)
+            hist0 = None
         if hist0 is None:
             hist = torch.zeros((cv.height if rows is None else rows,
                                 cv.width), dtype=torch.int32,
@@ -458,9 +669,21 @@ class CudaEngine:
         (grid indices at extended precision), the classify result and the
         count of valid emissions. The JAX engine's
         ``_classify_and_compact``."""
+        result = self.classify(state, pass_index, ordinal)
+        # Extended emissions carry grid indices (kr, ki) where the f32 ones
+        # carry (cr, ci); the selection is the same.
+        cr_c, ci_c, it_c, n_valid = compact(
+            result.emit_c, result.emit_it,
+            prng.pass_key(self.cfg.seed, ordinal, pass_index),
+            self.replay_capacity, self.tuning.max_it,
+        )
+        return (cr_c, ci_c, it_c), result, n_valid
+
+    def classify(self, state: dict, pass_index: int, ordinal: int = 0):
+        """A uniform pass's classify kernel alone (``classify_and_compact``
+        without the compaction); returns its result."""
         cfg, tn = self.cfg, self.tuning
-        key = prng.pass_key(cfg.seed, ordinal, pass_index)
-        seed = prng.bits_host(key, 2)
+        seed = prng.bits_host(prng.pass_key(cfg.seed, ordinal, pass_index), 2)
         spec = dict(
             fractal=self.fractal,
             min_it=tn.min_it,
@@ -477,13 +700,7 @@ class CudaEngine:
         else:
             result = cls.classify_pass(state["lanes"], seed,
                                        thin_tracking=tn.thin_tracking, **spec)
-        # Extended emissions carry grid indices (kr, ki) where the f32 ones
-        # carry (cr, ci); the selection is the same.
-        cr_c, ci_c, it_c, n_valid = compact(
-            result.emit_c, result.emit_it, key, self.replay_capacity,
-            tn.max_it,
-        )
-        return (cr_c, ci_c, it_c), result, n_valid
+        return result
 
     def replay(self, state: dict, pass_index: int, batch,
                rows: tuple[int, int] | None = None) -> None:
@@ -505,10 +722,11 @@ class CudaEngine:
             self._replay_fused(state, pass_index, batch, kw)
 
     def add_pass_stats(self, state: dict, result, n_valid,
-                       iters: torch.Tensor) -> None:
+                       iters: torch.Tensor | None) -> None:
         """Adds a uniform pass's counters to ``state``: the classify
         result's stat rows, the kept and dropped emissions and the orbit
-        points of its kept ``iters``."""
+        points of the ``iters`` replayed on the device (None: none; the host
+        worker counts its own)."""
         st = result.stats.reshape(cls.STATS_ROWS, -1).sum(dim=1)
         wasted = st[cls.STAT_WASTED]
         emitted = torch.clamp(n_valid, max=self.replay_capacity)
@@ -521,9 +739,66 @@ class CudaEngine:
             ("iters", self.steps_per_pass - wasted),
             ("emitted", emitted),
             ("replay_dropped", n_valid - emitted),
-            ("points", torch.where(iters >= 0, iters + 1, 0).sum()),
         ):
             state[k] += v
+        if iters is not None:
+            state["points"] += torch.where(iters >= 0, iters + 1, 0).sum()
+
+    def host_pass(self, state: dict, pass_index: int, ordinal: int = 0):
+        """The card's half of a host-replay pass: classify, compact and
+        pack the payload (the JAX engine's ``host_pass``). Returns
+        ``(n_valid, payload)`` on the state's device, the payload's valid
+        count and one of the JAX layouts (``pack_payload``; MH: int32 rows
+        [iters; rep; t; bins] of the emission buffers as they are, the
+        order-free deposit needing no compaction), or None on an MH
+        burn-in pass, whose emissions are discarded.
+
+        Hybrid split: the device replays every kept orbit shorter than
+        ``split_threshold`` and every one past the host prefix
+        (``host_payload_slots``) through the render's deposit route, into
+        the device histogram and ``dev_hits``; their slots in the host's
+        batch are -1, and only the prefix is packed."""
+        if self.mh:
+            result = self._mh_classify(state, pass_index, ordinal)
+            if pass_index < self.cfg.options.mh_burnin_passes:
+                return None
+            it = result.emit_it.reshape(-1)
+            bins = result.emit_bins.transpose(0, 1).reshape(
+                self.visit_slots, -1)
+            return (it >= 0).sum(), mh_payload(
+                it, result.emit_rep.reshape(-1), result.emit_v.reshape(-1),
+                bins)
+        (cr, ci, it), result, n_valid = self.classify_and_compact(
+            state, pass_index, ordinal)
+        dev_it = None
+        if self.split_threshold > 0:
+            pos = torch.arange(it.numel(), device=it.device)
+            to_dev = (it < self.split_threshold) | (
+                pos >= self.host_payload_slots)
+            dev_it = torch.where(to_dev, it, -1)
+            self.replay(state, pass_index, (cr, ci, dev_it))
+            ks = self.host_payload_slots
+            cr, ci, it = cr[:ks], ci[:ks], torch.where(to_dev, -1, it)[:ks]
+        self.add_pass_stats(state, result, n_valid, dev_it)
+        return (it >= 0).sum(), self.pack_payload(cr, ci, it)
+
+    def pack_payload(self, cr, ci, it) -> torch.Tensor:
+        """A kept batch in the JAX engine's payload layout (bit for bit):
+        on the default domain with bands up to 0xFFFF two 32-bit words an
+        emission, ``k | (iters + 1) & 0xFF << 24`` and ``k | (iters + 1) >>
+        8 << 24`` with k = (c + 2) * 2^22 the 24-bit grid index (int32
+        tensors holding the words' bits: torch has no uint32 arithmetic;
+        k is masked to 24 bits, which changes nothing for a valid c and
+        keeps an invalid slot's unset c from reaching the length bits);
+        otherwise float32 rows [cr; ci; iters] (grid indices at extended
+        precision)."""
+        if not self.tuning.packed_payload:
+            return torch.stack([cr, ci, it.to(torch.float32)])
+        k = (torch.stack([cr, ci]) + 2.0) * 4194304.0
+        k = k.to(torch.int64) & 0xFFFFFF
+        enc = (it + 1).to(torch.int64)
+        words = k | torch.stack([enc & 0xFF, enc >> 8]) << 24
+        return (words - ((words >> 31) << 32)).to(torch.int32)
 
     def _replay_fused(self, state: dict, pass_index: int, batch, kw) -> None:
         """The fused replay-deposit of one pass's kept batch, adding its
@@ -590,13 +865,8 @@ class CudaEngine:
         advance and nothing is deposited; on the last burn-in pass every
         tenure counter is zeroed, so mass gathered during burn-in cannot
         deposit later."""
-        o = self.cfg.options
-        seed = prng.bits_host(prng.pass_key(self.cfg.seed, ordinal,
-                                            pass_index), 2)
-        classify = (cls_mh.classify_pass_ext_mh if self.extended
-                    else cls_mh.classify_pass_mh)
-        result = classify(state["lanes"], seed, **self.mh_pass_spec())
-        if pass_index >= o.mh_burnin_passes:
+        result = self._mh_classify(state, pass_index, ordinal)
+        if pass_index >= self.cfg.options.mh_burnin_passes:
             # Every emission fits (Tuning sizes the capacity so), and the
             # deposit is order-free integer addition: one launch reads the
             # emission buffers as they are (a slot with emit_it < 0 deposits
@@ -605,6 +875,18 @@ class CudaEngine:
                 state["hist"].view(-1), result.emit_bins, result.emit_v,
                 result.emit_rep, chunked=True, gate=result.emit_it,
                 totals=(state["points"], state["mh_deposited"]))
+        return state
+
+    def _mh_classify(self, state: dict, pass_index: int, ordinal: int):
+        """The MH chain kernel of a pass and its counters; zeroes every
+        tenure counter on the last burn-in pass (the emissions read
+        nothing from them). Returns the classify result."""
+        o = self.cfg.options
+        seed = prng.bits_host(prng.pass_key(self.cfg.seed, ordinal,
+                                            pass_index), 2)
+        classify = (cls_mh.classify_pass_ext_mh if self.extended
+                    else cls_mh.classify_pass_mh)
+        result = classify(state["lanes"], seed, **self.mh_pass_spec())
         if pass_index == o.mh_burnin_passes - 1:
             state["lanes"].rep.zero_()
         st = result.stats.reshape(cls_mh.MH_STATS_ROWS, -1).sum(dim=1)
@@ -622,7 +904,7 @@ class CudaEngine:
             ("mh_merged_rep", st[cls_mh.STAT_MH_MERGED_REP]),
         ):
             state[k] += v
-        return state
+        return result
 
     def mh_tail_core(self, state: dict) -> dict:
         """Deposit every chain's in-flight tenure (its recorded visit bins,
@@ -642,15 +924,36 @@ class CudaEngine:
         return state
 
     def run_pass(self, state: dict, pass_index: int) -> dict:
-        return self.core(state, pass_index)
+        if self._worker is None:
+            return self.core(state, pass_index)
+        self._worker.make_room()
+        out = self.host_pass(state, pass_index)
+        if out is not None:
+            self._worker.submit(self.stage(*out))
+        return state
+
+    def stage(self, n_valid: torch.Tensor, payload: torch.Tensor):
+        """A pass's payload for the worker: on the card, copied into the
+        next pinned ring slot behind the pass (``PinnedStage``; call
+        ``worker.make_room`` first); on the CPU, the tensors as they are."""
+        from cudabrot_tpu_torch.engines.host_replay import Staged
+
+        if self._stage is None:
+            return Staged(None, n_valid, payload)
+        return self._stage.stage(n_valid, payload)
 
     def warmup(self, state: dict) -> None:
-        """Build the CUDA kernels before the timed loop (nvcc, all sources
-        at once), so the time box covers rendering only."""
+        """Build the CUDA kernels (nvcc, all sources at once) and, in host
+        mode, the native replay library before the timed loop, so the time
+        box covers rendering only."""
         if self.device.type == "cuda":
             from cudabrot_tpu_torch.ops import _build
 
             _build.build_all()
+        if self._worker is not None:
+            from cudabrot_tpu_torch.io import native
+
+            native.load()
 
     def synchronize(self) -> None:
         if self.device.type == "cuda":
@@ -671,7 +974,12 @@ class CudaEngine:
             words = (len(lane_cls._fields) + 2 * (self.visit_slots - 1)
                      + cls_mh.MH_STATS_ROWS)
             emission = slots * (3 + self.visit_slots) * 4
-            return hist + self.lanes * words * 4 + emission, host
+            device = hist + self.lanes * words * 4 + emission
+            if self._worker is not None:
+                # The payload, and the pinned ring that receives it.
+                device += emission
+                host += self._host_bytes(emission)
+            return device, host
         lane_cls = cls_ext.ExtLaneState if self.extended else cls.LaneState
         lanes = self.lanes * (len(lane_cls._fields) + cls.STATS_ROWS) * 4
         emission = slots * 12
@@ -685,18 +993,72 @@ class CudaEngine:
             ids = min(binning.BIGTILES_ID_BUDGET,
                       self.replay_capacity * self.tuning.max_it)
             replay += ids * 36
-        return hist + lanes + emission + sort + replay, host
+        device = hist + lanes + emission + sort + replay
+        if self._worker is not None:
+            payload = self.host_payload_slots * (
+                8 if self.tuning.packed_payload else 12)
+            device += payload
+            host += self._host_bytes(payload)
+        return device, host
+
+    def _host_bytes(self, payload: int) -> int:
+        """The host accumulator and the payload ring (host mode)."""
+        w = self._worker
+        return (self.cfg.canvas.num_pixels * w.hist.dtype.itemsize
+                + (w.max_queue + 1) * payload)
+
+    def flush_mh_tails_host(self, state: dict) -> None:
+        """Host mode's ``mh_tail_core``: every chain's in-flight tenure
+        deposits into the worker's accumulator (``mh_deposit_numpy``, equal
+        to the device deposit), and the tenure counters are zeroed."""
+        from cudabrot_tpu_torch.engines.host_replay import mh_deposit_numpy
+
+        lanes = state["lanes"]
+        xv = lanes.xv.reshape(-1).cpu().numpy()
+        rep = lanes.rep.reshape(-1).cpu().numpy()
+        live = (xv > 1) & (rep > 0)
+        if live.any():
+            bins = lanes.xb.reshape(self.visit_slots, -1).cpu().numpy()
+            w = self._worker
+            w.drain()
+            hits, points = mh_deposit_numpy(w.hist, bins[:, live], xv[live],
+                                            rep[live])
+            w.hits += hits
+            w.points += points
+        lanes.rep.zero_()
+
+    def device_histogram(self, state: dict) -> np.ndarray:
+        """The device histogram (uint32), after every replay in flight."""
+        self.wait_replay()
+        return state["hist"].cpu().numpy().view(np.uint32).copy()
 
     def histogram(self, state: dict) -> np.ndarray:
+        """The render's histogram: uint32, or the worker's dtype in host
+        mode. MH chains' unfinished tenures deposit first. In pure host
+        mode the device histogram is never written, so it is not read."""
+        if self._worker is None:
+            if self.mh:
+                self.mh_tail_core(state)
+            return self.device_histogram(state)
         if self.mh:
-            self.mh_tail_core(state)
+            self.flush_mh_tails_host(state)
+        self._worker.drain()
+        if self.split_threshold == 0:
+            return self._worker.hist.copy()
+        return self._worker.hist + self.device_histogram(state)
+
+    def counter_stats(self, state: dict) -> dict:
+        """The device counters alone (no host worker tally), as
+        ``utils.counters.counter_stats`` names them."""
         self.wait_replay()
-        h = state["hist"].cpu().numpy()
-        return h.view(np.uint32).copy()
+        return counters.counter_stats(state)
 
     def stats(self, state: dict) -> dict:
-        self.wait_replay()
-        out = counters.counter_stats(state)
+        out = self.counter_stats(state)
+        if self._worker is not None:
+            tally = worker_tally(self._worker, self.mh)
+            out.update({k: out.get(k, 0) + v for k, v in tally.items()})
+            return finish_host_stats(self, out, self._worker)
         out["on_canvas_points"] = out.pop("_device_on_canvas")
         out["replay"] = "device"
         if self.mh:
@@ -706,3 +1068,38 @@ class CudaEngine:
             out["mh_lost_weight"] = 0
             out["on_canvas_points"] = out["mh_deposited"]
         return out
+
+
+def mh_payload(it, rep, t, bins) -> torch.Tensor:
+    """MH emissions in the JAX engine's host payload layout: int32 rows
+    [iters; rep; t; bins] with t = 0 on invalid slots (``iters < 0``), which
+    then deposit nothing. ``bins``: (V, N) recorded visit bins."""
+    t = torch.where(it >= 0, t, 0)
+    return torch.cat([torch.stack([it, rep, t]), bins]).to(torch.int32)
+
+
+def worker_tally(worker, mh: bool) -> dict:
+    """A host worker's counts under the stats' names, to add to the device
+    counters: its replayed points, and its on-canvas deposits (with MH, its
+    deposited mass, which is also ``mh_deposited``)."""
+    worker.drain()
+    tally = {"orbit_points": worker.points, "_host_on_canvas": worker.hits}
+    if mh:
+        tally["mh_deposited"] = worker.hits
+    return tally
+
+
+def finish_host_stats(engine, out: dict, worker) -> dict:
+    """Host-mode stats from summed counters and tallies:
+    ``on_canvas_points`` is the worker's deposits plus the device share's,
+    ``replay`` host or hybrid, and the worker's fetch and replay seconds
+    (this process's worker)."""
+    out["on_canvas_points"] = (out.pop("_device_on_canvas")
+                               + out.pop("_host_on_canvas"))
+    out["replay_fetch_seconds"] = round(worker.fetch_seconds, 3)
+    out["replay_busy_seconds"] = round(worker.replay_seconds, 3)
+    out["replay"] = "hybrid" if engine.split_threshold > 0 else "host"
+    if engine.mh:
+        out["weight_scale"] = engine.weight_scale
+        out["mh_lost_weight"] = worker.lost_weight
+    return out

@@ -26,6 +26,12 @@ class OracleEngine:
 
     def __init__(self, cfg: RenderConfig, device=None):
         cfg.options.validate()
+        if cfg.options.hist_dtype != "uint32":
+            raise ConfigError(
+                "uint64 histograms are supported by the cuda engine's "
+                "host-replay path only (the oracle accumulates on-device "
+                "in uint32)."
+            )
         self.cfg = cfg
         self.device = resolve_device(device, cfg.device_index)
         #: A worst-case bound, not a count: samples that escape or are

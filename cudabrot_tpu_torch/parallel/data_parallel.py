@@ -62,8 +62,6 @@ class DataParallelEngine:
         may be the same card, which then holds several engines); by default
         ``mesh.local_devices`` of ``--devices`` and ``-d``, or CPU devices
         with ``device="cpu"``."""
-        from cudabrot_tpu_torch import engines
-
         self.cfg = cfg
         if devices is None:
             devices, first, total = mesh.local_devices(
@@ -76,11 +74,17 @@ class DataParallelEngine:
         self.first_ordinal = first
         #: Devices over all processes.
         self.num_devices = total
-        self.inners = [engines.single_engine(cfg, d) for d in self.devices]
+        self.inners = self._make_inners()
         inner = self.inners[0]
         self.name = f"dp({inner.name})"
         self.device = self.devices[0]
         self.steps_per_pass = inner.steps_per_pass * total
+
+    def _make_inners(self) -> list:
+        """One single-device engine a device."""
+        from cudabrot_tpu_torch import engines
+
+        return [engines.single_engine(self.cfg, d) for d in self.devices]
 
     def ordinals(self) -> range:
         """The global RNG ordinals of this process's devices."""
@@ -131,3 +135,80 @@ class DataParallelEngine:
     def memory_estimate(self) -> tuple[int, int]:
         """(device_bytes, host_bytes) of one device's engine."""
         return self.inners[0].memory_estimate()
+
+
+class DataParallelHostReplayEngine(DataParallelEngine):
+    """Classify on every device, replay on this process's host.
+
+    Port of ``DataParallelHostReplayEngine`` in
+    ``cudabrot_tpu/parallel/data_parallel.py`` (``:215-388``). Every device
+    runs its own ``CudaEngine`` in host mode at its own RNG ordinal
+    (``host_pass``), and each pass's payloads, one a device, go to one
+    ``HostReplayWorker`` shared by this process's engines, which replays
+    them as one batch. A hybrid device share replays into each device's
+    own histogram and ``dev_hits``, summed at readback. Across processes
+    each process feeds its own worker, and the accumulators and tallies
+    merge once per readback (``distributed.allgather_sum``, in the
+    histogram's dtype: a uint64 render does not wrap there, where the JAX
+    engine sums in uint32). ``histogram`` and ``stats`` are collective."""
+
+    def __init__(self, cfg: RenderConfig, device=None, devices=None):
+        super().__init__(cfg, device=device, devices=devices)
+        self.name = f"dp-host({self.inners[0].name})"
+
+    def _make_inners(self) -> list:
+        from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
+
+        first = CudaEngine(self.cfg, device=self.devices[0],
+                           replay_mode="host")
+        #: The worker every device's payloads go to.
+        self._worker = first._worker
+        return [first] + [
+            CudaEngine(self.cfg, device=d, replay_mode="host",
+                       worker=self._worker) for d in self.devices[1:]]
+
+    def init_state(self, hist0: np.ndarray | None) -> list:
+        """One state per device; a resumed histogram goes into the worker
+        of the process that holds global ordinal 0, so the merge counts it
+        once."""
+        states = [inner.init_state(None) for inner in self.inners]
+        if hist0 is not None and self.first_ordinal == 0:
+            self._worker.add_resumed(hist0)
+        return states
+
+    def run_pass(self, state: list, pass_index: int) -> list:
+        self._worker.make_room()
+        staged = []
+        for inner, st, ordinal in zip(self.inners, state, self.ordinals()):
+            out = inner.host_pass(st, pass_index, ordinal)
+            if out is not None:
+                staged.append(inner.stage(*out))
+        if staged:
+            self._worker.submit(staged)
+        return state
+
+    def histogram(self, state: list) -> np.ndarray:
+        """The worker's accumulator, plus each device's histogram where a
+        device share writes one (MH tenures flushed into the worker
+        first), summed over processes. Collective."""
+        inner = self.inners[0]
+        if inner.mh:
+            for eng, st in zip(self.inners, state):
+                eng.flush_mh_tails_host(st)
+        self._worker.drain()
+        local = self._worker.hist.copy()
+        if inner.split_threshold > 0:
+            for eng, st in zip(self.inners, state):
+                local += eng.device_histogram(st)
+        return distributed.allgather_sum(local)
+
+    def stats(self, state: list) -> dict:
+        """The device counters of every device and the worker's tally,
+        summed exactly over every process. Collective."""
+        from cudabrot_tpu_torch.engines import cuda_engine
+
+        inner = self.inners[0]
+        per = [eng.counter_stats(st) for eng, st in zip(self.inners, state)]
+        per.append(cuda_engine.worker_tally(self._worker, inner.mh))
+        return cuda_engine.finish_host_stats(inner, sum_stats(per),
+                                             self._worker)

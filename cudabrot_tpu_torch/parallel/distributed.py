@@ -127,6 +127,24 @@ def allgather_ints(values) -> np.ndarray:
     return torch.stack(out).numpy()
 
 
+def allgather_sum(hist: np.ndarray) -> np.ndarray:
+    """The sum over processes of each process's ``hist`` in its own dtype,
+    uint32 (wrapping, ``allgather_sum_u32``) or uint64: a uint64 render's
+    merge never wraps at 2^32, where the JAX package's host-replay engine
+    sums the gathered histograms in uint32."""
+    if hist.dtype != np.uint64:
+        return allgather_sum_u32(hist)
+    if process_count() == 1:
+        return hist
+    t = torch.from_numpy(np.ascontiguousarray(hist).view(np.int64))
+    out = [torch.empty_like(t) for _ in range(process_count())]
+    dist.all_gather(out, t)
+    total = np.zeros(hist.shape, np.uint64)
+    for h in out:
+        total += h.numpy().view(np.uint64)
+    return total
+
+
 def allgather_sum_u32(hist: np.ndarray) -> np.ndarray:
     """The uint32 sum over processes of each process's ``hist`` (wrapping,
     as the JAX package's ``jnp.sum(dtype=uint32)``). The histograms travel

@@ -42,6 +42,12 @@ MH_ROWS = (
     "--sampler mh is incompatible with row-sharded histograms (MH deposits "
     "scatter into a full per-device histogram replica; MH crops are small "
     "by construction \u2014 use the replicated layout)")
+#: --replay host with row shards: each shard replays the gathered batch
+#: into its rows on its device; a host replay would accumulate a whole
+#: canvas on one host, which is what the shards exist to avoid.
+HOST_ROWS = ("--replay host does not apply to --hist-sharding rows (each "
+             "row shard replays on its own device; use the replicated "
+             "layout for host replay).")
 
 
 class ShardedHistogramEngine:
@@ -58,13 +64,18 @@ class ShardedHistogramEngine:
                 "needs a card per process and NCCL).")
         if cfg.options.sampler == "mh":
             raise ConfigError(MH_ROWS)
+        if cfg.options.replay == "host":
+            raise ConfigError(HOST_ROWS)
         if devices is None:
             devices, _, _ = mesh.local_devices(
                 cfg.options.num_devices, cfg.device_index, device)
         self.cfg = cfg
         self.devices = list(devices)
         self.num_devices = len(self.devices)
-        self.inners = [CudaEngine(cfg, device=d) for d in self.devices]
+        # The shards replay on their devices, as the JAX package's rows
+        # engine does; so uint64 is refused there, by the JAX message.
+        self.inners = [CudaEngine(cfg, device=d, replay_mode="device")
+                       for d in self.devices]
         self.name = "sharded(cuda)"
         self.device = self.devices[0]
         self.steps_per_pass = self.inners[0].steps_per_pass * self.num_devices

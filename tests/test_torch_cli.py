@@ -75,7 +75,8 @@ def test_resolve_device():
 @pytest.mark.parametrize("argv,device,message", [
     ([], None, "CUDA is not available"),
     (["--interleave"], None, "CUDA is not available"),
-    (["--replay", "host"], "cpu", "--replay host is not yet ported"),
+    (["--replay", "host", "--devices", "2", "--hist-sharding", "rows"],
+     "cpu", "does not apply to --hist-sharding rows"),
     (["--devices", "2", "--sampler", "mh", "--hist-sharding", "rows"], "cpu",
      "incompatible with row-sharded histograms"),
 ])
@@ -101,29 +102,38 @@ def test_render_color_refusals(capsys, tmp_path, argv, device, message):
     (dict(scatter="sorted"), "TPU deposit backend"),
     (dict(replay_block=1024), "blocked replay"),
     (dict(engine="pallas"), "TPU engine"),
-    (dict(sampler="mh", hist_dtype="uint64"),
-     "--hist-dtype uint64 is not yet ported"),
-    (dict(sampler="mh", replay="host"), "--replay host is not yet ported"),
+    (dict(sampler="mh", hist_dtype="uint64", replay="device"),
+     "uint64 histograms require host replay"),
+    (dict(sampler="mh", replay="host", replay_device_share=0.5),
+     "does not apply to --sampler mh"),
     (dict(precision="extended", sampler="mh", num_devices=2,
-          replay_device_share=0.5), "--replay-device-share is not yet"),
-    (dict(precision="extended", replay="host"),
-     "--replay host is not yet ported"),
-    (dict(replay="host"), "--replay host is not yet ported"),
-    (dict(replay_device_share=0.5), "--replay-device-share is not yet"),
-    (dict(hist_dtype="uint64"), "--hist-dtype uint64 is not yet ported"),
-    (dict(num_devices=4, hist_dtype="uint64"),
-     "--hist-dtype uint64 is not yet ported"),
-    (dict(histogram_sharding="rows", replay="host"),
-     "--replay host is not yet ported"),
+          replay_device_share=0.5), "does not apply to --sampler mh"),
+    (dict(precision="extended", replay="host", replay_device_share=0.5),
+     "does not apply to extended-precision renders"),
+    (dict(replay="host", hist_dtype="uint64", replay_device_share=0.5),
+     "cannot use a device replay share"),
+    (dict(engine="oracle", hist_dtype="uint64"),
+     "host-replay path only"),
+    (dict(hist_dtype="uint64", replay="device"),
+     "uint64 histograms require host replay"),
+    (dict(num_devices=4, hist_dtype="uint64", replay="device"),
+     "uint64 histograms require host replay"),
+    (dict(histogram_sharding="rows", num_devices=2, replay="host"),
+     "does not apply to --hist-sharding rows"),
 ])
 def test_unported_options_refused(opts, match):
+    """What the port refuses: the TPU's options when the configuration is
+    built, and the combinations no engine runs (the JAX package's
+    messages) when the engine is."""
     with pytest.raises(config.ConfigError, match=match):
-        config.EngineOptions(**opts).validate()
+        make_engine(config.RenderConfig(
+            canvas=config.Canvas(width=16, height=16),
+            options=config.EngineOptions(**opts)), device="cpu")
 
 
 @pytest.mark.parametrize("argv", [
-    ["--scatter", "pallas"], ["--scatter", "sorted"], ["--replay", "host"],
-    ["--sampler", "mh", "--hist-dtype", "uint64"],
+    ["--scatter", "pallas"], ["--scatter", "sorted"],
+    ["--replay-block", "1024"], ["--refill-rng", "hardware"],
 ])
 def test_cli_refuses_unported_flags(argv):
     with pytest.raises(cli.CliError):
@@ -313,25 +323,36 @@ def test_parse_errors_match_jax(argv, msg):
     assert te.value.message == je.value.message == msg
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     """Importing every module of the package (and chip_smoke) in a fresh
-    process leaves jax and cudabrot_tpu out of sys.modules."""
+    process, and rendering through the host replay (the native library,
+    the worker, the calibration), leaves jax and cudabrot_tpu out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cudabrot_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "from cudabrot_tpu_torch import cli\n"
+        "assert cli.main(['-w', '16', '-h', '16', '--lane-rows', '1', "
+        "'--steps-per-pass', '64', '--steps-per-flush', '16', "
+        "'--replay-capacity', '4096', '--passes', '1', '-t', '-1', "
+        "'--hist-dtype', 'uint64', '-o', sys.argv[1]], device='cpu') == 0\n"
+        "for m in ('io.native', 'engines.host_replay', 'utils.calibration', "
+        "'utils.calibrate', 'parallel.data_parallel'):\n"
+        "    assert 'cudabrot_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cudabrot_tpu')]\n"
         "print(len([m for m in sys.modules if m.startswith('cudabrot_tpu_torch')]))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    res = subprocess.run([sys.executable, "-c", code,
+                          str(tmp_path / "u64.pgm")], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    assert int(res.stdout.strip().splitlines()[-1]) >= 19
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -1304,3 +1304,63 @@ def test_row_shards_allocate_no_canvas_on_the_card(cuda):
     canvas = cfg.canvas.num_pixels * 4
     assert [tuple(st["hist"].shape) for st in state] == [(2000, 8000)] * 4
     assert canvas <= peak < canvas + canvas // 8
+
+
+# -- the host orbit replay --------------------------------------------------
+
+
+def _host_render(device, **opts):
+    """A small host-replay render: its histogram and stats without the
+    worker's seconds."""
+    kw = dict(lane_rows=16, steps_per_pass=256, steps_per_flush=32,
+              replay_capacity=1 << 15)
+    kw.update(opts)
+    win = {}
+    if kw.get("sampler") == "mh":
+        kw.update(steps_per_pass=2048, steps_per_flush=256,
+                  replay_capacity=0, mh_burnin_passes=1)
+        win = dict(sample_domain=(-0.7676, -0.7196, 0.1079, 0.1559))
+        canvas = config.Canvas(width=48, height=48, min_real=-0.7466,
+                               max_real=-0.7406, min_imag=0.1289,
+                               max_imag=0.1349)
+        band = config.IterationBand(max_escape_iterations=500,
+                                    min_escape_iterations=50)
+    else:
+        canvas = config.Canvas(width=64, height=48)
+        band = config.IterationBand(max_escape_iterations=80,
+                                    min_escape_iterations=4)
+    cfg = config.RenderConfig(canvas=canvas, band=band,
+                              options=config.EngineOptions(**kw), **win)
+    eng = CudaEngine(cfg, device=device)
+    state = eng.init_state(None)
+    for p in range(4):
+        eng.run_pass(state, p)
+    stats = {k: v for k, v in eng.stats(state).items()
+             if k not in ("replay_fetch_seconds", "replay_busy_seconds")}
+    return eng.histogram(state), stats
+
+
+@pytest.mark.parametrize("opts", [
+    dict(replay="host", replay_device_share=0.0),
+    dict(replay="host", replay_device_share=0.5),
+    dict(sampler="mh", hist_dtype="uint64"),
+])
+def test_host_render_on_the_card_equals_the_cpu(cuda, opts):
+    """A host-mode render on cuda:0 equals the same render on the CPU
+    bitwise: the classify streams are bitwise equal, the payload crosses
+    through the pinned ring, and both replays run the same strict native
+    code (the hybrid's device share through replay_deposit, MH's deposit
+    in numpy)."""
+    launches.reset()
+    h_gpu, s_gpu = _host_render(cuda, **opts)
+    counts = launches.snapshot()
+    h_cpu, s_cpu = _host_render("cpu", **opts)
+    assert h_gpu.dtype == h_cpu.dtype
+    np.testing.assert_array_equal(h_gpu, h_cpu)
+    assert s_gpu == s_cpu and s_gpu["on_canvas_points"] > 0
+    assert s_gpu["replay"] == ("hybrid" if opts.get("replay_device_share")
+                               else "host")
+    kernel = "classify_mh" if "sampler" in opts else "classify"
+    assert counts[kernel] == 4 and counts[f"{kernel}_plain"] == 0
+    if s_gpu["replay"] == "hybrid":
+        assert counts["replay_deposit"] == 4

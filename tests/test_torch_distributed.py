@@ -92,7 +92,8 @@ def _render_args(out_dir, *extra):
                                         "--sample-domain",
                                         "-0.7500005,-0.7499995,"
                                         "0.0549995,0.0550005",
-                                        "-m", "128", "-c", "8"]])
+                                        "-m", "128", "-c", "8"],
+                                   ["--replay", "host"]])
 def test_two_processes_match_single_process(tmp_path, extra):
     single, multi = tmp_path / "single", tmp_path / "multi"
     single.mkdir()
@@ -116,6 +117,40 @@ def test_two_processes_match_single_process(tmp_path, extra):
     np.testing.assert_array_equal(h_multi, h_single)
     pgm = [(d / "out.pgm").read_bytes() for d in (single, multi)]
     assert pgm[0] == pgm[1]
+
+
+def test_uint64_merge_above_2_32_does_not_wrap(tmp_path):
+    """Two host-replay processes resuming a uint64 checkpoint whose counts
+    exceed 2^32: the merged histogram (gathered and summed in uint64, where
+    the JAX package's engine sums in uint32) equals one process's, past the
+    uint32 range."""
+    single, multi = tmp_path / "single", tmp_path / "multi"
+    extra = ("--hist-dtype", "uint64")
+    cfg = cli.parse_args(_render_args(str(single), *extra))[0]
+    big = np.full(cfg.canvas.shape, 0xFFFF_FFF0, np.uint64)
+    for d in (single, multi):
+        d.mkdir()
+        ckpt.save(str(d / "state.ckpt"), big, cfg, passes=0)
+    ref = subprocess.run(
+        [sys.executable, "-c", CHILD, *_render_args(str(single), *extra)],
+        env=_env(), capture_output=True, text=True, timeout=TIMEOUT)
+    assert ref.returncode == 0, ref.stdout[-2000:] + ref.stderr[-2000:]
+    for rc, out, err in _group(_render_args(str(multi), *extra)):
+        assert rc == 0, (out[-1000:], err[-2000:])
+    h_single, _ = ckpt.load(str(single / "state.ckpt"), cfg)
+    h_multi, _ = ckpt.load(str(multi / "state.ckpt"), cfg)
+    assert h_multi.dtype == np.uint64
+    np.testing.assert_array_equal(h_multi, h_single)
+    assert int(h_multi.max()) > 0xFFFF_FFFF
+    assert (h_multi >= big).all()
+
+
+def test_allgather_sum_keeps_the_dtype(monkeypatch):
+    """One process: the histogram as it is, in its dtype."""
+    h64 = np.full((3, 4), 1 << 40, np.uint64)
+    assert distributed.allgather_sum(h64) is h64
+    h32 = np.full((3, 4), 7, np.uint32)
+    assert distributed.allgather_sum(h32).dtype == np.uint32
 
 
 def test_sigint_on_nonprimary_stops_both(tmp_path):

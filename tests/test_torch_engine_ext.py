@@ -233,9 +233,13 @@ def test_extended_tuning_and_refusals():
     with pytest.raises(tcfg.ConfigError, match="thin escape tracking"):
         tcfg.EngineOptions(precision="extended",
                            escape_tracking="step").validate()
-    with pytest.raises(tcfg.ConfigError, match="replay-device-share"):
-        tcfg.EngineOptions(precision="extended",
-                           replay_device_share=0.5).validate()
+    # A device share at extended precision: refused where the engine is
+    # built, with the JAX engine's message.
+    with pytest.raises(tcfg.ConfigError, match="replay-device-share does "
+                       "not apply to extended-precision renders"):
+        CudaEngine(dataclasses.replace(cfg, options=tcfg.EngineOptions(
+            precision="extended", replay="host", replay_device_share=0.5)),
+            device="cpu")
     with pytest.raises(ValueError, match="lane state has 3 arrays"):
         convert.state_from_jax({"hist": np.zeros((2, 2), np.uint32),
                                 "lanes": (1, 2, 3)})

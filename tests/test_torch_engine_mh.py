@@ -91,10 +91,14 @@ def _run(cfg, passes, flush_after=()):
 def test_make_engine_gates():
     with pytest.raises(ConfigError, match="cuda engine only"):
         make_engine(_mh_cfg(options={"engine": "oracle"}), device="cpu")
-    for bad in ({"hist_dtype": "uint64"}, {"replay": "host"},
-                {"replay_device_share": 0.5}):
-        with pytest.raises(ConfigError, match="not yet ported"):
-            _mh_cfg(options=bad)
+    # uint64 and --replay host deposit on the host; a device share has no
+    # replay to split (the JAX messages).
+    for opts in ({"hist_dtype": "uint64"}, {"replay": "host"}):
+        assert make_engine(_mh_cfg(options=opts),
+                           device="cpu").replay_mode == "host"
+    with pytest.raises(ConfigError, match="no replay to split"):
+        make_engine(_mh_cfg(options={"replay_device_share": 0.5}),
+                    device="cpu")
     # MH runs data-parallel, never on row shards (the JAX message).
     with pytest.raises(ConfigError, match="incompatible with row-sharded"):
         make_engine(_mh_cfg(options={"num_devices": 2,

@@ -9,6 +9,7 @@ kernels' plain versions with its own RNG ordinal. Everything merged from
 integers is held bitwise.
 """
 
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -392,3 +393,79 @@ def test_render_color_on_two_cpu_devices(tmp_path):
         outs.append(png.read_png(out))
     assert outs[0].shape == (20, 24, 3) and outs[0].max() > 0
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+# -- the data-parallel host replay ------------------------------------------
+
+
+def _host_singles(cfg, ordinals):
+    """Single host-mode engines at the given ordinals, summed in the
+    histogram's dtype; stats summed without the worker's seconds."""
+    total, stats = None, []
+    for ordinal in ordinals:
+        eng = CudaEngine(cfg, device="cpu")
+        state = eng.init_state(None)
+        for p in range(cfg.max_passes):
+            out = eng.host_pass(state, p, ordinal)
+            if out is not None:
+                eng._worker.submit(eng.stage(*out))
+        h = eng.histogram(state)
+        total = h if total is None else total + h
+        stats.append(_no_seconds(eng.stats(state)))
+    return total, sum_stats(stats)
+
+
+def _no_seconds(stats):
+    return {k: v for k, v in stats.items()
+            if k not in ("replay_fetch_seconds", "replay_busy_seconds")}
+
+
+@pytest.mark.parametrize("n_dev", [2, 3])
+@pytest.mark.parametrize("kind,opts", [
+    ("float32", dict(replay="host")),
+    ("float32", dict(replay="host", replay_device_share=0.5)),
+    ("float32", dict(hist_dtype="uint64")),
+    ("extended", dict(replay="host")),
+    ("mh", dict(replay="host")),
+])
+def test_dp_host_equals_the_sum_of_single_host_engines(kind, opts, n_dev):
+    """The data-parallel host replay (one worker fed every device's
+    payloads) equals single host-mode engines at the same ordinals, summed:
+    histogram and every count bitwise."""
+    cfg = _cfg(n_dev, kind)
+    cfg = cfg.replace(options=dataclasses.replace(cfg.options, **opts))
+    eng = engines.make_engine(cfg, device="cpu")
+    assert eng.name == "dp-host(cuda)"
+    res = driver.run_render(cfg, engine=eng, log=_quiet)
+    hist, stats = _host_singles(cfg, range(n_dev))
+    assert res.histogram.dtype == hist.dtype
+    np.testing.assert_array_equal(res.histogram, hist)
+    assert _no_seconds(res.stats) == stats
+    assert stats["replay"] == ("hybrid" if "replay_device_share" in opts
+                               else "host")
+    assert int(hist.sum()) == stats["on_canvas_points"] > 0
+
+
+def test_dp_host_counts_equal_dp_device():
+    """The same samples through the device and the host replay over three
+    devices: every count but on_canvas_points equal."""
+    cfg = _cfg(3, "float32")
+    dev = driver.run_render(cfg, device="cpu", log=_quiet)
+    host = driver.run_render(cfg.replace(options=dataclasses.replace(
+        cfg.options, replay="host")), device="cpu", log=_quiet)
+    skip = ("replay", "on_canvas_points", "replay_fetch_seconds",
+            "replay_busy_seconds")
+    assert ({k: v for k, v in host.stats.items() if k not in skip}
+            == {k: v for k, v in dev.stats.items() if k not in skip})
+
+
+def test_dp_host_resume_counts_the_checkpoint_once(tmp_path):
+    path = str(tmp_path / "dp.ckpt")
+    cfg = _cfg(3, "float32", inprogress_file=path)
+    cfg = cfg.replace(options=dataclasses.replace(cfg.options,
+                                                  replay="host"))
+    r1 = driver.run_render(cfg, device="cpu", log=_quiet)
+    r2 = driver.run_render(cfg, device="cpu", log=_quiet)
+    assert (int(r2.histogram.sum()) == int(r1.histogram.sum())
+            + r2.stats["on_canvas_points"])
+    assert (r2.histogram >= r1.histogram).all()
