@@ -128,8 +128,37 @@ Phases (each fails the run on any mismatch):
      zoom and bigcanvas, the worker's fetch and replay seconds, host
      replay points/s, payload bytes a pass, and a host-mode pass's device
      busy share (torch.profiler), with the host's CPU and cores.
+  12. Repeatability: the first call of each of the twelve kernels in one
+     main-path pass of its cell (default, zoom, mhcrop, mhzoom; bigcanvas
+     and bigzoom on the bigtiles route; deposit_ids on phase 3's stream)
+     is recorded with its inputs and run REPEAT_RUNS times more, each run
+     on clones of those inputs carved from buffers between two margins,
+     every output the wrapper allocates and every margin filled with
+     another byte (POISON): every output, and every input the kernel
+     updates in place, must equal the first run's bitwise, and no margin
+     may change (an unwritten output element, a read or a write past a
+     tensor). Then classify at the default cell's 262,144 lanes at phase
+     2's two bands: REPEAT_SEEDS seeds each run twice from a state carried
+     on from seed to seed, and REPEAT_PLAIN_SEEDS seeds through the kernel
+     and twice through the plain version. A mismatch prints the tensors
+     that differ, how many elements, and the first few with both bit
+     patterns (classify's as block, warp, thread and sub-lane of
+     csrc/classify.cu), and saves the inputs and both runs under
+     chiprun_out/; a classify mismatch, here or in phase 2, first runs
+     the kernel and the plain version once more on the same input and
+     says which runs agree (hold_classify).
   Phases 2, 3 and 3b hold the two df32 replay kernels on a batch whose
   head orbit is set to 19,999 steps.
+
+``--repeat`` builds and runs phase 2's classify checks (the first work
+on the card, as in the default run) and phase 12. ``--sanitize`` runs a small
+target of the twelve kernels (``--sanitize-target``: phase 12's capture at
+a 64x48 canvas and 2,048 lanes, SANITIZE_CELLS) under compute-sanitizer
+(found beside nvcc; its absence fails the run) with each of its memcheck,
+racecheck, synccheck and initcheck tools, ``--error-exitcode 1`` and
+``--kernel-regex`` on the port's kernels, and prints each tool's verdict
+per kernel; it fails on any error, on a kernel the target did not launch,
+and where the sanitizer does not support the card.
 
 ``--host`` builds and runs phase 11 alone. ``--multi`` builds and runs
 phase 10 alone; ``--replay-retime`` only its
@@ -603,7 +632,9 @@ def check_classify(tag, fields, ra, rb):
 
 
 def phase_classify(dev):
-    """Kernel vs plain version, bitwise, from a carried state."""
+    """Kernel vs plain version, bitwise, from a carried state. A mismatch
+    of the f32 classify kernel runs both once more on the same input and
+    saves every run (hold_classify)."""
     from cudabrot_tpu_torch.config import IterationBand, RenderConfig
     from cudabrot_tpu_torch.ops import classify as cls
 
@@ -620,20 +651,19 @@ def phase_classify(dev):
         a, b = clone_state(state), clone_state(state)
         seed = (0xC0FFEE, 0xBADF00D)
         ra = cls.classify_pass(a, seed, **spec)
-        args = dict(
-            fractal=spec["fractal"], min_it=tn.min_it, max_it=tn.max_it,
-            chunks=steps // flush, windows=flush // tn.inner_unroll,
-            unroll=tn.inner_unroll, thin=tn.thin_tracking, detect=True,
-            sample_domain=cfg.sample_domain, visit_window=None,
-        )
+        args = plain_classify_args(spec, tn, cfg, steps, flush)
         rb = cls.classify_pass_plain(b, *seed, None, **args)
         lanes = cfg.options.lane_rows * 128
         tag = f"band {band} U={tn.inner_unroll} lanes={lanes}"
+        hold_classify(tag, state, seed, spec, args,
+                      {"kernel": ra, "plain": rb})
         err = check_classify(tag, cls.LaneState._fields, ra, rb)
         errs["classify"] = max(errs.get("classify", 0.0), err)
         for S in STUDY_LANES_PER_THREAD:
             with classify_lanes(S):
                 rs = cls.classify_pass(clone_state(state), seed, **spec)
+                hold_classify(f"{tag} S={S}", state, seed, spec, args,
+                              {f"kernel S={S}": rs, "plain": rb})
             errs["classify"] = max(errs["classify"], check_classify(
                 f"{tag} S={S}", cls.LaneState._fields, rs, rb))
         n_em = int((ra.emit_it >= 0).sum())
@@ -3684,7 +3714,8 @@ RETIME_ROUNDS = 5
 MULTI_MEMORY_CELL, MULTI_MEMORY_SHARDS = "northstar", 4
 
 #: Study flags that need the package's libraries alone.
-PACKAGE_ONLY = {"--multi", "--replay-retime", "--cards", "--host"}
+PACKAGE_ONLY = {"--multi", "--replay-retime", "--cards", "--host",
+                "--sanitize"}
 
 MULTI_CHILD = """
 import sys
@@ -4475,6 +4506,627 @@ def ext_budget_sweep(dev):
             f"{st['replay_dropped']} of {st['in_band']} in band")
 
 
+# ----------------------------------------------------------------------
+# Phase 12: repeatability; --sanitize: the compute-sanitizer sweep.
+
+#: Runs of each kernel on guarded clones of one captured input. Run r fills
+#: every output its wrapper allocates, and the margins around every tensor
+#: of the call, with the byte POISON[r % len(POISON)]. With REPEAT_SEEDS
+#: and REPEAT_PLAIN_SEEDS the phase took 40.4 s on an H100 80GB HBM3
+#: (700 W), the script's time limit allowing ~60.
+REPEAT_RUNS = 16
+POISON = (0x00, 0xFF, 0xA5, 0x7F)
+#: Bytes of margin before and after every guarded tensor.
+MARGIN = 4096
+#: classify at the default cell's lane count: phase 2's two bands (band,
+#: steps, flush, warm passes), REPEAT_SEEDS seeds each run twice from a
+#: state carried from seed to seed, then REPEAT_PLAIN_SEEDS seeds through
+#: the kernel once and the plain version twice.
+REPEAT_BANDS = (((20, 100), 256, 128, 2), ((2000, 20000), 256, 256, 8))
+REPEAT_SEEDS = 2000
+REPEAT_PLAIN_SEEDS = 16
+#: The cells and routes whose main-path pass gives the repeated kernels
+#: their inputs: the first call of each kernel in one pass after
+#: REPEAT_WARM (deposit_ids, which no entry point launches, takes phase
+#: 3's stream at 1000x1000).
+REPEAT_CELLS = (("default", "auto"), ("zoom", "auto"), ("mhcrop", "auto"),
+                ("mhzoom", "auto"), ("bigcanvas", "bigtiles"),
+                ("bigzoom", "bigtiles"))
+REPEAT_WARM = 2
+#: Each kernel's wrapper, (module of cudabrot_tpu_torch.ops, function): the
+#: engines call them through these module attributes.
+WRAPPERS = {
+    "classify": ("classify", "classify_pass"),
+    "threefry_bits": ("prng", "bits"),
+    "replay_deposit": ("binning", "replay_deposit"),
+    "deposit_ids": ("binning", "deposit_ids"),
+    "classify_ext": ("classify_ext", "classify_pass_ext"),
+    "replay_deposit_ext": ("binning", "replay_deposit_ext"),
+    "classify_mh": ("classify_mh", "classify_pass_mh"),
+    "classify_ext_mh": ("classify_mh", "classify_pass_ext_mh"),
+    "mh_deposit": ("binning", "mh_deposit"),
+    "replay_ids": ("binning", "replay_ids"),
+    "replay_ids_ext": ("binning", "replay_ids_ext"),
+    "bigtiles_deposit": ("binning", "bigtiles_deposit"),
+}
+#: Where a mismatch saves its inputs and runs (listed in .gitignore).
+DUMP_DIR = os.path.join(ROOT, "chiprun_out")
+
+
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tree_map(fn, x):
+    """``fn`` applied to every tensor in nested tuples, named tuples,
+    lists and dicts; everything else as it is."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(tree_map(fn, v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(tree_map(fn, v) for v in x)
+    if isinstance(x, dict):
+        return {k: tree_map(fn, v) for k, v in x.items()}
+    return x
+
+
+def tree_leaves(x, path="") -> list:
+    """(path, tensor) of every tensor in ``x``, in a fixed order (a lone
+    tensor's path is "output")."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [(path or "output", x)]
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        items = zip(x._fields, x)
+    elif isinstance(x, (tuple, list)):
+        items = enumerate(x)
+    elif isinstance(x, dict):
+        items = x.items()
+    else:
+        return []
+    return [leaf for k, v in items
+            for leaf in tree_leaves(v, f"{path}.{k}" if path else str(k))]
+
+
+class Guard:
+    """Tensors on one device, each carved from a larger buffer between two
+    margins of MARGIN bytes. The margins, and the body of every tensor a
+    wrapper allocates with torch.empty or torch.empty_like inside
+    ``outputs()``, hold one byte. A kernel that leaves an element of its
+    output unwritten, or reads past a tensor, gives another result under
+    another byte; one that writes past a tensor changes a margin."""
+
+    def __init__(self, byte: int, device):
+        import torch
+
+        self.byte, self.device, self.bufs = byte, torch.device(device), []
+
+    def alloc(self, shape, dtype):
+        import math
+
+        import torch
+
+        shape = tuple(int(s) for s in shape)
+        n = math.prod(shape) * dtype.itemsize
+        buf = torch.full((2 * MARGIN + n,), self.byte, dtype=torch.uint8,
+                         device=self.device)
+        self.bufs.append((buf, n))
+        return buf[MARGIN:MARGIN + n].view(dtype).view(shape)
+
+    def clone(self, x):
+        return self.alloc(x.shape, x.dtype).copy_(x)
+
+    def _here(self, device) -> bool:
+        import torch
+
+        d = torch.device(device)
+        return d.type == self.device.type and (d.index or 0) == (
+            self.device.index or 0)
+
+    @contextlib.contextmanager
+    def outputs(self):
+        import torch
+
+        real, real_like = torch.empty, torch.empty_like
+
+        def empty(*size, dtype=None, device=None, **kw):
+            if device is None or kw or not self._here(device):
+                return real(*size, dtype=dtype, device=device, **kw)
+            if len(size) == 1 and hasattr(size[0], "__len__"):
+                size = size[0]
+            return self.alloc(size, dtype or torch.get_default_dtype())
+
+        def empty_like(x, **kw):
+            if kw or not self._here(x.device):
+                return real_like(x, **kw)
+            return self.alloc(x.shape, x.dtype)
+
+        with mock.patch.object(torch, "empty", empty), \
+                mock.patch.object(torch, "empty_like", empty_like):
+            yield self
+
+    def broken_margins(self) -> int:
+        """Guarded tensors with a changed margin byte."""
+        return sum(
+            not bool((buf[:MARGIN] == self.byte).all()
+                     and (buf[MARGIN + n:] == self.byte).all())
+            for buf, n in self.bufs)
+
+
+@contextlib.contextmanager
+def capturing(store: dict):
+    """While active, the first call of each kernel's wrapper (WRAPPERS) is
+    recorded in ``store`` as (function, args, kwargs), its tensors cloned
+    just before the call (some calls update their inputs in place)."""
+    import importlib
+
+    import torch
+
+    def shim(name, real):
+        def call(*args, **kw):
+            if name not in store:
+                dev = next((t.device for _, t in tree_leaves((args, kw))),
+                           torch.device("cpu"))
+                sync(dev)
+                store[name] = (real, tree_map(torch.Tensor.clone, args),
+                               tree_map(torch.Tensor.clone, kw))
+                sync(dev)
+            return real(*args, **kw)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name, (mod, fn) in WRAPPERS.items():
+            m = importlib.import_module(f"cudabrot_tpu_torch.ops.{mod}")
+            stack.enter_context(
+                mock.patch.object(m, fn, shim(name, getattr(m, fn))))
+        yield store
+
+
+def capture_calls(dev, cells, warm=REPEAT_WARM, cfg_of=None) -> dict:
+    """The first call of each kernel in one engine pass of each cell (after
+    ``warm`` passes; ``cfg_of(name, route)`` gives its configuration), as
+    ``capturing`` records it, and deposit_ids on phase 3's kind of stream
+    (random ids, a tenth of them the sentinel) over the first cell's
+    canvas."""
+    import torch
+
+    from cudabrot_tpu_torch.engines import cuda_engine as ce
+    from cudabrot_tpu_torch.ops import binning
+
+    cfg_of = cfg_of or cell_config
+    store = {}
+    for name, route in cells:
+        eng = ce.CudaEngine(cfg_of(name, route), device=dev)
+        state = eng.init_state(None)
+        for p in range(warm):
+            eng.run_pass(state, p)
+        with capturing(store):
+            eng.run_pass(state, warm)
+            if eng.mh:
+                eng.mh_tail_core(state)
+        eng.synchronize()
+    nbins = cfg_of(*cells[0]).canvas.num_pixels
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n_ids = min(1 << 24, 64 * nbins)
+    ids = torch.randint(0, nbins, (n_ids,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[torch.rand(n_ids, generator=gen, device=dev) < 0.1] = nbins
+    hist = torch.zeros(nbins, dtype=torch.int32, device=dev)
+    with capturing(store):
+        binning.deposit_ids(hist, ids)
+    return store
+
+
+def flat_bits(t):
+    """``t`` flattened, float32 viewed as int32 (NaNs compare by bits)."""
+    import torch
+
+    t = t.reshape(-1)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def leaves_equal(a, b) -> bool:
+    return len(a) == len(b) and all(same_bits(x, y)
+                                    for (_, x), (_, y) in zip(a, b))
+
+
+def lane_place(i: int, lanes: int, per_thread: int) -> str:
+    """Flat index ``i`` of a ([lead,] lanes) array under csrc/classify.cu's
+    layout: thread t of global warp g holds lanes (g * S + j) * 32 + t."""
+    lead, lane = divmod(i, lanes)
+    g, j = divmod(lane // 32, per_thread)
+    return (f"lane {lane} = (block {g // 4}, warp {g}, thread {lane % 32}, "
+            f"sub-lane {j}, window/row {lead})")
+
+
+def describe_mismatch(tag, first, got, lanes=0, per_thread=1) -> list:
+    """Prints the tensors that differ between two runs, in how many
+    elements, and the first few with both bit patterns in hex (for the f32
+    classify kernel, ``lanes`` > 0, as places in its warps); returns their
+    paths."""
+    import torch
+
+    differ = []
+    for (path, a), (_, b) in zip(first, got):
+        if same_bits(a, b):
+            continue
+        av, bv = flat_bits(a), flat_bits(b)
+        idx = torch.nonzero(av != bv).reshape(-1)
+        differ.append(path)
+        log(f"  MISMATCH {tag}: {path} differs in {idx.numel()} of "
+            f"{av.numel()} elements")
+        width = 2 * av.element_size()
+        mask = (1 << (8 * av.element_size())) - 1
+        for i in idx[:5].tolist():
+            where = (lane_place(i, lanes, per_thread) if lanes
+                     and tuple(a.shape[-2:]) == (lanes // 128, 128)
+                     else f"[{i}]")
+            log(f"    {where}: {int(av[i]) & mask:0{width}x} vs "
+                f"{int(bv[i]) & mask:0{width}x}")
+    return differ
+
+
+#: Tensors above this size are saved as their differing elements only.
+EVIDENCE_FULL_BYTES = 16 << 20
+
+
+def save_evidence(tag, inputs, base, others) -> str:
+    """Saves a mismatch under DUMP_DIR: the inputs and the ``base`` run's
+    tensors ((label, [(path, tensor)])), each in full up to
+    EVIDENCE_FULL_BYTES, and for every run of ``others`` ({label:
+    [(path, tensor)]}) the elements that differ from the base run (flat
+    index, value, base value). Returns the file's path."""
+    import torch
+
+    def full(leaves):
+        return {p: t.cpu() for p, t in leaves
+                if t.numel() * t.element_size() <= EVIDENCE_FULL_BYTES}
+
+    data = {"input": full(inputs), base[0]: full(base[1])}
+    for label, leaves in others.items():
+        diff = {}
+        for (p, a), (_, b) in zip(base[1], leaves):
+            av, bv = flat_bits(a), flat_bits(b)
+            idx = torch.nonzero(av != bv).reshape(-1)[: 1 << 20]
+            if idx.numel():
+                diff[p] = {"index": idx.cpu(), "value": bv[idx].cpu(),
+                           "base": av[idx].cpu()}
+        data[label] = diff
+    os.makedirs(DUMP_DIR, exist_ok=True)
+    path = os.path.join(DUMP_DIR, "mismatch_" + "".join(
+        c if c.isalnum() else "_" for c in tag) + ".pt")
+    torch.save(data, path)
+    log(f"  saved the inputs and every run to {path}")
+    return path
+
+
+def repeat_call(name, call, runs, dev, tag="", lanes=0, per_thread=1,
+                inputs=()):
+    """``call(guard)`` ``runs`` times, each under a Guard of the next POISON
+    byte; returns its tensors (path, tensor) after the first run. Every
+    run's tensors must equal the first run's bitwise and keep their
+    margins. A mismatch prints and saves both runs and ``inputs``
+    ((path, tensor) pairs; describe_mismatch, save_evidence)."""
+    first = None
+    for r in range(runs):
+        guard = Guard(POISON[r % len(POISON)], dev)
+        with guard.outputs():
+            leaves = tree_leaves(call(guard))
+        sync(dev)
+        broken = guard.broken_margins()
+        if broken:
+            raise SmokeFailure(f"{name}{tag}: run {r} changed the margin of "
+                               f"{broken} guarded tensors")
+        if first is None:
+            first = [(p, t.clone()) for p, t in leaves]
+        elif not leaves_equal(first, leaves):
+            label = f"{name}{tag} run {r}"
+            differ = describe_mismatch(label, first, leaves, lanes,
+                                       per_thread)
+            save_evidence(label, inputs, ("run 0", first),
+                          {f"run {r}": leaves})
+            raise SmokeFailure(f"{name}{tag}: run {r} differs from run 0 "
+                               f"in {', '.join(differ)}")
+    return first
+
+
+def hold_classify(tag, state, seed, spec, plain_args, runs):
+    """Holds f32 classify runs on one input ``state`` to each other: ``runs``
+    is {label: ClassifyResult}, the first the kernel's. Where any two
+    differ, runs the kernel (the build classify_pass loads here) and the
+    plain version once more on clones of the same state, prints which runs
+    agree with which and what differs, saves the input and every run
+    (save_evidence) and fails."""
+    from cudabrot_tpu_torch.ops import classify as cls
+
+    leaves = {k: tree_leaves(v) for k, v in runs.items()}
+    base = next(iter(leaves.items()))
+    if all(leaves_equal(base[1], v) for v in leaves.values()):
+        return
+    leaves["kernel again"] = tree_leaves(cls.classify_pass(
+        clone_state(state), seed, **spec))
+    leaves["plain again"] = tree_leaves(cls.classify_pass_plain(
+        clone_state(state), *seed, None, **plain_args))
+    names = list(leaves)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            same = leaves_equal(leaves[a], leaves[b])
+            log(f"  {tag}: {a} {'==' if same else '!='} {b}")
+    lanes = state.cr.numel()
+    other = next(k for k, v in leaves.items()
+                 if not leaves_equal(base[1], v))
+    differ = describe_mismatch(f"{tag}: {base[0]} vs {other}", base[1],
+                               leaves[other], lanes, package_lanes())
+    save_evidence(tag, tree_leaves(state), base,
+                  {k: v for k, v in leaves.items() if k != base[0]})
+    raise SmokeFailure(f"{tag}: {base[0]} and {other} differ in "
+                       f"{', '.join(differ)}")
+
+
+def plain_classify_args(spec, tn, cfg, steps, flush) -> dict:
+    """classify_pass_plain's keywords for classify_spec's ``spec``."""
+    return dict(
+        fractal=spec["fractal"], min_it=tn.min_it, max_it=tn.max_it,
+        chunks=steps // flush, windows=flush // tn.inner_unroll,
+        unroll=tn.inner_unroll, thin=tn.thin_tracking, detect=True,
+        sample_domain=cfg.sample_domain, visit_window=None)
+
+
+def repeat_classify(dev, seeds=REPEAT_SEEDS, plain_seeds=REPEAT_PLAIN_SEEDS,
+                    lane_rows=None):
+    """classify at phase 2's two bands: ``seeds`` seeds, each run twice
+    (fills 0x00 and 0xFF) from one state carried on from seed to seed;
+    then ``plain_seeds`` seeds through the kernel once and the plain
+    version twice, all three bitwise equal (hold_classify). Returns the
+    runs."""
+    from cudabrot_tpu_torch.config import IterationBand, RenderConfig
+    from cudabrot_tpu_torch.ops import classify as cls
+
+    runs = 0
+    for band, steps, flush, warm in REPEAT_BANDS:
+        cfg = RenderConfig(band=IterationBand(
+            min_escape_iterations=band[0], max_escape_iterations=band[1]))
+        spec, tn = classify_spec(cfg, steps, flush)
+        args = plain_classify_args(spec, tn, cfg, steps, flush)
+        rows = lane_rows or cfg.options.lane_rows
+        state = cls.init_lane_state(rows, dev)
+        for p in range(warm):
+            cls.classify_pass(state, (1337, p), **spec)
+        t0 = time.monotonic()
+        for s in range(seeds):
+            seed = (0x5EED, (band[1] << 16) + s)
+
+            def call(g, state=state, seed=seed):
+                a = tree_map(g.clone, state)
+                return cls.classify_pass(a, seed, **spec)
+
+            first = repeat_call("classify", call, 2, dev,
+                                f" band {band} seed {s}", rows * 128,
+                                package_lanes(), tree_leaves(state))
+            state = cls.LaneState(*(t for _, t in first[:len(state)]))
+            runs += 2
+        sync(dev)
+        log(f"  classify band {band}, {rows * 128} lanes, {steps} steps: "
+            f"{seeds} seeds x 2 runs bitwise equal "
+            f"({time.monotonic() - t0:.1f} s)")
+        t0 = time.monotonic()
+        for s in range(plain_seeds):
+            seed = (0x9A1E, (band[1] << 16) + s)
+            ra = cls.classify_pass(clone_state(state), seed, **spec)
+            rp = [cls.classify_pass_plain(clone_state(state), *seed, None,
+                                          **args) for _ in range(2)]
+            hold_classify(f"classify band {band} plain seed {s}", state,
+                          seed, spec, args, {"kernel": ra, "plain": rp[0],
+                                             "plain twice": rp[1]})
+            state = ra.state
+            runs += 1
+        log(f"  classify band {band}: {plain_seeds} seeds, the kernel and "
+            f"the plain version twice, bitwise equal "
+            f"({time.monotonic() - t0:.1f} s)")
+    return runs
+
+
+def phase_repeat(dev, cells=REPEAT_CELLS, cfg_of=None, seeds=REPEAT_SEEDS,
+                 plain_seeds=REPEAT_PLAIN_SEEDS, lane_rows=None):
+    """Phase 12: every kernel run REPEAT_RUNS times on guarded clones of
+    the input its cell's main-path pass gave it (an input it updates in
+    place is compared after the call with its outputs), then classify over
+    many seeds at the default cell's lane count (repeat_classify). Returns
+    the runs of each kernel."""
+    log("== phase 12: repeatability")
+    t0 = time.monotonic()
+    store = capture_calls(dev, cells, cfg_of=cfg_of)
+    check(set(store) == set(KERNELS),
+          f"phase 12: captured an input of every kernel "
+          f"({len(store)} of {len(KERNELS)})")
+    tries = {}
+    for name in KERNELS:
+        fn, args, kw = store.pop(name)
+
+        def run(g, fn=fn, args=args, kw=kw):
+            a, k = tree_map(g.clone, args), tree_map(g.clone, kw)
+            return fn(*a, **k), a, k
+
+        lanes = args[0].cr.numel() if name == "classify" else 0
+        first = repeat_call(name, run, REPEAT_RUNS, dev, lanes=lanes,
+                            per_thread=package_lanes(),
+                            inputs=tree_leaves((args, kw)))
+        shapes = ", ".join(f"{tuple(t.shape)}" for p, t in first
+                           if p.startswith("0"))
+        log(f"  ok: {name}: {REPEAT_RUNS} runs bitwise equal, margins "
+            f"intact (outputs {shapes})")
+        tries[name] = REPEAT_RUNS
+    tries["classify"] += repeat_classify(dev, seeds, plain_seeds,
+                                         lane_rows)
+    log(f"phase 12 runs: {json.dumps(tries)}; "
+        f"{time.monotonic() - t0:.1f} s")
+    return tries
+
+
+#: The compute-sanitizer tools of --sanitize, each over the whole target.
+SANITIZE_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
+#: The sanitizer target's geometry: a few windows of a few thousand lanes
+#: on a small canvas, for every cell kind (cell, route, extra arguments;
+#: the df32 and MH cells at a band their lanes finish in).
+SANITIZE_GEOMETRY = ["-w", "64", "-h", "48", "--lane-rows", "16",
+                     "--steps-per-pass", "512", "--steps-per-flush", "128",
+                     "--replay-capacity", "8192", "--mh-burnin", "0"]
+SANITIZE_CELLS = (("default", "auto"), ("zoom", "auto"), ("mhcrop", "auto"),
+                  ("mhzoom", "auto"), ("default", "bigtiles"),
+                  ("zoom", "bigtiles"))
+SANITIZE_BAND = ["-m", "400", "-c", "20"]
+
+
+def sanitize_config(name, route):
+    """A cell's configuration at the sanitizer target's geometry."""
+    from cudabrot_tpu_torch import cli
+
+    args = [*cell_args(name)[4:], *SANITIZE_GEOMETRY, "--scatter", route]
+    if name in ("zoom", "mhzoom"):
+        args += SANITIZE_BAND
+    return cli.parse_args(args)[0]
+
+
+def sanitize_target(dev) -> int:
+    """The program --sanitize runs under each compute-sanitizer tool: two
+    engine passes of each of SANITIZE_CELLS at their small geometry and
+    deposit_ids (phase 12's capture, which launches every kernel), then
+    the launch counts as one JSON line."""
+    from cudabrot_tpu_torch.ops import launches
+
+    launches.reset()
+    capture_calls(dev, SANITIZE_CELLS, warm=1, cfg_of=sanitize_config)
+    sync(dev)
+    log("sanitize target launches: " + json.dumps(
+        {k: launches.COUNTS[k] for k in KERNELS}))
+    return 0
+
+
+def sanitizer_path() -> str:
+    """compute-sanitizer beside nvcc; its absence fails --sanitize."""
+    from cudabrot_tpu_torch.ops import _build
+
+    path = os.path.join(os.path.dirname(_build.nvcc_path()),
+                        "compute-sanitizer")
+    if not os.path.exists(path):
+        raise SmokeFailure(f"compute-sanitizer not found beside nvcc "
+                           f"({path}): --sanitize cannot run")
+    return path
+
+
+def sanitizer_errors(text: str) -> tuple[dict, int]:
+    """Errors in compute-sanitizer's output, by kernel: each report (a
+    "========= " line and its indented continuation) counts against every
+    kernel it names; returns (counts, reports naming no kernel)."""
+    import re
+
+    names = re.compile(r"\b(" + "|".join(sorted(KERNELS, key=len,
+                                                 reverse=True))
+                       + r")_kernel\b")
+    counts, loose, report = dict.fromkeys(KERNELS, 0), 0, []
+    skip = ("COMPUTE-SANITIZER", "ERROR SUMMARY", "RACECHECK SUMMARY",
+            "Target application returned", "LEAK SUMMARY")
+
+    def close():
+        nonlocal loose
+        if report and not any(s in report[0] for s in skip):
+            hit = set(names.findall("\n".join(report)))
+            for k in hit:
+                counts[k] += 1
+            loose += not hit
+        report.clear()
+
+    for line in text.splitlines():
+        if not line.startswith("========="):
+            continue
+        body = line[len("========="):]
+        if body.startswith("     "):
+            report.append(body)
+        else:
+            close()
+            if body.strip():
+                report.append(body.strip())
+    close()
+    return counts, loose
+
+
+#: The lines of ``nvidia-smi -q`` that bear on whether a debugging tool
+#: can attach to the card.
+SMI_FACTS = ("Driver Version", "CUDA Version", "Virtualization",
+             "Confidential", "CC State", "Compute Mode", "MIG Mode")
+
+
+def smi_facts() -> list:
+    """SMI_FACTS lines of ``nvidia-smi -q`` (none without nvidia-smi)."""
+    import shutil
+
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        return ["nvidia-smi not found"]
+    out = subprocess.run([smi, "-q"], capture_output=True, text=True,
+                         check=False).stdout
+    return [" ".join(ln.split()) for ln in out.splitlines()
+            if any(k in ln for k in SMI_FACTS)]
+
+
+def phase_sanitize(dev, card):
+    """--sanitize: the target (sanitize_target) under each SANITIZE_TOOLS
+    tool of compute-sanitizer, filtered to the port's kernels, with
+    --error-exitcode 1. Prints each tool's verdict per kernel and fails on
+    any error, on a kernel the target did not launch, or where the
+    sanitizer cannot run on this card."""
+    log("== phase 12b: compute-sanitizer sweep of the twelve kernels")
+    cs = sanitizer_path()
+    version = subprocess.run([cs, "--version"], capture_output=True,
+                             text=True, check=False).stdout.strip()
+    log(f"  {cs}: {version.splitlines()[-1] if version else '?'}; {card}")
+    regex = "kns=(" + "|".join(sorted(KERNELS)) + ")_kernel"
+    os.makedirs(OUT, exist_ok=True)
+    verdicts, failed = {}, []
+    for tool in SANITIZE_TOOLS:
+        cmd = [cs, "--tool", tool, "--error-exitcode", "1",
+               "--kernel-regex", regex, sys.executable,
+               os.path.abspath(__file__), "--sanitize-target"]
+        t0 = time.monotonic()
+        p = subprocess.run(cmd, capture_output=True, text=True, check=False,
+                           timeout=900)
+        text = p.stdout + p.stderr
+        log_path = os.path.join(OUT, f"sanitize_{tool}.log")
+        with open(log_path, "w") as f:
+            f.write(text)
+        took = time.monotonic() - t0
+        if "Device not supported" in text:
+            log("  the card as nvidia-smi -q reports it: "
+                + "; ".join(smi_facts()))
+            raise SmokeFailure(
+                f"compute-sanitizer --tool {tool} does not support this "
+                f"device ({card}): it reports \"Device not supported\" and "
+                f"runs no kernel under the tool (log: {log_path})")
+        line = next((ln for ln in p.stdout.splitlines()
+                     if ln.startswith("sanitize target launches: ")), None)
+        launched = json.loads(line.split(": ", 1)[1]) if line else {}
+        counts, loose = sanitizer_errors(text)
+        verdicts[tool] = {k: ("not launched" if not launched.get(k)
+                              else f"{counts[k]} errors") for k in KERNELS}
+        log(f"  {tool} (rc {p.returncode}, {took:.1f} s): " + ", ".join(
+            f"{k} {v}" for k, v in verdicts[tool].items())
+            + (f"; {loose} reports naming no kernel" if loose else ""))
+        if (p.returncode != 0 or loose or not line
+                or any(v != "0 errors" for v in verdicts[tool].values())):
+            failed.append(f"{tool} (rc {p.returncode}, log {log_path})")
+    log(f"sanitize verdicts: {json.dumps(verdicts)}")
+    if failed:
+        raise SmokeFailure(f"compute-sanitizer found errors or did not "
+                           f"run every kernel: {'; '.join(failed)}")
+
+
 def main() -> int:
     try:
         import torch
@@ -4516,7 +5168,11 @@ def main() -> int:
         "--replay-retime": lambda: retime_replays(dev, card),
         "--cards": lambda: cards_study(card),
         "--host": lambda: phase_host(dev, card),
+        "--repeat": lambda: (phase_classify(dev), phase_repeat(dev)),
+        "--sanitize": lambda: phase_sanitize(dev, card),
     }
+    if sys.argv[1:] == ["--sanitize-target"]:
+        return sanitize_target(dev)
     if sys.argv[1:]:
         unknown = [a for a in sys.argv[1:] if a not in studies]
         if unknown:
@@ -4556,6 +5212,7 @@ def main() -> int:
         phase_overlap(dev)
         multi_runs = phase_multi(dev, card)
         host_runs = phase_host(dev, card)
+        repeat_runs = phase_repeat(dev)
         kernels = phase_kernel_times(
             dev, main_runs, errs,
             dict(classify_ext=ext_classify, replay_deposit_ext=ext_replay,
@@ -4574,6 +5231,7 @@ def main() -> int:
         f"{name} {json.dumps(c)}" for name, c in multi_runs.items()))
     log("phase 11 launches: " + ", ".join(
         f"{name} {json.dumps(c)}" for name, c in host_runs.items()))
+    log(f"phase 12 runs: {json.dumps(repeat_runs)}")
     log(f"chip_smoke took {time.monotonic() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

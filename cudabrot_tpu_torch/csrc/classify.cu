@@ -38,6 +38,21 @@
 // slot. The draw of lane L at window g is Threefry(key, (L, g)) whichever
 // thread computes it, so S changes no result.
 //
+// What orders the queue. All 32 threads of a warp reach every ballot and
+// both __syncwarp calls of a window: the early return drops whole warps,
+// a thread whose lanes lie past `lanes` runs a stand-in copy of lane 0
+// with its finish masked off (`live`), and F, summed from the ballots, is
+// the same in every thread, so `F == 0` skips both barriers for the whole
+// warp. Within a window the first __syncwarp orders the q_lane writes
+// before the draws read them, and the second orders the q_draw writes
+// before the finished lanes read them. Across windows no third barrier is
+// needed: every read of q_lane in window w comes before w's second
+// __syncwarp, and the next write of q_lane comes after it; every read of
+// q_draw in window w comes before the next window's first __syncwarp, and
+// the next write of q_draw comes after it. chip_smoke.py's phase 12 runs
+// the kernel repeatedly on one input and holds every run to the first
+// bit for bit.
+//
 // Arithmetic rounds once per operation (orbit.cuh), so this kernel equals
 // the plain PyTorch version (ops/classify.classify_pass_plain) bitwise.
 //

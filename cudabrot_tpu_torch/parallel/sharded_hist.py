@@ -42,6 +42,17 @@ MH_ROWS = (
     "--sampler mh is incompatible with row-sharded histograms (MH deposits "
     "scatter into a full per-device histogram replica; MH crops are small "
     "by construction \u2014 use the replicated layout)")
+#: Row shards over several processes. The JAX package's row-sharded
+#: engine, the reference, cannot finish such a render: its histogram()
+#: fetches a global array whose shards lie on other processes' devices
+#: (cudabrot_tpu/parallel/sharded_hist.py:178), and its stats() reads one
+#: the same way.
+MULTI_PROCESS_ROWS = (
+    "--hist-sharding rows over several processes is not supported: the JAX "
+    "package's row-sharded engine, which this one follows, cannot read its "
+    "histogram back across processes (cudabrot_tpu/parallel/"
+    "sharded_hist.py:178). Use --hist-sharding replicated over several "
+    "processes, or --hist-sharding rows in one process.")
 #: --replay host with row shards: each shard replays the gathered batch
 #: into its rows on its device; a host replay would accumulate a whole
 #: canvas on one host, which is what the shards exist to avoid.
@@ -58,10 +69,7 @@ class ShardedHistogramEngine:
         from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
 
         if distributed.process_count() > 1:
-            raise ConfigError(
-                "multi-process --hist-sharding rows is not yet ported to "
-                "cudabrot_tpu_torch (its per-pass exchange of kept batches "
-                "needs a card per process and NCCL).")
+            raise ConfigError(MULTI_PROCESS_ROWS)
         if cfg.options.sampler == "mh":
             raise ConfigError(MH_ROWS)
         if cfg.options.replay == "host":

@@ -199,13 +199,15 @@ def test_sigint_on_nonprimary_stops_both(tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     (["--devices", "4", "--hist-sharding", "rows"],
-     "multi-process --hist-sharding rows is not yet ported"),
+     "the JAX package's row-sharded engine, which this one follows, "
+     "cannot read its histogram back across processes"),
     (["--devices", "3"], "--devices 3 does not divide over 2 processes"),
 ])
 def test_multi_process_refusals(tmp_path, extra, message):
     """What two processes cannot run is refused on both, by name, with exit
-    code 1: rows across processes (not yet ported) and a device count the
-    processes cannot share."""
+    code 1: rows across processes (the JAX package's row-sharded engine
+    cannot read its histogram back across processes) and a device count
+    the processes cannot share."""
     args = ["-w", "16", "-h", "16", "--lane-rows", "2", "--steps-per-pass",
             "128", "--passes", "1", "-t", "-1", "-o",
             str(tmp_path / "x.pgm"), *extra]
