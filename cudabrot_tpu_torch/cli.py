@@ -103,8 +103,10 @@ TPU-native extensions:
              point), or bigtiles (orbit bin ids written to a stream,
              sorted, and counted one atomic per run of equal ids: for
              canvases beyond the card's 50 MB L2, such as 6000x4500 or
-             20000x20000; the same histogram). pallas and sorted are
-             TPU backends and refused.
+             20000x20000; the same histogram), sorted (the same
+             route: the JAX scatter_sorted is that sort and run-length
+             add) or pallas (the ids counted as written, one atomic per
+             id); every route gives the same histogram.
   --precision <p>: float32 (default), float64 (oracle engine only),
              or extended — double-float (~2^-48) TPU deep-zoom
              arithmetic for canvases narrower than ~1e-4, where

@@ -292,8 +292,8 @@ Options:
         importance-sampled color crops). The bands render on CUDA
         device -d (default 0), or on --devices cards from it. Forwarded values the main command
         refuses (--replay host with --hist-sharding rows, --devices
-        beyond the cards present, the TPU's --engine pallas, --scatter
-        pallas/sorted and --refill-rng hardware) fail with its message.
+        beyond the cards present, the TPU's --engine pallas and
+        --refill-rng hardware) fail with its message.
   --keep-bands: also save each band's grayscale PGM.
 """
 

@@ -12,8 +12,8 @@ the driver.
 A copy of ``cudabrot_tpu.config`` with the same dataclasses, defaults
 (except ``lane_rows``, sized for an H100) and validation messages. Two
 kinds of values are refused with a clean ``ConfigError`` here: options
-that exist only on the TPU (its hardware PRNG, its Mosaic scatter
-backends, the blocked-replay geometry). Combinations an engine cannot run
+that exist only on the TPU (its hardware PRNG, the blocked-replay
+geometry, its engine). Combinations an engine cannot run
 (uint64 without the host replay, a device share with MH) are refused where
 the engine is built, with the JAX package's messages.
 """
@@ -245,11 +245,13 @@ class EngineOptions:
     #: which always iterates interior points to the cap (cudabrot.cu:338).
     cycle_detection: bool = True
     #: Histogram deposit route: "auto" or "xla" (the fused replay-deposit
-    #: kernel, one global atomic per orbit point), or "bigtiles" (the kept
-    #: orbits' bin ids written to a stream, sorted, and counted one atomic
-    #: per run of equal ids: for histograms beyond the card's 50 MB L2;
-    #: the same histogram bit for bit). The JAX package's TPU backends
-    #: "pallas" and "sorted" are refused.
+    #: kernel, one global atomic per orbit point), or an id-stream route,
+    #: which writes the kept orbits' bin ids to a stream and counts it:
+    #: "bigtiles" or "sorted" sorted, one atomic per run of equal ids (for
+    #: histograms beyond the card's 50 MB L2; the JAX package's
+    #: scatter_sorted is that sort and run-length add), "pallas" as
+    #: written, one atomic per id (the deposit_ids kernel). The same
+    #: histogram bit for bit.
     scatter: str = "auto"
     #: Orbit replay execution: "device" (on-accelerator, multi-chip
     #: capable), "host" (native C++ engine overlapped with classification
@@ -422,12 +424,6 @@ class EngineOptions:
                 f"refill_rng {self.refill_rng} draws from the TPU's "
                 "hardware generator; the CUDA port refills from Threefry "
                 "only."
-            )
-        if self.scatter in ("pallas", "sorted"):
-            raise ConfigError(
-                f"--scatter {self.scatter} is a TPU deposit backend; the "
-                "CUDA port deposits through its fused replay kernel (auto) "
-                "or its sorted id-stream deposit (bigtiles)."
             )
         if self.replay_block or self.replay_chunk:
             raise ConfigError(

@@ -7,7 +7,25 @@
 //
 //  * cb_deposit_ids: the exact function of scatter_pallas — count a flat
 //    int32 id stream into a uint32 histogram; ids outside [0, nbins) (the
-//    sentinel nbins) are dropped. One global atomicAdd per id.
+//    sentinel nbins) are dropped. The --scatter pallas route runs it on the
+//    replay_ids(_ext) stream of each group of kept orbits. Each thread
+//    reads 16 bytes (four ids) a load, evict-first (the stream is read
+//    once and must not push the histogram out of the L2), and adds each
+//    in-range id with one global atomicAdd (a RED). Bound: on an NVIDIA
+//    H100 80GB HBM3 at 700 W, random REDs at full occupancy reach 8.76e7
+//    a ms into a 4 MB buffer and 1.83e7 into 108 MB (chip_smoke.py phase
+//    3c), and the kernel reaches 0.94-0.98 of that ceiling on random ids,
+//    0.84-0.85 on the default and deep cells' streams and 2.1 of it on
+//    bigcanvas's (its bins cluster in the L2); far below the byte bound (4
+//    bytes an id, 8 a bin). Where the stream is nearly all sentinels (the
+//    deep zoom: 99.3%) the loads bound it, and there the 16-byte loads
+//    took it from 0.243 to 0.157 ms against a byte bound of 0.147. Tried
+//    and dropped (phase 3c times them): summing a warp's
+//    equal ids before one RED (__match_any_sync over 32 consecutive ids:
+//    they repeat at most 1.5% of the time, at deep) and privatizing a band
+//    of the histogram in a thread-block cluster's distributed shared
+//    memory (16 blocks of 128 KB, the stream read once a band: 2.6x
+//    slower at 1000^2, not applicable beyond a few bands).
 //  * cb_replay_deposit: what the render's main path runs. Each compacted
 //    emission (c, iters) is replayed: z starts at c, steps s = 0..iters are
 //    recorded including the escape point, each on-canvas point binned
@@ -91,21 +109,42 @@
 // however equal bins are summed before their atomic.
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "mh.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;
 
+__device__ __forceinline__ void add_id(uint32_t* hist, int32_t b,
+                                       int32_t nbins) {
+  if (uint32_t(b) < uint32_t(nbins)) atomicAdd(hist + b, 1u);
+}
+
+// A grid-stride loop over the stream's 16-byte words; the 0..3 ids before
+// the first 16-byte boundary and the 0..3 after the last whole word are
+// added by the first threads.
 __global__ void __launch_bounds__(kBlock)
     deposit_ids_kernel(const int32_t* ids, long long n, uint32_t* hist,
                        int32_t nbins) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int32_t b = ids[i];
-    if (b >= 0 && b < nbins) atomicAdd(hist + b, 1u);
+  long long head =
+      (long long)((16u - (reinterpret_cast<uintptr_t>(ids) & 15u)) & 15u) / 4;
+  if (head > n) head = n;
+  if (tid < head) add_id(hist, ids[tid], nbins);
+  const int4* v = reinterpret_cast<const int4*>(ids + head);
+  const long long nv = (n - head) / 4;
+  for (long long i = tid; i < nv; i += stride) {
+    const int4 q = __ldcs(v + i);
+    add_id(hist, q.x, nbins);
+    add_id(hist, q.y, nbins);
+    add_id(hist, q.z, nbins);
+    add_id(hist, q.w, nbins);
   }
+  const long long t = head + 4 * nv + tid;
+  if (t < n) add_id(hist, ids[t], nbins);
 }
 
 constexpr int kQueueBlock = 128;  // 4 warps: one per SM sub-partition
@@ -345,8 +384,14 @@ cudaError_t launch_ids(const float* cr, const float* ci, const int32_t* iters,
 extern "C" int cb_deposit_ids(const void* ids, long long n, void* hist,
                               int nbins, void* stream) {
   if (n <= 0) return 0;
-  long long grid = (n + kBlock - 1) / kBlock;
-  if (grid > 132 * 64) grid = 132 * 64;  // grid-stride beyond this
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return int(e);
+  // A thread a 16-byte word, 64 blocks an SM at most (grid-stride beyond).
+  long long grid = ((n + 3) / 4 + kBlock - 1) / kBlock;
+  if (grid > 64LL * sms) grid = 64LL * sms;
   deposit_ids_kernel<<<int(grid), kBlock, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ids), n, static_cast<uint32_t*>(hist),

@@ -27,13 +27,17 @@ double-float orbits: ``ops.classify_ext.classify_pass_ext``
 ``ops.binning.replay_deposit_ext`` (``csrc/deposit_ext.cu``) rebuilds c,
 replays in df32 and deposits.
 
-With ``--scatter bigtiles`` (histograms beyond the L2) step 3 is
-``ops.binning.replay_bigtiles`` (``replay_bigtiles_ext`` at extended
+With ``--scatter bigtiles``, ``pallas`` or ``sorted`` step 3 is
+``ops.binning.replay_id_stream`` (``replay_id_stream_ext`` at extended
 precision): the ``replay_ids`` kernel writes every kept point's bin id
-into a flat stream, ``torch.sort`` sorts it and the ``bigtiles_deposit``
-kernel (``csrc/bigtiles.cu``) adds each run of equal ids with one atomic.
-The histogram and every stat are the fused route's, bit for bit; the
-route reads its id count back once per pass (one host synchronization).
+into a flat stream, which the route counts: bigtiles (histograms beyond
+the L2) sorts it with ``torch.sort`` and adds each run of equal ids with
+one atomic (the ``bigtiles_deposit`` kernel, ``csrc/bigtiles.cu``);
+sorted takes the same route (the JAX ``scatter_sorted`` is that sort
+and run-length add); pallas counts it as written (the ``deposit_ids``
+kernel, ``csrc/deposit.cu``, the JAX package's Mosaic scatter). The
+histogram and every stat are the fused route's, bit for bit; the route
+reads its id count back once per pass (one host synchronization).
 
 With ``--sampler mh`` (Metropolis-Hastings crop renders, at either
 precision) the pass is ``ops.classify_mh.classify_pass_mh`` or
@@ -342,7 +346,13 @@ class Tuning:
         pass model, the host side the larger of its replay and the payload
         copy, the device side classify, the per-pass overhead and its
         share; the argmin is derated 20% toward the host (overshooting is a
-        device-bound cliff). Never above 0.9."""
+        device-bound cliff). Never above 0.9. The JAX solve keys the small
+        canvases on its fastest device deposit, the Mosaic scatter
+        ("pallas"); the port's is the fused replay, whose rate the
+        calibration measures. The id-stream routes ("ids" for --scatter
+        pallas among them) write and count a stream and read its length
+        back each pass, which that rate does not hold, so they get 0
+        there."""
         if self.interior or self.extended or self.mh:
             return 0.0
         big = hist_bytes >= BIG_HISTOGRAM_BYTES
@@ -471,7 +481,8 @@ class CudaEngine:
         self.replay_capacity = self.tuning.replay_capacity
         self.extended = self.tuning.extended
         #: The uniform samplers' deposit route: "fused" (replay-deposit) or
-        #: "bigtiles" (id stream, sort, run-length deposit). MH deposits
+        #: an id-stream route, "bigtiles" or "ids"
+        #: (``binning.ID_ROUTES``). MH deposits
         #: its emissions' recorded bins whatever --scatter says, as the JAX
         #: engine does.
         self.scatter_backend = binning.select_scatter_backend(
@@ -712,14 +723,15 @@ class CudaEngine:
         kw = dict(canvas=cfg.canvas, fractal=self.fractal, rows=rows)
         if self.extended:
             kw["sample_domain"] = cfg.sample_domain
-        if self.scatter_backend == "bigtiles":
-            # A kept orbit records at most max_it points.
-            replay = (binning.replay_bigtiles_ext if self.extended
-                      else binning.replay_bigtiles)
-            state["dev_hits"] += replay(state["hist"].view(-1), *batch,
-                                        max_len=self.tuning.max_it, **kw)
-        else:
+        if self.scatter_backend == "fused":
             self._replay_fused(state, pass_index, batch, kw)
+        else:
+            # A kept orbit records at most max_it points.
+            replay = (binning.replay_id_stream_ext if self.extended
+                      else binning.replay_id_stream)
+            state["dev_hits"] += replay(
+                state["hist"].view(-1), *batch, route=self.scatter_backend,
+                max_len=self.tuning.max_it, **kw)
 
     def add_pass_stats(self, state: dict, result, n_valid,
                        iters: torch.Tensor | None) -> None:
@@ -828,7 +840,7 @@ class CudaEngine:
 
     def wait_replay(self) -> None:
         """Make the current stream wait for every fused replay in flight
-        (nothing to wait for on the CPU or on the bigtiles route)."""
+        (nothing to wait for on the CPU or on an id-stream route)."""
         if self.replay_streams:
             cur = torch.cuda.current_stream(self.device)
             for side in self.replay_streams:
@@ -986,13 +998,11 @@ class CudaEngine:
         # Compaction: int64 keys, sort output and indices per slot.
         sort = slots * 8 * 3
         replay = self.replay_capacity * 12
-        if self.scatter_backend == "bigtiles":
-            # One group's id stream (4 bytes an id), torch.sort's sorted
-            # values (4) and int64 indices (8), and its working buffers:
-            # 36 bytes an id in all (33.7-35.6 measured on an H100).
+        if self.scatter_backend != "fused":
+            # One group's id stream and what its route adds to it.
             ids = min(binning.BIGTILES_ID_BUDGET,
                       self.replay_capacity * self.tuning.max_it)
-            replay += ids * 36
+            replay += ids * binning.ID_ROUTE_BYTES[self.scatter_backend]
         device = hist + lanes + emission + sort + replay
         if self._worker is not None:
             payload = self.host_payload_slots * (

@@ -18,17 +18,21 @@ order of atomics gives the same histogram.
 ``mh_deposit`` launches the ``mh_deposit`` kernel of ``csrc/deposit.cu``;
 each runs its plain version for CPU tensors.
 
-Two deposit routes replay the kept orbits (``select_scatter_backend``):
-the fused replay-deposit (``--scatter auto``/``xla``), one global atomic
-per orbit point, and the bigtiles route (``--scatter bigtiles``, for
-histograms beyond the L2): ``replay_bigtiles``/``replay_bigtiles_ext``
-write every point's bin id into a flat int32 stream (the ``replay_ids``/
-``replay_ids_ext`` kernels), sort it with ``torch.sort`` (the JAX
-package's ``jax.lax.sort``, outside its kernel too), and count it with the
+The kept orbits reach the histogram by one of three routes
+(``select_scatter_backend``): the fused replay-deposit (``--scatter
+auto``/``xla``), one global atomic per orbit point, or an id-stream route
+(``replay_id_stream``/``replay_id_stream_ext``), which writes every
+point's bin id into a flat int32 stream (the ``replay_ids``/
+``replay_ids_ext`` kernels) and counts it: ``--scatter bigtiles`` (for
+histograms beyond the L2) sorts it with ``torch.sort`` (the JAX package's
+``jax.lax.sort``, outside its kernel too) and counts it with the
 ``bigtiles_deposit`` kernel (``csrc/bigtiles.cu``), one atomic per run of
-equal ids. Both give the same histogram bit for bit. The bigtiles route
-reads the pass's orbit-length sums back to size its id buffers: one host
-synchronization per pass, where the fused route has none.
+equal ids (``--scatter sorted``, the JAX ``scatter_sorted``'s sort and
+run-length add, takes this route too); ``--scatter pallas`` counts it as
+written with the ``deposit_ids`` kernel, as the JAX package's Mosaic
+scatter does. All give the same histogram bit for bit. An id-stream
+route reads the pass's orbit-length sums back to size its id buffers: one
+host synchronization per pass, where the fused route has none.
 
 The four replay kernels take a row window ``rows=(row_start, row_count)``:
 the histogram then holds those rows of the canvas only (a shard of the
@@ -505,13 +509,17 @@ def bigtiles_layout(nbins: int, tile_rows: int = 0) -> tuple[int, int]:
 def select_scatter_backend(name: str) -> str:
     """The deposit route of ``--scatter``: "auto" and "xla" resolve to
     the fused replay-deposit ("fused": the JAX package resolves auto to its
-    XLA scatter off the TPU and never picks bigtiles on its own),
-    "bigtiles" to the sorted id-stream route."""
-    if name in ("auto", "xla"):
-        return "fused"
-    if name == "bigtiles":
-        return "bigtiles"
-    raise ValueError(f"Unknown scatter backend for the CUDA port: {name}")
+    XLA scatter off the TPU and never picks bigtiles on its own); the
+    others to an id-stream route (``ID_ROUTES``). The names differ from the
+    JAX ones where the function does: JAX "pallas" names its Mosaic
+    kernel, which counts a materialized id stream, and here that stream is
+    counted by ``deposit_ids`` ("ids"); JAX "sorted" sorts the stream and
+    adds each run of equal ids once, which is the bigtiles route."""
+    route = {"auto": "fused", "xla": "fused", "pallas": "ids",
+             "sorted": "bigtiles", "bigtiles": "bigtiles"}.get(name)
+    if route is None:
+        raise ValueError(f"Unknown scatter backend for the CUDA port: {name}")
+    return route
 
 
 def _check_nbins(nbins: int) -> None:
@@ -722,15 +730,40 @@ def replay_ids_ext_plain(kr, ki, iters, off, n_ids: int, *, canvas: Canvas,
                                        rows=rows))
 
 
-def _replay_sorted(hist_flat, iters, write_ids, max_len: int,
+#: The id-stream routes of ``select_scatter_backend``: how each counts one
+#: group's stream of replayed bin ids into the histogram. "bigtiles" sorts
+#: it and adds one atomic per run of equal ids (``scatter_bigtiles``; the
+#: route of ``--scatter bigtiles`` and of ``--scatter sorted``, whose JAX
+#: ``scatter_sorted`` is the same sort and run-length add); "ids" counts
+#: it as written, one atomic per id (``deposit_ids``, the function of the
+#: JAX ``scatter_pallas``). The JAX ``--scatter pallas`` route skips
+#: chunks of its stream that hold sentinels only (``skip_chunks``): the
+#: blocked replay writes it step-major, so every block's short orbits
+#: leave sentinel tails. ``replay_ids`` writes one slot per recorded step,
+#: orbit-major, so no such runs exist here and nothing is skipped.
+#: (Each looked up when called, so a patched wrapper is the one called.)
+ID_ROUTES = {
+    "bigtiles": lambda hist, ids: scatter_bigtiles(hist, ids),
+    "ids": lambda hist, ids: deposit_ids(hist, ids),
+}
+#: Device bytes a replayed id takes at each route's peak: the stream alone
+#: for "ids"; for "bigtiles" also torch.sort's sorted values (4) and int64
+#: indices (8) and its working buffers (36 in all, 33.7-35.6 measured on
+#: an NVIDIA H100 80GB HBM3, 700 W).
+ID_ROUTE_BYTES = {"bigtiles": 36, "ids": 4}
+
+
+def _replay_groups(hist_flat, iters, write_ids, route: str, max_len: int,
                    budget: int) -> torch.Tensor:
-    """The bigtiles route over a kept batch: consecutive groups of whole
-    orbits, each replayed to ids (``write_ids(slice, off, n_ids)``),
-    sorted and counted into ``hist_flat``. Group j holds the orbits whose
-    first id falls in [j B, (j + 1) B), B = budget - max_len, so its ids
-    never exceed ``budget`` and no orbit is cut. The group bounds, their id
-    offsets and the longest orbit come to the host in one read: the
-    route's one synchronization per pass. Returns the on-canvas count."""
+    """An id-stream route over a kept batch: consecutive groups of whole
+    orbits, each replayed to ids (``write_ids(slice, off, n_ids)``) and
+    counted into ``hist_flat`` by ``ID_ROUTES[route]``. Group j holds the
+    orbits whose first id falls in [j B, (j + 1) B), B = budget - max_len,
+    so its ids never exceed ``budget`` and no orbit is cut. The group
+    bounds, their id offsets and the longest orbit come to the host in one
+    read: the route's one synchronization per pass. Returns the on-canvas
+    count."""
+    deposit = ID_ROUTES[route]
     dev = hist_flat.device
     hits = torch.zeros((), dtype=torch.int64, device=dev)
     k = iters.numel()
@@ -758,12 +791,12 @@ def _replay_sorted(hist_flat, iters, write_ids, max_len: int,
         if n_ids == 0:
             continue
         ids, h = write_ids(slice(e0, e1), off[e0:e1] - offsets[j], n_ids)
-        bigtiles_deposit(hist_flat, torch.sort(ids).values)
+        deposit(hist_flat, ids)
         hits += h
     return hits
 
 
-def replay_bigtiles(
+def replay_id_stream(
     hist_flat: torch.Tensor,
     cr: torch.Tensor,
     ci: torch.Tensor,
@@ -771,15 +804,17 @@ def replay_bigtiles(
     *,
     canvas: Canvas,
     fractal: FractalMap,
+    route: str = "bigtiles",
     max_len: int = MAX_ORBIT_LEN,
     budget: int = 0,
     rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
-    """``replay_deposit`` through the bigtiles route: the same histogram,
-    bit for bit, and the same on-canvas count (0-dim int64). ``max_len``
-    bounds the points of one orbit (the band's max_it); ``budget`` the ids
-    of one group (0: ``BIGTILES_ID_BUDGET``); ``rows`` the histogram's row
-    window."""
+    """``replay_deposit`` through an id-stream route (``ID_ROUTES``): the
+    ``replay_ids`` stream of each group of orbits, counted by ``route``.
+    The same histogram, bit for bit, and the same on-canvas count (0-dim
+    int64). ``max_len`` bounds the points of one orbit (the band's
+    max_it); ``budget`` the ids of one group (0: ``BIGTILES_ID_BUDGET``);
+    ``rows`` the histogram's row window."""
     _check_window_hist(hist_flat, canvas, rows)
     cr, ci, iters = (t.reshape(-1) for t in (cr, ci, iters))
 
@@ -787,10 +822,10 @@ def replay_bigtiles(
         return replay_ids(cr[sl], ci[sl], iters[sl], off, n_ids,
                           canvas=canvas, fractal=fractal, rows=rows)
 
-    return _replay_sorted(hist_flat, iters, write, max_len, budget)
+    return _replay_groups(hist_flat, iters, write, route, max_len, budget)
 
 
-def replay_bigtiles_ext(
+def replay_id_stream_ext(
     hist_flat: torch.Tensor,
     kr: torch.Tensor,
     ki: torch.Tensor,
@@ -799,12 +834,14 @@ def replay_bigtiles_ext(
     canvas: Canvas,
     fractal: FractalMap,
     sample_domain: tuple,
+    route: str = "bigtiles",
     max_len: int = MAX_ORBIT_LEN,
     budget: int = 0,
     rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
-    """``replay_deposit_ext`` through the bigtiles route (``replay_ids_ext``
-    for the ids): the same histogram and count, bit for bit."""
+    """``replay_deposit_ext`` through an id-stream route
+    (``replay_ids_ext`` for the ids): the same histogram and count, bit
+    for bit."""
     _check_window_hist(hist_flat, canvas, rows)
     kr, ki, iters = (t.reshape(-1) for t in (kr, ki, iters))
 
@@ -813,7 +850,7 @@ def replay_bigtiles_ext(
                               canvas=canvas, fractal=fractal,
                               sample_domain=sample_domain, rows=rows)
 
-    return _replay_sorted(hist_flat, iters, write, max_len, budget)
+    return _replay_groups(hist_flat, iters, write, route, max_len, budget)
 
 
 # ----------------------------------------------------------------------

@@ -14,8 +14,8 @@ and runs them under ``shard_map``, this engine keeps one ``CudaEngine`` (or
 ``OracleEngine``) per ``torch.device``, each with its own state dict and,
 on the card, its own replay side streams; the engine's state is the list
 of them. ``run_pass`` issues every device's pass in turn without a host
-synchronization between devices, so several cards overlap. The bigtiles
-route reads its id count back once a pass (``binning._replay_sorted``):
+synchronization between devices, so several cards overlap. An id-stream
+route reads its id count back once a pass (``binning._replay_groups``):
 there the devices' passes run one after another.
 
 In a multi-process run (``parallel.distributed``) each process holds its

@@ -14,7 +14,7 @@ a canvas D times larger fits:
      on one card, copies between cards on several);
   3. every device replays the whole gathered batch with its shard's row
      window (the replay kernels' ``rows``), on the fused route or the
-     bigtiles route as ``--scatter`` says, so it deposits only the points
+     id-stream route that ``--scatter`` names, so it deposits only the points
      on its rows.
 
 The orbit arithmetic is repeated D times; the deposits, and the memory,

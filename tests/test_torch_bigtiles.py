@@ -107,7 +107,9 @@ def test_select_scatter_backend():
     assert binning.select_scatter_backend("auto") == "fused"
     assert binning.select_scatter_backend("xla") == "fused"
     assert binning.select_scatter_backend("bigtiles") == "bigtiles"
-    for name in ("pallas", "sorted", "sort"):
+    assert binning.select_scatter_backend("pallas") == "ids"
+    assert binning.select_scatter_backend("sorted") == "bigtiles"
+    for name in ("sort", "mosaic", "ids", "fused"):
         with pytest.raises(ValueError, match="Unknown scatter backend"):
             binning.select_scatter_backend(name)
 
@@ -165,7 +167,8 @@ def test_sorted_id_stream_equals_fused_replay(ext):
     max_len = int(it.max()) + 1
     for budget in (0, max_len + n // 5, max_len + n // 2):
         h = torch.zeros(nbins, dtype=torch.int32)
-        route = binning.replay_bigtiles_ext if ext else binning.replay_bigtiles
+        route = (binning.replay_id_stream_ext if ext
+                 else binning.replay_id_stream)
         launches.reset()
         hits_b = route(h, xr, xi, it, max_len=max_len, budget=budget, **kw)
         assert int(hits_b) == int(hits) and torch.equal(h, want)
@@ -179,15 +182,15 @@ def test_replay_bigtiles_budget_and_length_checks():
     cr, ci, it = _f32_batch()
     hist = torch.zeros(canvas.num_pixels, dtype=torch.int32)
     with pytest.raises(ValueError, match="does not fit the id budget"):
-        binning.replay_bigtiles(hist, cr, ci, it, max_len=64, budget=64, **kw)
+        binning.replay_id_stream(hist, cr, ci, it, max_len=64, budget=64, **kw)
     with pytest.raises(ValueError, match="exceeds max_len"):
-        binning.replay_bigtiles(hist, cr, ci, it, max_len=10, **kw)
+        binning.replay_id_stream(hist, cr, ci, it, max_len=10, **kw)
     assert not hist.any()
     empty = torch.zeros(0, dtype=torch.float32)
-    assert int(binning.replay_bigtiles(
+    assert int(binning.replay_id_stream(
         hist, empty, empty, torch.zeros(0, dtype=torch.int32), **kw)) == 0
     with pytest.raises(ValueError, match="histogram size"):
-        binning.replay_bigtiles(hist[:10], cr, ci, it, **kw)
+        binning.replay_id_stream(hist[:10], cr, ci, it, **kw)
     with pytest.raises(ValueError, match="int32"):
         binning.bigtiles_deposit(hist, torch.zeros(3, dtype=torch.int64))
     with pytest.raises(ValueError, match="chunk"):

@@ -98,8 +98,7 @@ def test_render_color_refusals(capsys, tmp_path, argv, device, message):
 @pytest.mark.parametrize("opts,match", [
     (dict(refill_rng="hardware"), "hardware generator"),
     (dict(refill_rng="hardware_rw"), "hardware generator"),
-    (dict(scatter="pallas"), "TPU deposit backend"),
-    (dict(scatter="sorted"), "TPU deposit backend"),
+    (dict(scatter="sort"), "sort backend was removed"),
     (dict(replay_block=1024), "blocked replay"),
     (dict(engine="pallas"), "TPU engine"),
     (dict(sampler="mh", hist_dtype="uint64", replay="device"),
@@ -132,12 +131,39 @@ def test_unported_options_refused(opts, match):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--scatter", "pallas"], ["--scatter", "sorted"],
+    ["--scatter", "sort"],
     ["--replay-block", "1024"], ["--refill-rng", "hardware"],
 ])
 def test_cli_refuses_unported_flags(argv):
     with pytest.raises(cli.CliError):
         cli.parse_args(argv)
+
+
+@pytest.mark.parametrize("opts,route", [
+    (dict(scatter="pallas"), "ids"),
+    (dict(scatter="sorted"), "bigtiles"),
+    (dict(scatter="pallas", precision="extended"), "ids"),
+    (dict(scatter="sorted", num_devices=2, histogram_sharding="rows"),
+     "bigtiles"),
+])
+def test_tpu_scatter_routes_accepted(opts, route):
+    """The JAX package's --scatter pallas and sorted build an engine on
+    their id-stream route (the port refused them as TPU backends before
+    they were ported)."""
+    eng = make_engine(config.RenderConfig(
+        canvas=config.Canvas(width=16, height=16),
+        options=config.EngineOptions(**opts)), device="cpu")
+    inners = getattr(eng, "inners", [eng])
+    assert len(inners) == opts.get("num_devices", 1)
+    assert all(e.scatter_backend == route for e in inners)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--scatter", "pallas"], ["--scatter", "sorted"],
+])
+def test_cli_parses_tpu_scatter_routes(argv):
+    cfg = cli.parse_args(argv)[0]
+    assert cfg.options.scatter == argv[1]
 
 
 @pytest.mark.parametrize("opts", [

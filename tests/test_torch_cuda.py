@@ -147,6 +147,55 @@ def test_deposit_ids_kernel_matches_plain(cuda, w, h):
     assert torch.equal(hk, hp)
 
 
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 3, 4, 7, 1000, 100_003])
+def test_deposit_ids_kernel_unaligned_views(cuda, off, n):
+    """The kernel's 16-byte loads on views that start 0..3 ids past a
+    16-byte boundary and end anywhere (its head and tail ids)."""
+    nbins = 4099
+    base = torch.randint(-2, nbins + 2, (n + 8,), dtype=torch.int32,
+                         device=cuda)
+    ids = base[off:off + n]
+    hk = torch.arange(nbins, dtype=torch.int32, device=cuda)
+    hp = hk.clone()
+    binning.deposit_ids(hk, ids)
+    binning.deposit_ids_plain(hp, ids)
+    assert torch.equal(hk, hp)
+
+
+@pytest.mark.parametrize("scatter", ["pallas", "sorted"])
+@pytest.mark.parametrize("precision", ["float32", "extended"])
+def test_id_routes_equal_the_fused_route_on_card(cuda, scatter, precision):
+    """Two engine passes through an id-stream route render the fused
+    route's histogram and stats bitwise, through the route's kernels."""
+    win = (-0.75 - 5e-7, -0.75 + 5e-7, 0.055 - 5e-7, 0.055 + 5e-7)
+    out = {}
+    for route in ("auto", scatter):
+        cfg = config.RenderConfig(
+            canvas=config.Canvas(width=64, height=48),
+            band=config.IterationBand(max_escape_iterations=400,
+                                      min_escape_iterations=20),
+            sample_domain=win if precision == "extended" else
+            config.SAMPLE_DOMAIN,
+            options=config.EngineOptions(
+                precision=precision, lane_rows=16, steps_per_pass=512,
+                steps_per_flush=32, replay_capacity=1 << 14, scatter=route))
+        eng = CudaEngine(cfg, device=cuda)
+        state = eng.init_state(None)
+        launches.reset()
+        for p in range(2):
+            eng.run_pass(state, p)
+        out[route] = (eng.histogram(state), eng.stats(state),
+                      launches.snapshot())
+    (ha, sa, _), (hr, sr, counts) = out["auto"], out[scatter]
+    assert np.array_equal(ha, hr) and sa == sr and sr["on_canvas_points"] > 0
+    ids = "replay_ids_ext" if precision == "extended" else "replay_ids"
+    assert counts[ids] == 2
+    assert counts["deposit_ids"] == (2 if scatter == "pallas" else 0)
+    assert counts["bigtiles_deposit"] == (0 if scatter == "pallas" else 2)
+    assert not any(v for k, v in counts.items() if k.endswith("_plain"))
+
+
 @pytest.mark.parametrize("name", sorted(FRACTALS))
 def test_replay_deposit_kernel_matches_plain(cuda, name):
     canvas = config.Canvas(width=300, height=200, min_real=-2.0,
