@@ -19,7 +19,10 @@ lifecycle in main (cudabrot.cu:762-791):
     the same passes: the stop verdict of each pass is the primary's (its
     clock, its pass count, its SIGINT) or any process's SIGINT
     (``any_flag``); every process reads the histogram at each readback
-    (a collective) and only the primary writes files.
+    (a collective) and only the primary writes files;
+  * while a ``torch.profiler`` records, the loop and the engine's layers
+    open spans (``utils.trace``), and the render's stats carry their
+    snapshot under ``trace``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from cudabrot_tpu_torch import engines
 from cudabrot_tpu_torch.config import RenderConfig
 from cudabrot_tpu_torch.io import checkpoint as ckpt
 from cudabrot_tpu_torch.parallel import distributed
+from cudabrot_tpu_torch.utils import trace
 
 #: In-flight passes between synchronizations at pipeline_depth 0 (auto).
 DEFAULT_PIPELINE_DEPTH = 8
@@ -139,6 +143,17 @@ def resolve_pipeline_depth(cfg: RenderConfig) -> int:
     return DEFAULT_PIPELINE_DEPTH
 
 
+def _synchronize(engine, state, drain: bool) -> None:
+    """The loop's synchronize, at the end of a group of passes (``drain``)
+    or of the render, in a ``cb.sync`` span; traced, the tracer marks the
+    drained device before it and the completed events after it."""
+    with trace.span("cb.sync"):
+        if drain:
+            trace.mark_drain(engine)
+        engine.synchronize()
+    trace.after_sync(state, engine.device)
+
+
 def run_render(
     cfg: RenderConfig,
     engine=None,
@@ -193,65 +208,78 @@ def run_render(
         ])
         profiler.__enter__()
 
+    # Spans at the pass's layers, on while a profiler records (the
+    # benchmark's traced run, --profile-dir); off, each costs one read.
+    if trace.profiler_recording():
+        trace.start()
     depth = resolve_pipeline_depth(cfg)
     passes = 0
     start = time.monotonic()
     last_progress = start
-    with SigintFlag(log) as flag:
-        while True:
-            stop = flag.triggered
-            if cfg.max_passes is not None and passes >= cfg.max_passes:
-                stop = True
-            if (
-                passes > 0
-                and cfg.seconds_to_run >= 0
-                and (time.monotonic() - start) > cfg.seconds_to_run
-            ):
-                stop = True
-            if multiproc:
-                # The primary contributes the whole verdict (its clock owns
-                # the time box); the others their own SIGINT, so ctrl+C on
-                # any process stops every one on the same pass.
-                stop = distributed.any_flag(
-                    stop if primary else flag.triggered)
-            if stop:
-                break
-            state = engine.run_pass(state, resumed_passes + passes)
-            passes += 1
-            if passes % depth == 0:
-                engine.synchronize()
-            now = time.monotonic()
-            if (
-                cfg.progress_interval > 0
-                and now - last_progress >= cfg.progress_interval
-            ):
-                steps = engine.steps_per_pass * passes
-                log(
-                    f"  pass {passes}: {now - start:.1f}s elapsed, "
-                    f"~{steps / (now - start):.3e} lane-steps/s"
-                )
-                last_progress = now
-            if (
-                cfg.checkpoint_interval > 0
-                and passes % cfg.checkpoint_interval == 0
-                and (cfg.inprogress_file or cfg.preview_file)
-            ):
-                # A collective in multi-process runs: every process reads,
-                # only the primary writes.
-                snapshot = engine.histogram(state)
-                if primary and cfg.inprogress_file:
-                    ckpt.save(
-                        cfg.inprogress_file,
-                        snapshot,
-                        cfg,
-                        resumed_passes + passes,
-                    )
-                if primary and cfg.preview_file:
-                    _write_preview(cfg, snapshot)
-        interrupted = flag.triggered
+    try:
+        with SigintFlag(log) as flag:
+            while True:
+                stop = flag.triggered
+                if cfg.max_passes is not None and passes >= cfg.max_passes:
+                    stop = True
+                if (
+                    passes > 0
+                    and cfg.seconds_to_run >= 0
+                    and (time.monotonic() - start) > cfg.seconds_to_run
+                ):
+                    stop = True
+                if multiproc:
+                    # The primary contributes the whole verdict (its clock
+                    # owns the time box); the others their own SIGINT, so
+                    # ctrl+C on any process stops every one on the same
+                    # pass.
+                    stop = distributed.any_flag(
+                        stop if primary else flag.triggered)
+                if stop:
+                    break
+                with trace.span("cb.pass", device=engine.device,
+                                pass_index=resumed_passes + passes):
+                    state = engine.run_pass(state, resumed_passes + passes)
+                passes += 1
+                if passes % depth == 0:
+                    _synchronize(engine, state, drain=True)
+                    now = time.monotonic()
+                    if (
+                        cfg.progress_interval > 0
+                        and now - last_progress >= cfg.progress_interval
+                    ):
+                        # Every pass enqueued has completed: the rate is
+                        # the device's, not the enqueue's.
+                        steps = engine.steps_per_pass * passes
+                        log(
+                            f"  pass {passes}: {now - start:.1f}s elapsed, "
+                            f"~{steps / (now - start):.3e} lane-steps/s"
+                        )
+                        last_progress = now
+                if (
+                    cfg.checkpoint_interval > 0
+                    and passes % cfg.checkpoint_interval == 0
+                    and (cfg.inprogress_file or cfg.preview_file)
+                ):
+                    # A collective in multi-process runs: every process
+                    # reads, only the primary writes.
+                    with trace.span("cb.checkpoint"):
+                        snapshot = engine.histogram(state)
+                        if primary and cfg.inprogress_file:
+                            ckpt.save(
+                                cfg.inprogress_file,
+                                snapshot,
+                                cfg,
+                                resumed_passes + passes,
+                            )
+                        if primary and cfg.preview_file:
+                            _write_preview(cfg, snapshot)
+            interrupted = flag.triggered
 
-    engine.synchronize()
-    elapsed = time.monotonic() - start
+        _synchronize(engine, state, drain=False)
+        elapsed = time.monotonic() - start
+    finally:
+        traced = trace.stop()
     if profiler is not None:
         profiler.__exit__(None, None, None)
         os.makedirs(cfg.profile_dir, exist_ok=True)
@@ -261,6 +289,8 @@ def run_render(
     hist = engine.histogram(state)
     log(f"{passes} Buddhabrot passes took {elapsed:f} seconds.")
     stats = engine.stats(state)
+    if traced is not None:
+        stats["trace"] = traced
     _warn_calibration_drift(cfg, engine, log)
     dropped = int(stats.get("replay_dropped", 0))
     in_band = int(stats.get("in_band", 0))

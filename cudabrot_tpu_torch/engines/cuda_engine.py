@@ -88,7 +88,7 @@ from cudabrot_tpu_torch.ops import binning, df32, prng
 from cudabrot_tpu_torch.ops import classify as cls
 from cudabrot_tpu_torch.ops import classify_ext as cls_ext
 from cudabrot_tpu_torch.ops import classify_mh as cls_mh
-from cudabrot_tpu_torch.utils import calibration, counters
+from cudabrot_tpu_torch.utils import calibration, counters, trace
 from cudabrot_tpu_torch.utils.device import resolve_device
 
 #: Fold-in word of the compaction's selection key (pallas_engine).
@@ -683,11 +683,12 @@ class CudaEngine:
         result = self.classify(state, pass_index, ordinal)
         # Extended emissions carry grid indices (kr, ki) where the f32 ones
         # carry (cr, ci); the selection is the same.
-        cr_c, ci_c, it_c, n_valid = compact(
-            result.emit_c, result.emit_it,
-            prng.pass_key(self.cfg.seed, ordinal, pass_index),
-            self.replay_capacity, self.tuning.max_it,
-        )
+        with trace.span("cb.compact", device=self.device):
+            cr_c, ci_c, it_c, n_valid = compact(
+                result.emit_c, result.emit_it,
+                prng.pass_key(self.cfg.seed, ordinal, pass_index),
+                self.replay_capacity, self.tuning.max_it,
+            )
         return (cr_c, ci_c, it_c), result, n_valid
 
     def classify(self, state: dict, pass_index: int, ordinal: int = 0):
@@ -706,12 +707,11 @@ class CudaEngine:
             sample_domain=cfg.sample_domain,
             visit_window=self.visit_window,
         )
-        if self.extended:
-            result = cls_ext.classify_pass_ext(state["lanes"], seed, **spec)
-        else:
-            result = cls.classify_pass(state["lanes"], seed,
-                                       thin_tracking=tn.thin_tracking, **spec)
-        return result
+        with trace.span("cb.classify", device=self.device):
+            if self.extended:
+                return cls_ext.classify_pass_ext(state["lanes"], seed, **spec)
+            return cls.classify_pass(state["lanes"], seed,
+                                     thin_tracking=tn.thin_tracking, **spec)
 
     def replay(self, state: dict, pass_index: int, batch,
                rows: tuple[int, int] | None = None) -> None:
@@ -729,9 +729,11 @@ class CudaEngine:
             # A kept orbit records at most max_it points.
             replay = (binning.replay_id_stream_ext if self.extended
                       else binning.replay_id_stream)
-            state["dev_hits"] += replay(
-                state["hist"].view(-1), *batch, route=self.scatter_backend,
-                max_len=self.tuning.max_it, **kw)
+            with trace.span("cb.deposit", device=self.device):
+                state["dev_hits"] += replay(
+                    state["hist"].view(-1), *batch,
+                    route=self.scatter_backend, max_len=self.tuning.max_it,
+                    **kw)
 
     def add_pass_stats(self, state: dict, result, n_valid,
                        iters: torch.Tensor | None) -> None:
@@ -739,22 +741,24 @@ class CudaEngine:
         result's stat rows, the kept and dropped emissions and the orbit
         points of the ``iters`` replayed on the device (None: none; the host
         worker counts its own)."""
-        st = result.stats.reshape(cls.STATS_ROWS, -1).sum(dim=1)
-        wasted = st[cls.STAT_WASTED]
-        emitted = torch.clamp(n_valid, max=self.replay_capacity)
-        for k, v in (
-            ("samples", st[cls.STAT_DRAWN]),
-            ("culled", st[cls.STAT_CULLED]),
-            ("in_band", st[cls.STAT_IN_BAND]),
-            ("cycles", st[cls.STAT_CYCLES]),
-            ("wasted", wasted),
-            ("iters", self.steps_per_pass - wasted),
-            ("emitted", emitted),
-            ("replay_dropped", n_valid - emitted),
-        ):
-            state[k] += v
-        if iters is not None:
-            state["points"] += torch.where(iters >= 0, iters + 1, 0).sum()
+        with trace.span("cb.counters", device=self.device):
+            st = result.stats.reshape(cls.STATS_ROWS, -1).sum(dim=1)
+            wasted = st[cls.STAT_WASTED]
+            emitted = torch.clamp(n_valid, max=self.replay_capacity)
+            for k, v in (
+                ("samples", st[cls.STAT_DRAWN]),
+                ("culled", st[cls.STAT_CULLED]),
+                ("in_band", st[cls.STAT_IN_BAND]),
+                ("cycles", st[cls.STAT_CYCLES]),
+                ("wasted", wasted),
+                ("iters", self.steps_per_pass - wasted),
+                ("emitted", emitted),
+                ("replay_dropped", n_valid - emitted),
+            ):
+                state[k] += v
+            if iters is not None:
+                replayed = torch.where(iters >= 0, iters + 1, 0)
+                state["points"] += replayed.sum()
 
     def host_pass(self, state: dict, pass_index: int, ordinal: int = 0):
         """The card's half of a host-replay pass: classify, compact and
@@ -829,14 +833,17 @@ class CudaEngine:
                   else binning.replay_deposit)
         hist = state["hist"].view(-1)
         if not self.replay_streams:
-            replay(hist, *batch, hits=state["dev_hits"], **kw)
+            with trace.span("cb.deposit", device=self.device):
+                replay(hist, *batch, hits=state["dev_hits"], **kw)
             return
         side = self.replay_streams[pass_index % len(self.replay_streams)]
         side.wait_stream(torch.cuda.current_stream(self.device))
         for t in (*batch, state["hist"], state["dev_hits"]):
             t.record_stream(side)
         with torch.cuda.stream(side):
-            replay(hist, *batch, hits=state["dev_hits"], **kw)
+            # On the side stream: the span's events time the replay there.
+            with trace.span("cb.deposit", device=self.device):
+                replay(hist, *batch, hits=state["dev_hits"], **kw)
 
     def wait_replay(self) -> None:
         """Make the current stream wait for every fused replay in flight
@@ -883,10 +890,11 @@ class CudaEngine:
             # deposit is order-free integer addition: one launch reads the
             # emission buffers as they are (a slot with emit_it < 0 deposits
             # nothing) and adds its totals straight into the counters.
-            binning.mh_deposit(
-                state["hist"].view(-1), result.emit_bins, result.emit_v,
-                result.emit_rep, chunked=True, gate=result.emit_it,
-                totals=(state["points"], state["mh_deposited"]))
+            with trace.span("cb.deposit", device=self.device):
+                binning.mh_deposit(
+                    state["hist"].view(-1), result.emit_bins, result.emit_v,
+                    result.emit_rep, chunked=True, gate=result.emit_it,
+                    totals=(state["points"], state["mh_deposited"]))
         return state
 
     def _mh_classify(self, state: dict, pass_index: int, ordinal: int):
@@ -898,24 +906,26 @@ class CudaEngine:
                                             pass_index), 2)
         classify = (cls_mh.classify_pass_ext_mh if self.extended
                     else cls_mh.classify_pass_mh)
-        result = classify(state["lanes"], seed, **self.mh_pass_spec())
-        if pass_index == o.mh_burnin_passes - 1:
-            state["lanes"].rep.zero_()
-        st = result.stats.reshape(cls_mh.MH_STATS_ROWS, -1).sum(dim=1)
-        wasted = st[cls.STAT_WASTED]
-        for k, v in (
-            ("samples", st[cls.STAT_DRAWN]),
-            ("culled", st[cls.STAT_CULLED]),
-            ("in_band", st[cls.STAT_IN_BAND]),
-            ("cycles", st[cls.STAT_CYCLES]),
-            ("wasted", wasted),
-            ("iters", self.steps_per_pass - wasted),
-            ("emitted", (result.emit_it >= 0).sum()),
-            ("mh_accepts", st[cls_mh.STAT_MH_ACCEPT]),
-            ("mh_merges", st[cls_mh.STAT_MH_MERGE]),
-            ("mh_merged_rep", st[cls_mh.STAT_MH_MERGED_REP]),
-        ):
-            state[k] += v
+        with trace.span("cb.classify", device=self.device):
+            result = classify(state["lanes"], seed, **self.mh_pass_spec())
+            if pass_index == o.mh_burnin_passes - 1:
+                state["lanes"].rep.zero_()
+        with trace.span("cb.counters", device=self.device):
+            st = result.stats.reshape(cls_mh.MH_STATS_ROWS, -1).sum(dim=1)
+            wasted = st[cls.STAT_WASTED]
+            for k, v in (
+                ("samples", st[cls.STAT_DRAWN]),
+                ("culled", st[cls.STAT_CULLED]),
+                ("in_band", st[cls.STAT_IN_BAND]),
+                ("cycles", st[cls.STAT_CYCLES]),
+                ("wasted", wasted),
+                ("iters", self.steps_per_pass - wasted),
+                ("emitted", (result.emit_it >= 0).sum()),
+                ("mh_accepts", st[cls_mh.STAT_MH_ACCEPT]),
+                ("mh_merges", st[cls_mh.STAT_MH_MERGE]),
+                ("mh_merged_rep", st[cls_mh.STAT_MH_MERGED_REP]),
+            ):
+                state[k] += v
         return result
 
     def mh_tail_core(self, state: dict) -> dict:
@@ -938,7 +948,8 @@ class CudaEngine:
     def run_pass(self, state: dict, pass_index: int) -> dict:
         if self._worker is None:
             return self.core(state, pass_index)
-        self._worker.make_room()
+        with trace.span("cb.make_room"):
+            self._worker.make_room()
         out = self.host_pass(state, pass_index)
         if out is not None:
             self._worker.submit(self.stage(*out))

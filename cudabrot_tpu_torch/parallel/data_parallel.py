@@ -29,6 +29,7 @@ import numpy as np
 
 from cudabrot_tpu_torch.config import RenderConfig
 from cudabrot_tpu_torch.parallel import distributed, mesh
+from cudabrot_tpu_torch.utils import trace
 
 #: Stats that describe the render rather than count it: taken once, not
 #: summed over devices.
@@ -100,7 +101,9 @@ class DataParallelEngine:
 
     def run_pass(self, state: list, pass_index: int) -> list:
         for inner, st, ordinal in zip(self.inners, state, self.ordinals()):
-            inner.core(st, pass_index, ordinal)
+            with trace.span("cb.replica", device=inner.device,
+                            ordinal=ordinal):
+                inner.core(st, pass_index, ordinal)
         return state
 
     def histogram(self, state: list) -> np.ndarray:
@@ -177,10 +180,13 @@ class DataParallelHostReplayEngine(DataParallelEngine):
         return states
 
     def run_pass(self, state: list, pass_index: int) -> list:
-        self._worker.make_room()
+        with trace.span("cb.make_room"):
+            self._worker.make_room()
         staged = []
         for inner, st, ordinal in zip(self.inners, state, self.ordinals()):
-            out = inner.host_pass(st, pass_index, ordinal)
+            with trace.span("cb.replica", device=inner.device,
+                            ordinal=ordinal):
+                out = inner.host_pass(st, pass_index, ordinal)
             if out is not None:
                 staged.append(inner.stage(*out))
         if staged:

@@ -1,0 +1,277 @@
+"""Spans at the layer boundaries of a render's pass, recorded only while a
+``torch.profiler`` records.
+
+``driver.run_render`` turns the tracer on for one render if and only if a
+profiler is recording as its pass loop begins (``profiler_recording``):
+the benchmark's traced run, or ``--profile-dir``. Every other render
+takes the off path, where ``span`` returns one shared no-op context after
+a single read of a module variable.
+
+An open span (``span(name, device=..., **attrs)``):
+
+* opens a host range of its name in the profiler (``_RecordFunctionFast``:
+  ``torch.profiler.record_function``'s range without its user scope, for
+  which the profiler also emits a device-side annotation that a reader of
+  device activity would count as device work), on the profiler's host
+  clock, so the profiler's trace shows it and an idle gap of the device
+  can be put down to it;
+* records its start and end (``time.monotonic_ns``), its parent span, the
+  pass it belongs to, its device and its attributes, in memory;
+* given a CUDA device, records a pair of timing events on that device's
+  current stream at entry and exit, taken from a pool.
+
+Device times are read only from events a synchronize the render makes
+anyway has completed (``after_sync`` marks them); the tracer adds none.
+Before each group's synchronize ``mark_drain`` reads the events the last
+synchronize completed (the device then works through the group just
+issued, so the reads cost it nothing) and records an event once the
+device has drained; the next pass records another as it starts, and the
+time between the two is a sync bubble: device idle that the drain and
+refill cost.
+
+``stop`` turns the tracer off and returns its snapshot: for each span
+name the count, host ms in total and self (less its child spans), and,
+where it had device events, device ms in total and per pass at p50 and
+p90; the sync bubbles; and the buffer record (the addresses of the
+histogram and of the lane state, and the allocator's reserved bytes),
+taken once, after the first synchronize.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+_NOOP = contextlib.nullcontext()
+#: The tracer of the render being traced; None when tracing is off.
+_tracer: Tracer | None = None
+#: The tracer of the last traced render, with its records.
+_last: Tracer | None = None
+
+
+def profiler_recording() -> bool:
+    """Whether a ``torch.profiler`` is recording on this thread."""
+    from torch.autograd import profiler
+
+    return bool(getattr(profiler, "_is_profiler_enabled", False)
+                or torch.autograd._profiler_enabled())
+
+
+class Record(NamedTuple):
+    name: str
+    start_ns: int  # time.monotonic_ns()
+    end_ns: int
+    self_ns: int  # the duration less what its child spans cover
+    parent: str | None
+    pass_index: int  # -1 before the first pass
+    device_index: int | None  # the CUDA device of its events
+    attrs: dict
+
+
+class Tracer:
+    """The spans, device events and counters of one traced render."""
+
+    def __init__(self):
+        self.records: list[Record] = []
+        self.stack: list[_Span] = []
+        self.pass_index = -1
+        #: Add to a span's monotonic time to place it on the profiler's
+        #: clock (the Unix epoch, in nanoseconds).
+        self.profiler_offset_ns = time.time_ns() - time.monotonic_ns()
+        #: name -> {pass index: device ms}
+        self.device_ms: dict[str, dict[int, float]] = {}
+        self.bubble_ms = 0.0
+        self.bubbles = 0
+        self.buffers: dict | None = None
+        self._pool: dict[int, list] = {}
+        self._pending: list = []  # (name, pass, device index, e0, e1)
+        self._bubbles: list = []  # (device index, drain event, refill)
+        #: How many of each list the last synchronize completed.
+        self._done = (0, 0)
+        self._drain = None  # (device index, event) awaiting the next pass
+
+    def event(self, stream) -> torch.cuda.Event:
+        pool = self._pool.setdefault(stream.device_index, [])
+        ev = pool.pop() if pool else torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        return ev
+
+    def begin_pass(self, pass_index: int, stream) -> None:
+        self.pass_index = pass_index
+        if self._drain is not None and stream is not None:
+            dev, drained = self._drain
+            self._bubbles.append((dev, drained, self.event(stream)))
+            self._drain = None
+
+    def synced(self) -> None:
+        """Every event recorded so far has completed."""
+        self._done = (len(self._pending), len(self._bubbles))
+
+    def read_events(self) -> None:
+        """Device times of the event pairs the last synchronize completed;
+        their events go back to the pool."""
+        spans, bubbles = self._done
+        for name, p, dev, e0, e1 in self._pending[:spans]:
+            per_pass = self.device_ms.setdefault(name, {})
+            per_pass[p] = per_pass.get(p, 0.0) + e0.elapsed_time(e1)
+            self._pool[dev] += (e0, e1)
+        for dev, drained, refill in self._bubbles[:bubbles]:
+            self.bubble_ms += drained.elapsed_time(refill)
+            self.bubbles += 1
+            self._pool[dev] += (drained, refill)
+        del self._pending[:spans], self._bubbles[:bubbles]
+        self._done = (0, 0)
+
+    def snapshot(self) -> dict:
+        spans: dict[str, dict] = {}
+        for r in self.records:
+            s = spans.setdefault(r.name, {"count": 0, "host_ms": 0.0,
+                                          "self_host_ms": 0.0})
+            s["count"] += 1
+            s["host_ms"] += (r.end_ns - r.start_ns) / 1e6
+            s["self_host_ms"] += r.self_ns / 1e6
+        for name, per_pass in self.device_ms.items():
+            ms = list(per_pass.values())
+            p50, p90 = np.percentile(ms, (50, 90))
+            spans[name].update(device_ms=float(sum(ms)),
+                               device_ms_p50=float(p50),
+                               device_ms_p90=float(p90))
+        return {"spans": spans, "sync_bubble_ms": self.bubble_ms,
+                "sync_bubbles": self.bubbles, "buffers": self.buffers or {}}
+
+
+class _Span:
+    __slots__ = ("tracer", "name", "stream", "attrs", "parent", "child_ns",
+                 "t0", "ev0", "rf")
+
+    def __init__(self, tracer: Tracer, name: str, stream, attrs: dict):
+        self.tracer, self.name, self.stream, self.attrs = (
+            tracer, name, stream, attrs)
+        self.child_ns = 0
+
+    def __enter__(self):
+        # The span's times enclose its profiler range and its events.
+        self.t0 = time.monotonic_ns()
+        tr = self.tracer
+        self.rf = torch._C._profiler._RecordFunctionFast(self.name)
+        self.rf.__enter__()
+        if "pass_index" in self.attrs:
+            tr.begin_pass(self.attrs["pass_index"], self.stream)
+        self.parent = tr.stack[-1] if tr.stack else None
+        tr.stack.append(self)
+        if self.stream is not None:
+            self.ev0 = tr.event(self.stream)
+        return self
+
+    def __exit__(self, *exc):
+        tr = self.tracer
+        dev = None
+        if self.stream is not None:
+            dev = self.stream.device_index
+            tr._pending.append((self.name, tr.pass_index, dev, self.ev0,
+                                tr.event(self.stream)))
+        tr.stack.pop()
+        self.rf.__exit__(*exc)
+        t1 = time.monotonic_ns()
+        took = t1 - self.t0
+        if self.parent is not None:
+            self.parent.child_ns += took
+        tr.records.append(Record(
+            self.name, self.t0, t1, took - self.child_ns,
+            self.parent.name if self.parent is not None else None,
+            tr.pass_index, dev, self.attrs))
+        return False
+
+
+def _stream_of(device):
+    """The current stream of ``device``, or None where no timing events
+    apply (False, a CPU device)."""
+    if device is False or device.type != "cuda":
+        return None
+    return torch.cuda.current_stream(device)
+
+
+def span(name: str, *, device=False, **attrs):
+    """A context around the work issued at one layer boundary: a no-op
+    while tracing is off. ``device``: the device whose current stream
+    takes the span's timing events (none on a CPU device, or False); a
+    ``pass_index`` attribute opens that pass."""
+    tr = _tracer
+    if tr is None:
+        return _NOOP
+    return _Span(tr, name, _stream_of(device), attrs)
+
+
+def start() -> Tracer:
+    """Turn tracing on for a render. A zero-length ``cb.trace`` range
+    marks the start in the profile, and pays the first range's set-up in
+    the process (a millisecond or more) before the first pass's."""
+    global _tracer
+    with torch._C._profiler._RecordFunctionFast("cb.trace"):
+        pass
+    _tracer = Tracer()
+    return _tracer
+
+
+def stop() -> dict | None:
+    """Turn tracing off; the snapshot of the render traced, or None if
+    tracing was off."""
+    global _tracer, _last
+    tr, _tracer = _tracer, None
+    if tr is None:
+        return None
+    tr.read_events()
+    _last = tr
+    return tr.snapshot()
+
+
+def last() -> Tracer | None:
+    """The tracer of the last traced render (its records)."""
+    return _last
+
+
+def mark_drain(engine) -> None:
+    """Before a group's synchronize: read the events the last synchronize
+    completed, queue the main stream behind every replay in flight and
+    record the event that marks the drained device."""
+    tr = _tracer
+    if tr is None:
+        return
+    tr.read_events()
+    getattr(engine, "wait_replay", lambda: None)()
+    stream = _stream_of(engine.device)
+    if stream is not None:
+        tr._drain = (stream.device_index, tr.event(stream))
+
+
+def after_sync(state, device) -> None:
+    """After a synchronize: mark the events recorded so far completed; the
+    first time, record the buffers of ``state`` (a state dict, or a list
+    of them, one a device) on ``device``."""
+    tr = _tracer
+    if tr is None:
+        return
+    tr.synced()
+    if tr.buffers is None:
+        tr.buffers = _buffer_record(state, device)
+
+
+def _buffer_record(state, device) -> dict:
+    """The addresses of the histogram and of each lane-state tensor of
+    ``state``, and the allocator's bytes reserved on ``device``."""
+    states = state if isinstance(state, list) else [state]
+    out = {}
+    for i, st in enumerate(states):
+        pre = f"{i}." if len(states) > 1 else ""
+        out[pre + "hist"] = st["hist"].data_ptr()
+        lanes = st.get("lanes")
+        if lanes is not None:
+            for k, v in lanes._asdict().items():
+                out[f"{pre}lanes.{k}"] = v.data_ptr()
+    out["memory_reserved"] = (torch.cuda.memory_reserved(device)
+                              if device.type == "cuda" else 0)
+    return out

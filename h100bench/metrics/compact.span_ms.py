@@ -1,0 +1,13 @@
+"""compact.span_ms: device milliseconds a pass of the renderer's
+``cb.compact`` span, the compaction on the main stream (selection words,
+sorts, gathers), without the counters' bookkeeping: the time between the
+span's two events (``stats["trace"]``, in a traced run), summed over the
+window, over its passes."""
+
+
+def read(m):
+    tr = m.stats.get("trace")
+    s = tr["spans"].get("cb.compact") if tr else None
+    if not s or "device_ms" not in s or m.passes <= 0:
+        return None
+    return s["device_ms"] / m.passes

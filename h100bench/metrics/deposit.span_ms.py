@@ -1,0 +1,13 @@
+"""deposit.span_ms: device milliseconds a pass of the renderer's
+``cb.deposit`` span, the replay and deposit on the stream it runs on (a
+replay side stream on the fused route): the time between the span's two
+events (``stats["trace"]``, in a traced run), summed over the window, over
+its passes."""
+
+
+def read(m):
+    tr = m.stats.get("trace")
+    s = tr["spans"].get("cb.deposit") if tr else None
+    if not s or "device_ms" not in s or m.passes <= 0:
+        return None
+    return s["device_ms"] / m.passes

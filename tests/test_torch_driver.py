@@ -6,6 +6,7 @@ import os
 import signal
 
 import numpy as np
+import torch
 
 from cudabrot_tpu_torch import driver
 from cudabrot_tpu_torch.config import (
@@ -116,3 +117,62 @@ def test_pipeline_depth():
     assert driver.resolve_pipeline_depth(_cfg()) == 8
     cfg = _cfg(options=EngineOptions(pipeline_depth=3))
     assert driver.resolve_pipeline_depth(cfg) == 3
+
+
+def test_progress_line_reads_completed_passes(monkeypatch):
+    """The progress line comes only right after a group's synchronize, and
+    its rate is the lane-steps of the passes completed there over the time
+    to it (an engine whose passes complete at synchronize only, on a fake
+    clock: 0.25 s to enqueue a pass, 1 s to synchronize)."""
+    clock = {"t": 100.0}
+
+    class Engine:
+        name = "fake"
+        device = torch.device("cpu")
+        steps_per_pass = 1000
+
+        def __init__(self):
+            self.issued = self.done = 0
+
+        def memory_estimate(self):
+            return 0, 0
+
+        def init_state(self, hist0):
+            return {}
+
+        def warmup(self, state):
+            pass
+
+        def run_pass(self, state, pass_index):
+            self.issued += 1
+            clock["t"] += 0.25
+            return state
+
+        def synchronize(self):
+            clock["t"] += 1.0
+            self.done = self.issued
+
+        def histogram(self, state):
+            return np.zeros((32, 32), np.uint32)
+
+        def stats(self, state):
+            return {}
+
+    monkeypatch.setattr(driver.time, "monotonic", lambda: clock["t"])
+    engine = Engine()
+    lines = []
+
+    def log(msg):
+        if msg.startswith("  pass "):
+            lines.append((msg, engine.done))
+
+    cfg = _cfg(max_passes=7, progress_interval=1e-9,
+               options=EngineOptions(pipeline_depth=2))
+    driver.run_render(cfg, engine=engine, log=log)
+    assert [int(m.split()[1].rstrip(":")) for m, _ in lines] == [2, 4, 6]
+    for msg, done in lines:
+        passes = int(msg.split()[1].rstrip(":"))
+        assert done == passes
+        # 0.25 s a pass and 1 s a group of two: 0.75 s a completed pass.
+        assert msg == (f"  pass {passes}: {0.75 * passes:.1f}s elapsed, "
+                       f"~{1000 / 0.75:.3e} lane-steps/s")

@@ -1,0 +1,207 @@
+"""The render's spans (``cudabrot_tpu_torch/utils/trace.py``) on the CPU:
+off without a profiler, one span of each layer a pass under one, on the
+profiler's clock, and never a change to what the render computes."""
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from cudabrot_tpu_torch import driver, engines
+from cudabrot_tpu_torch.config import (
+    Canvas,
+    EngineOptions,
+    IterationBand,
+    RenderConfig,
+)
+from cudabrot_tpu_torch.utils import trace
+
+PASSES = 4
+#: A pass's layers, one span each on a uniform single-device pass.
+LAYERS = ("cb.pass", "cb.classify", "cb.compact", "cb.counters",
+          "cb.deposit")
+#: The stats of an untraced uniform render on the device replay.
+UNTRACED_KEYS = {"classify_iters", "culled", "cycles_detected", "emitted",
+                 "in_band", "on_canvas_points", "orbit_points", "replay",
+                 "replay_dropped", "samples", "wasted_steps"}
+
+
+def _cfg(passes=PASSES, **options):
+    opts = dict(lane_rows=2, steps_per_pass=64, steps_per_flush=16,
+                replay_capacity=4096, pipeline_depth=2)
+    opts.update(options)
+    return RenderConfig(
+        canvas=Canvas(width=32, height=32),
+        band=IterationBand(max_escape_iterations=50,
+                           min_escape_iterations=5),
+        seconds_to_run=-1.0, max_passes=passes,
+        options=EngineOptions(**opts))
+
+
+def _render(cfg, engine=None):
+    return driver.run_render(cfg, engine=engine, log=lambda s: None,
+                             device="cpu")
+
+
+def _profiled(cfg, engine=None):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        result = _render(cfg, engine)
+    return result, prof
+
+
+def test_off_span_is_the_shared_noop_and_stats_are_untouched():
+    assert not trace.profiler_recording()
+    a = trace.span("cb.pass", device=torch.device("cpu"), pass_index=0)
+    b = trace.span("cb.deposit")
+    assert a is b is trace._NOOP
+    result = _render(_cfg())
+    assert set(result.stats) == UNTRACED_KEYS
+
+
+def test_traced_render_records_each_layer_once_a_pass():
+    result, prof = _profiled(_cfg())
+    spans = result.stats["trace"]["spans"]
+    for name in LAYERS:
+        assert spans[name]["count"] == PASSES, name
+    # Two groups of two passes, then the final synchronize.
+    assert spans["cb.sync"]["count"] == PASSES // 2 + 1
+    for s in spans.values():
+        assert 0 <= s["self_host_ms"] <= s["host_ms"]
+        assert "device_ms" not in s  # no device events on the CPU
+    children = sum(spans[n]["host_ms"] for n in LAYERS[1:])
+    assert children <= spans["cb.pass"]["host_ms"]
+    assert spans["cb.pass"]["self_host_ms"] == pytest.approx(
+        spans["cb.pass"]["host_ms"] - children)
+    # The profiler saw every range, and the tracer's clock is its clock.
+    names = {e.name for e in prof.events()}
+    assert set(spans) <= names
+    tr = trace.last()
+    ranges = sorted(ev.start_ns() for ev in prof.profiler.kineto_results
+                    .events() if ev.name() == "cb.pass")
+    starts = sorted(r.start_ns + tr.profiler_offset_ns for r in tr.records
+                    if r.name == "cb.pass")
+    assert len(ranges) == len(starts) == PASSES
+    for ours, theirs in zip(starts, ranges):
+        assert abs(ours - theirs) < 1_000_000
+    assert [r.pass_index for r in tr.records if r.name == "cb.classify"] \
+        == list(range(PASSES))
+    assert {r.parent for r in tr.records if r.name in LAYERS[1:]} == {
+        "cb.pass"}
+    buffers = result.stats["trace"]["buffers"]
+    assert buffers["memory_reserved"] == 0
+    assert {"hist", "lanes.cr", "lanes.it"} <= set(buffers)
+    assert not trace.profiler_recording() and trace._tracer is None
+
+
+@pytest.mark.parametrize("options, layers", [
+    ({}, LAYERS),
+    ({"scatter": "bigtiles"}, LAYERS),
+    # MH deposits its emissions as they are: no compaction.
+    ({"sampler": "mh", "lane_rows": 4, "steps_per_pass": 256,
+      "steps_per_flush": 64, "mh_burnin_passes": 0},
+     tuple(n for n in LAYERS if n != "cb.compact")),
+], ids=["fused", "bigtiles", "mh"])
+def test_tracing_leaves_histogram_and_counters_bitwise(options, layers):
+    cfg = _cfg(**options)
+    off = _render(cfg)
+    on, _ = _profiled(cfg)
+    np.testing.assert_array_equal(off.histogram, on.histogram)
+    traced = dict(on.stats)
+    spans = traced.pop("trace")["spans"]
+    assert traced == off.stats
+    assert set(spans) == {*layers, "cb.sync"}
+    for name in layers:
+        assert spans[name]["count"] == PASSES, name
+
+
+def test_data_parallel_records_each_replica():
+    cfg = _cfg(num_devices=2)
+    engine = engines.make_engine(cfg, device="cpu")
+    assert engine.name == "dp(cuda)"
+    result, _ = _profiled(cfg, engine)
+    recs = [r for r in trace.last().records if r.name == "cb.replica"]
+    assert len(recs) == 2 * PASSES
+    assert sorted({r.attrs["ordinal"] for r in recs}) == [0, 1]
+    assert {r.parent for r in recs} == {"cb.pass"}
+    spans = result.stats["trace"]["spans"]
+    assert spans["cb.classify"]["count"] == 2 * PASSES
+    assert {"0.hist", "1.hist"} <= set(result.stats["trace"]["buffers"])
+
+
+class _Stream:
+    device_index = 0
+
+
+class _Event:
+    """A timing event on a fake device clock that advances 1 ms a
+    record."""
+
+    clock = [0.0]
+    made = [0]
+
+    def __init__(self, enable_timing=False):
+        _Event.made[0] += 1
+        self.t = None
+
+    def record(self, stream):
+        _Event.clock[0] += 1.0
+        self.t = _Event.clock[0]
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+def test_device_events_are_pooled_and_bubbles_pair_drain_and_refill(
+        monkeypatch):
+    """The CUDA path's bookkeeping on fake streams and events: every
+    span's pair read once a synchronize has completed it, the events
+    reused from the pool, and one bubble a group boundary."""
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(trace, "_stream_of",
+                        lambda device: None if device is False else _Stream)
+    _Event.clock[0], _Event.made[0] = 0.0, 0
+    result, _ = _profiled(_cfg(passes=6))
+    t = result.stats["trace"]
+    per_pass = trace.last().device_ms
+    for name in LAYERS:
+        s = t["spans"][name]
+        assert sorted(per_pass[name]) == list(range(6))
+        assert s["device_ms"] == pytest.approx(sum(per_pass[name].values()))
+        assert 0 < s["device_ms_p50"] <= s["device_ms_p90"]
+    # Groups end at passes 2, 4 and 6; the last is not refilled.
+    assert t["sync_bubbles"] == 2 and t["sync_bubble_ms"] > 0
+    # A group's events are read at the next group's end: the third group
+    # takes the first's from the pool.
+    per_group = 2 * 2 * len(LAYERS) + 2
+    assert _Event.made[0] == 2 * per_group
+    assert not trace.last()._pending and not trace.last()._bubbles
+
+
+def test_tracer_turns_off_when_the_render_fails():
+    class Boom(RuntimeError):
+        pass
+
+    engine = engines.make_engine(_cfg(), device="cpu")
+
+    def run_pass(state, pass_index):
+        raise Boom
+
+    engine.run_pass = run_pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(Boom):
+            _render(_cfg(), engine)
+    assert trace._tracer is None
+    assert trace.span("cb.pass") is trace._NOOP
+
+
+def test_snapshot_percentiles_per_pass():
+    tr = trace.Tracer()
+    tr.records = [trace.Record("cb.deposit", 0, 10, 10, "cb.pass", p, 0, {})
+                  for p in range(3)]
+    # Two launches in pass 2 count as that pass's time.
+    tr.device_ms = {"cb.deposit": {0: 1.0, 1: 2.0, 2: 3.0 + 4.0}}
+    s = tr.snapshot()["spans"]["cb.deposit"]
+    assert s["count"] == 3 and s["host_ms"] == pytest.approx(3e-5)
+    assert s["device_ms"] == pytest.approx(10.0)
+    assert s["device_ms_p50"] == pytest.approx(2.0)
+    assert s["device_ms_p90"] == pytest.approx(6.0)
