@@ -66,11 +66,12 @@ the TPU has no scatter hardware, and the H100 has.
 The pass key is ``fold_in(fold_in(key(seed), ordinal), pass)`` as in the
 JAX engine, so at equal geometry both engines draw the same samples.
 On the fused route nothing in a pass waits for the device: stats
-accumulate in int64 device totals, and the driver synchronizes every
-``pipeline_depth`` passes. On the card the fused replay runs on a side
-stream (two, taken in turn by pass), so the next pass's classify and
-compaction run under the replay's long-orbit tail (``_replay_fused``);
-``histogram`` and ``stats`` wait for it before they read.
+accumulate in int64 device totals, and the driver waits every
+``pipeline_depth`` passes (``sync_group``). On the card the fused replay
+runs on a side stream (two, taken in turn by pass), so the next pass's
+classify and compaction run under the replay's long-orbit tail
+(``_replay_fused``), and the group's wait leaves its last replays
+running; ``histogram`` and ``stats`` wait for them before they read.
 """
 
 from __future__ import annotations
@@ -495,6 +496,9 @@ class CudaEngine:
             self.replay_streams = [
                 torch.cuda.Stream(self.device, priority=-1)
                 for _ in range(REPLAY_STREAMS)]
+        #: An event on each side stream, recorded at the last group end
+        #: (``sync_group``).
+        self._group_ends: list = []
         #: Metropolis-Hastings sampling: deposits are importance weights
         #: in 1/weight_scale histogram units.
         self.mh = self.tuning.mh
@@ -981,6 +985,22 @@ class CudaEngine:
     def synchronize(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def sync_group(self) -> None:
+        """The driver's wait at the end of a group of passes. With fused
+        replays on the side streams (and no host worker) the host waits for
+        the main stream, and for the side streams up to the event each
+        recorded at the previous group end: the last passes' replays run on
+        while the next group is issued, and at most one group of replays
+        trails the main stream. Otherwise a full ``synchronize``."""
+        if not self.replay_streams or self._worker is not None:
+            self.synchronize()
+            return
+        torch.cuda.current_stream(self.device).synchronize()
+        for ev in self._group_ends:
+            ev.synchronize()
+        self._group_ends = [side.record_event()
+                            for side in self.replay_streams]
 
     def memory_estimate(self) -> tuple[int, int]:
         """(device_bytes, host_bytes) — the reference's startup banner

@@ -20,19 +20,28 @@ An open span (``span(name, device=..., **attrs)``):
 * given a CUDA device, records a pair of timing events on that device's
   current stream at entry and exit, taken from a pool.
 
-Device times are read only from events a synchronize the render makes
-anyway has completed (``after_sync`` marks them); the tracer adds none.
-Before each group's synchronize ``mark_drain`` reads the events the last
-synchronize completed (the device then works through the group just
-issued, so the reads cost it nothing) and records an event once the
-device has drained; the next pass records another as it starts, and the
-time between the two is a sync bubble: device idle that the drain and
-refill cost.
+Device times are read only from events a wait the render makes anyway
+has completed (``after_sync`` marks them); the tracer adds none. The wait
+at a group's end drains the main stream, and may leave the side streams'
+last replays running (``CudaEngine.sync_group``): after it the events on
+the main stream are complete, and an event pair on another stream is read
+once its end event reports complete (``query``), at the latest after the
+render's final synchronize, which completes every event. Before each
+group's wait ``mark_drain`` reads the events completed so far (the device
+then works through the group just issued, so the reads cost it nothing)
+and records an event on the main stream; the next pass records another
+as it starts, and the time between the two is a sync bubble: the main
+stream's idle time between groups, which the drain and refill cost.
+Right after a group's wait, a side stream still running (``query``) is a
+replay tail: an event recorded there times how long it ran past the
+drain.
 
 ``stop`` turns the tracer off and returns its snapshot: for each span
 name the count, host ms in total and self (less its child spans), and,
 where it had device events, device ms in total and per pass at p50 and
-p90; the sync bubbles; and the buffer record (the addresses of the
+p90; the sync bubbles; the group ends (``sync_groups``), those with a
+replay tail (``replay_tails``) and the tails' device ms past the drain
+(``replay_tail_ms``); and the buffer record (the addresses of the
 histogram and of the lane state, and the allocator's reserved bytes),
 taken once, after the first synchronize.
 """
@@ -86,13 +95,22 @@ class Tracer:
         self.device_ms: dict[str, dict[int, float]] = {}
         self.bubble_ms = 0.0
         self.bubbles = 0
+        self.sync_groups = 0
+        self.replay_tails = 0
+        self.replay_tail_ms = 0.0
         self.buffers: dict | None = None
         self._pool: dict[int, list] = {}
-        self._pending: list = []  # (name, pass, device index, e0, e1)
-        self._bubbles: list = []  # (device index, drain event, refill)
-        #: How many of each list the last synchronize completed.
+        self._pending: list = []  # (name, pass, device index, stream, e0, e1)
+        #: (device index, drain event, refill, whether the drain event goes
+        #: back to the pool: not where a tail also reads it)
+        self._bubbles: list = []
+        self._tails: list = []  # (device index, drain event, end events)
+        #: How many of the span pairs and the bubbles were recorded before
+        #: the last wait, and the stream it drained (None: every stream).
         self._done = (0, 0)
-        self._drain = None  # (device index, event) awaiting the next pass
+        self._drained = None
+        #: (device index, event, pooled) awaiting the next pass
+        self._drain = None
 
     def event(self, stream) -> torch.cuda.Event:
         pool = self._pool.setdefault(stream.device_index, [])
@@ -103,28 +121,62 @@ class Tracer:
     def begin_pass(self, pass_index: int, stream) -> None:
         self.pass_index = pass_index
         if self._drain is not None and stream is not None:
-            dev, drained = self._drain
-            self._bubbles.append((dev, drained, self.event(stream)))
+            dev, drained, pooled = self._drain
+            self._bubbles.append((dev, drained, self.event(stream), pooled))
             self._drain = None
 
-    def synced(self) -> None:
-        """Every event recorded so far has completed."""
+    def synced(self, drained=None) -> None:
+        """A wait has completed every event recorded so far on the stream
+        ``drained`` (None: on every stream)."""
         self._done = (len(self._pending), len(self._bubbles))
+        self._drained = drained
+
+    def tail_check(self, streams) -> None:
+        """Right after a group's wait: a side stream of ``streams`` still
+        running is a replay tail, timed from the drain event to an event
+        recorded there."""
+        self.sync_groups += 1
+        running = [s for s in streams if not s.query()]
+        if not running or self._drain is None:
+            return
+        dev, drained, _ = self._drain
+        self.replay_tails += 1
+        self._tails.append((dev, drained, [self.event(s) for s in running]))
+        self._drain = (dev, drained, False)
 
     def read_events(self) -> None:
-        """Device times of the event pairs the last synchronize completed;
-        their events go back to the pool."""
+        """Device times of the event pairs that have completed: those a
+        wait drained, and those on another stream whose end event reports
+        complete; their events go back to the pool."""
         spans, bubbles = self._done
-        for name, p, dev, e0, e1 in self._pending[:spans]:
+        drained, keep = self._drained, []
+        for entry in self._pending[:spans]:
+            name, p, dev, stream, e0, e1 = entry
+            if not (drained is None or stream == drained or e1.query()):
+                keep.append(entry)
+                continue
             per_pass = self.device_ms.setdefault(name, {})
             per_pass[p] = per_pass.get(p, 0.0) + e0.elapsed_time(e1)
             self._pool[dev] += (e0, e1)
-        for dev, drained, refill in self._bubbles[:bubbles]:
-            self.bubble_ms += drained.elapsed_time(refill)
+        for dev, drained_ev, refill, pooled in self._bubbles[:bubbles]:
+            self.bubble_ms += drained_ev.elapsed_time(refill)
             self.bubbles += 1
-            self._pool[dev] += (drained, refill)
-        del self._pending[:spans], self._bubbles[:bubbles]
-        self._done = (0, 0)
+            self._pool[dev].append(refill)
+            if pooled:
+                self._pool[dev].append(drained_ev)
+        tails = []
+        for tail in self._tails:
+            dev, drained_ev, ends = tail
+            if drained is None or all(e.query() for e in ends):
+                self.replay_tail_ms += max(drained_ev.elapsed_time(e)
+                                           for e in ends)
+                self._pool[dev] += ends
+            else:
+                tails.append(tail)
+        self._pending[:spans] = keep
+        del self._bubbles[:bubbles]
+        self._tails = tails
+        self._done = (len(keep), 0)
 
     def snapshot(self) -> dict:
         spans: dict[str, dict] = {}
@@ -141,7 +193,10 @@ class Tracer:
                                device_ms_p50=float(p50),
                                device_ms_p90=float(p90))
         return {"spans": spans, "sync_bubble_ms": self.bubble_ms,
-                "sync_bubbles": self.bubbles, "buffers": self.buffers or {}}
+                "sync_bubbles": self.bubbles, "sync_groups": self.sync_groups,
+                "replay_tails": self.replay_tails,
+                "replay_tail_ms": self.replay_tail_ms,
+                "buffers": self.buffers or {}}
 
 
 class _Span:
@@ -172,8 +227,8 @@ class _Span:
         dev = None
         if self.stream is not None:
             dev = self.stream.device_index
-            tr._pending.append((self.name, tr.pass_index, dev, self.ev0,
-                                tr.event(self.stream)))
+            tr._pending.append((self.name, tr.pass_index, dev, self.stream,
+                                self.ev0, tr.event(self.stream)))
         tr.stack.pop()
         self.rf.__exit__(*exc)
         t1 = time.monotonic_ns()
@@ -235,29 +290,34 @@ def last() -> Tracer | None:
 
 
 def mark_drain(engine) -> None:
-    """Before a group's synchronize: read the events the last synchronize
-    completed, queue the main stream behind every replay in flight and
-    record the event that marks the drained device."""
+    """Before a group's wait: read the events completed so far and record
+    the event that marks the drained main stream (not queued behind the
+    side streams' replays, which the wait may leave running)."""
     tr = _tracer
     if tr is None:
         return
     tr.read_events()
-    getattr(engine, "wait_replay", lambda: None)()
     stream = _stream_of(engine.device)
     if stream is not None:
-        tr._drain = (stream.device_index, tr.event(stream))
+        tr._drain = (stream.device_index, tr.event(stream), True)
 
 
-def after_sync(state, device) -> None:
-    """After a synchronize: mark the events recorded so far completed; the
-    first time, record the buffers of ``state`` (a state dict, or a list
-    of them, one a device) on ``device``."""
+def after_sync(state, engine, group: bool) -> None:
+    """After a wait: mark the events it completed, those on the main
+    stream after a group's wait (``group``, which counts it and checks the
+    side streams for a replay tail), else every one; the first time,
+    record the buffers of ``state`` (a state dict, or a list of them, one
+    a device) on the engine's device."""
     tr = _tracer
     if tr is None:
         return
-    tr.synced()
+    if group:
+        tr.synced(_stream_of(engine.device))
+        tr.tail_check(getattr(engine, "replay_streams", ()))
+    else:
+        tr.synced()
     if tr.buffers is None:
-        tr.buffers = _buffer_record(state, device)
+        tr.buffers = _buffer_record(state, engine.device)
 
 
 def _buffer_record(state, device) -> dict:

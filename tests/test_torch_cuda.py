@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from cudabrot_tpu_torch import cli, config
+from cudabrot_tpu_torch import cli, config, driver
 from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine, compact
 from cudabrot_tpu_torch.models.fractals import FRACTALS
 from cudabrot_tpu_torch.ops import binning, launches, prng
@@ -1003,6 +1003,69 @@ def test_overlapped_passes_equal_serial_passes(cuda, cell):
     np.testing.assert_array_equal(ho, hm)
     assert int(ho.sum(dtype=np.uint64)) == so["on_canvas_points"] > 0
     assert so == ss == sm
+
+
+#: The bands of the group-wait tests: the default, and the cutoff example's
+#: [2000, 20000) (the "deep" cell).
+GROUP_CELLS = {"default": CELLS["default"], "cutoff2000": CELLS["deep"]}
+
+
+def _fixed(cfg, passes, depth):
+    """``cfg`` as ``passes`` passes, ``depth`` a group, no time box."""
+    opts = dataclasses.replace(cfg.options, pipeline_depth=depth)
+    return dataclasses.replace(cfg, seconds_to_run=-1.0, max_passes=passes,
+                               options=opts)
+
+
+@pytest.mark.parametrize("cell", sorted(GROUP_CELLS))
+def test_group_wait_render_equals_a_synchronize_every_pass(cuda, cell):
+    """A render whose group ends wait for the main stream only (the last
+    replays run on into the next group) equals one that synchronizes the
+    device after every pass, bitwise: histogram and every stat."""
+    cfg = _fixed(_cell(GROUP_CELLS[cell]), 20, 4)
+    runs = []
+    for serial in (False, True):
+        eng = CudaEngine(cfg, device="cuda")
+        assert eng.replay_streams
+        if serial:
+            eng.run_pass = lambda state, p, run=eng.run_pass, e=eng: (
+                run(state, p), e.synchronize())[0]
+        res = driver.run_render(cfg, engine=eng, log=lambda s: None)
+        assert res.passes == 20
+        runs.append((res.histogram, res.stats))
+    (hg, sg), (hs, ss) = runs
+    np.testing.assert_array_equal(hg, hs)
+    assert sg == ss
+    assert int(hg.sum(dtype=np.uint64)) == sg["on_canvas_points"] > 0
+
+
+@pytest.mark.parametrize("cell", sorted(GROUP_CELLS))
+def test_group_wait_keeps_at_most_one_group_of_replays_behind(cuda, cell):
+    """At each group end the main stream has drained, and every event
+    recorded on a side stream before the previous group end has
+    completed: at most one group of replays trails the main stream."""
+    cfg = _fixed(_cell(GROUP_CELLS[cell]), 20, 4)
+    eng = CudaEngine(cfg, device="cuda")
+    run, group = eng.run_pass, eng.sync_group
+    recorded, before_previous_end = [], []
+    ends = [0]
+
+    def run_pass(state, p):
+        state = run(state, p)
+        recorded.extend(s.record_event() for s in eng.replay_streams)
+        return state
+
+    def sync_group():
+        group()
+        ends[0] += 1
+        assert torch.cuda.current_stream(eng.device).query()
+        assert all(ev.query() for ev in before_previous_end)
+        before_previous_end[:] = recorded
+
+    eng.run_pass, eng.sync_group = run_pass, sync_group
+    res = driver.run_render(cfg, engine=eng, log=lambda s: None)
+    assert res.passes == 20 and ends[0] == 5
+    assert all(ev.query() for ev in recorded)
 
 
 @pytest.mark.parametrize("cell", sorted(BIG_CELLS))

@@ -6,6 +6,7 @@ import os
 import signal
 
 import numpy as np
+import pytest
 import torch
 
 from cudabrot_tpu_torch import driver
@@ -176,3 +177,61 @@ def test_progress_line_reads_completed_passes(monkeypatch):
         # 0.25 s a pass and 1 s a group of two: 0.75 s a completed pass.
         assert msg == (f"  pass {passes}: {0.75 * passes:.1f}s elapsed, "
                        f"~{1000 / 0.75:.3e} lane-steps/s")
+
+
+class _WaitEngine:
+    """An engine that logs the driver's waits: ``sync_group`` where the
+    class has it, ``synchronize`` always."""
+
+    name = "fake"
+    device = torch.device("cpu")
+    steps_per_pass = 1
+
+    def __init__(self):
+        self.calls = []
+
+    def memory_estimate(self):
+        return 0, 0
+
+    def init_state(self, hist0):
+        return {}
+
+    def warmup(self, state):
+        pass
+
+    def run_pass(self, state, pass_index):
+        self.calls.append(("pass", pass_index))
+        return state
+
+    def synchronize(self):
+        self.calls.append(("synchronize",))
+
+    def histogram(self, state):
+        return np.zeros((32, 32), np.uint32)
+
+    def stats(self, state):
+        return {}
+
+
+class _GroupEngine(_WaitEngine):
+    def sync_group(self):
+        self.calls.append(("sync_group",))
+
+
+@pytest.mark.parametrize("engine_cls, group_wait", [
+    (_GroupEngine, "sync_group"), (_WaitEngine, "synchronize")],
+    ids=["sync_group", "synchronize"])
+def test_group_end_wait_and_final_synchronize(engine_cls, group_wait):
+    """Each pipeline_depth-th pass ends in the engine's group wait
+    (``sync_group`` where it has one, else ``synchronize``), and the
+    render ends in one full ``synchronize``."""
+    engine = engine_cls()
+    cfg = _cfg(max_passes=7, options=EngineOptions(pipeline_depth=3))
+    res = driver.run_render(cfg, engine=engine, log=lambda s: None)
+    assert res.passes == 7
+    calls = engine.calls
+    waits = [i for i, c in enumerate(calls) if c[0] != "pass"]
+    assert [calls[i - 1] for i in waits[:-1]] == [("pass", 2), ("pass", 5)]
+    assert [calls[i] for i in waits] == [(group_wait,)] * 2 + [
+        ("synchronize",)]
+    assert waits[-1] == len(calls) - 1 and calls[-2] == ("pass", 6)

@@ -132,9 +132,20 @@ class _Stream:
     device_index = 0
 
 
+class _Side(_Stream):
+    """A side stream whose work completes only at a full synchronize."""
+
+    def __init__(self):
+        self.done = True
+
+    def query(self):
+        return self.done
+
+
 class _Event:
     """A timing event on a fake device clock that advances 1 ms a
-    record."""
+    record; complete once its stream's work is (``query``), and read only
+    then."""
 
     clock = [0.0]
     made = [0]
@@ -146,8 +157,13 @@ class _Event:
     def record(self, stream):
         _Event.clock[0] += 1.0
         self.t = _Event.clock[0]
+        self.stream = stream
+
+    def query(self):
+        return getattr(self.stream, "done", True)
 
     def elapsed_time(self, end):
+        assert self.query() and end.query(), "read before it completed"
         return end.t - self.t
 
 
@@ -175,6 +191,72 @@ def test_device_events_are_pooled_and_bubbles_pair_drain_and_refill(
     per_group = 2 * 2 * len(LAYERS) + 2
     assert _Event.made[0] == 2 * per_group
     assert not trace.last()._pending and not trace.last()._bubbles
+    # The CPU engine's group waits are full synchronizes: no tail.
+    assert t["sync_groups"] == 3 and t["replay_tails"] == 0
+    assert t["replay_tail_ms"] == 0
+
+
+def test_side_stream_spans_are_read_once_a_wait_completes_them(
+        monkeypatch):
+    """A group's wait that drains the main stream only: the deposit spans
+    on the side stream, still running after it, are read at the final
+    synchronize and never earlier; every group end counts, each with a
+    replay tail past the drain."""
+    main, side = _Stream(), _Side()
+    current = [main]
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(trace, "_stream_of",
+                        lambda device: None if device is False else
+                        current[0])
+    read_at_group_ends = []
+
+    class Engine:
+        name = "fake"
+        device = torch.device("cpu")
+        steps_per_pass = 1
+        replay_streams = [side]
+
+        def memory_estimate(self):
+            return 0, 0
+
+        def init_state(self, hist0):
+            return {"hist": torch.zeros(1)}
+
+        def warmup(self, state):
+            pass
+
+        def run_pass(self, state, pass_index):
+            with trace.span("cb.classify", device=self.device):
+                pass
+            current[0], side.done = side, False
+            with trace.span("cb.deposit", device=self.device):
+                pass
+            current[0] = main
+            return state
+
+        def sync_group(self):
+            read_at_group_ends.append(
+                dict(trace._tracer.device_ms.get("cb.deposit", {})))
+
+        def synchronize(self):
+            side.done = True
+
+        def histogram(self, state):
+            return np.zeros((32, 32), np.uint32)
+
+        def stats(self, state):
+            return {}
+
+    result, _ = _profiled(_cfg(passes=6), Engine())
+    t = result.stats["trace"]
+    tr = trace.last()
+    assert read_at_group_ends == [{}, {}, {}]
+    assert sorted(tr.device_ms["cb.deposit"]) == list(range(6))
+    assert sorted(tr.device_ms["cb.classify"]) == list(range(6))
+    assert not tr._pending and not tr._bubbles and not tr._tails
+    assert t["sync_groups"] == 3 and t["replay_tails"] == 3
+    assert t["replay_tail_ms"] > 0
+    assert t["sync_bubbles"] == 2 and t["sync_bubble_ms"] > 0
 
 
 def test_tracer_turns_off_when_the_render_fails():
