@@ -10,6 +10,12 @@ Each device operation belongs to a layer by the ordered name table of
 ``h100bench/layers.json`` (first matching substring; the table's
 ``default`` otherwise). A layer's time is the union of its operations'
 intervals, so operations that overlap on two streams count once.
+
+Each card is reduced on its own timeline: in a render over several cards
+the busy time is the mean of the cards' (so the idle share is the mean of
+each card's), a layer's time is the sum over the cards of its union on
+each (card-seconds), and each card's idle gaps count a share of one over
+the number of cards.
 """
 
 from __future__ import annotations
@@ -73,10 +79,10 @@ def union_ns(spans) -> int:
 @dataclasses.dataclass
 class Reduced:
     window_s: float
-    busy_s: float
-    layer_s: dict  # layer -> seconds (union of its operations)
+    busy_s: float  # the mean over the cards
+    layer_s: dict  # layer -> seconds (each card's union, summed)
     op_s: dict  # short operation name -> seconds (sum of durations)
-    idle_by_host: dict  # host activity during idle gaps -> seconds
+    idle_by_host: dict  # host activity in idle gaps -> seconds, mean a card
 
     def breakdown(self) -> dict:
         ops = sorted(self.op_s.items(), key=lambda kv: -kv[1])[:TOP]
@@ -86,33 +92,41 @@ class Reduced:
 
 
 def reduce_events(device, host, window_start_ns: int, window_ns: int,
-                  layers: dict) -> Reduced:
-    """``device``/``host``: lists of (name, start_ns, end_ns). Device
-    operations are clipped to the window; each idle gap between them is
-    put down to the innermost host range running at its start ("python"
-    where none is)."""
+                  layers: dict, cards: int = 1) -> Reduced:
+    """``device``: (name, start_ns, end_ns, card); ``host``: (name,
+    start_ns, end_ns). Device operations are clipped to the window; each
+    card's idle gaps between them are put down to the innermost host range
+    running at their start ("python" where none is). ``cards``: the cards
+    the run uses, each counted whether or not it ran an operation in the
+    window."""
     lo, hi = window_start_ns, window_start_ns + window_ns
-    spans, by_layer, op_s = [], {}, {}
-    for name, s, e in device:
+    per_card: dict = {}  # card -> (spans, layer -> spans)
+    op_s = {}
+    for name, s, e, card in device:
         s, e = max(s, lo), min(e, hi)
         if e <= s:
             continue
+        spans, by_layer = per_card.setdefault(card, ([], {}))
         spans.append((s, e))
         by_layer.setdefault(layer_of(name, layers), []).append((s, e))
         key = short_name(name)
         op_s[key] = op_s.get(key, 0.0) + (e - s) / 1e9
-    busy = union_ns(spans)
-    idle = _idle_gaps(sorted(spans), lo, hi)
+    timelines = list(per_card.values())
+    timelines += [([], {})] * (cards - len(timelines))
+    n = len(timelines)
     host = sorted((h for h in host if h[2] > lo and h[1] < hi
                    and h[0] != WINDOW_MARK), key=lambda h: h[1])
     starts = [h[1] for h in host]
-    idle_by_host: dict = {}
-    for a, b in idle:
-        what = _host_at(host, starts, a)
-        idle_by_host[what] = idle_by_host.get(what, 0.0) + (b - a) / 1e9
-    return Reduced(window_s=window_ns / 1e9, busy_s=busy / 1e9,
-                   layer_s={k: union_ns(v) / 1e9
-                            for k, v in by_layer.items()},
+    busy, layer_s, idle_by_host = 0.0, {}, {}
+    for spans, by_layer in timelines:
+        busy += union_ns(spans) / 1e9 / n
+        for k, v in by_layer.items():
+            layer_s[k] = layer_s.get(k, 0.0) + union_ns(v) / 1e9
+        for a, b in _idle_gaps(sorted(spans), lo, hi):
+            what = _host_at(host, starts, a)
+            idle_by_host[what] = (idle_by_host.get(what, 0.0)
+                                  + (b - a) / 1e9 / n)
+    return Reduced(window_s=window_ns / 1e9, busy_s=busy, layer_s=layer_s,
                    op_s=op_s, idle_by_host=idle_by_host)
 
 
@@ -138,8 +152,10 @@ def _host_at(host, starts, t: int, look_back: int = 4096) -> str:
 
 
 def events_of(prof):
-    """(device, host, window mark's start) as (name, start_ns, end_ns)
-    lists, from a stopped ``torch.profiler.profile``'s raw events."""
+    """(device, host, window mark's start) from a stopped
+    ``torch.profiler.profile``'s raw events: device operations as (name,
+    start_ns, end_ns, card index), host ranges as (name, start_ns,
+    end_ns)."""
     from torch.autograd import DeviceType
 
     results = getattr(prof.profiler, "kineto_results", None)
@@ -149,7 +165,7 @@ def events_of(prof):
         name, s = ev.name(), ev.start_ns()
         e = s + ev.duration_ns()
         if ev.device_type() == DeviceType.CUDA:
-            device.append((name, s, e))
+            device.append((name, s, e, ev.device_index()))
         else:
             host.append((name, s, e))
             if name == WINDOW_MARK and mark is None:

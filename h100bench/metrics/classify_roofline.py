@@ -3,7 +3,9 @@ card over the classify kernels' device time, in percent. The work is what
 the window's inputs need: its useful escape-time steps (classify_iters;
 wasted lane-steps do not count) at costs.json's escape_step operations,
 and its samples drawn at sample_draw; its bytes, each lane's state read
-and written once a pass and each emission slot written once."""
+and written once a pass and each emission slot written once, on every
+card. Over several cards the time is the sum of the cards' times, so
+the share is that of one card."""
 
 
 def read(m):
@@ -15,8 +17,8 @@ def read(m):
     c, st, g = m.costs, m.stats, m.geometry
     ops = (st["classify_iters"] * c["escape_step"]["ops"]
            + st["samples"] * c["sample_draw"]["ops"])
-    nbytes = m.passes * (g["lanes"] * c["lane_bytes"]
-                         + g["emission_slots"] * c["slot_bytes"])
+    nbytes = m.passes * m.replicas * (g["lanes"] * c["lane_bytes"]
+                                      + g["emission_slots"] * c["slot_bytes"])
     least = max(ops / c["peaks"]["flops_per_s"],
                 nbytes / c["peaks"]["bytes_per_s"])
     return 100.0 * least / t

@@ -1,8 +1,8 @@
-"""compact.span_ms: device milliseconds a pass of the renderer's
+"""compact.span_ms: device milliseconds a pass and card of the renderer's
 ``cb.compact`` span, the compaction on the main stream (selection words,
 sorts, gathers), without the counters' bookkeeping: the time between the
 span's two events (``stats["trace"]``, in a traced run), summed over the
-window, over its passes."""
+window and its cards, over its passes and cards."""
 
 
 def read(m):
@@ -10,4 +10,4 @@ def read(m):
     s = tr["spans"].get("cb.compact") if tr else None
     if not s or "device_ms" not in s or m.passes <= 0:
         return None
-    return s["device_ms"] / m.passes
+    return s["device_ms"] / (m.passes * m.replicas)

@@ -1,8 +1,8 @@
-"""counters.span_ms: device milliseconds a pass of the renderer's
+"""counters.span_ms: device milliseconds a pass and card of the renderer's
 ``cb.counters`` span, the counters' bookkeeping on the main stream (the
 sum of the classify stat rows, the counter adds): the time between the
 span's two events (``stats["trace"]``, in a traced run), summed over the
-window, over its passes."""
+window and its cards, over its passes and cards."""
 
 
 def read(m):
@@ -10,4 +10,4 @@ def read(m):
     s = tr["spans"].get("cb.counters") if tr else None
     if not s or "device_ms" not in s or m.passes <= 0:
         return None
-    return s["device_ms"] / m.passes
+    return s["device_ms"] / (m.passes * m.replicas)

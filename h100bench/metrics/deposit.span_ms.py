@@ -1,8 +1,8 @@
-"""deposit.span_ms: device milliseconds a pass of the renderer's
+"""deposit.span_ms: device milliseconds a pass and card of the renderer's
 ``cb.deposit`` span, the replay and deposit on the stream it runs on (a
 replay side stream on the fused route): the time between the span's two
-events (``stats["trace"]``, in a traced run), summed over the window, over
-its passes."""
+events (``stats["trace"]``, in a traced run), summed over the window and
+its cards, over its passes and cards."""
 
 
 def read(m):
@@ -10,4 +10,4 @@ def read(m):
     s = tr["spans"].get("cb.deposit") if tr else None
     if not s or "device_ms" not in s or m.passes <= 0:
         return None
-    return s["device_ms"] / m.passes
+    return s["device_ms"] / (m.passes * m.replicas)

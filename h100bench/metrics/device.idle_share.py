@@ -1,5 +1,6 @@
 """device.idle_share: the share of the traced window in which no operation
-ran on the device (1 - the union of device intervals / the window)."""
+ran on the device (1 - the union of device intervals / the window); over
+several cards, the mean of each card's share."""
 
 
 def read(m):

@@ -3,8 +3,9 @@ take on the card over the deposit kernels' device time (the union of their
 intervals, which overlap on the replay streams), in percent. Operations:
 every replayed orbit point (orbit_points) at costs.json's replay_point.
 Bytes: every kept escape's record read once, and a read and a write of a
-bin per on-canvas point, at most once a pass for each bin of the canvas
-(never the whole histogram)."""
+bin per on-canvas point, at most once a pass for each bin of each card's
+canvas (never the whole histogram). Over several cards the time is the
+sum of the cards' times, so the share is that of one card."""
 
 
 def read(m):
@@ -15,7 +16,7 @@ def read(m):
         return None
     c, st, g = m.costs, m.stats, m.geometry
     ops = st["orbit_points"] * c["replay_point"]["ops"]
-    bins = min(st["on_canvas_points"], m.passes * g["pixels"])
+    bins = min(st["on_canvas_points"], m.passes * m.replicas * g["pixels"])
     nbytes = st["emitted"] * c["emission_bytes"] + bins * c["bin_bytes"]
     least = max(ops / c["peaks"]["flops_per_s"],
                 nbytes / c["peaks"]["bytes_per_s"])

@@ -27,9 +27,10 @@ kept and dropped escapes, replayed orbit points and points on the canvas.
 The execution plan (lanes, steps a pass, flush window, unroll, capacity)
 is the renderer's choice, and a pass's answer depends on it as a Monte
 Carlo run depends on how its draws are assigned, so the reference takes
-it as given (``Plan``). Everything else it works out from the cell's
-files and the seed. ``dtype`` is float32; the control runs the same
-reference in bfloat16.
+it as given (``Plan``, read from the engine by ``plan_of``). Everything
+else it works out from the cell's files, the seed and the device's RNG
+ordinal. ``dtype`` is float32; the control runs the same reference in
+bfloat16.
 """
 
 from __future__ import annotations
@@ -91,6 +92,34 @@ class Scene:
     @property
     def pixels(self) -> int:
         return self.width * self.height
+
+
+#: Engines whose pass this module does not model: the host replay's
+#: batches are replayed off the device, and the row shards split each
+#: replica's histogram.
+REFUSED_ENGINES = ("DataParallelHostReplayEngine", "ShardedHistogramEngine")
+
+
+def plan_of(engine) -> Plan:
+    """The execution plan of ``engine``: a single-device engine, or the
+    first inner engine of a data-parallel one (its inners share the
+    configuration and the plan). Refuses an engine whose pass this
+    reference does not model."""
+    name = type(engine).__name__
+    if name in REFUSED_ENGINES:
+        raise ValueError(f"the uniform float32 reference does not model "
+                         f"the {name}'s passes")
+    inner = getattr(engine, "inners", [engine])[0]
+    tn = inner.tuning
+    o = inner.cfg.options
+    if (inner.extended or inner.mh or not tn.thin_tracking
+            or not o.cycle_detection or inner.cfg.fractal != "buddhabrot"
+            or inner.visit_window is not None):
+        raise ValueError("the uniform float32 reference models thin-"
+                         "tracked Buddhabrot passes with cycle detection")
+    return Plan(lanes=inner.lanes, steps_per_pass=tn.steps_per_pass,
+                steps_per_flush=tn.steps_per_flush, unroll=tn.inner_unroll,
+                capacity=tn.replay_capacity)
 
 
 def init_lanes(n: int, device, dtype=torch.float32) -> dict:
@@ -366,10 +395,13 @@ def replay_numpy(cr, ci, it, scene: Scene, block: int = 256):
 
 
 def run_pass(lanes: dict, seed: int, pass_index: int, plan: Plan,
-             scene: Scene, dtype=torch.float32):
-    """One whole pass of device 0 from ``lanes``: (lanes after, counts per
-    bin on the host, counters)."""
-    pk = threefry.pass_key(seed, 0, pass_index)
+             scene: Scene, dtype=torch.float32, ordinal: int = 0):
+    """One whole pass of the device with RNG ordinal ``ordinal`` from
+    ``lanes``: (lanes after, counts per bin on the host, counters). Both
+    the samples and the selection are keyed by ``pass_key(seed, ordinal,
+    pass_index)``, so each replica of a data-parallel render draws its
+    own stream."""
+    pk = threefry.pass_key(seed, ordinal, pass_index)
     k0, k1 = threefry.bits_host(pk, 2)
     after, emissions, counts = classify(lanes, k0, k1, plan, scene, dtype)
     (cr, ci, it), (kept, dropped) = select(emissions, pk, plan,

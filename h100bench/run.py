@@ -12,8 +12,11 @@ passes, then discarded) and renders for ``--seconds`` through
 ``cudabrot_tpu_torch.driver.run_render``, writing no file. With
 ``--trace 1`` the whole render is profiled (``hb/trace.py``) and the
 per-layer metrics are reported, else the end-to-end ones; each is read by
-``h100bench/metrics/<name>.py``. Two passes of the window are checked
-against the plain reference (``hb/check.py``).
+``h100bench/metrics/<name>.py``. Two passes of the window, of every
+replica of a data-parallel render, are checked against the plain
+reference (``hb/check.py``). A render over several cards is read card by
+card: rates and shares keep their meaning on one card, and
+``memory_peak_bytes`` is the fullest card's.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted`` (in-band samples), ``failed`` (those the replay's capacity
@@ -88,8 +91,9 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
     cfg, _ = parse_args(cell.argv(seed, seconds))
     engine = engines.make_engine(cfg, device=device)
     dev = engine.device
+    replicas = check.engines_of(engine)
     ref = cells.reference(cell.config)
-    plan = check.plan_of(engine, ref)
+    plan = ref.plan_of(engine)
     scene = ref.Scene.from_cell(cell.config["canvas"], cell.traffic["band"])
 
     t_engine = time.monotonic()
@@ -134,7 +138,8 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         prof.stop()
     setup_s = marks["start"] - T_MONO0 + _started_before()
     cuda = dev.type == "cuda"
-    mem_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    mem_peak = (max(torch.cuda.max_memory_allocated(e.device)
+                    for e in replicas) if cuda else 0)
     capture.to_host()
 
     reduced = None
@@ -145,7 +150,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         if mark is not None:
             reduced = tracing.reduce_events(
                 dev_ev, host_ev, mark, int(result.elapsed_seconds * 1e9),
-                tracing.load_layers())
+                tracing.load_layers(), cards=len(replicas))
         say(f"trace: {len(dev_ev)} device and {len(host_ev)} host events, "
             f"reduced in {time.monotonic() - t:.1f} s")
         del dev_ev, host_ev
@@ -155,9 +160,10 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
     m = types.SimpleNamespace(
         elapsed_s=result.elapsed_seconds, passes=result.passes,
         hist_sum=hist_sum, setup_s=setup_s, stats=stats, trace=reduced,
+        replicas=len(replicas),
         costs=json.loads((BENCH_DIR / "costs.json").read_text()),
         geometry={"lanes": plan.lanes, "pixels": scene.pixels,
-                  "emission_slots": engine.tuning.emission_slots})
+                  "emission_slots": replicas[0].tuning.emission_slots})
     metrics = {}
     for entry in (cell.per_layer if trace else cell.end_to_end):
         value = cells.reader(entry["name"])(m)
@@ -166,11 +172,12 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
 
     t = time.monotonic()
     checks = check.run_checks(ref, capture, seed, plan, scene, dev)
-    checks["passes.unchecked"] = {"value": len(passes) - len(capture.taken),
+    checks["passes.unchecked"] = {"value": capture.unchecked,
                                   "limit": check.LIMIT}
     checks.update(check.totals_checks(hist_sum, stats))
     say(f"{result.passes} passes in {result.elapsed_seconds:.6f} s; "
-        f"reference took {time.monotonic() - t:.1f} s")
+        f"reference took {time.monotonic() - t:.1f} s over "
+        f"{len(capture.taken)} replica-passes")
     correct = all(v["value"] <= v["limit"] for v in checks.values())
 
     device_info = {

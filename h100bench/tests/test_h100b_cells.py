@@ -14,12 +14,14 @@ def test_every_cell_loads_and_builds_its_command_line():
     assert bench["paths"] == ["h100bench"]
     for w in bench["workloads"]:
         cell = cells.load_cell(w["name"])
-        assert cell.chips == w["chips"] == 1
+        assert cell.chips == w["chips"] in (1, 4)
         argv = cell.argv(2 ** 31 + 11, 10)
         assert argv[-4:] == ["--seed", str(2 ** 31 + 11), "-t", "10.0"]
         assert {m["name"] for m in cell.end_to_end} == {"points_per_s",
                                                         "setup_s"}
-        assert len(cell.per_layer) == len(bench["per_layer"])
+        assert [m["name"] for m in cell.per_layer] == [
+            m["name"] for m in bench["per_layer"]
+            if w["name"] in m.get("workloads", [w["name"]])]
 
 
 def test_command_line_parses_to_the_cell():
@@ -81,3 +83,15 @@ def test_unknown_cell_and_reader_are_refused():
         cells.load_cell("canvas1k.nothing")
     with pytest.raises(cells.CellError):
         cells.reader("no_such_metric")
+
+
+def test_the_dp4_cell_renders_on_four_cards():
+    from cudabrot_tpu_torch.cli import parse_args
+
+    cell = cells.load_cell("canvas1k.dp4")
+    assert cell.chips == 4
+    cfg, _ = parse_args(cell.argv(7, 12))
+    assert cfg.options.num_devices == 4
+    assert "replica.issue_ms" in {m["name"] for m in cell.per_layer}
+    assert "replica.issue_ms" not in {
+        m["name"] for m in cells.load_cell("canvas1k.default").per_layer}

@@ -39,9 +39,9 @@ def test_short_name_drops_template_and_parameters():
 
 
 def synthetic():
-    """A 10 ms window from t=100 ms: classify 0-4 ms, a sort 4-5 ms, two
-    replays on two streams 3-6 and 5-8 ms, an idle gap 8-10 ms while the
-    host synchronizes, and activity outside the window."""
+    """A 10 ms window from t=100 ms on card 0: classify 0-4 ms, a sort 4-5
+    ms, two replays on two streams 3-6 and 5-8 ms, an idle gap 8-10 ms
+    while the host synchronizes, and activity outside the window."""
     w0 = 100 * MS
     device = [
         ("void classify_kernel<2>(cb::ClassifyArgs)", w0, w0 + 4 * MS),
@@ -53,6 +53,7 @@ def synthetic():
         ("void classify_kernel<2>(cb::ClassifyArgs)", w0 + 9 * MS,
          w0 + 12 * MS),
     ]
+    device = [ev + (0,) for ev in device]
     host = [(tr.WINDOW_MARK, w0, w0),
             ("aten::sort", w0 + 4 * MS, w0 + 4 * MS + 10),
             ("cudaDeviceSynchronize", w0 + 7 * MS, w0 + 9 * MS + 500_000)]
@@ -76,8 +77,8 @@ def test_reduce_clips_to_the_window_and_unions_each_layer():
 
 
 def test_idle_gap_without_a_host_range_is_python():
-    r = tr.reduce_events([("classify_kernel", 0, 5 * MS)], [], 0, 10 * MS,
-                         LAYERS)
+    r = tr.reduce_events([("classify_kernel", 0, 5 * MS, 0)], [], 0,
+                         10 * MS, LAYERS)
     assert r.idle_by_host == {"python": pytest.approx(0.005)}
 
 
@@ -87,7 +88,7 @@ def measurement(trace):
              "emitted": 10 ** 9, "in_band": 10 ** 9, "replay_dropped": 0}
     return types.SimpleNamespace(
         elapsed_s=trace.window_s, passes=1000, hist_sum=4 * 10 ** 11,
-        setup_s=5.0, stats=stats, trace=trace,
+        setup_s=5.0, stats=stats, trace=trace, replicas=1,
         costs=json.loads((BENCH_DIR / "costs.json").read_text()),
         geometry={"lanes": 262144, "pixels": 10 ** 6,
                   "emission_slots": 8 * 10 ** 6})
@@ -128,3 +129,53 @@ def test_readers_find_nothing_without_a_trace_or_a_layer():
         assert cells.reader(name)(m) is None
     m.trace = None
     assert cells.reader("engine.pass_ms")(m) is None
+
+
+def test_two_cards_reduce_each_on_its_own_timeline():
+    """Card 0 runs the one-card window above; card 1 runs classify 2-6 ms
+    only. A layer's seconds add over the cards, the busy time is their
+    mean, and each card's idle gaps count half."""
+    device, host, w0 = synthetic()
+    device = device + [("void classify_kernel<2>(cb::ClassifyArgs)",
+                        w0 + 2 * MS, w0 + 6 * MS, 1)]
+    one = tr.reduce_events(device[:-1], host, w0, 10 * MS, LAYERS)
+    two = tr.reduce_events(device, host, w0, 10 * MS, LAYERS, cards=2)
+    assert two.busy_s == pytest.approx((0.009 + 0.004) / 2)
+    assert two.layer_s["classify"] == pytest.approx(0.005 + 0.004)
+    assert two.layer_s["deposit"] == one.layer_s["deposit"]
+    assert sum(two.idle_by_host.values()) == pytest.approx(
+        two.window_s - two.busy_s)
+    m = measurement(two)
+    m.replicas = 2
+    assert cells.reader("device.idle_share")(m) == pytest.approx(
+        1 - 0.0065 / 0.010)
+    assert cells.reader("compact.ms_per_pass")(m) == pytest.approx(
+        1e3 * 0.001 / 2000)
+
+
+def test_a_card_with_no_operation_counts_as_idle():
+    r = tr.reduce_events([("classify_kernel", 0, 5 * MS, 0)], [], 0,
+                         10 * MS, LAYERS, cards=4)
+    assert r.busy_s == pytest.approx(0.005 / 4)
+    assert r.idle_by_host == {"python": pytest.approx(0.010 - 0.005 / 4)}
+
+
+def test_rooflines_of_four_replicas_read_as_one_card():
+    """Four cards each doing one card's work in one card's time: the four
+    cards' counters and card-seconds give the one card's shares."""
+    t1 = tr.Reduced(window_s=10.0, busy_s=9.5,
+                    layer_s={"classify": 6.0, "deposit": 2.0,
+                             "compaction": 3.0},
+                    op_s={}, idle_by_host={})
+    t4 = tr.Reduced(window_s=10.0, busy_s=9.5,
+                    layer_s={k: 4 * v for k, v in t1.layer_s.items()},
+                    op_s={}, idle_by_host={})
+    m1, m4 = measurement(t1), measurement(t4)
+    m4.replicas = 4
+    m4.stats = {k: 4 * v for k, v in m1.stats.items()}
+    m4.stats["on_canvas_points"] = 4 * 10 ** 8  # under a canvas a pass
+    m1.stats["on_canvas_points"] = 10 ** 8
+    for name in ("classify_roofline", "replay_deposit_roofline",
+                 "compact.ms_per_pass", "device.idle_share"):
+        assert cells.reader(name)(m4) == pytest.approx(
+            cells.reader(name)(m1)), name

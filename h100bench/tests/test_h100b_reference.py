@@ -97,3 +97,17 @@ def test_numpy_and_torch_replays_agree(seed):
     h_t, n_t = ref.replay_torch(cr, ci, it, scene)
     assert n_np == n_t > 0
     assert torch.equal(h_np.to(torch.int64), h_t)
+
+
+def test_run_pass_draws_the_ordinals_own_stream():
+    scene = ref.Scene(width=40, height=30, min_real=-2.0, max_real=2.0,
+                      min_imag=-1.5, max_imag=1.5, min_it=20, max_it=100)
+    plan = ref.Plan(lanes=256, steps_per_pass=64, steps_per_flush=32,
+                    unroll=1, capacity=4096)
+    lanes = ref.init_lanes(plan.lanes, "cpu")
+    a0, h0, c0 = ref.run_pass(lanes, 2 ** 31 + 5, 3, plan, scene)
+    a0b, _, _ = ref.run_pass(lanes, 2 ** 31 + 5, 3, plan, scene, ordinal=0)
+    a1, h1, c1 = ref.run_pass(lanes, 2 ** 31 + 5, 3, plan, scene, ordinal=1)
+    assert all(torch.equal(a0[k], a0b[k]) for k in a0)
+    assert not torch.equal(a0["cr"], a1["cr"])
+    assert not torch.equal(h0, h1) and c0 != c1

@@ -40,7 +40,8 @@ def snapshot():
 def measurement(stats):
     return types.SimpleNamespace(elapsed_s=10.0, passes=1000,
                                  hist_sum=10 ** 9, setup_s=5.0, stats=stats,
-                                 trace=None, costs={}, geometry={})
+                                 trace=None, replicas=1, costs={},
+                                 geometry={})
 
 
 def test_span_readers_on_a_synthetic_snapshot():
@@ -82,3 +83,23 @@ def test_traced_run_on_the_cpu_reports_the_host_span():
     assert metrics["pass.issue_ms"]["unit"] == "ms"
     for name in SPAN_METRICS[1:]:
         assert name not in metrics
+
+
+def test_span_readers_read_a_card_over_several_replicas():
+    """Four replicas: every device span is summed over the cards, and
+    ``cb.replica`` counts one span a card and pass."""
+    t = snapshot()
+    for s in t["spans"].values():
+        for k in ("device_ms", "host_ms"):
+            if k in s:
+                s[k] *= 4
+    t["spans"]["cb.replica"] = {"count": 4000, "host_ms": 11000.0,
+                                "self_host_ms": 9000.0,
+                                "device_ms": 20000.0}
+    m = measurement({"in_band": 1, "trace": t})
+    m.replicas = 4
+    assert cells.reader("classify.span_ms")(m) == pytest.approx(6.0)
+    assert cells.reader("deposit.span_ms")(m) == pytest.approx(3.0)
+    assert cells.reader("replica.issue_ms")(m) == pytest.approx(11.0)
+    one = measurement({"in_band": 1, "trace": snapshot()})
+    assert cells.reader("replica.issue_ms")(one) is None
