@@ -1476,3 +1476,52 @@ def test_host_render_on_the_card_equals_the_cpu(cuda, opts):
     assert counts[kernel] == 4 and counts[f"{kernel}_plain"] == 0
     if s_gpu["replay"] == "hybrid":
         assert counts["replay_deposit"] == 4
+
+
+def test_df32_passes_on_card_equal_the_benchmark_reference(cuda):
+    """At a tiny deep zoom (the benchmark cell zoom1e5.df32's window at
+    64x48, 512 lanes, band [500, 2000)) passes 0 and 2 of a traced render
+    on the card equal h100bench's plain df32 reference bit for bit (lanes,
+    histogram change, counters), and the render's cb.classify and
+    cb.deposit spans record device time around the df32 kernels."""
+    import sys
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    bench = Path(__file__).resolve().parents[1] / "h100bench"
+    if str(bench) not in sys.path:
+        sys.path.append(str(bench))
+    from hb import check
+    from reference import extended_df32 as ref
+
+    cfg, _ = cli.parse_args([
+        "-w", "64", "-h", "48", "-m", "2000", "-c", "500",
+        "--precision", "extended",
+        "--center", "-0.743643887037151,0.131825904205330", "--span", "1e-5",
+        "--lane-rows", "4", "--steps-per-pass", "512",
+        "--steps-per-flush", "128", "--inner-unroll", "4",
+        "--replay-capacity", "4096", "--seed", str(2 ** 33 + 7),
+        "--passes", "3", "-t", "-1"])
+    eng = CudaEngine(cfg, device=cuda)
+    capture = check.PassCapture(eng, (0, 2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = driver.run_render(cfg, engine=eng, log=lambda msg: None)
+    capture.to_host()
+    cv = cfg.canvas
+    scene = ref.Scene(width=cv.width, height=cv.height,
+                      min_real=cv.min_real, max_real=cv.max_real,
+                      min_imag=cv.min_imag, max_imag=cv.max_imag,
+                      min_it=500, max_it=2000)
+    got = check.run_checks(ref, capture, cfg.seed, ref.plan_of(eng), scene,
+                           cuda)
+    assert len(capture.taken) == 2
+    assert {k: v["value"] for k, v in got.items()} == dict.fromkeys(got, 0)
+    assert capture.taken[(2, 0)]["counters"]["dev_hits"] > 0
+    spans = result.stats["trace"]["spans"]
+    assert spans["cb.classify"]["device_ms"] > 0
+    assert spans["cb.deposit"]["device_ms"] > 0
+    kernels = {e.key for e in prof.key_averages()}
+    assert any("classify_ext_kernel" in k for k in kernels)
+    assert any("replay_deposit_ext" in k for k in kernels)
