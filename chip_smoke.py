@@ -51,7 +51,10 @@ Phases (each fails the run on any mismatch):
   5. Kernel times at each cell's main-path shapes (CUDA events; the MH
      deposit, whose call is bound by the host, by its kernel time in
      torch.profiler, which must show the engine's deposit step as one
-     launch) beside their bounds and unfused issue floors, and at the
+     launch) beside their bounds and unfused issue floors; where a cell's
+     plan takes the length sort, its kernels vs its plain version bitwise
+     on that pass's emissions (default: 8,388,608 slots in 80 buckets;
+     zoom: 2,097,152 in 19,500, tiles of 2^14); and at the
      default cell beside their plain versions
      and torch.bincount of the replay's id stream; a torch.profiler
      profile of 16 engine passes per cell (8 at mhzoom; device ms per
@@ -128,10 +131,11 @@ Phases (each fails the run on any mismatch):
      zoom and bigcanvas, the worker's fetch and replay seconds, host
      replay points/s, payload bytes a pass, and a host-mode pass's device
      busy share (torch.profiler), with the host's CPU and cores.
-  12. Repeatability: the first call of each of the twelve kernels in one
-     main-path pass of its cell (default, zoom, mhcrop, mhzoom; bigcanvas
-     and bigzoom on the bigtiles route; deposit_ids on the default cell's
-     pallas route)
+  12. Repeatability: the first call of each of the thirteen kernels in
+     one main-path pass of its cell (default, zoom, mhcrop, mhzoom;
+     bigcanvas and bigzoom on the bigtiles route; deposit_ids on the
+     default cell's pallas route; threefry_bits at deep, whose capacity
+     is below its slots)
      is recorded with its inputs and run REPEAT_RUNS times more, each run
      on clones of those inputs carved from buffers between two margins,
      every output the wrapper allocates and every margin filled with
@@ -172,7 +176,7 @@ Phases (each fails the run on any mismatch):
 
 ``--repeat`` builds and runs phase 2's classify checks (the first work
 on the card, as in the default run) and phase 12. ``--sanitize`` runs a small
-target of the twelve kernels (``--sanitize-target``: phase 12's capture at
+target of the thirteen kernels (``--sanitize-target``: phase 12's capture at
 a 64x48 canvas and 2,048 lanes, SANITIZE_CELLS) under compute-sanitizer
 (found beside nvcc; its absence fails the run) with each of its memcheck,
 racecheck, synccheck and initcheck tools, ``--error-exitcode 1`` and
@@ -409,6 +413,10 @@ KERNELS = {
                        "bigzoom"),
     "bigtiles_deposit": ("cudabrot_tpu_torch/csrc/bigtiles.cu",
                          "cudabrot_tpu/ops/binning.py:610", "bigcanvas"),
+    "length_sort": ("cudabrot_tpu_torch/csrc/length_sort.cu",
+                    "none: the argsorts of cudabrot_tpu/engines/"
+                    "pallas_engine.py _classify_and_compact where nothing "
+                    "is dropped", "default"),
 }
 
 
@@ -540,10 +548,13 @@ def path_kernels(name, scatter="auto"):
     if o.sampler == "mh":
         return ("classify_ext_mh" if o.precision == "extended"
                 else "classify_mh", "mh_deposit")
+    from cudabrot_tpu_torch.engines import cuda_engine as ce
     from cudabrot_tpu_torch.ops import binning
 
     ext = o.precision == "extended"
-    head = ("classify_ext" if ext else "classify", "threefry_bits")
+    route = ce.compact_route(ce.Tuning(cell_config(name, scatter)))
+    head = ("classify_ext" if ext else "classify",
+            "length_sort" if route == "length" else "threefry_bits")
     route = binning.select_scatter_backend(scatter)
     if route == "fused":
         return (*head, "replay_deposit_ext" if ext else "replay_deposit")
@@ -721,6 +732,18 @@ def phase_classify(dev):
     wk, wp = prng.bits(key, n, dev), prng.bits_plain(key, n, dev)
     check(same_bits(wk, wp), f"threefry_bits: {n} words bitwise vs plain")
     errs["threefry_bits"] = max_abs_err([(wk, wp)])
+
+    from cudabrot_tpu_torch.ops import length_sort as ls
+
+    errs["length_sort"] = 0.0
+    for band, (ra, _) in batches.items():
+        got = ls.length_sort(ra.emit_c, ra.emit_it, *band)
+        want = ls.length_sort_plain(ra.emit_c, ra.emit_it, *band)
+        check(all(same_bits(a, b) for a, b in zip(got, want)),
+              f"length_sort band {band}: {int(got[3])} of "
+              f"{ra.emit_it.numel()} slots kept, bitwise vs plain")
+        errs["length_sort"] = max(errs["length_sort"], max_abs_err(
+            list(zip(got, want))))
     return batches, errs
 
 
@@ -1193,6 +1216,7 @@ def phase_color():
     import numpy as np
 
     from cudabrot_tpu_torch import cli, color
+    from cudabrot_tpu_torch.engines import cuda_engine as ce
     from cudabrot_tpu_torch.ops import launches
 
     log("== phase 9: render-color, the README's HSL recipe at 6000x4500")
@@ -1204,6 +1228,7 @@ def phase_color():
         box = {}
 
         def keep(*a, box=box, **k):
+            box["cfgs"] = a[0] if a else k["cfgs"]
             box["r"] = real(*a, **k)
             return box["r"]
 
@@ -1216,10 +1241,19 @@ def phase_color():
         walls[mode] = time.monotonic() - t0
         counts = launches.snapshot()
         check(rc == 0, f"render-color ({mode}) exits 0")
-        for k in path_kernels("default"):
-            check(counts[k] >= 3 * COLOR_PASSES,
+        # Each band's plan decides its compaction (compact_route).
+        routes = {key: ce.compact_route(ce.Tuning(c))
+                  for key, c in box["cfgs"].items()}
+        want = dict.fromkeys(path_kernels("default"), 3 * COLOR_PASSES)
+        want["length_sort"] = COLOR_PASSES * sum(
+            r == "length" for r in routes.values())
+        want["threefry_bits"] = COLOR_PASSES * sum(
+            r == "select" for r in routes.values())
+        for k, n in want.items():
+            check(counts[k] >= n,
                   f"render-color ({mode}): {k} kernel launched "
-                  f"({counts[k]} times)")
+                  f"({counts[k]} times, {n} wanted; compaction routes "
+                  f"{routes})")
         check(all(counts[f"{k}_plain"] == 0 for k in launches.KERNELS),
               f"render-color ({mode}): no plain version ran")
         runs[mode] = box["r"]
@@ -1384,6 +1418,7 @@ PROFILE_GROUPS = (("classify_ext_mh_kernel", "classify_ext_mh"),
                   ("classify_ext_kernel", "classify_ext"),
                   ("classify_kernel", "classify"),
                   ("threefry_bits", "threefry_bits"),
+                  ("length_sort", "length_sort"),
                   ("replay_deposit_ext", "replay_deposit_ext"),
                   ("replay_deposit", "replay_deposit"),
                   ("replay_ids_ext", "replay_ids_ext"),
@@ -1534,6 +1569,37 @@ def cell_times(dev, name, with_plain):
                                OPS_THREEFRY_WORD[1] * slots)
     t_compact = time_ms(lambda: ce.compact(res.emit_c, res.emit_it, key,
                                            tn.replay_capacity, tn.max_it), 5)
+    sort_rec = None
+    if eng.compact_route == "length":
+        from cudabrot_tpu_torch.ops import length_sort as ls
+
+        def sort():
+            return ls.length_sort(res.emit_c, res.emit_it, tn.min_it,
+                                  tn.max_it)
+
+        # The kernels against the plain version on this pass's emissions,
+        # at the main path's slot count, band and tile size.
+        nb = ls.buckets(tn.min_it, tn.max_it)
+        got = sort()
+        want = ls.length_sort_plain(res.emit_c, res.emit_it, tn.min_it,
+                                    tn.max_it)
+        kept = int(got[3])
+        check(all(same_bits(a, b) for a, b in zip(got, want)),
+              f"length_sort at the {name} cell: {kept} of {slots} slots "
+              f"kept, {nb} buckets, tiles of 2^{ls.tile_bits(slots, nb)}, "
+              f"bitwise vs plain")
+        del got, want
+        k4_ms = time_ms(sort, 20)
+        # The escape indices read once, the kept words once, the batch
+        # written once (csrc/length_sort.cu).
+        k4_bound, k4_by = bound_ms(0, 4 * slots + 12 * kept + 12 * slots)
+        sort_rec = dict(ms=k4_ms, bound_ms=k4_bound, bound_by=k4_by,
+                        library_ms=t_compact)
+        log(f"  length_sort: {slots} slots, {kept} kept, {nb} buckets, "
+            f"tiles of 2^{ls.tile_bits(slots, nb)}, bitwise equal to the "
+            f"plain version; kernels {k4_ms:.4f} ms, bound {k4_bound:.4f} "
+            f"ms ({k4_by}); the selection it replaces (compact) "
+            f"{t_compact:.4f} ms")
     pass_time = pass_ms(eng, state, warm_passes + 2, 10)
     busy, span, prof_ms = device_profile(eng, state, 100, 16)
 
@@ -1563,6 +1629,8 @@ def cell_times(dev, name, with_plain):
         k2: dict(ms=k2_ms, bound_ms=k2_bound, bound_by=k2_by,
                  library_ms=None, floor_ms=k2_floor),
     }
+    if sort_rec is not None:
+        rec["length_sort"] = sort_rec
     if not with_plain:
         return rec
     plain_state = clone_state(lanes)
@@ -1580,6 +1648,9 @@ def cell_times(dev, name, with_plain):
             hist, cr, ci, it, canvas=cfg.canvas, fractal=fr), 1)
     rec["threefry_bits"]["plain_ms"] = time_ms(
         lambda: prng.bits_plain(sel_key, slots, dev), 5)
+    if sort_rec is not None:
+        sort_rec["plain_ms"] = time_ms(lambda: ls.length_sort_plain(
+            res.emit_c, res.emit_it, tn.min_it, tn.max_it), 5)
     log(f"  plain versions: classify {rec[k1]['plain_ms']:.4f} ms, "
         f"replay_deposit {rec[k2]['plain_ms']:.4f} ms, "
         f"threefry_bits {rec['threefry_bits']['plain_ms']:.4f} ms")
@@ -5280,7 +5351,8 @@ REPEAT_PLAIN_SEEDS = 16
 #: REPEAT_WARM (deposit_ids on the --scatter pallas route's stream).
 REPEAT_CELLS = (("default", "auto"), ("zoom", "auto"), ("mhcrop", "auto"),
                 ("mhzoom", "auto"), ("bigcanvas", "bigtiles"),
-                ("bigzoom", "bigtiles"), ("default", "pallas"))
+                ("bigzoom", "bigtiles"), ("default", "pallas"),
+                ("deep", "auto"))
 REPEAT_WARM = 2
 #: Each kernel's wrapper, (module of cudabrot_tpu_torch.ops, function): the
 #: engines call them through these module attributes.
@@ -5297,6 +5369,7 @@ WRAPPERS = {
     "replay_ids": ("binning", "replay_ids"),
     "replay_ids_ext": ("binning", "replay_ids_ext"),
     "bigtiles_deposit": ("binning", "bigtiles_deposit"),
+    "length_sort": ("length_sort", "length_sort"),
 }
 #: Where a mismatch saves its inputs and runs (listed in .gitignore).
 DUMP_DIR = os.path.join(ROOT, "chiprun_out")
@@ -5715,7 +5788,8 @@ SANITIZE_GEOMETRY = ["-w", "64", "-h", "48", "--lane-rows", "16",
                      "--replay-capacity", "8192", "--mh-burnin", "0"]
 SANITIZE_CELLS = (("default", "auto"), ("zoom", "auto"), ("mhcrop", "auto"),
                   ("mhzoom", "auto"), ("default", "bigtiles"),
-                  ("zoom", "bigtiles"), ("default", "pallas"))
+                  ("zoom", "bigtiles"), ("default", "pallas"),
+                  ("deep", "auto"))
 SANITIZE_BAND = ["-m", "400", "-c", "20"]
 
 
@@ -5726,6 +5800,9 @@ def sanitize_config(name, route):
     args = [*cell_args(name)[4:], *SANITIZE_GEOMETRY, "--scatter", route]
     if name in ("zoom", "mhzoom"):
         args += SANITIZE_BAND
+    if name == "deep":
+        # A capacity below the slots: the selection's compaction.
+        args += ["--replay-capacity", "4096"]
     return cli.parse_args(args)[0]
 
 
@@ -5764,7 +5841,7 @@ def sanitizer_errors(text: str) -> tuple[dict, int]:
 
     names = re.compile(r"\b(" + "|".join(sorted(KERNELS, key=len,
                                                  reverse=True))
-                       + r")_kernel\b")
+                       + r")(_[a-z]+)?_kernel\b")
     counts, loose, report = dict.fromkeys(KERNELS, 0), 0, []
     skip = ("COMPUTE-SANITIZER", "ERROR SUMMARY", "RACECHECK SUMMARY",
             "Target application returned", "LEAK SUMMARY")
@@ -5772,7 +5849,7 @@ def sanitizer_errors(text: str) -> tuple[dict, int]:
     def close():
         nonlocal loose
         if report and not any(s in report[0] for s in skip):
-            hit = set(names.findall("\n".join(report)))
+            hit = {m[0] for m in names.findall("\n".join(report))}
             for k in hit:
                 counts[k] += 1
             loose += not hit
@@ -5817,12 +5894,12 @@ def phase_sanitize(dev, card):
     --error-exitcode 1. Prints each tool's verdict per kernel and fails on
     any error, on a kernel the target did not launch, or where the
     sanitizer cannot run on this card."""
-    log("== phase 12b: compute-sanitizer sweep of the twelve kernels")
+    log("== phase 12b: compute-sanitizer sweep of the thirteen kernels")
     cs = sanitizer_path()
     version = subprocess.run([cs, "--version"], capture_output=True,
                              text=True, check=False).stdout.strip()
     log(f"  {cs}: {version.splitlines()[-1] if version else '?'}; {card}")
-    regex = "kns=(" + "|".join(sorted(KERNELS)) + ")_kernel"
+    regex = "kns=(" + "|".join(sorted(KERNELS)) + ")(_[a-z]+)?_kernel"
     os.makedirs(OUT, exist_ok=True)
     verdicts, failed = {}, []
     for tool in SANITIZE_TOOLS:

@@ -10,7 +10,8 @@
 // mh_deposit in an emulation of its warps' spread), the orbit loop of the
 // replay kernels with its id sinks (orbit.cuh: replay_ids' staged tile in
 // an emulation of its warps, and replay_ids_ext through classify_ext.cuh)
-// and the run-length deposit of the bigtiles kernel (bigtiles.cuh) are
+// the run-length deposit of the bigtiles kernel (bigtiles.cuh) and the tile
+// logic of the length sort (length_sort.cuh) are
 // __host__ __device__; this file loops them over lanes on the CPU behind
 // the same C interface as the CUDA launchers, so a machine without a GPU
 // can hold them bitwise against the plain PyTorch versions. Build:
@@ -21,6 +22,7 @@
 // (-ffp-contract=off: every product and sum must round once, as
 // __fmul_rn/__fadd_rn do on the device.) Nothing in the package loads it;
 // tests/test_torch_df32.py builds it when g++ is present.
+#include <algorithm>
 #include <tuple>
 #include <type_traits>
 #include <vector>
@@ -28,6 +30,7 @@
 #include "bigtiles.cuh"
 #include "classify.cuh"
 #include "classify_ext.cuh"
+#include "length_sort.cuh"
 #include "mh.cuh"
 
 using cb::df::F2;
@@ -697,6 +700,106 @@ int cbh_bigtiles_deposit(const int32_t* ids, long long n, int chunk,
     }
   }
   return 0;
+}
+
+// The interface of cb_length_sort (any tile bits lb in [5, 14]), its three
+// kernels in turn. A tile's warps append their valid keys to shared memory
+// in whatever order their atomics land, here the tile's last warp first;
+// the bitonic network runs its stages pair by pair. The offsets blocks
+// take their tickets in order, each adding up its buckets' columns by the
+// kernel's groups of tiles, its prefix the running sum of the blocks
+// before it.
+int cbh_length_sort(const void* emit_c, const void* emit_it, int n,
+                    int width, int max_it, int nb, int lb, void* scratch,
+                    void* out, void* n_valid) {
+  namespace ls = cb::lsort;
+  if (n <= 0 || width <= 0 || nb <= 0 || lb < 5 || lb > 14 ||
+      (long long)nb >= (1ll << (32 - lb)))
+    return 1;
+  const ls::Layout l = ls::layout(n, nb, lb);
+  const auto* c = static_cast<const uint32_t*>(emit_c);
+  const auto* it = static_cast<const int32_t*>(emit_it);
+  int32_t* w = static_cast<int32_t*>(scratch);
+  int32_t* tile_n = w + l.tile_n;
+  int32_t* off = w + l.off;
+  auto* runs = reinterpret_cast<uint32_t*>(w + l.runs);
+  auto* o = static_cast<uint32_t*>(out);
+  auto* o_it = reinterpret_cast<int32_t*>(o + 2 * size_t(n));
+  std::vector<uint32_t> s(size_t(1) << lb);
+  for (int t = 0; t < l.tiles; ++t) {  // length_sort_tiles_kernel
+    const int base = t << lb;
+    const int len = std::min(1 << lb, n - base);
+    int nt = 0;
+    for (int k0 = (len - 1) / 32 * 32; k0 >= 0; k0 -= 32)
+      for (int k = k0; k < std::min(k0 + 32, len); ++k)
+        if (it[base + k] >= 0)
+          s[nt++] = (uint32_t(ls::bucket(it[base + k], max_it, nb)) << lb) |
+                    uint32_t(k);
+    int p = 1;
+    while (p < nt) p <<= 1;
+    for (int i = nt; i < p; ++i) s[i] = ls::kPad;
+    for (int k = 2; k <= p; k <<= 1)
+      for (int j = k >> 1; j > 0; j >>= 1)
+        for (int i = 0; i < p / 2; ++i) ls::bitonic_pair(s.data(), k, j, i);
+    for (int i = 0; i < nt; ++i) runs[base + i] = s[i];
+    for (int b = 0; b < nb; ++b)
+      off[size_t(t) * nb + b] = ls::bucket_count(s.data(), nt, b, lb);
+    tile_n[t] = nt;
+  }
+  const int per = (l.tiles + ls::kScanRows - 1) / ls::kScanRows;
+  int prefix = 0;
+  for (int blk = 0; blk < l.blocks; ++blk) {  // length_sort_offsets_kernel
+    int part[ls::kScanRows][ls::kScanCols] = {};
+    for (int r = 0; r < ls::kScanRows; ++r)
+      for (int ci = 0; ci < ls::kScanCols; ++ci) {
+        const int b = blk * ls::kScanCols + ci;
+        const int t0 = std::min(r * per, l.tiles);
+        const int t1 = std::min(t0 + per, l.tiles);
+        if (b < nb)
+          for (int t = t0; t < t1; ++t) part[r][ci] += off[size_t(t) * nb + b];
+      }
+    int total[ls::kScanCols] = {}, agg = 0;
+    for (int ci = 0; ci < ls::kScanCols; ++ci) {
+      for (int r = 0; r < ls::kScanRows; ++r) total[ci] += part[r][ci];
+      agg += total[ci];
+    }
+    for (int ci = 0, lower = 0; ci < ls::kScanCols; lower += total[ci++]) {
+      const int b = blk * ls::kScanCols + ci;
+      if (b >= nb) continue;
+      int run = prefix + lower;
+      for (int t = 0; t < l.tiles; ++t) {
+        const size_t i = size_t(t) * nb + b;
+        const int v = off[i];
+        off[i] = run;
+        run += v;
+      }
+    }
+    prefix += agg;
+  }
+  *static_cast<long long*>(n_valid) = prefix;
+  auto place = [&](int pos, uint32_t slot) {
+    o[pos] = ls::emission_word(c, slot, width, 0);
+    o[n + pos] = ls::emission_word(c, slot, width, 1);
+    o_it[pos] = it[slot];
+  };
+  for (int t = 0; t < l.tiles; ++t) {  // length_sort_scatter_kernel
+    const int base = t << lb;
+    const int nt = tile_n[t];
+    for (int i = 0; i < nt; ++i) s[i] = runs[base + i];
+    for (int i = 0; i < nt; ++i)
+      place(ls::destination(s.data(), nt, i, lb, off + size_t(t) * nb),
+            uint32_t(base) + (s[i] & ((1u << lb) - 1)));
+  }
+  for (long long q = prefix; q < n; ++q) {
+    o[q] = o[n + q] = 0;
+    o_it[q] = -1;
+  }
+  return 0;
+}
+
+// The interface of cb_length_sort_words.
+long long cbh_length_sort_words(int n, int nb, int lb) {
+  return (long long)cb::lsort::layout(n, nb, lb).words;
 }
 
 // The interface of cb_classify_mh (ext = 0) and cb_classify_ext_mh

@@ -9,10 +9,16 @@ Port of the uniform device-replay paths of
      persistent sampling; lane state stays on the device across passes,
      so no orbit is truncated. In-band (c, escape index) candidates land
      in fixed-shape emission buffers.
-  2. ``compact``: the JAX engine's selection, bitwise — an unbiased
-     uniform key (Threefry words from the ``threefry_bits`` kernel) picks
-     at most ``replay_capacity`` emissions, then the kept ones are
-     ordered by descending orbit length.
+  2. The compaction, by one of two routes the plan decides
+     (``compact_route``). Where ``replay_capacity`` holds every emission
+     slot, ``ops.length_sort.length_sort`` (``csrc/length_sort.cu``) keeps
+     every valid emission, by descending orbit length and then slot.
+     Elsewhere ``compact``: the JAX engine's selection, bitwise — an
+     unbiased uniform key (Threefry words from the ``threefry_bits``
+     kernel) picks at most ``replay_capacity`` emissions, then the kept
+     ones are ordered by descending orbit length. Where nothing is
+     dropped the two keep the same emissions and differ only in the
+     order of equal lengths, which no output reads.
   3. ``ops.binning.replay_deposit`` (``csrc/deposit.cu``): the kernel's
      warps take the kept emissions in groups of 32, longest first, replay
      their orbits and deposit every on-canvas point into the device
@@ -23,7 +29,7 @@ Port of the uniform device-replay paths of
 At ``--precision extended`` (deep zoom) the same three steps run on
 double-float orbits: ``ops.classify_ext.classify_pass_ext``
 (``csrc/classify_ext.cu``) emits 24-bit grid indices instead of c values,
-``compact`` selects them through the same code, and
+the compaction takes them through the same code, and
 ``ops.binning.replay_deposit_ext`` (``csrc/deposit_ext.cu``) rebuilds c,
 replays in df32 and deposits.
 
@@ -85,7 +91,7 @@ from cudabrot_tpu_torch.config import (
     RenderConfig,
 )
 from cudabrot_tpu_torch.models import fractals
-from cudabrot_tpu_torch.ops import binning, df32, prng
+from cudabrot_tpu_torch.ops import binning, df32, length_sort, prng
 from cudabrot_tpu_torch.ops import classify as cls
 from cudabrot_tpu_torch.ops import classify_ext as cls_ext
 from cudabrot_tpu_torch.ops import classify_mh as cls_mh
@@ -415,6 +421,17 @@ class Tuning:
         return int(mi * (ma / mi) ** min(point_share, 0.95))
 
 
+def compact_route(tuning: Tuning) -> str:
+    """The compaction of a plan's uniform passes: "length" where its
+    replay capacity holds every emission slot (nothing can be dropped, so
+    ``length_sort`` keeps every valid emission) and the length sort takes
+    the band, else "select" (``compact``, the JAX selection)."""
+    if tuning.replay_capacity >= tuning.emission_slots and length_sort.fits(
+            tuning.emission_slots, tuning.min_it, tuning.max_it):
+        return "length"
+    return "select"
+
+
 def compact(emit_c, emit_it, key, capacity: int, max_it: int):
     """Select at most ``capacity`` valid emissions without bias and order
     them by descending orbit length — the JAX engine's selection, bitwise
@@ -481,6 +498,8 @@ class CudaEngine:
         self.steps_per_pass = self.tuning.steps_per_pass * self.lanes
         self.replay_capacity = self.tuning.replay_capacity
         self.extended = self.tuning.extended
+        #: "length" or "select": the compaction of a uniform pass.
+        self.compact_route = compact_route(self.tuning)
         #: The uniform samplers' deposit route: "fused" (replay-deposit) or
         #: an id-stream route, "bigtiles" or "ids"
         #: (``binning.ID_ROUTES``). MH deposits
@@ -679,20 +698,26 @@ class CudaEngine:
     def classify_and_compact(self, state: dict, pass_index: int,
                              ordinal: int = 0):
         """A uniform pass's classify kernel (advancing ``state["lanes"]``)
-        and compaction, keyed by ``pass_key(seed, ordinal, pass_index)``:
-        returns ``(batch, result, n_valid)``, the kept ``(cr, ci, iters)``
-        (grid indices at extended precision), the classify result and the
-        count of valid emissions. The JAX engine's
-        ``_classify_and_compact``."""
+        and compaction (``compact_route``), keyed by ``pass_key(seed,
+        ordinal, pass_index)``: returns ``(batch, result, n_valid)``, the
+        kept ``(cr, ci, iters)`` (grid indices at extended precision) longest
+        first, the classify result and the count of valid emissions. The
+        JAX engine's ``_classify_and_compact``, whose kept set it keeps
+        (the same batch, bitwise, on the select route)."""
         result = self.classify(state, pass_index, ordinal)
+        tn = self.tuning
         # Extended emissions carry grid indices (kr, ki) where the f32 ones
-        # carry (cr, ci); the selection is the same.
-        with trace.span("cb.compact", device=self.device):
-            cr_c, ci_c, it_c, n_valid = compact(
-                result.emit_c, result.emit_it,
-                prng.pass_key(self.cfg.seed, ordinal, pass_index),
-                self.replay_capacity, self.tuning.max_it,
-            )
+        # carry (cr, ci); the compaction is the same.
+        with trace.span("cb.compact", device=self.device,
+                        route=self.compact_route):
+            if self.compact_route == "length":
+                cr_c, ci_c, it_c, n_valid = length_sort.length_sort(
+                    result.emit_c, result.emit_it, tn.min_it, tn.max_it)
+            else:
+                cr_c, ci_c, it_c, n_valid = compact(
+                    result.emit_c, result.emit_it,
+                    prng.pass_key(self.cfg.seed, ordinal, pass_index),
+                    self.replay_capacity, tn.max_it)
         return (cr_c, ci_c, it_c), result, n_valid
 
     def classify(self, state: dict, pass_index: int, ordinal: int = 0):

@@ -39,8 +39,10 @@ drain.
 ``stop`` turns the tracer off and returns its snapshot: for each span
 name the count, host ms in total and self (less its child spans), and,
 where it had device events, device ms in total and per pass at p50 and
-p90; the sync bubbles; the group ends (``sync_groups``), those with a
-replay tail (``replay_tails``) and the tails' device ms past the drain
+p90; the sync bubbles; the compactions by their ``route`` attribute
+(``compact_routes``: "length" or "select", one a pass and device); the
+group ends (``sync_groups``), those with a replay tail
+(``replay_tails``) and the tails' device ms past the drain
 (``replay_tail_ms``); and the buffer record (the addresses of the
 histogram and of the lane state, and the allocator's reserved bytes),
 taken once, after the first synchronize.
@@ -48,6 +50,7 @@ taken once, after the first synchronize.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 from typing import NamedTuple
@@ -192,8 +195,12 @@ class Tracer:
             spans[name].update(device_ms=float(sum(ms)),
                                device_ms_p50=float(p50),
                                device_ms_p90=float(p90))
+        routes = collections.Counter(r.attrs.get("route")
+                                     for r in self.records
+                                     if r.name == "cb.compact")
         return {"spans": spans, "sync_bubble_ms": self.bubble_ms,
                 "sync_bubbles": self.bubbles, "sync_groups": self.sync_groups,
+                "compact_routes": dict(routes),
                 "replay_tails": self.replay_tails,
                 "replay_tail_ms": self.replay_tail_ms,
                 "buffers": self.buffers or {}}

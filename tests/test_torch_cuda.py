@@ -1525,3 +1525,95 @@ def test_df32_passes_on_card_equal_the_benchmark_reference(cuda):
     kernels = {e.key for e in prof.key_averages()}
     assert any("classify_ext_kernel" in k for k in kernels)
     assert any("replay_deposit_ext" in k for k in kernels)
+
+
+#: The length sort's cells: canvas1k.default's plan, hires15k.coarse's
+#: band (its plan does not depend on the canvas) and zoom1e5.df32's.
+SORT_CELLS = {
+    "default": ["-w", "1000", "-h", "1000"],
+    "coarse": ["-w", "1000", "-h", "1000", "-m", "500", "-c", "20"],
+    "zoom": ["-w", "1600", "-h", "1200", *ZOOM]}
+
+
+def _cell_emissions(argv, passes=4):
+    """A classify pass's emission buffers at a cell's plan, from lanes
+    carried ``passes`` passes, and the engine."""
+    eng = CudaEngine(_cell(argv), device="cuda")
+    state = eng.init_state(None)
+    for p in range(passes):
+        eng.run_pass(state, p)
+    return eng.classify(state, passes), eng
+
+
+@pytest.mark.parametrize("cell", sorted(SORT_CELLS))
+def test_length_sort_kernel_matches_plain_at_the_cells(cuda, cell):
+    """The length sort's kernels against the plain version, bitwise, on a
+    pass's emission buffers at canvas1k.default's, hires15k.coarse's and
+    zoom1e5.df32's slot counts and bands (8,388,608 slots in 80 and 480
+    buckets, 2,097,152 in 19,500), and the plan's route is the length
+    sort's."""
+    from cudabrot_tpu_torch.ops import length_sort as ls
+
+    res, eng = _cell_emissions(SORT_CELLS[cell])
+    tn = eng.tuning
+    assert eng.compact_route == "length"
+    launches.reset()
+    got = ls.length_sort(res.emit_c, res.emit_it, tn.min_it, tn.max_it)
+    assert launches.COUNTS["length_sort"] == 1
+    want = ls.length_sort_plain(res.emit_c, res.emit_it, tn.min_it,
+                                tn.max_it)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _same(a, b)
+    assert 0 < int(got[3]) < res.emit_it.numel()
+
+
+@pytest.mark.parametrize("lb", [5, 9, 13, 14])
+@pytest.mark.parametrize("share", [0.0, 0.07, 0.5, 1.0])
+def test_length_sort_kernel_tiles_match_plain(cuda, lb, share):
+    """Any tile size, on random buffers of 3 windows of 2,304 lanes with a
+    ragged last tile, every slot valid or none, the default band and the
+    zoom's."""
+    from cudabrot_tpu_torch.ops import length_sort as ls
+
+    gen = torch.Generator(device=cuda).manual_seed(lb)
+    for lo, hi in ((20, 100), (500, 20000)):
+        it = torch.randint(lo, hi, (3, 18, 128), generator=gen, device=cuda,
+                           dtype=torch.int32)
+        it[torch.rand(it.shape, generator=gen, device=cuda) >= share] = -1
+        c = torch.randint(-2**31, 2**31, (3, 2, 18, 128), generator=gen,
+                          device=cuda, dtype=torch.int64).to(torch.int32)
+        c = c.view(torch.float32)
+        got = ls.launch(c, it, lo, hi, lb)
+        want = ls.length_sort_plain(c, it, lo, hi)
+        for a, b in zip(got, want):
+            assert _same(a, b)
+
+
+@pytest.mark.parametrize("cell", ["default", "zoom"])
+def test_length_sort_route_renders_as_the_selection(cuda, monkeypatch, cell):
+    """16 engine passes at a cell's plan through the length sort, and
+    through the JAX selection (``compact_route`` patched to "select"):
+    the histogram, the lanes and every counter bit for bit."""
+    from cudabrot_tpu_torch.engines import cuda_engine as ce
+
+    cfg = _cell(SORT_CELLS[cell])
+    runs = {}
+    for route in ("length", "select"):
+        if route == "select":
+            monkeypatch.setattr(ce, "compact_route", lambda tn: "select")
+        eng = CudaEngine(cfg, device=cuda)
+        assert eng.compact_route == route
+        launches.reset()
+        state = eng.init_state(None)
+        for p in range(16):
+            eng.run_pass(state, p)
+        ran = launches.snapshot()
+        assert ran["length_sort"] == (16 if route == "length" else 0)
+        assert ran["threefry_bits"] == (16 if route == "select" else 0)
+        runs[route] = (eng.histogram(state), eng.stats(state), state["lanes"])
+    (hl, sl, ll), (hs, ss, lsel) = runs["length"], runs["select"]
+    np.testing.assert_array_equal(hl, hs)
+    assert int(hl.sum(dtype=np.uint64)) == sl["on_canvas_points"] > 0
+    assert sl == ss
+    for x, y in zip(ll, lsel):
+        assert _same(x, y)

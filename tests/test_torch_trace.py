@@ -14,6 +14,7 @@ from cudabrot_tpu_torch.config import (
     IterationBand,
     RenderConfig,
 )
+from cudabrot_tpu_torch.ops import launches
 from cudabrot_tpu_torch.utils import trace
 
 PASSES = 4
@@ -112,6 +113,28 @@ def test_tracing_leaves_histogram_and_counters_bitwise(options, layers):
     assert set(spans) == {*layers, "cb.sync"}
     for name in layers:
         assert spans[name]["count"] == PASSES, name
+
+
+@pytest.mark.parametrize("capacity, route", [(4096, "length"),
+                                             (1024, "length"),
+                                             (512, "select")])
+def test_compaction_route_is_counted_and_on_the_span(capacity, route):
+    """A plan whose capacity holds its 1,024 emission slots compacts by
+    the length sort, one below them by the selection: the span's
+    ``route`` attribute and the count a route say which, every pass."""
+    cfg = _cfg(replay_capacity=capacity)
+    engine = engines.make_engine(cfg, device="cpu")
+    assert engine.tuning.emission_slots == 1024
+    assert engine.compact_route == route
+    launches.reset()
+    result, _ = _profiled(cfg, engine)
+    assert result.stats["trace"]["compact_routes"] == {route: PASSES}
+    assert {r.attrs["route"] for r in trace.last().records
+            if r.name == "cb.compact"} == {route}
+    ran = {"length": "length_sort_plain", "select": "threefry_bits_plain"}
+    assert launches.COUNTS[ran[route]] == PASSES
+    assert all(launches.COUNTS[k] == 0 for k in ran.values()
+               if k != ran[route])
 
 
 def test_data_parallel_records_each_replica():
