@@ -4,24 +4,20 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each fails the run on any mismatch):
-  1. Build the CUDA kernels from csrc/ (one nvcc per source, and the
-     classify kernel's study builds with 1 and 4 lanes per thread, all in
-     parallel) and print their registers and spills (nvcc -Xptxas -v).
+  1. Build the CUDA kernels from csrc/ (one nvcc per source, all in
+     parallel) and print their registers, shared memory and spills (nvcc
+     -Xptxas -v).
   2. classify kernel vs its plain PyTorch version, bitwise (lane state,
      emissions, stats), at full lane width from a carried state: the
-     default band [20,100) and [2000,20000) (auto inner window, Brent),
-     each through the builds with 1, 2 (the package's) and 4 lanes per
-     thread;
+     default band [20,100) and [2000,20000) (auto inner window, Brent);
      threefry_bits vs its plain version at the default band's slot count;
      classify_ext (df32) vs its plain version the same way, one pass of
      the deep-zoom cell's geometry (4096 steps: eight flush windows with
-     refills, emissions and Brent saves) from a state carried 8 passes,
-     in the package's build and each study build (STUDY_EXT_BUILDS);
+     refills, emissions and Brent saves) from a state carried 8 passes;
      classify_mh and classify_ext_mh (the Metropolis-Hastings chain
      kernels) vs their plain version on one whole main-path pass of the
      mhcrop and the mhzoom cell (4096 steps in four flush windows; 16384
-     steps in one), from a state carried 4 passes, classify_ext_mh also in
-     each study build (STUDY_EXT_MH_BUILDS).
+     steps in one), from a state carried 4 passes.
   3. deposit_ids vs index_add_ bitwise on random ids with sentinels at
      1000x1000 and 6000x4500; replay_deposit vs its plain version bitwise
      on a compacted batch from phase 2, at the package's resident warps
@@ -48,7 +44,9 @@ Phases (each fails the run on any mismatch):
      --emit-filter canvas over the same 8x domain); two seeds of each must
      agree as measures (block correlation, bright-half mass ratio), and the
      deposited mass per second of both is printed.
-  5. Kernel times at each cell's main-path shapes (CUDA events; the MH
+  5. The SASS counts of the refill draw and the f32 lane window that
+     OPS_DRAW, OPS_STEP and OPS_BOUNDARY rest on (sass_study, cuobjdump);
+     kernel times at each cell's main-path shapes (CUDA events; the MH
      deposit, whose call is bound by the host, by its kernel time in
      torch.profiler, which must show the engine's deposit step as one
      launch) beside their bounds and unfused issue floors; where a cell's
@@ -104,14 +102,11 @@ Phases (each fails the run on any mismatch):
      localhost; -d 0 --devices 2) against the single-process data-parallel
      render: histograms, stats, the checkpoint and the PGM bytes bitwise,
      the second process silent, each path's kernels launched and no plain
-     version run. Then the replicated replay_deposit (default) and
-     replay_deposit_ext (zoom) in five rounds beside the times recorded
-     before the row window (RECORDED_REPLAY_MS), a pass of DP x2 on one
-     card beside a single engine's, the row-sharded pass with and
-     without re-sorting its gathered batch (LongestFirst, here only), and
-     the allocator's peak on cuda:0 while four row shards of the
-     northstar canvas are built and run (the shards, never a whole canvas
-     more).
+     version run. Then a pass of DP x2 on one card beside a single
+     engine's, the row-sharded pass with and without re-sorting its
+     gathered batch (LongestFirst, here only), and the allocator's peak
+     on cuda:0 while four row shards of the northstar canvas are built
+     and run (the shards, never a whole canvas more).
   11. The host orbit replay through cudabrot_tpu_torch.cli.main: the
      native library's build (g++, beside the nvcc builds of phase 1); the
      calibration probe with --quick (its constants printed, and the auto
@@ -184,63 +179,15 @@ racecheck, synccheck and initcheck tools, ``--error-exitcode 1`` and
 per kernel; it fails on any error, on a kernel the target did not launch,
 and where the sanitizer does not support the card.
 
-``--routes`` builds and runs phases 13 and 3c alone. ``--deposit-study``
-builds and runs phase 3c with the deposit_ids designs that were measured
-and dropped (DEPOSIT_STUDY_CU: the grid-stride kernel the package's
-replaced, a warp's equal-id sum, a histogram band privatized in a
-thread-block cluster's distributed shared memory), each held to
-deposit_ids_plain bitwise and timed in turns with the package's kernel.
-``--host`` builds
-and runs phase 11 alone. ``--multi`` builds and runs
-phase 10 alone; ``--replay-retime`` only its
-re-timing of the two fused replays on the replicated histogram (which an
-older tree's package runs too, for a before/after in one call).
-``--cards`` (on a host with several cards) runs the
-multi-device engines across every card (cards_study).
-``--ext-budget-sweep`` instead builds and times deep-zoom engine passes at
-2^27..2^30 lane-steps per pass (the measurement behind keeping
-``cuda_engine.LANE_STEP_BUDGET`` at extended precision).
-``--replay-study`` builds and runs phase 7, phase 7c (the f32
+``--routes`` builds and runs phases 13 and 3c alone. ``--host`` builds
+and runs phase 11 alone. ``--multi`` builds and runs phase 10 alone.
+``--replay-study`` builds and runs phase 7 and phase 7c (the f32
 replay-deposit's long-orbit floor at the deep and northstar batches, and
-the default, deep and northstar batches at 4..64 resident warps per SM and
-without the queue) and phase 7d (the f32 replay_ids kernel at the
-bigcanvas and northstar batches: its staged stores against the study
-builds with a store per point, with on-canvas stores into a sentinel-filled
-stream and without the queue, each held word for word to it; its resident
-warps and takes), then times 16 engine passes of every cell on the host
-clock (synchronizing every 8, as the driver does; the big cells through
-both routes). ``--mh-deposit-study`` measures the MH deposit at the
-mhcrop and mhzoom cells: slots, depositable emissions, pairs and the
-distinct bins among each warp group's pairs; the kernel at 1..16 blocks
-per SM; the engine's deposit step on the host clock and in torch.profiler (device
-activities and ms a step); and each cell's pass. ``--mh-study`` runs it,
-then measures the f32 MH classify kernel at the
-mhcrop cell, at V = 8 and 32, in its package build and its study builds
-(two lanes a thread; the reservoirs all in registers or all in shared
-memory; the window as a run-time loop): with in-kernel
-Threefry against the same pass fed its boundary words (bitwise equal),
-issue cycles per warp-step, proposals per lane-step, the share of
-warp-windows with a finished lane and the Threefry warp-passes its
-compaction runs, the mhcrop pass per build, classify_ext_mh's mhzoom pass,
-and the registers and spills of every instantiation. ``--classify-study``
-measures the f32 classify kernel at the default cell: with in-kernel
-Threefry against the same pass fed its words, the draw profile, issue
-cycles per warp-step, the lanes-per-thread sweep (the study builds), the
-SASS counts of the refill draw and of the lane window (its inner step and
-boundary) by pipe, and an Nsight Compute probe. ``--ext-study`` measures
-the two df32 classify kernels (ext_study): the SASS counts of the df32
-step, of classify_ext's boundary with and without a finished lane and of
-the MH df32 window, with the check that each df32 two-product's error is
-one FFMA and no other operation fused; the registers and spills of every
-build; each kernel's pass in every build at its cell (classify_ext at
-zoom, classify_ext_mh at mhzoom with V = 8 and 32); refills and proposals
-per lane-step and the share of warp-windows with a finished lane; the
-zoom and mhzoom passes; phase 7; and the zoom cell through cli.main at
---inner-unroll 1, 2, 4 and 8, and mhzoom at its window and at U = 32. The
-study flags combine (one build, the studies in the order given), and
-build the study variants beside the package's libraries. Run from a copy of another commit's tree (the script beside its
-package), each gives that commit's numbers, so two commits compare within
-one call.
+the default, deep and northstar batches at 4..64 resident warps per SM,
+the default batch at each number of groups a warp takes). The flags
+combine (one build, the phases in the order given). Run from a copy of
+another commit's tree (the script beside its package), each gives that
+commit's numbers, so two commits compare within one call.
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line {"ok": true, "device": {...}}. Exits non-zero, with
@@ -278,19 +225,19 @@ PEAK_INT = 16.7e12
 #: of which FFMA). An FFMA is one instruction for the issue floor and two
 #: operations for the bound. A refill draw (Threefry-2x32 69 (49 ALU), the
 #: domain map of two words 11 (2), the cull 13 (3)), a Threefry word of
-#: threefry_bits (the block and the xor): SASS counts that chip_smoke.py
-#: --classify-study (sass_study) prints for sm_90a. The f32 classify's
+#: threefry_bits (the block and the xor): SASS counts that phase 5
+#: (sass_study) prints for sm_90a. The f32 classify's
 #: inner step and window boundary (the default cell's thin-tracking window
 #: with Brent checks): SASS counts, as above, from the loop bodies of one
 #: window at U = 0, 1 and 2. A replayed f32 orbit point (step + bin), a
 #: deposited id: hand counts from csrc/*.cu, all on the FMA pipe. The df32
-#: ones are SASS counts that --ext-study (ext_sass_study) prints: the
+#: ones are SASS counts measured in PR 9: the
 #: classify_ext inner step (the df32 step, three FFMA two-products, with
 #: the survival count and the window's end), the boundary every lane-window
 #: takes (a warp with no finished lane pays only this), ext_finish (the
 #: rest of a finished lane's boundary and its refill draw, paid per
 #: refill), and the MH df32 window boundary. The MH df32 inner step is the
-#: df32 step (60, the same study) plus by hand the centre-relative window
+#: df32 step (60, the same count) plus by hand the centre-relative window
 #: coordinates (6), the window test (7), the LCG (2) and the visit and
 #: survival counts (3): its loop body in the SASS (123) also holds the
 #: reservoir's take test and a recorded visit's bin, which few steps run.
@@ -373,13 +320,6 @@ ORACLE_PASSES = 2
 #: orbit, and the heads of the descending zoom batch it is timed inside.
 FLOOR_STEPS = 19_999
 FLOOR_HEADS = (32, 128, 256, 1024, 4096, 16384)
-#: Cells and routes whose engine passes phase 7b times: every cell, the
-#: big ones through both routes.
-STUDY_CELLS = (("default", "auto"), ("deep", "auto"), ("zoom", "auto"),
-               ("mhzoom", "auto"), ("mhcrop", "auto"),
-               *((name, route)
-                 for name in ("bigcanvas", "northstar", "bigzoom")
-                 for route in ("auto", "bigtiles")))
 #: Every hand-written kernel: source, the TPU code it replaces, and the
 #: cell whose main-path run counts its launches and gives its shapes
 #: ("cell:route": the cell with --scatter route, phase 13; deposit_ids'
@@ -565,15 +505,11 @@ def path_kernels(name, scatter="auto"):
 # ----------------------------------------------------------------------
 
 
-def phase_build(studies=()):
-    """Phase 1: the package's libraries and the study builds phase 2 holds
-    to the plain versions (the classify kernel's lanes per thread, the
-    df32 classify builds); with the study flags ``studies``, also the
-    variant builds of the replay and f32 MH classify kernels those studies
-    time (STUDY_DEPOSIT_BUILDS for --replay-study, STUDY_MH_BUILDS for
-    --mh-study). Where phase 3c runs (the default run, --routes and
-    --deposit-study) also the atomic ceiling's RED_CEILING_CU, and with
-    --deposit-study the dropped designs' DEPOSIT_STUDY_CU."""
+def phase_build(flags=()):
+    """Phase 1: the package's libraries, their registers, shared memory and
+    spills (nvcc -Xptxas -v), and the native host replay. Where phase 3c
+    runs (the default run and --routes) also the atomic ceiling's
+    RED_CEILING_CU."""
     import concurrent.futures
 
     from cudabrot_tpu_torch.io import native
@@ -581,84 +517,35 @@ def phase_build(studies=()):
 
     log("== phase 1: build")
     t0 = time.monotonic()
-    variants = [("classify", d) for d in map(lanes_defines,
-                                             STUDY_LANES_PER_THREAD) if d]
-    variants += [("classify_ext", d) for _, d in STUDY_EXT_BUILDS if d]
-    variants += [("classify_mh", d) for _, d in STUDY_EXT_MH_BUILDS if d]
-    if "--replay-study" in studies:
-        variants += [("deposit", d) for _, d in STUDY_DEPOSIT_BUILDS if d]
-    if "--mh-study" in studies:
-        variants += [("classify_mh", d) for _, d in STUDY_MH_BUILDS if d]
-    if studies and set(studies) <= PACKAGE_ONLY:
-        variants = []
-    libs = []
-    if not studies or {"--routes", "--deposit-study"} & set(studies):
-        libs.append("red_ceiling")
-    if "--deposit-study" in studies:
-        libs.append("deposit_study")
+    ceiling = not flags or "--routes" in flags
     # The host replay's library builds with g++ beside the nvcc builds.
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         native_build = pool.submit(native.load)
-        started = [start_study_build(name) for name in libs]
-        _build.build_all(variants=variants)
+        started = start_ceiling_build() if ceiling else None
+        _build.build_all()
         native_build.result()
-        for one in started:
-            finish_study_build(one)
-    log(f"  built {', '.join(_build.LIBS)} and {len(variants)} study "
-        f"builds in {time.monotonic() - t0:.1f} s; the native host replay "
-        f"(g++) in {native.build_seconds:.1f} s")
-    for name, d in [(n, ()) for n in _build.LIBS] + variants:
-        for line in _build.ptxas_report(name, d).splitlines():
+        if started:
+            finish_ceiling_build(started)
+    log(f"  built {', '.join(_build.LIBS)} in {time.monotonic() - t0:.1f} "
+        f"s; the native host replay (g++) in {native.build_seconds:.1f} s")
+    for name in _build.LIBS:
+        for line in _build.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  [{name}{''.join(' -D' + x for x in d)}] "
-                    f"{line.strip()}")
-
-
-@contextlib.contextmanager
-def ext_build(defines):
-    """classify_pass_ext runs the build with these -D macros inside (the
-    package's for none)."""
-    from cudabrot_tpu_torch.ops import classify_ext as cx
-
-    if not defines:
-        yield
-        return
-    lib = cx._lib(defines)
-    with mock.patch.object(cx, "_lib", lambda: lib):
-        yield
+                log(f"  [{name}] {line.strip()}")
 
 
 def package_lanes() -> int:
     """The lanes per thread of the package's classify build
-    (csrc/classify.cu's CB_LANES_PER_THREAD)."""
+    (csrc/classify.cu's kLanesPerThread)."""
     import re
 
     from cudabrot_tpu_torch.ops import _build
 
     src = (_build.CSRC / "classify.cu").read_text()
-    m = re.search(r"#define CB_LANES_PER_THREAD (\d+)", src)
+    m = re.search(r"constexpr int kLanesPerThread = (\d+);", src)
     return int(m.group(1)) if m else 1
 
 
-def lanes_defines(S) -> tuple:
-    """The macro definitions of the classify build with S lanes per
-    thread: none for the package's own."""
-    return () if S in (None, package_lanes()) else (
-        f"CB_LANES_PER_THREAD={S}",)
-
-
-@contextlib.contextmanager
-def classify_lanes(S):
-    """classify_pass runs the build with S lanes per thread inside."""
-    from cudabrot_tpu_torch.ops import classify as cls
-
-    d = lanes_defines(S)
-    if not d:
-        yield
-        return
-    lib = cls._lib(d)
-    with mock.patch.object(cls, "_lib", lambda: lib):
-        yield
 
 
 def classify_spec(cfg, steps, flush):
@@ -712,13 +599,6 @@ def phase_classify(dev):
                       {"kernel": ra, "plain": rb})
         err = check_classify(tag, cls.LaneState._fields, ra, rb)
         errs["classify"] = max(errs.get("classify", 0.0), err)
-        for S in STUDY_LANES_PER_THREAD:
-            with classify_lanes(S):
-                rs = cls.classify_pass(clone_state(state), seed, **spec)
-                hold_classify(f"{tag} S={S}", state, seed, spec, args,
-                              {f"kernel S={S}": rs, "plain": rb})
-            errs["classify"] = max(errs["classify"], check_classify(
-                f"{tag} S={S}", cls.LaneState._fields, rs, rb))
         n_em = int((ra.emit_it >= 0).sum())
         cyc = int(ra.stats[cls.STAT_CYCLES].sum())
         log(f"  {tag}: {n_em} emissions, {cyc} Brent cycles in the pass")
@@ -787,11 +667,6 @@ def phase_classify_ext(dev):
            f"U={tn.inner_unroll} steps={tn.steps_per_pass} "
            f"lanes={tn.lanes}")
     err = check_classify(tag, cx.ExtLaneState._fields, ra, out["r"])
-    for label, d in STUDY_EXT_BUILDS[1:]:
-        with ext_build(d):
-            rs = cx.classify_pass_ext(clone_state(state), seed, **spec)
-        err = max(err, check_classify(f"{tag} {label}",
-                                      cx.ExtLaneState._fields, rs, out["r"]))
     for f, t in zip(cx.ExtLaneState._fields, ra.state):
         if t.dtype == torch.float32:
             check(bool(torch.isfinite(t).all()),
@@ -965,14 +840,6 @@ def phase_classify_mh(dev, name):
              *((getattr(ra, f), getattr(rb, f)) for f in MH_OUT_FIELDS)]
     for f, (x, y) in zip((*state._fields, *MH_OUT_FIELDS), pairs):
         check(same_bits(x, y), f"{tag}: {f} bitwise")
-    for label, d in (STUDY_EXT_MH_BUILDS[1:] if ext else ()):
-        with mh_build(d, kernel):
-            rs = classify(clone_state(state), seed, **spec)
-        more = [*zip(rs.state, rb.state),
-                *((getattr(rs, f), getattr(rb, f)) for f in MH_OUT_FIELDS)]
-        check(all(same_bits(x, y) for x, y in more),
-              f"{tag} {label}: lane state and emissions bitwise")
-        pairs += more
     for f, t in zip(state._fields, ra.state):
         if t.dtype == torch.float32:
             check(bool(torch.isfinite(t).all()),
@@ -1039,22 +906,6 @@ def mh_deposit_bound(prof, rate):
     t_ops = prof["pairs"] / rate
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
-
-def atomic_rate(dev):
-    """Histogram atomics per ms that deposit_ids reaches on phase 3's
-    1000x1000 stream (2^24 random ids, 10% of them the sentinel)."""
-    import torch
-
-    from cudabrot_tpu_torch.ops import binning
-
-    gen = torch.Generator(device=dev).manual_seed(7)
-    nbins, n_ids = 1000 * 1000, 1 << 24
-    ids = torch.randint(0, nbins, (n_ids,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    ids[torch.rand(n_ids, generator=gen, device=dev) < 0.1] = nbins
-    hist = torch.zeros(nbins, dtype=torch.int32, device=dev)
-    return int((ids < nbins).sum()) / time_ms(
-        lambda: binning.deposit_ids(hist, ids), 20)
 
 
 def mh_deposit_step(state, res):
@@ -1785,9 +1636,11 @@ def mh_cell_times(dev, name, rate):
 
 
 def phase_kernel_times(dev, rate):
-    """Phase 5: every cell's kernel times at its main-path shapes, by cell
-    and kernel. ``rate``: the histogram atomics per ms deposit_ids reaches
-    on phase 3's 1000x1000 stream."""
+    """Phase 5: the SASS counts that OPS_STEP, OPS_BOUNDARY and OPS_DRAW
+    rest on (sass_study), then every cell's kernel times at its main-path
+    shapes, by cell and kernel. ``rate``: the histogram atomics per ms
+    deposit_ids reaches on phase 3's 1000x1000 stream."""
+    sass_study()
     times = {name: (mh_cell_times(dev, name, rate) if "--sampler" in args
                     else cell_times(dev, name, name == "default"))
              for name, args, _ in CELLS}
@@ -2216,239 +2069,6 @@ extern "C" int cbs_red_ceiling(void* buf, unsigned n, int blocks, int per,
   return int(cudaGetLastError());
 }
 """
-#: The designs of deposit_ids that were measured and dropped (--deposit-study,
-#: phase 3c's designs), built from this source beside the package (the
-#: package keeps one kernel, csrc/deposit.cu).
-DEPOSIT_STUDY_CU = r"""
-// Study kernels of the histogram id deposit, built by chip_smoke.py
-// --deposit-study beside the package (not part of it): the designs of
-// deposit_ids that were measured, each held to deposit_ids_plain bitwise.
-// Plain C launch functions return the cudaError_t of the launch.
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
-
-namespace {
-
-constexpr int kBlock = 256;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ void add_id(uint32_t* hist, int32_t b,
-                                       int32_t nbins) {
-  if (uint32_t(b) < uint32_t(nbins)) atomicAdd(hist + b, 1u);
-}
-
-// Design 0, the package's kernel before its 16-byte loads: a grid-stride
-// loop, one 4-byte load and one RED an id.
-__global__ void __launch_bounds__(kBlock)
-    grid_stride_kernel(const int32_t* ids, long long n, uint32_t* hist,
-                       int32_t nbins) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    add_id(hist, ids[i], nbins);
-}
-
-// The ids before the first 16-byte boundary (0..3 of them).
-__device__ __forceinline__ long long head_ids(const int32_t* ids,
-                                              long long n) {
-  const long long h = (long long)((16u - (uintptr_t(ids) & 15u)) & 15u) / 4;
-  return h < n ? h : n;
-}
-
-// Design 1: the package's 16-byte evict-first loads (csrc/deposit.cu),
-// staged per warp so that each round matches 32 consecutive ids: equal ids
-// of a round are summed (__match_any_sync) and added by their lowest lane
-// with one RED.
-__global__ void __launch_bounds__(kBlock)
-    match_kernel(const int32_t* ids, long long n, uint32_t* hist,
-                 int32_t nbins) {
-  __shared__ int4 stage[kBlock];
-  const int lane = threadIdx.x & 31;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long head = head_ids(ids, n);
-  if (tid < head) add_id(hist, ids[tid], nbins);
-  const int4* v = reinterpret_cast<const int4*>(ids + head);
-  const long long nv = (n - head) / 4;
-  const long long groups = (nv + 31) / 32;
-  int4* const st = stage + (threadIdx.x & ~31);
-  const int32_t* const sw = reinterpret_cast<const int32_t*>(st);
-  for (long long g = tid >> 5; g < groups; g += stride >> 5) {
-    const long long i = g * 32 + lane;
-    st[lane] = i < nv ? __ldcs(v + i) : make_int4(nbins, nbins, nbins, nbins);
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int32_t b = sw[32 * r + lane];
-      const unsigned m = __match_any_sync(kFull, b);
-      if (uint32_t(b) < uint32_t(nbins) && lane == __ffs(m) - 1)
-        atomicAdd(hist + b, unsigned(__popc(m)));
-    }
-    __syncwarp();
-  }
-  const long long t = head + 4 * nv + tid;
-  if (t < n) add_id(hist, ids[t], nbins);
-}
-
-// Design 2: the histogram privatized in a thread-block cluster's
-// distributed shared memory. A cluster's blocks hold one band of
-// kDsmemWords x cluster bins; cluster c counts band c % nbands of the
-// stream's slice c / nbands (so every id is read once per band), with
-// atomics into the owning block's shared memory, and each block adds its
-// words to the histogram once.
-constexpr int kDsmemWords = 32768;  // 128 KB a block
-
-__global__ void __launch_bounds__(kBlock)
-    dsmem_kernel(const int32_t* ids, long long n, uint32_t* hist,
-                 int32_t nbins, int nbands) {
-  extern __shared__ uint32_t sm[];
-  cg::cluster_group cl = cg::this_cluster();
-  const unsigned rank = cl.block_rank();
-  const unsigned csize = cl.num_blocks();
-  const int cluster = blockIdx.x / csize;
-  const int band = cluster % nbands;
-  const int reps = gridDim.x / csize / nbands;
-  const int rep = cluster / nbands;
-  const long long band_bins = (long long)csize * kDsmemWords;
-  const long long lo = band * band_bins;
-  const long long hi = lo + band_bins < nbins ? lo + band_bins : nbins;
-  for (int j = threadIdx.x; j < kDsmemWords; j += blockDim.x) sm[j] = 0;
-  cl.sync();
-  auto add = [&](int32_t b) {
-    if (b >= lo && b < hi) {
-      const uint32_t off = uint32_t(b - lo);
-      uint32_t* dst = cl.map_shared_rank(sm, off / kDsmemWords);
-      atomicAdd(dst + off % kDsmemWords, 1u);
-    }
-  };
-  const long long tid = (long long)rank * blockDim.x + threadIdx.x;
-  const long long stride = (long long)csize * blockDim.x;
-  const long long head = head_ids(ids, n);
-  const int4* v = reinterpret_cast<const int4*>(ids + head);
-  const long long nv = (n - head) / 4;
-  const long long v0 = nv * rep / reps, v1 = nv * (rep + 1) / reps;
-  if (rep == 0) {
-    if (tid < head) add(ids[tid]);
-    const long long t = head + 4 * nv + tid;
-    if (t < n) add(ids[t]);
-  }
-  for (long long i = v0 + tid; i < v1; i += stride) {
-    const int4 q = __ldcs(v + i);
-    add(q.x);
-    add(q.y);
-    add(q.z);
-    add(q.w);
-  }
-  cl.sync();
-  for (int j = threadIdx.x; j < kDsmemWords; j += blockDim.x) {
-    const long long g = lo + (long long)rank * kDsmemWords + j;
-    const uint32_t c = sm[j];
-    if (c != 0 && g < hi) atomicAdd(hist + g, c);
-  }
-}
-
-cudaLaunchConfig_t dsmem_config(int cluster, int grid, cudaStream_t stream,
-                                cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kBlock);
-  cfg.dynamicSmemBytes = kDsmemWords * 4;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-cudaError_t dsmem_attributes(int cluster) {
-  cudaError_t e = cudaFuncSetAttribute(
-      dsmem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kDsmemWords * 4);
-  if (e == cudaSuccess && cluster > 8)
-    e = cudaFuncSetAttribute(dsmem_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return e;
-}
-
-int grid_of(long long n, int blocks) {
-  long long grid = (n + kBlock - 1) / kBlock;
-  return int(grid < blocks ? (grid > 0 ? grid : 1) : blocks);
-}
-
-}  // namespace
-
-// design: 0 grid stride, 1 match; blocks: the grid's cap (the ids need
-// fewer blocks when they are few).
-extern "C" int cbs_deposit(int design, const void* ids, long long n,
-                           void* hist, int nbins, int blocks, void* stream) {
-  if (n <= 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const int32_t*>(ids);
-  auto* h = static_cast<uint32_t*>(hist);
-  switch (design) {
-    case 0:
-      grid_stride_kernel<<<grid_of(n, blocks), kBlock, 0, s>>>(p, n, h,
-                                                               nbins);
-      break;
-    case 1:
-      match_kernel<<<grid_of((n + 3) / 4, blocks), kBlock, 0, s>>>(p, n, h,
-                                                                  nbins);
-      break;
-    default:
-      return int(cudaErrorInvalidValue);
-  }
-  return int(cudaGetLastError());
-}
-
-// The clusters of `cluster` blocks (128 KB of shared memory each) that can
-// be resident at once, into *out.
-extern "C" int cbs_dsmem_clusters(int cluster, int* out) {
-  cudaError_t e = dsmem_attributes(cluster);
-  if (e != cudaSuccess) return int(e);
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = dsmem_config(cluster, cluster, nullptr, attr);
-  return int(cudaOccupancyMaxActiveClusters(out, dsmem_kernel, &cfg));
-}
-
-// Design 2 over `clusters` clusters of `cluster` blocks, rounded down to
-// whole sets of bands (at least one).
-extern "C" int cbs_deposit_dsmem(const void* ids, long long n, void* hist,
-                                 int nbins, int cluster, int clusters,
-                                 void* stream) {
-  if (n <= 0) return 0;
-  cudaError_t e = dsmem_attributes(cluster);
-  if (e != cudaSuccess) return int(e);
-  const long long band_bins = (long long)cluster * kDsmemWords;
-  const int nbands = int((nbins + band_bins - 1) / band_bins);
-  const int reps = clusters / nbands > 0 ? clusters / nbands : 1;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = dsmem_config(cluster, nbands * reps * cluster,
-                                        static_cast<cudaStream_t>(stream),
-                                        attr);
-  e = cudaLaunchKernelEx(&cfg, dsmem_kernel,
-                         static_cast<const int32_t*>(ids), n,
-                         static_cast<uint32_t*>(hist), int32_t(nbins),
-                         nbands);
-  if (e != cudaSuccess) return int(e);
-  return int(cudaGetLastError());
-}
-"""
-#: The designs of DEPOSIT_STUDY_CU beside the package's kernel (16-byte
-#: loads): name and cbs_deposit's design number (None: the cluster launch,
-#: cbs_deposit_dsmem).
-DEPOSIT_DESIGNS = (("grid stride (earlier kernel)", 0), ("16-byte loads + match", 1),
-                   ("dsmem clusters", None))
-#: Bands beyond which the cluster design, which reads the stream once a
-#: band, is not timed; the histogram words a block of it holds (the
-#: study's kDsmemWords).
-DSMEM_MAX_BANDS = 4
-DSMEM_WORDS = 32768
 #: The real streams of phase 3c: the cells whose kept batch --scatter
 #: pallas replays to ids (the first group of a pass).
 STREAM_CELLS = ("default", "deep", "zoom", "bigcanvas")
@@ -2456,78 +2076,65 @@ STREAM_CELLS = ("default", "deep", "zoom", "bigcanvas")
 CEILING_PER_THREAD = 64
 
 
-#: The study libraries of phase 3c: name -> CUDA source.
-STUDY_SOURCES = {"red_ceiling": RED_CEILING_CU,
-                 "deposit_study": DEPOSIT_STUDY_CU}
-
-
-def study_lib_path(name):
+def ceiling_lib_path():
     import hashlib
 
     from cudabrot_tpu_torch.ops import _build
 
-    h = hashlib.sha256((STUDY_SOURCES[name] + " ".join(_build.NVCC_FLAGS))
+    h = hashlib.sha256((RED_CEILING_CU + " ".join(_build.NVCC_FLAGS))
                        .encode()).hexdigest()[:16]
-    return os.path.join(OUT, f"lib{name}-{h}.so")
+    return os.path.join(OUT, f"libred_ceiling-{h}.so")
 
 
-def start_study_build(name):
-    """nvcc of a study source (started beside the package's builds);
-    returns (name, process, log path), the process None when built."""
+def start_ceiling_build():
+    """nvcc of RED_CEILING_CU (started beside the package's builds);
+    returns (process, log path), the process None when built."""
     from cudabrot_tpu_torch.ops import _build
 
     os.makedirs(OUT, exist_ok=True)
-    out = study_lib_path(name)
+    out = ceiling_lib_path()
     log_path = out[:-3] + ".log"
     if os.path.exists(out):
-        return name, None, log_path
-    src = os.path.join(OUT, f"{name}.cu")
+        return None, log_path
+    src = os.path.join(OUT, "red_ceiling.cu")
     with open(src, "w") as f:
-        f.write(STUDY_SOURCES[name])
+        f.write(RED_CEILING_CU)
     logf = open(log_path, "w")
     proc = subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
                              out, src], stdout=logf, stderr=subprocess.STDOUT)
-    return name, proc, log_path
+    return proc, log_path
 
 
-def finish_study_build(started):
-    name, proc, log_path = started
+def finish_ceiling_build(started):
+    proc, log_path = started
     if proc is None:
         return
     if proc.wait() != 0:
         with open(log_path) as f:
-            raise SmokeFailure(f"nvcc failed on {name}:\n{f.read()}")
+            raise SmokeFailure(f"nvcc failed on red_ceiling:\n{f.read()}")
     with open(log_path) as f:
         for line in f:
             if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  [{name}] {line.strip()}")
+                log(f"  [red_ceiling] {line.strip()}")
 
 
-_STUDY = {}
+_CEILING = []
 
 
-def study_lib(name):
-    """A study library (ctypes), built if phase 1 did not build it."""
+def ceiling_lib():
+    """The RED ceiling library (ctypes), built if phase 1 did not build
+    it."""
     import ctypes
 
-    if name not in _STUDY:
-        finish_study_build(start_study_build(name))
-        lib = ctypes.CDLL(study_lib_path(name))
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == "red_ceiling":
-            lib.cbs_red_ceiling.argtypes = [vp, ctypes.c_uint, i, i,
-                                            ctypes.c_uint, vp]
-            fns = (lib.cbs_red_ceiling,)
-        else:
-            lib.cbs_deposit.argtypes = [i, vp, ll, vp, i, i, vp]
-            lib.cbs_dsmem_clusters.argtypes = [i, ctypes.POINTER(i)]
-            lib.cbs_deposit_dsmem.argtypes = [vp, ll, vp, i, i, i, vp]
-            fns = (lib.cbs_deposit, lib.cbs_dsmem_clusters,
-                   lib.cbs_deposit_dsmem)
-        for fn in fns:
-            fn.restype = i
-        _STUDY[name] = lib
-    return _STUDY[name]
+    if not _CEILING:
+        finish_ceiling_build(start_ceiling_build())
+        lib = ctypes.CDLL(ceiling_lib_path())
+        lib.cbs_red_ceiling.argtypes = [ctypes.c_void_p, ctypes.c_uint,
+                                        ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_uint, ctypes.c_void_p]
+        lib.cbs_red_ceiling.restype = ctypes.c_int
+        _CEILING.append(lib)
+    return _CEILING[0]
 
 
 def atomic_ceiling(dev, words):
@@ -2538,7 +2145,7 @@ def atomic_ceiling(dev, words):
 
     from cudabrot_tpu_torch.ops import _build
 
-    lib = study_lib("red_ceiling")
+    lib = ceiling_lib()
     buf = torch.zeros(words, dtype=torch.int32, device=dev)
     blocks = torch.cuda.get_device_properties(dev).multi_processor_count * 8
     total = blocks * 256 * CEILING_PER_THREAD
@@ -2556,48 +2163,6 @@ def atomic_ceiling(dev, words):
     return total / ms
 
 
-def design_call(design, hist, ids, clusters):
-    """A study design's deposit of ``ids`` into ``hist`` (a callable), or
-    None where it does not apply."""
-    import torch
-
-    from cudabrot_tpu_torch.ops import _build
-
-    lib = study_lib("deposit_study")
-    nbins, n = hist.numel(), ids.numel()
-    if design is None:
-        size, count = clusters
-        bands = -(-nbins // (size * DSMEM_WORDS))
-        if bands > DSMEM_MAX_BANDS:
-            return None
-
-        def run():
-            _build.check(lib.cbs_deposit_dsmem(
-                _build.ptr(ids), n, _build.ptr(hist), nbins, size, count,
-                _build.stream_of(hist)), "dsmem deposit")
-        return run
-    blocks = torch.cuda.get_device_properties(
-        hist.device).multi_processor_count * 64
-
-    def run():
-        _build.check(lib.cbs_deposit(design, _build.ptr(ids), n,
-                                     _build.ptr(hist), nbins, blocks,
-                                     _build.stream_of(hist)),
-                     f"deposit design {design}")
-    return run
-
-
-def dsmem_clusters():
-    """(cluster size, resident clusters) of the cluster design: 16 blocks
-    (the non-portable size) where the card takes them, else 8."""
-    import ctypes
-
-    lib = study_lib("deposit_study")
-    for size in (16, 8):
-        out = ctypes.c_int(0)
-        if lib.cbs_dsmem_clusters(size, ctypes.byref(out)) == 0 and out.value:
-            return size, out.value
-    raise SmokeFailure("no cluster of 8 or 16 blocks with 128 KB each fits")
 
 
 def equal_share(ids, nbins):
@@ -2627,17 +2192,15 @@ def route_stream(dev, name):
     return ids, eng.cfg.canvas.num_pixels
 
 
-def phase_deposit_ids(dev, card, designs=False):
+def phase_deposit_ids(dev, card):
     """Phase 3c: deposit_ids on the streams the --scatter pallas route
     gives it (the default, deep, zoom and bigcanvas cells' replay_ids
     streams) and on phase 3's random streams at 1000x1000 and 6000x4500:
     the package's kernel against deposit_ids_plain bitwise, each stream's
     sentinel and equal-id shares, and the times: the kernel, index_add_
     (the plain version), torch.bincount, the bound by bytes and the card's
-    random-atomic ceiling into a histogram of the stream's size. With
-    ``designs`` (--deposit-study) also every dropped design of
-    DEPOSIT_STUDY_CU, held to deposit_ids_plain bitwise and timed in turns
-    with the kernel. Returns the kernel record at the default stream."""
+    random-atomic ceiling into a histogram of the stream's size. Returns
+    the kernel record at the default stream."""
     import torch
 
     from cudabrot_tpu_torch.ops import binning
@@ -2647,10 +2210,6 @@ def phase_deposit_ids(dev, card, designs=False):
     for w, rate in ceiling.items():
         log(f"  random RED.ADD.U32 ceiling into {w * 4 / 1e6:.0f} MB: "
             f"{rate:.4e} atomics per ms")
-    clusters = dsmem_clusters() if designs else None
-    if designs:
-        log(f"  cluster design: {clusters[1]} resident clusters of "
-            f"{clusters[0]} blocks (128 KB of shared memory each)")
     gen = torch.Generator(device=dev).manual_seed(7)
     streams = {}
     for w, h in ((1000, 1000), (6000, 4500)):
@@ -2687,26 +2246,10 @@ def phase_deposit_ids(dev, card, designs=False):
               f"deposit_ids on {tag} ({n} ids): bitwise vs deposit_ids_plain")
         err = max(err, max_abs_err([(got, want)]))
         hist = torch.zeros_like(want)
-        runs = {"package": lambda: binning.deposit_ids(hist, ids)}
-        design_ms = {}
-        for dname, design in DEPOSIT_DESIGNS if designs else ():
-            design_ms[dname] = None
-            run = design_call(design, got.zero_(), ids, clusters)
-            if run is None:
-                continue
-            run()
-            check(torch.equal(got, want), f"{dname} on {tag}: bitwise vs "
-                  f"deposit_ids_plain")
-            runs[dname] = design_call(design, hist, ids, clusters)
-        # In turns (the package's kernel, the designs, then back), 20
-        # launches a time into one histogram (the same code, timed into two
-        # tensors, was 5% apart at the default stream on an H100); each
-        # time is the mean of its two.
-        ms_of = {k: 0.0 for k in runs}
-        for k in [*runs, *reversed(runs)]:
-            ms_of[k] += time_ms(runs[k], 20) / 2
-        ms = ms_of.pop("package")
-        design_ms.update(ms_of)
+        # Twice, 20 launches a time into one histogram; the time is the
+        # mean of the two.
+        ms = sum(time_ms(lambda: binning.deposit_ids(hist, ids), 20)
+                 for _ in range(2)) / 2
         plain = time_ms(lambda: binning.deposit_ids_plain(hist, ids), 3)
         lib = time_ms(lambda: torch.bincount(ids, minlength=nbins + 1), 3)
         b_ms, b_by = bound_ms(OPS_DEPOSIT_ID * n, 4 * n + 8 * nbins)
@@ -2714,17 +2257,13 @@ def phase_deposit_ids(dev, card, designs=False):
         ceil_ms = on / rate
         records[tag] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                             bound_ms=b_ms, bound_by=b_by, ceiling_ms=ceil_ms,
-                            designs=design_ms, ids=n, on_canvas=on,
-                            equal_share=share)
-        parts = ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} n/a"
-                          for k, v in design_ms.items())
+                            ids=n, on_canvas=on, equal_share=share)
         log(f"  {tag}: {n} ids into {nbins} bins, sentinel share "
             f"{1 - on / n:.4f}, equal-id share in 32-id windows {share:.6f}; "
             f"deposit_ids {ms:.4f} ms ({on / ms:.4e} atomics per ms; "
             f"{b_ms / ms:.3f} of the bound {b_ms:.4f} ms by {b_by}, "
             f"{ceil_ms / ms:.3f} of the atomic ceiling's {ceil_ms:.4f} ms); "
-            + (f"designs ms: {parts}; " if designs else "")
-            + f"index_add_ {plain:.4f} ms, bincount {lib:.4f} ms")
+            f"index_add_ {plain:.4f} ms, bincount {lib:.4f} ms")
     log(f"phase 3c record: {json.dumps(records)}")
     rec = records["default"]
     return dict(max_abs_err=err, **{k: rec[k] for k in (
@@ -2983,56 +2522,12 @@ def phase_replay_floor(dev, card):
     return out
 
 
-#: The classify study's shortened pass: short enough that the Threefry words
-#: of every (window, lane) fit on the card as a bits tensor (1 GiB).
-STUDY_STEPS = 512
-#: Lanes per thread and replay warps per SM the studies sweep.
-STUDY_LANES_PER_THREAD = (1, 2, 4)
+#: Resident warps per SM of the f32 replays that phase 3 holds bitwise and
+#: phase 7c times.
 STUDY_REPLAY_WARPS = (4, 8, 16, 32, 64)
 #: binning.REPLAY_TAKES_PER_WARP values the replay study sweeps at the
 #: default batch (the last gives each warp one group at a time).
 STUDY_TAKES_PER_WARP = (1, 2, 4, 8, 16, 1 << 30)
-#: The study builds of csrc/deposit.cu (label, -D macros): the package's
-#: (replay_ids' staged tile), replay_ids with a store per point, and with
-#: on-canvas stores into a stream filled with the sentinel first; both f32
-#: replays with one warp per group in place of the queue.
-STUDY_DEPOSIT_BUILDS = (("the package's build", ()),
-                        ("a store per point", ("CB_IDS_STORE=1",)),
-                        ("on-canvas stores, sentinel fill",
-                         ("CB_IDS_STORE=2",)),
-                        ("no queue, a warp per group",
-                         ("CB_REPLAY_QUEUE=0",)))
-#: The MH classify study's builds of csrc/classify_mh.cu (label, -D
-#: macros; the first is the package's: one lane a thread, the chain's
-#: reservoirs xb and p_b in shared memory, the window unrolled): two lanes a
-#: thread, all reservoirs in registers, all three in shared memory, the
-#: window as a run-time loop. And its reservoir widths: the default and the
-#: widest.
-STUDY_MH_BUILDS = (("the package's build", ()),
-                   ("S=2", ("CB_MH_LANES_PER_THREAD=2",)),
-                   ("reservoirs in registers", ("CB_MH_SHARED_SLOTS=0",)),
-                   ("all reservoirs shared", ("CB_MH_SHARED_SLOTS=2",)),
-                   ("window loop", ("CB_MH_WINDOW_UNROLL=0",)))
-STUDY_MH_SLOTS = (8, 32)
-#: The df32 classify study's builds of csrc/classify_ext.cu (label, -D
-#: macros; the first is the package's: one lane a thread) and of
-#: csrc/classify_mh.cu's df32 kernel (the package's: one lane a thread,
-#: all three reservoirs in shared memory, the window unrolled): two lanes a
-#: thread, all reservoirs in registers, the chain's two in shared memory,
-#: the window as a run-time loop. Phase 2 holds each to the plain version.
-STUDY_EXT_BUILDS = (("the package's build", ()),
-                    ("S=2", ("CB_EXT_LANES_PER_THREAD=2",)))
-STUDY_EXT_MH_BUILDS = (("the package's build", ()),
-                       ("S=2", ("CB_MH_EXT_LANES_PER_THREAD=2",)),
-                       ("reservoirs in registers",
-                        ("CB_MH_EXT_SHARED_SLOTS=0",)),
-                       ("the chain's reservoirs shared",
-                        ("CB_MH_EXT_SHARED_SLOTS=1",)),
-                       ("window loop", ("CB_MH_WINDOW_UNROLL=0",)))
-#: The --inner-unroll values the study renders the zoom cell at.
-STUDY_EXT_UNROLLS = (1, 2, 4, 8)
-#: binning.MH_DEPOSIT_BLOCKS_PER_SM values the MH deposit study sweeps.
-STUDY_MH_DEPOSIT_BLOCKS = (1, 2, 4, 8, 16)
 #: SASS opcodes by the SM sub-partition pipe that runs them: the integer
 #: ALU (16 lanes a clock, 64 per SM), the FMA pipe (f32 arithmetic and
 #: IMAD), the conversion unit; the rest (moves, memory, branches) apart.
@@ -3099,83 +2594,6 @@ extern "C" __global__ void sass_window1(cb::ClassifyArgs a) { window_loop<1>(a);
 extern "C" __global__ void sass_window2(cb::ClassifyArgs a) { window_loop<2>(a); }
 """
 
-
-#: The df32 lane functions, compiled with the kernels' flags into one
-#: cubin whose SASS the df32 study counts: the zoom cell's lane
-#: (buddhabrot, no visit window, Brent checks on) through a.windows
-#: windows, one loop iteration each, of ext_window at U = 1 and 2 (U = 0:
-#: the lane finishes at max_it without a window), a finished lane refilled
-#: with its own c (the part of the boundary every lane takes, with a
-#: trivial finish); ext_finish alone (the rest of a finished lane's
-#: boundary and its Threefry refill) less the same loads and stores; one
-#: df32 step; and the MH df32 window (mh_window, mh_advance) at U = 0, 1,
-#: 2 with its reservoirs in registers.
-SASS_EXT_STUDY_CU = r"""
-#include "classify_ext.cuh"
-#include "mh.cuh"
-template <int U> __device__ void ext_loop(cb::ClassifyExtArgs a) {
-  a.detect = 1;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  cb::ExtLane l = cb::load_ext_lane(a, i);
-#pragma unroll 1
-  for (int w = 0; w < a.windows; ++w) {
-    bool fin = l.it >= a.max_it;
-    if constexpr (U > 0) fin = cb::ext_window<cb::kBuddhabrot, false, U>(a, l);
-    if (fin) { l.it = 0; l.zr = l.cr; l.zi = l.ci; l.dead = 0; }
-  }
-  cb::flush_ext_lane(a, l, 0, i);
-  cb::store_ext_lane(a, l, i);
-}
-extern "C" __global__ void sass_ext0(cb::ClassifyExtArgs a) { ext_loop<0>(a); }
-extern "C" __global__ void sass_ext1(cb::ClassifyExtArgs a) { ext_loop<1>(a); }
-extern "C" __global__ void sass_ext2(cb::ClassifyExtArgs a) { ext_loop<2>(a); }
-template <bool FINISH> __device__ void ext_one(cb::ClassifyExtArgs a) {
-  a.detect = 1;
-  a.bits = nullptr;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  cb::ExtLane l = cb::load_ext_lane(a, i);
-  l.esc = l.dead & 1;
-  l.cyc = l.vis & 1;
-  l.needed = l.sv;
-  if (FINISH) cb::ext_finish<cb::kBuddhabrot, false>(a, l, i, l.it, 1);
-  cb::flush_ext_lane(a, l, 0, i);
-  cb::store_ext_lane(a, l, i);
-}
-extern "C" __global__ void sass_ext_base(cb::ClassifyExtArgs a) { ext_one<false>(a); }
-extern "C" __global__ void sass_ext_finish(cb::ClassifyExtArgs a) { ext_one<true>(a); }
-extern "C" __global__ void sass_df_step(float* z, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  cb::df::F2 zr{z[i], z[i + n]}, zi{z[i + 2 * n], z[i + 3 * n]};
-  const cb::df::F2 cr{z[i + 4 * n], z[i + 5 * n]}, ci{z[i + 6 * n], z[i + 7 * n]};
-  z[i + 8 * n] = cb::df::complex_sqr_add<cb::kBuddhabrot>(zr, zi, cr, ci);
-  z[i] = zr.hi; z[i + n] = zr.lo; z[i + 2 * n] = zi.hi; z[i + 3 * n] = zi.lo;
-}
-extern "C" __global__ void sass_df_base(float* z, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float x[8];
-  for (int k = 0; k < 8; ++k) x[k] = z[i + k * n];
-  z[i + 8 * n] = x[0] + x[2] + x[4] + x[6];
-  z[i] = x[1]; z[i + n] = x[3]; z[i + 2 * n] = x[5]; z[i + 3 * n] = x[7];
-}
-template <int U> __device__ void mh_loop(cb::mh::ClassifyMhArgs a) {
-  a.detect = 1;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  cb::mh::MhLane<8, cb::mh::OrbitDf> l;
-  cb::mh::load_mh_lane(a, i, l);
-#pragma unroll 1
-  for (int w = 0; w < a.windows; ++w) {
-    bool fin = l.it >= a.max_it;
-    if constexpr (U > 0) fin = cb::mh::mh_window<cb::kBuddhabrot, U>(a, l);
-    if (!fin) cb::mh::mh_advance(a, l, U);
-    else { l.it = 0; l.o.zr = l.o.cr; l.o.zi = l.o.ci; l.dead = 0; }
-  }
-  cb::mh::flush_mh_lane(a, l, 0, i);
-  cb::mh::store_mh_lane(a, l, i);
-}
-extern "C" __global__ void sass_mh0(cb::mh::ClassifyMhArgs a) { mh_loop<0>(a); }
-extern "C" __global__ void sass_mh1(cb::mh::ClassifyMhArgs a) { mh_loop<1>(a); }
-extern "C" __global__ void sass_mh2(cb::mh::ClassifyMhArgs a) { mh_loop<2>(a); }
-"""
 
 
 def sass_listing(text):
@@ -3269,12 +2687,12 @@ def study_sass(name, source):
     return text
 
 
-def lib_sass(lib, defines=()):
+def lib_sass(lib):
     """cuobjdump -sass of a built kernel library (dumped to OUT)."""
     from cudabrot_tpu_torch.ops import _build
 
     text = subprocess.run([_cuobjdump(), "-sass",
-                           str(_build.lib_path(lib, defines))], check=True,
+                           str(_build.lib_path(lib))], check=True,
                           capture_output=True, text=True).stdout
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, f"{lib}.sass"), "w") as f:
@@ -3282,7 +2700,7 @@ def lib_sass(lib, defines=()):
     return text
 
 
-def sass_study(dev):
+def sass_study():
     """The refill draw's instructions from the SASS: Threefry-2x32, the
     domain map of two words, the cull, and the df32 grid draw, each less the
     loads and stores of sass_base, by pipe; the f32 lane window of the
@@ -3331,741 +2749,19 @@ def sass_study(dev):
     return counts
 
 
-def ncu_probe(dev):
-    """Whether Nsight Compute runs here: its version, then one classify
-    launch at the default cell under it (ALU and FMA pipe utilization),
-    each within a time limit. Reports what happened; never fails the run."""
-    import shutil
 
-    from cudabrot_tpu_torch.ops import _build
 
-    ncu = os.path.join(os.path.dirname(_build.nvcc_path()), "ncu")
-    if not os.path.exists(ncu):
-        ncu = shutil.which("ncu")
-    if ncu is None:
-        log("  ncu: not found on this machine")
-        return
-    script = (
-        "import sys; sys.path.insert(0, %r); import chip_smoke as c, torch;"
-        "from cudabrot_tpu_torch.engines import cuda_engine as ce;"
-        "e = ce.CudaEngine(c.cell_config('default'), device='cuda');"
-        "s = e.init_state(None); e.run_pass(s, 0); torch.cuda.synchronize()"
-        % ROOT)
-    metrics = ",".join((
-        "sm__inst_executed_pipe_alu.avg.pct_of_peak_sustained_active",
-        "sm__inst_executed_pipe_fma.avg.pct_of_peak_sustained_active",
-        "sm__pipe_alu_cycles_active.avg.pct_of_peak_sustained_active",
-        "sm__pipe_fma_cycles_active.avg.pct_of_peak_sustained_active",
-        "smsp__issue_active.avg.pct_of_peak_sustained_active"))
-    import signal
 
-    for cmd, limit in (([ncu, "--version"], 60),
-                       ([ncu, "-k", "regex:classify_kernel", "-c", "1",
-                         "--metrics", metrics, sys.executable, "-c", script],
-                        150)):
-        t0 = time.monotonic()
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True,
-                                start_new_session=True)
-        try:
-            out, _ = proc.communicate(timeout=limit)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.communicate()
-            log(f"  ncu ({cmd[1]}): no result within {limit} s")
-            return
-        tail = out.strip().splitlines()[-12:]
-        log(f"  ncu ({cmd[1]}): exit {proc.returncode} after "
-            f"{time.monotonic() - t0:.0f} s: " + " | ".join(tail))
-        if proc.returncode != 0:
-            return
 
 
-def cell_lanes_study(dev, name="default", steps=STUDY_STEPS):
-    """A cell's engine after 4 passes: (cfg, engine tuning, carried lane
-    state, the classify spec of a ``steps``-step pass, its seed)."""
-    from cudabrot_tpu_torch.engines import cuda_engine as ce
-    from cudabrot_tpu_torch.ops import prng
 
-    cfg = cell_config(name)
-    eng = ce.CudaEngine(cfg, device=dev)
-    tn = eng.tuning
-    state = eng.init_state(None)
-    for p in range(4):
-        eng.run_pass(state, p)
-    spec = dict(fractal=eng.fractal, min_it=tn.min_it, max_it=tn.max_it,
-                steps_per_pass=steps,
-                steps_per_flush=min(tn.steps_per_flush, steps),
-                cycle_detection=True, inner_unroll=tn.inner_unroll,
-                thin_tracking=tn.thin_tracking,
-                sample_domain=cfg.sample_domain)
-    seed = tuple(prng.bits_host(prng.pass_key(cfg.seed, 0, 5), 2))
-    return cfg, tn, clone_state(state["lanes"]), spec, seed
 
 
-def study_bits(dev, seed, spec, rows):
-    """The Threefry words every (window, lane) of the pass would draw, as
-    the (chunks, windows, 2, rows, 128) int32 bits tensor."""
-    import torch
 
-    from cudabrot_tpu_torch.ops import prng
 
-    chunks = spec["steps_per_pass"] // spec["steps_per_flush"]
-    windows = spec["steps_per_flush"] // spec["inner_unroll"]
-    lane = torch.arange(rows * 128, dtype=torch.int64, device=dev)
-    g = torch.arange(chunks * windows, dtype=torch.int64, device=dev)
-    w0, w1 = prng.threefry2x32(seed[0], seed[1], lane[None, :], g[:, None])
-    w = torch.stack((w0, w1), dim=1)
-    del w0, w1
-    w = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
-    return w.reshape(chunks, windows, 2, rows, 128)
 
 
-def time_from(lanes0, run, reps):
-    """Least and mean ms of ``run(state)`` over ``reps`` calls, each from a
-    fresh copy of ``lanes0`` (CUDA events around the call alone); returns
-    them and the last call's result."""
-    import torch
 
-    times, res = [], None
-    run(clone_state(lanes0))
-    for _ in range(reps):
-        st = clone_state(lanes0)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = run(st)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return min(times), sum(times) / len(times), res
-
-
-def classify_study(dev, card):
-    """What the f32 classify kernel spends its time on at the default cell
-    (its lane state after 4 passes, a STUDY_STEPS-step pass): the kernel
-    with in-kernel Threefry against the same pass with the words read from
-    a bits tensor (bitwise equal results; the difference is Threefry's
-    cost); the draw profile (draws per lane-step, the share of warp-steps
-    with a draw, Threefry warp-passes per 32 lanes for S lanes per thread),
-    from one-window launches fed the same words; issue cycles per
-    warp-step; the SASS counts; the lanes-per-thread sweep where the kernel
-    has one; an Nsight Compute probe."""
-    import inspect
-
-    import torch
-
-    from cudabrot_tpu_torch.ops import _build
-    from cudabrot_tpu_torch.ops import classify as cls
-
-    log(f"== classify study at the default cell ({card})")
-    nvcc = _nvcc_version()
-    log(f"  nvcc: {nvcc}")
-    clk = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=False).stdout.split()[0])
-    cfg, tn, lanes0, spec, seed = cell_lanes_study(dev)
-    rows = lanes0.cr.shape[0]
-    n = rows * 128
-    bits = study_bits(dev, seed, spec, rows)
-    sweep = "defines" in inspect.signature(_build.load).parameters
-    choices = STUDY_LANES_PER_THREAD if sweep else (None,)
-
-    def run_cell(spec, seed, S, b=None):
-        def call(st):
-            with classify_lanes(S):
-                return cls.classify_pass(st, seed, b, **spec)
-        return call
-
-    def run(S, b):
-        return run_cell(spec, seed, S, b)
-
-    warp_steps = n * STUDY_STEPS / 32
-    ref = None
-    for rnd in range(2):
-        for S in choices:
-            t_tf, m_tf, r_tf = time_from(lanes0, run(S, None), 5)
-            t_b, m_b, r_b = time_from(lanes0, run(S, bits), 5)
-            if ref is None:
-                ref = r_tf
-            for x, y in ((r_tf, r_b), (r_tf, ref)):
-                check(all(same_bits(a, b) for a, b in zip(x.state, y.state))
-                      and same_bits(x.emit_c, y.emit_c)
-                      and same_bits(x.emit_it, y.emit_it)
-                      and same_bits(x.stats, y.stats),
-                      f"classify S={S}: threefry and bits passes bitwise "
-                      f"equal")
-            cyc = t_tf * 1e-3 * clk * 1e6 * 132 * 4 / warp_steps
-            log(f"  round {rnd} S={S} U={spec['inner_unroll']}, "
-                f"{STUDY_STEPS} steps x {n} lanes: threefry {t_tf:.4f} ms "
-                f"(mean {m_tf:.4f}), bits {t_b:.4f} ms (mean {m_b:.4f}); "
-                f"Threefry share {(t_tf - t_b) / t_tf:.4f}; "
-                f"{cyc:.1f} issue cycles per warp-step at {clk:.0f} MHz")
-    draws = int(ref.stats[cls.STAT_DRAWN].sum())
-    log(f"  draws per lane-step {draws / (n * STUDY_STEPS):.5f} "
-        f"({draws} draws)")
-
-    # The draw profile, window by window: one-window launches fed the same
-    # words leave the lane state of the whole pass, bitwise.
-    U = spec["inner_unroll"]
-    one = dict(spec, steps_per_pass=U, steps_per_flush=U)
-    st = clone_state(lanes0)
-    fins = []
-    chunks, windows = bits.shape[:2]
-    for c in range(chunks):
-        for w in range(windows):
-            word = bits[c, w][None, None].contiguous()
-            r = cls.classify_pass(st, seed, word, **one)
-            fins.append(r.stats[cls.STAT_DRAWN].reshape(-1) > 0)
-    check(all(same_bits(a, b) for a, b in zip(st, ref.state)),
-          "classify: one-window launches leave the pass's lane state")
-    fin = torch.stack(fins)
-    check(int(fin.sum()) == draws, "classify: one-window draws == the pass's")
-    G = fin.shape[0]
-    log(f"  {G} windows, draws per lane-window "
-        f"{float(fin.float().mean()):.5f}")
-    for S in STUDY_LANES_PER_THREAD:
-        per = fin.reshape(G, n // (32 * S), 32 * S).sum(-1)
-        passes = ((per + 31) // 32).float().mean() / S
-        log(f"  S={S}: share of warp-windows with a draw "
-            f"{float((per > 0).float().mean()):.5f}; Threefry warp-passes per "
-            f"32 lanes per window {float(passes):.4f}")
-    per = fin.reshape(G, n // 256, 256).sum(-1)
-    log(f"  block queue (8 warps, S=1): warp-passes per 32 lanes per window "
-        f"{float(((per + 31) // 32).float().mean() / 8):.4f}")
-    del bits, fin
-    if sweep:
-        # The whole main-path pass of the default and deep cells at each S.
-        for name in ("default", "deep"):
-            _, tn, lanes, full, seed = cell_lanes_study(dev, name, 4096)
-            best = {S: min(time_from(lanes, run_cell(full, seed, S), 5)[0]
-                           for _ in range(2)) for S in choices}
-            log(f"  {name} pass (U={tn.inner_unroll}, 4096 steps), least "
-                f"of 2 rounds of 5: " + ", ".join(
-                    f"S={S} {t:.4f} ms" for S, t in best.items())
-                + f" (the package's S: {package_lanes()})")
-    sass = sass_study(dev)
-    ncu_probe(dev)
-    return sass
-
-
-def mh_study_bits(dev, seed, spec, rows):
-    """The four words every (window, lane) of an MH pass would draw at a
-    finished boundary, as the (chunks, windows, 4, rows, 128) int32 bits
-    tensor: Threefry-2x32 of (lane, window) and of (lane | 2^30, window)."""
-    import torch
-
-    from cudabrot_tpu_torch.ops import prng
-
-    chunks = spec["steps_per_pass"] // spec["steps_per_flush"]
-    windows = spec["steps_per_flush"] // spec["inner_unroll"]
-    lane = torch.arange(rows * 128, dtype=torch.int64, device=dev)
-    g = torch.arange(chunks * windows, dtype=torch.int64, device=dev)
-    words = []
-    for blk in (0, 1 << 30):
-        words += prng.threefry2x32(seed[0], seed[1], (lane | blk)[None, :],
-                                   g[:, None])
-    w = torch.stack(words, dim=1)
-    del words
-    w = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
-    return w.reshape(chunks, windows, 4, rows, 128)
-
-
-@contextlib.contextmanager
-def mh_build(defines, name="classify_mh"):
-    """classify_pass_mh (classify_pass_ext_mh with ``name``
-    "classify_ext_mh") runs the build with these -D macros inside (the
-    package's for none)."""
-    from cudabrot_tpu_torch.ops import classify_mh as cmh
-
-    if not defines:
-        yield
-        return
-    lib = cmh._lib(name, defines)
-    with mock.patch.object(cmh, "_lib", lambda name: lib):
-        yield
-
-
-def mh_study(dev, card):
-    """What the f32 MH classify kernel spends its time on at the mhcrop cell
-    (its chains after 4 passes), at each STUDY_MH_SLOTS reservoir width: a
-    STUDY_STEPS-step pass with in-kernel Threefry against the same pass
-    with the boundary words read from a bits tensor (bitwise equal
-    results; the difference is Threefry's cost), issue cycles per
-    warp-step, proposals per lane-step, and the draw profile from
-    one-window launches fed the same words (the share of warp-windows with
-    a finished lane, Threefry warp-passes per 32 lanes for S lanes a
-    thread), each for every STUDY_MH_BUILDS build; then the whole
-    main-path pass of mhcrop per build, and classify_ext_mh's pass at
-    mhzoom; registers and spills of every instantiation from the build
-    logs. Trees without the variant builds (an older tree) time the
-    package's kernel alone."""
-    import inspect
-
-    import torch
-
-    from cudabrot_tpu_torch import cli
-    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
-    from cudabrot_tpu_torch.ops import _build
-    from cudabrot_tpu_torch.ops import classify_mh as cmh
-
-    log(f"== MH classify study at the mhcrop cell ({card})")
-    clk = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=False).stdout.split()[0])
-    sweep = "defines" in inspect.signature(cmh._lib).parameters
-    choices = STUDY_MH_BUILDS if sweep else STUDY_MH_BUILDS[:1]
-    seed = (0xC0FFEE, 0xBADF00D)
-
-    def chains(name, slots):
-        cfg = cli.parse_args([*cell_args(name), "--mh-visit-slots",
-                              str(slots)])[0]
-        eng = CudaEngine(cfg, device=dev)
-        spec = eng.mh_pass_spec()
-        fn = (cmh.classify_pass_ext_mh if eng.extended
-              else cmh.classify_pass_mh)
-        state = eng.init_state(None)["lanes"]
-        for p in range(4):
-            fn(state, (1337, p), **spec)
-        return spec, fn, state
-
-    def same(x, y):
-        return (all(same_bits(a, b) for a, b in zip(x.state, y.state))
-                and all(same_bits(getattr(x, f), getattr(y, f))
-                        for f in MH_OUT_FIELDS))
-
-    for slots in STUDY_MH_SLOTS:
-        spec, _, lanes0 = chains("mhcrop", slots)
-        U = spec["inner_unroll"]
-        study = dict(spec, steps_per_pass=STUDY_STEPS,
-                     steps_per_flush=min(spec["steps_per_flush"],
-                                         STUDY_STEPS))
-        rows = lanes0.kr.shape[0]
-        n = rows * 128
-        bits = mh_study_bits(dev, seed, study, rows)
-        warp_steps = n * STUDY_STEPS / 32
-
-        def run(d, b, study=study):
-            def call(st):
-                with mh_build(d):
-                    return cmh.classify_pass_mh(st, seed, b, **study)
-            return call
-
-        ref = None
-        for rnd in range(2):
-            for label, d in choices:
-                t_tf, m_tf, r_tf = time_from(lanes0, run(d, None), 5)
-                t_b, m_b, r_b = time_from(lanes0, run(d, bits), 5)
-                ref = r_tf if ref is None else ref
-                check(same(r_tf, r_b) and same(r_tf, ref),
-                      f"classify_mh V={slots} {label}: threefry and bits "
-                      f"passes bitwise equal (and == the package's build)")
-                cyc = t_tf * 1e-3 * clk * 1e6 * 132 * 4 / warp_steps
-                log(f"  round {rnd} V={slots} {label} U={U}, {STUDY_STEPS} "
-                    f"steps x {n} lanes: threefry {t_tf:.4f} ms (mean "
-                    f"{m_tf:.4f}), bits {t_b:.4f} ms (mean {m_b:.4f}); "
-                    f"Threefry share {(t_tf - t_b) / t_tf:.4f}; {cyc:.1f} "
-                    f"issue cycles per warp-step at {clk:.0f} MHz")
-        drawn = int(ref.stats[cmh.STAT_DRAWN].sum())
-        log(f"  V={slots}: proposals per lane-step "
-            f"{drawn / (n * STUDY_STEPS):.5f} ({drawn} resolved)")
-        # The draw profile, window by window: one-window launches fed the
-        # same words leave the chains of the whole pass, bitwise.
-        one = dict(study, steps_per_pass=U, steps_per_flush=U)
-        st = clone_state(lanes0)
-        fins = []
-        chunks, windows = bits.shape[:2]
-        for c in range(chunks):
-            for w in range(windows):
-                word = bits[c, w][None, None].contiguous()
-                r = cmh.classify_pass_mh(st, seed, word, **one)
-                fins.append(r.stats[cmh.STAT_DRAWN].reshape(-1) > 0)
-        check(all(same_bits(a, b) for a, b in zip(st, ref.state)),
-              f"classify_mh V={slots}: one-window launches leave the pass's "
-              f"lane state")
-        fin = torch.stack(fins)
-        check(int(fin.sum()) == drawn,
-              f"classify_mh V={slots}: one-window proposals == the pass's")
-        G = fin.shape[0]
-        for S in (1, 2):
-            per = fin.reshape(G, n // (32 * S), 32 * S).sum(-1)
-            share = float((per > 0).float().mean())
-            passes = float(((2 * per + 31) // 32).float().mean() / S)
-            log(f"  V={slots} S={S}: share of warp-windows with a finished "
-                f"lane {share:.5f}; Threefry warp-passes per 32 lanes per "
-                f"window {passes:.4f} compacted"
-                + (f", {2 * share:.4f} with each lane drawing its own"
-                   if S == 1 else ""))
-        del bits, fin, ref, lanes0
-        torch.cuda.empty_cache()
-
-    # The main-path pass of mhcrop at each S, and classify_ext_mh at mhzoom.
-    spec, fn, lanes0 = chains("mhcrop", 8)
-    best = {}
-    for _ in range(2):
-        for label, d in choices:
-            def call(st, d=d):
-                with mh_build(d):
-                    return fn(st, seed, **spec)
-            best[label] = min(best.get(label, 1e9),
-                              time_from(lanes0, call, 5)[0])
-    log(f"  mhcrop pass ({spec['steps_per_pass']} steps, U="
-        f"{spec['inner_unroll']}), least of 2 rounds of 5: " + ", ".join(
-            f"{label} {t:.4f} ms" for label, t in best.items()))
-    spec, fn, lanes0 = chains("mhzoom", 8)
-    t = min(time_from(lanes0, lambda st: fn(st, seed, **spec), 3)[0]
-            for _ in range(2))
-    log(f"  mhzoom classify_ext_mh pass ({spec['steps_per_pass']} steps, U="
-        f"{spec['inner_unroll']}), least of 2 rounds of 3: {t:.4f} ms")
-    del lanes0
-    for _, d in choices:
-        entry = None
-        for line in _build.ptxas_report("classify_mh", d).splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif entry and ("registers" in line or "spill" in line):
-                log(f"  [classify_mh{''.join(' -D' + x for x in d)}] "
-                    f"{entry}: {line.strip()}")
-
-
-def sass_counts(ops):
-    """pipe_counts of a SASS opcode list, with its FFMA count."""
-    out = pipe_counts(ops)
-    out["ffma"] = sum(op == "FFMA" for op in ops)
-    return out
-
-
-def _less(x, *ys):
-    return {k: x[k] - sum(y[k] for y in ys) for k in x}
-
-
-def _fmt(c):
-    return (f"{c['all']} instructions ({c['ffma']} FFMA, {c['alu']} ALU, "
-            f"{c['fma']} FMA pipe, {c['xu']} conversion, {c['other']} "
-            f"other)")
-
-
-def ext_sass_study():
-    """The df32 lane's instructions from the SASS (SASS_EXT_STUDY_CU): one
-    df32 step (less the same loads and stores); the classify_ext window
-    from the loop bodies of sass_ext0/1/2 (U = 2 less U = 1 is one inner
-    step; U = 1 less the step and less U = 0's loop is the boundary every
-    lane takes, the one a warp with no finished lane pays); ext_finish (the
-    rest of a finished lane's boundary with its Threefry refill), so the
-    boundary with a finished lane is the two together; the MH df32 window
-    the same way (sass_mh0/1/2). Checks that a df32 step holds exactly one
-    FFMA per two-product (three) and that FFMAs appear nowhere else in the
-    lane: the boundaries, the finish and its draw have none, and in the
-    built libraries every df32 kernel's count is a multiple of three
-    (3 x lanes a thread x U where the window is unrolled). (The f32
-    kernels' FFMAs are the Newton steps of __fdiv_rn, a correctly rounded
-    division.) Returns the counts."""
-    import re
-
-    log("== SASS counts of the df32 lane (cuobjdump -sass)")
-    text = study_sass("sass_ext_study", SASS_EXT_STUDY_CU)
-    listing = sass_listing(text)
-    funcs = sass_functions(text)
-    c = {"step": _less(sass_counts(funcs["sass_df_step"]),
-                       sass_counts(funcs["sass_df_base"]))}
-    for pre, name in (("sass_ext", "ext"), ("sass_mh", "mh")):
-        b0, b1, b2 = (sass_counts(loop_body(listing[f"{pre}{u}"]))
-                      for u in (0, 1, 2))
-        c[f"{name}_inner"] = _less(b2, b1)
-        c[f"{name}_boundary"] = _less(b1, b0, c[f"{name}_inner"])
-        log(f"  {name} loop bodies U = 0, 1, 2: {b0['all']}, {b1['all']}, "
-            f"{b2['all']} instructions ({b0['ffma']}, {b1['ffma']}, "
-            f"{b2['ffma']} FFMA)")
-    c["ext_finish"] = _less(sass_counts(funcs["sass_ext_finish"]),
-                            sass_counts(funcs["sass_ext_base"]))
-    c["ext_boundary_full"] = {k: c["ext_boundary"][k] + c["ext_finish"][k]
-                              for k in c["ext_finish"]}
-    for name, what in (
-            ("step", "one df32 step (complex_sqr_add)"),
-            ("ext_inner", "classify_ext inner step"),
-            ("ext_boundary", "classify_ext boundary, no lane finished"),
-            ("ext_finish", "ext_finish (a finished lane, with its draw)"),
-            ("ext_boundary_full", "classify_ext boundary of a finished lane"),
-            ("mh_inner", "classify_ext_mh inner step (its loop body, a "
-                         "recorded visit's bin included)"),
-            ("mh_boundary", "classify_ext_mh window boundary")):
-        log(f"  {what}: {_fmt(c[name])}")
-    check(c["step"]["ffma"] == 3 and c["ext_inner"]["ffma"] == 3
-          and c["mh_inner"]["ffma"] == 3,
-          "a df32 step compiles to three FFMA, one per two-product")
-    check(c["ext_boundary"]["ffma"] == 0 and c["ext_finish"]["ffma"] == 0
-          and c["mh_boundary"]["ffma"] == 0,
-          "no FFMA outside the two-products (boundaries, finish, draw)")
-    unrolled = re.compile(r"classify_ext_kernelILi\d+ELb[01]ELi(\d)ELi(\d+)EE")
-    bad, shown = [], []
-    for lib, sub in (("classify_ext", "classify_ext_kernel"),
-                     ("classify_mh", "classify_ext_mh_kernel"),
-                     ("deposit_ext", "replay")):
-        for name, ops in sass_functions(lib_sass(lib)).items():
-            if sub not in name:
-                continue
-            n = sum(op == "FFMA" for op in ops)
-            m = unrolled.search(name)
-            if m and int(m.group(2)) > 0:
-                want = 3 * int(m.group(1)) * int(m.group(2))
-                ok = n == want
-                shown.append(f"{name} {n} (3 x {m.group(1)} x "
-                             f"{m.group(2)} = {want})")
-            else:
-                ok = n % 3 == 0 and n > 0
-                if "ILi0ELi8ELi16EE" in name or "replay" in name:
-                    shown.append(f"{name} {n}")
-            if not ok:
-                bad.append(f"{name}: {n}")
-    for line in shown:
-        if "ILi0E" in line or "replay" in line:
-            log(f"  FFMA in {line}")
-    check(not bad, f"every df32 kernel's FFMAs are its two-products' "
-          f"({bad[:4]})")
-    return c
-
-
-def get_fractal_of(cfg):
-    from cudabrot_tpu_torch.models.fractals import get_fractal
-
-    return get_fractal(cfg.fractal)
-
-
-def ptxas_entries(lib, defines=()):
-    """[(kernel, registers, spill store bytes, spill load bytes)] of a
-    library's last build (nvcc -Xptxas -v)."""
-    import re
-
-    from cudabrot_tpu_torch.ops import _build
-
-    out, entry, spill = [], None, (0, 0)
-    for line in _build.ptxas_report(lib, defines).splitlines():
-        if "Compiling entry function" in line:
-            entry, spill = line.split("'")[1], (0, 0)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spill = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry:
-            out.append((entry, int(m.group(1)), *spill))
-            entry = None
-    return out
-
-
-def ext_study(dev, card):
-    """What the two df32 classify kernels spend their time on: the SASS
-    counts (ext_sass_study); the
-    registers and spills of every build; classify_ext at the zoom cell (its
-    lanes after 8 engine passes): the main-path pass in each build
-    (STUDY_EXT_BUILDS, bitwise equal), a STUDY_STEPS-step pass with
-    in-kernel Threefry against the same pass fed its words (the refill's
-    cost), refills per lane-step, the mean lane lifetime, and the share of
-    warp-windows with a finished lane (one-window launches fed the same
-    words) at one and two lanes a thread; classify_ext_mh at mhzoom (its
-    chains after 4 passes) at V = 8 and 32: the main-path pass in each
-    build (STUDY_EXT_MH_BUILDS, bitwise equal), proposals per lane-step and
-    the share of warp-windows with a finished lane; the zoom and mhzoom
-    engine passes (CUDA events, least of 3 rounds); phase 7 (the df32
-    replays and their lone-orbit floor); and the zoom cell through cli.main
-    at each STUDY_EXT_UNROLLS window, and mhzoom at its own and at
-    U = 32, twice each: deposited points/s, lane-steps/s, mean lane
-    lifetime."""
-    import torch
-
-    from cudabrot_tpu_torch import cli
-    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
-    from cudabrot_tpu_torch.ops import prng
-    from cudabrot_tpu_torch.ops import classify as cls
-    from cudabrot_tpu_torch.ops import classify_ext as cx
-    from cudabrot_tpu_torch.ops import classify_mh as cmh
-
-    log(f"== df32 classify study ({card})")
-    ext_sass_study()
-    builds, mh_builds = STUDY_EXT_BUILDS, STUDY_EXT_MH_BUILDS
-    for lib, blds, sub in (("classify_ext", builds, "classify_ext_kernel"),
-                           ("classify_mh", mh_builds,
-                            "classify_ext_mh_kernel")):
-        for label, d in blds:
-            for entry, regs, st, ld in ptxas_entries(lib, d):
-                if sub in entry and "ILi0E" in entry:
-                    log(f"  [{lib} {label}] {entry}: {regs} registers, "
-                        f"spill stores {st} B, loads {ld} B")
-
-    def same(x, y, fields):
-        return (all(same_bits(a, b) for a, b in zip(x.state, y.state))
-                and all(same_bits(getattr(x, f), getattr(y, f))
-                        for f in fields))
-
-    # classify_ext at the zoom cell.
-    cfg = cell_config("zoom")
-    eng = CudaEngine(cfg, device=dev)
-    tn = eng.tuning
-    state = eng.init_state(None)
-    for p in range(8):
-        eng.run_pass(state, p)
-    eng.synchronize()
-    lanes0 = clone_state(state["lanes"])
-    del state, eng
-    n = lanes0.kr.numel()
-    spec = dict(fractal=get_fractal_of(cfg), min_it=tn.min_it,
-                max_it=tn.max_it, steps_per_pass=tn.steps_per_pass,
-                steps_per_flush=tn.steps_per_flush, cycle_detection=True,
-                inner_unroll=tn.inner_unroll,
-                sample_domain=cfg.sample_domain)
-    seed = tuple(prng.bits_host(prng.pass_key(cfg.seed, 0, 9), 2))
-    ext_fields = ("emit_c", "emit_it", "stats")
-    best, ref = {}, None
-    for _ in range(2):
-        for label, d in builds:
-            def call(st, d=d):
-                with ext_build(d):
-                    return cx.classify_pass_ext(st, seed, **spec)
-            t, _, r = time_from(lanes0, call, 5)
-            ref = r if ref is None else ref
-            check(same(r, ref, ext_fields),
-                  f"classify_ext {label}: the pass bitwise == the package's")
-            best[label] = min(best.get(label, 1e9), t)
-    log(f"  classify_ext zoom pass (U={tn.inner_unroll}, "
-        f"{tn.steps_per_pass} steps x {n} lanes), least of 2 rounds of 5: "
-        + ", ".join(f"{label} {t:.4f} ms" for label, t in best.items()))
-    drawn = int(ref.stats[cls.STAT_DRAWN].sum())
-    lane_steps = n * tn.steps_per_pass
-    log(f"  refills per lane-step {drawn / lane_steps:.6f} ({drawn} "
-        f"refills); mean lane lifetime {lane_steps / max(drawn, 1):.1f} "
-        f"lane-steps")
-    short = dict(spec, steps_per_pass=STUDY_STEPS,
-                 steps_per_flush=min(tn.steps_per_flush, STUDY_STEPS))
-    bits = study_bits(dev, seed, short, lanes0.kr.shape[0])
-    t_tf, _, r_tf = time_from(
-        lanes0, lambda st: cx.classify_pass_ext(st, seed, **short), 5)
-    t_b, _, r_b = time_from(
-        lanes0, lambda st: cx.classify_pass_ext(st, seed, bits, **short), 5)
-    check(same(r_tf, r_b, ext_fields),
-          "classify_ext: threefry and bits passes bitwise equal")
-    log(f"  {STUDY_STEPS} steps: threefry {t_tf:.4f} ms, bits {t_b:.4f} ms; "
-        f"Threefry share {(t_tf - t_b) / t_tf:.4f}")
-    U = short["inner_unroll"]
-    one = dict(short, steps_per_pass=U, steps_per_flush=U)
-    st = clone_state(lanes0)
-    fins = []
-    chunks, windows = bits.shape[:2]
-    for c in range(chunks):
-        for w in range(windows):
-            word = bits[c, w][None, None].contiguous()
-            r = cx.classify_pass_ext(st, seed, word, **one)
-            fins.append(r.stats[cls.STAT_DRAWN].reshape(-1) > 0)
-    check(all(same_bits(a, b) for a, b in zip(st, r_tf.state)),
-          "classify_ext: one-window launches leave the pass's lane state")
-    fin = torch.stack(fins)
-    G = fin.shape[0]
-    for S in (1, 2):
-        per = fin.reshape(G, n // (32 * S), 32 * S).sum(-1)
-        log(f"  S={S}: share of warp-windows with a finished lane "
-            f"{float((per > 0).float().mean()):.5f}, finished lanes per such "
-            f"window {float(per.sum() / max(int((per > 0).sum()), 1)):.3f}")
-    del bits, fin, fins, ref, r_tf, r_b, lanes0
-    torch.cuda.empty_cache()
-
-    # classify_ext_mh at the mhzoom cell.
-    mh_fields = MH_OUT_FIELDS
-    for slots in STUDY_MH_SLOTS:
-        cfg = cli.parse_args([*cell_args("mhzoom"), "--mh-visit-slots",
-                              str(slots)])[0]
-        eng = CudaEngine(cfg, device=dev)
-        spec = eng.mh_pass_spec()
-        lanes0 = eng.init_state(None)["lanes"]
-        del eng
-        for p in range(4):
-            cmh.classify_pass_ext_mh(lanes0, (1337, p), **spec)
-        n = lanes0.kr.numel()
-        best, ref = {}, None
-        for _ in range(2):
-            for label, d in mh_builds:
-                def call(st, d=d):
-                    with mh_build(d, "classify_ext_mh"):
-                        return cmh.classify_pass_ext_mh(st, seed, **spec)
-                t, _, r = time_from(lanes0, call, 3)
-                ref = r if ref is None else ref
-                check(same(r, ref, mh_fields),
-                      f"classify_ext_mh V={slots} {label}: the pass bitwise "
-                      f"== the package's")
-                best[label] = min(best.get(label, 1e9), t)
-        log(f"  classify_ext_mh mhzoom pass V={slots} (U="
-            f"{spec['inner_unroll']}, {spec['steps_per_pass']} steps x {n} "
-            f"lanes), least of 2 rounds of 3: " + ", ".join(
-                f"{label} {t:.4f} ms" for label, t in best.items()))
-        drawn = int(ref.stats[cmh.STAT_DRAWN].sum())
-        log(f"  V={slots}: proposals per lane-step "
-            f"{drawn / (n * spec['steps_per_pass']):.6f} ({drawn} resolved)")
-        short = dict(spec, steps_per_pass=STUDY_STEPS,
-                     steps_per_flush=min(spec["steps_per_flush"],
-                                         STUDY_STEPS))
-        bits = mh_study_bits(dev, seed, short, lanes0.kr.shape[0])
-        r_all = cmh.classify_pass_ext_mh(clone_state(lanes0), seed, bits,
-                                         **short)
-        U = short["inner_unroll"]
-        one = dict(short, steps_per_pass=U, steps_per_flush=U)
-        st = clone_state(lanes0)
-        fins = []
-        chunks, windows = bits.shape[:2]
-        for c in range(chunks):
-            for w in range(windows):
-                word = bits[c, w][None, None].contiguous()
-                r = cmh.classify_pass_ext_mh(st, seed, word, **one)
-                fins.append(r.stats[cmh.STAT_DRAWN].reshape(-1) > 0)
-        check(all(same_bits(a, b) for a, b in zip(st, r_all.state)),
-              f"classify_ext_mh V={slots}: one-window launches leave the "
-              f"pass's lane state")
-        fin = torch.stack(fins)
-        G = fin.shape[0]
-        for S in (1, 2):
-            per = fin.reshape(G, n // (32 * S), 32 * S).sum(-1)
-            log(f"  V={slots} S={S}: share of warp-windows with a finished "
-                f"lane {float((per > 0).float().mean()):.5f}")
-        del bits, fin, fins, ref, r_all, lanes0
-        torch.cuda.empty_cache()
-
-    # The two cells' engine passes.
-    for name, reps in (("zoom", 10), ("mhzoom", 5)):
-        eng = CudaEngine(cell_config(name), device=dev)
-        state = eng.init_state(None)
-        for p in range(6):
-            eng.run_pass(state, p)
-        t = min(pass_ms(eng, state, 10 + 20 * r, reps) for r in range(3))
-        log(f"  {name} pass (CUDA events), least of 3 rounds of {reps}: "
-            f"{t:.4f} ms")
-        del eng, state
-        torch.cuda.empty_cache()
-
-    phase_replay_floor(dev, card)
-
-    # Through cli.main: the zoom cell at each window, and mhzoom.
-    os.makedirs(OUT, exist_ok=True)
-    runs = [("zoom", ["--inner-unroll", str(u)]) for u in STUDY_EXT_UNROLLS]
-    runs += [("mhzoom", []), ("mhzoom", ["--inner-unroll", "32"])]
-    for rnd in range(2):
-        for name, extra in runs:
-            passes = dict((n_, p_) for n_, _, p_ in CELLS)[name]
-            stats_path = os.path.join(OUT, f"ext_study_{name}.json")
-            stats, _ = run_cli(
-                [*cell_args(name), *extra, "--passes", str(passes), "-t",
-                 "-1", "-o", os.path.join(OUT, f"ext_study_{name}.pgm"),
-                 "--stats-json", stats_path], stats_path)
-            el = stats["elapsed_seconds"]
-            steps = stats["classify_iters"] + stats["wasted_steps"]
-            pts = stats["on_canvas_points"] / (256 if name == "mhzoom"
-                                                else 1)
-            log(f"  round {rnd} {name} {' '.join(extra)}: {passes} passes "
-                f"in {el:.4f} s, {pts / el:.4e} deposited "
-                f"{'mass' if name == 'mhzoom' else 'points'}/s, "
-                f"{steps / el:.4e} lane-steps/s, mean lane lifetime "
-                f"{steps / max(stats['samples'], 1):.1f} lane-steps, "
-                f"{stats['in_band']} in band, {stats['replay_dropped']} "
-                f"dropped")
 
 
 #: Profiles profile_calls takes before it reports an empty one (a second
@@ -4130,113 +2826,6 @@ def profile_calls(fn, reps: int, only: str = ""):
                 names=sorted({e.get("name", "")[:40] for e in device}))
 
 
-def mh_deposit_study(dev, card):
-    """What the MH deposit spends its time on, at the mhcrop and mhzoom
-    cells (a main-path pass's emission buffers after 6 passes): slots,
-    depositable emissions, pairs and the distinct bins of each warp
-    group's pairs; the kernel on those buffers as the engine calls it
-    (device ms a call from torch.profiler, least of 3 rounds of 20 calls:
-    back-to-back launches this short are bound by the host's enqueue under
-    CUDA events; held bitwise to mh_scatter), at each
-    STUDY_MH_DEPOSIT_BLOCKS blocks per SM;
-    the engine's whole deposit step (mh_deposit_step) on the host clock,
-    as enqueued and with a synchronize after each, and in torch.profiler
-    (device activities and device ms a step); and the cell's pass (CUDA
-    events) with its device profile. The bound counts the pairs at the
-    atomic rate deposit_ids reaches here."""
-    import torch
-
-    from cudabrot_tpu_torch.engines import cuda_engine as ce
-    from cudabrot_tpu_torch.ops import binning, prng
-    from cudabrot_tpu_torch.ops import classify_mh as cmh
-
-    log(f"== MH deposit study at mhcrop and mhzoom ({card})")
-    rate = atomic_rate(dev)
-    log(f"  deposit_ids at 1000x1000: {rate:.4e} histogram atomics per ms")
-    for name in ("mhcrop", "mhzoom"):
-        cfg = cell_config(name)
-        eng = ce.CudaEngine(cfg, device=dev)
-        state = eng.init_state(None)
-        for p in range(6):
-            eng.run_pass(state, p)
-        fn = (cmh.classify_pass_ext_mh if eng.extended
-              else cmh.classify_pass_mh)
-        res = fn(clone_state(state["lanes"]),
-                 prng.bits_host(prng.pass_key(cfg.seed, 0, 7), 2),
-                 **eng.mh_pass_spec())
-        nbins = cfg.canvas.num_pixels
-        prof = mh_profile(res, nbins)
-        bound, by = mh_deposit_bound(prof, rate)
-        log(f"  {name}: {prof['slots']} slots, {prof['emissions']} "
-            f"depositable emissions, {prof['pairs']} (bin, weight) pairs "
-            f"({prof['pairs'] / max(prof['emissions'], 1):.3f} an emission)"
-            f"; {prof['groups']} warp groups hold pairs, "
-            f"{prof['pairs'] / max(prof['groups'], 1):.3f} pairs and "
-            f"{prof['distinct'] / max(prof['groups'], 1):.3f} distinct bins "
-            f"a group ({prof['distinct']} distinct (group, bin)); bound "
-            f"{bound:.4f} ms ({by})")
-        t = torch.where(res.emit_it >= 0, res.emit_v, 0)
-        bins_c, t_c, rep_c = mh_batch(res, t)
-        want = torch.zeros(nbins, dtype=torch.int32, device=dev)
-        binning.mh_scatter(want, bins_c, t_c, rep_c)
-        hist = torch.zeros(nbins, dtype=torch.int32, device=dev)
-        totals = tuple(torch.zeros((), dtype=torch.int64, device=dev)
-                       for _ in range(2))
-
-        def kernel():
-            binning.mh_deposit(hist, res.emit_bins, res.emit_v, res.emit_rep,
-                               chunked=True, gate=res.emit_it, totals=totals)
-
-        def device_ms():
-            got = profile_calls(kernel, 20, "mh_deposit_kernel")
-            if isinstance(got, str):
-                check(False, f"mh_deposit {name}: the profiler timed the "
-                             f"kernel ({got})")
-            return got["ms_each"]
-
-        kernel()
-        check(torch.equal(hist, want),
-              f"mh_deposit {name}: bitwise == mh_scatter")
-        sweep = {}
-        for b in STUDY_MH_DEPOSIT_BLOCKS:
-            with mock.patch.object(binning, "MH_DEPOSIT_BLOCKS_PER_SM", b):
-                sweep[b] = min(device_ms() for _ in range(3))
-        log(f"  {name} mh_deposit kernel by blocks per SM (device ms a call "
-            f"from torch.profiler, least of 3 rounds of 20): " + ", ".join(
-                f"{b} {v:.4f} ms" for b, v in sweep.items()))
-        step = mh_deposit_step(state, res)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(50):
-            step()
-        enq = (time.perf_counter() - t0) * 1e3 / 50
-        torch.cuda.synchronize()
-        synced = host_ms(step, 50)
-        got = profile_calls(step, 20)
-        log(f"  {name} deposit step: enqueued in {enq:.4f} ms a step, "
-            f"{synced:.4f} ms a step with a synchronize (host clock, 50 "
-            f"steps); " + (f"profile: {got}" if isinstance(got, str) else
-                           f"{got['per_call']:.2f} device activities and "
-                           f"{got['ms_per_call']:.4f} device ms a step "
-                           f"({got['names']})"))
-        pass_time = min(pass_ms(eng, state, 20 + 10 * r, 5) for r in range(2))
-        busy, span, prof_ms = device_profile(eng, state, 100,
-                                             8 if eng.extended else 16)
-        parts = ("not measured" if busy is None else ", ".join(
-            f"{g} {v:.4f}" for g, v in prof_ms.items() if v)
-            + f"; busy {busy:.4f}")
-        log(f"  {name} pass {pass_time:.4f} ms (CUDA events, least of 2 "
-            f"rounds of 5); device ms a pass: {parts}")
-        del eng, state, res
-        torch.cuda.empty_cache()
-
-
-def _nvcc_version():
-    from cudabrot_tpu_torch.ops import _build
-
-    return subprocess.run([_build.nvcc_path(), "--version"],
-                          capture_output=True,
-                          text=True).stdout.strip().splitlines()[-1]
 
 
 def phase_replay_floor_f32(dev, card):
@@ -4245,21 +2834,14 @@ def phase_replay_floor_f32(dev, card):
     longest orbit set to FLOOR_STEPS steps and replayed alone, at the head
     of the batch's first 128 and 256 orbits and of the whole batch; then
     the whole batch of the default, deep and northstar cells at each
-    STUDY_REPLAY_WARPS resident warps per SM where the kernel has a queue
-    (binning.REPLAY_WARPS_PER_SM set for the call), and the default batch
-    at each STUDY_TAKES_PER_WARP; each batch also through the study build
-    without the queue (a warp per group). Least of 3 rounds each."""
-    import inspect
-
+    STUDY_REPLAY_WARPS resident warps per SM (binning.REPLAY_WARPS_PER_SM
+    set for the call), and the default batch at each
+    STUDY_TAKES_PER_WARP. Least of 3 rounds each."""
     import torch
 
     from cudabrot_tpu_torch.ops import binning
 
     log(f"== phase 7c: the f32 replay's long-orbit floor ({card})")
-    warps = hasattr(binning, "REPLAY_WARPS_PER_SM")
-    no_queue = None
-    if "defines" in inspect.signature(binning._lib).parameters:
-        no_queue = binning._lib(STUDY_DEPOSIT_BUILDS[-1][1])
     for name in ("deep", "northstar", "default"):
         eng, _, (cr, ci, it) = kept_batch(dev, name, warm=4)
         canvas = eng.cfg.canvas
@@ -4298,46 +2880,32 @@ def phase_replay_floor_f32(dev, card):
                 f"128 orbits {best[128]:.4f}, 256 orbits {best[256]:.4f}, "
                 f"all {k} {best[k]:.4f} ms (the batch as compacted "
                 f"{best['as_is']:.4f}); batch / lone {best[k] / best[1]:.3f}")
-        if warps:
-            sweep = {}
+        sweep = {}
+        for _ in range(3):
+            for w in STUDY_REPLAY_WARPS:
+                sweep[w] = min(sweep.get(w, 1e9), time_ms(
+                    call(k, it, "REPLAY_WARPS_PER_SM", w), 5))
+        log(f"  replay_deposit ({name}): the batch as compacted at "
+            "resident warps per SM " + ", ".join(
+                f"{w}: {t:.4f} ms" for w, t in sweep.items())
+            + f" (least of 3 rounds; the package's "
+            f"{binning.REPLAY_WARPS_PER_SM})")
+        if name == "default":
+            takes = {}
             for _ in range(3):
-                for w in STUDY_REPLAY_WARPS:
-                    sweep[w] = min(sweep.get(w, 1e9), time_ms(
-                        call(k, it, "REPLAY_WARPS_PER_SM", w), 5))
-            log(f"  replay_deposit ({name}): the batch as compacted at "
-                "resident warps per SM " + ", ".join(
-                    f"{w}: {t:.4f} ms" for w, t in sweep.items())
-                + f" (least of 3 rounds; the package's "
-                f"{binning.REPLAY_WARPS_PER_SM})")
-            if name == "default":
-                takes = {}
-                for _ in range(3):
-                    for g in STUDY_TAKES_PER_WARP:
-                        takes[g] = min(takes.get(g, 1e9), time_ms(
-                            call(k, it, "REPLAY_TAKES_PER_WARP", g), 5))
+                for g in STUDY_TAKES_PER_WARP:
+                    takes[g] = min(takes.get(g, 1e9), time_ms(
+                        call(k, it, "REPLAY_TAKES_PER_WARP", g), 5))
 
-                def take_of(g):
-                    with mock.patch.object(binning, "REPLAY_TAKES_PER_WARP",
-                                           g):
-                        return binning.replay_launch(k, dev)[1]
-                log(f"  replay_deposit ({name}): REPLAY_TAKES_PER_WARP (groups "
-                    "of 32 a warp takes at once) " + ", ".join(
-                        f"{g} ({take_of(g)}): {t:.4f} ms"
-                        for g, t in takes.items())
-                    + f" (least of 3 rounds; the package's "
-                    f"{binning.REPLAY_TAKES_PER_WARP})")
-        else:
-            log(f"  replay_deposit ({name}): the batch as compacted "
-                f"{min(time_ms(call(k, it), 5) for _ in range(3)):.4f} ms")
-        if no_queue is not None:
-            pair = {}
-            for _ in range(3):
-                for label, fn in (("queue", call(k, it)), (
-                        "no queue", call(k, it, "_lib", lambda: no_queue))):
-                    pair[label] = min(pair.get(label, 1e9), time_ms(fn, 5))
-            log(f"  replay_deposit ({name}): the batch with the queue "
-                f"{pair['queue']:.4f} ms, with a warp per group (no queue) "
-                f"{pair['no queue']:.4f} ms (least of 3 rounds)")
+            def take_of(g):
+                with mock.patch.object(binning, "REPLAY_TAKES_PER_WARP", g):
+                    return binning.replay_launch(k, dev)[1]
+            log(f"  replay_deposit ({name}): REPLAY_TAKES_PER_WARP (groups "
+                "of 32 a warp takes at once) " + ", ".join(
+                    f"{g} ({take_of(g)}): {t:.4f} ms"
+                    for g, t in takes.items())
+                + f" (least of 3 rounds; the package's "
+                f"{binning.REPLAY_TAKES_PER_WARP})")
         del hist, eng
         torch.cuda.empty_cache()
     for entry, regs in registers("deposit", "replay"):
@@ -4363,121 +2931,6 @@ def big_batch(dev, name, warm=4, scatter="bigtiles"):
     return eng, (cr, ci, it, off), n
 
 
-def phase_ids_study(dev, card):
-    """Phase 7d: the f32 replay_ids kernel at the bigcanvas and northstar
-    batches (4 passes warm): the package's build and each study build of
-    STUDY_DEPOSIT_BUILDS, each first held word for word to the package's
-    stream, then the package's at each STUDY_REPLAY_WARPS resident warps
-    per SM and, at bigcanvas, each STUDY_TAKES_PER_WARP. Least of 3 rounds
-    of 5 calls each (CUDA events; a call allocates its stream, and the
-    sentinel-fill build fills it). Builds without the study's variants (an
-    older tree) time the package's kernel alone."""
-    import inspect
-
-    import torch
-
-    from cudabrot_tpu_torch.ops import binning
-
-    log(f"== phase 7d: the f32 id replay's stores and queue ({card})")
-    variants = ("defines" in inspect.signature(binning._lib).parameters
-                and hasattr(binning, "_replay_ids_launch"))
-    for name in ("bigcanvas", "northstar"):
-        eng, (cr, ci, it, off), n = big_batch(dev, name)
-        canvas = eng.cfg.canvas
-        kw = dict(canvas=canvas, fractal=eng.fractal)
-        ref, ref_hits = binning.replay_ids(cr, ci, it, off, n, **kw)
-        calls = {STUDY_DEPOSIT_BUILDS[0][0]:
-                 lambda: binning.replay_ids(cr, ci, it, off, n, **kw)}
-        for label, d in STUDY_DEPOSIT_BUILDS[1:] if variants else ():
-            lib = binning._lib(d)
-            fill = "CB_IDS_STORE=2" in d
-
-            def call(lib=lib, fill=fill):
-                ids = (torch.full((n,), canvas.num_pixels, dtype=torch.int32,
-                                  device=dev) if fill else
-                       torch.empty(n, dtype=torch.int32, device=dev))
-                return ids, binning._replay_ids_launch(lib, ids, cr, ci, it,
-                                                       off, **kw)
-            ids, hits = call()
-            check(torch.equal(ids, ref) and int(hits) == int(ref_hits),
-                  f"replay_ids, {label} ({name}): the package's stream, "
-                  f"word for word")
-            calls[label] = call
-        del ref
-        orbits = int((it >= 0).sum())
-        bound, by = bound_ms(OPS_REPLAY_POINT[0] * n,
-                             4 * n + 20 * cr.numel())
-        log(f"  {name} batch: {orbits} orbits, {n} ids, longest "
-            f"{int(it[0]) + 1}; bound {bound:.4f} ms ({by})")
-        best = {}
-        for _ in range(3):
-            for label, call in calls.items():
-                best[label] = min(best.get(label, 1e9), time_ms(call, 5))
-        for label, t in best.items():
-            log(f"  replay_ids ({name}), {label}: {t:.4f} ms (least of 3 "
-                f"rounds of 5)")
-        package = calls[STUDY_DEPOSIT_BUILDS[0][0]]
-
-        def patched(const, value):
-            def run():
-                with mock.patch.object(binning, const, value):
-                    return package()
-            return run
-        sweep = {}
-        for _ in range(3):
-            for w in STUDY_REPLAY_WARPS:
-                sweep[w] = min(sweep.get(w, 1e9), time_ms(
-                    patched("REPLAY_WARPS_PER_SM", w), 5))
-        log(f"  replay_ids ({name}) at resident warps per SM " + ", ".join(
-            f"{w}: {t:.4f} ms" for w, t in sweep.items())
-            + f" (least of 3 rounds; the package's "
-            f"{binning.REPLAY_WARPS_PER_SM})")
-        if name == "bigcanvas":
-            takes = {}
-            for _ in range(3):
-                for g in STUDY_TAKES_PER_WARP:
-                    takes[g] = min(takes.get(g, 1e9), time_ms(
-                        patched("REPLAY_TAKES_PER_WARP", g), 5))
-            log(f"  replay_ids ({name}) at REPLAY_TAKES_PER_WARP " + ", ".join(
-                f"{g}: {t:.4f} ms" for g, t in takes.items())
-                + f" (least of 3 rounds; the package's "
-                f"{binning.REPLAY_TAKES_PER_WARP})")
-        del eng, calls
-        torch.cuda.empty_cache()
-    for entry, regs in registers("deposit", "replay"):
-        log(f"  registers [deposit] {entry}: {regs}")
-
-
-def phase_pass_times(dev, card, passes=16):
-    """Engine passes of STUDY_CELLS on the host clock, as the driver runs
-    them (synchronize every 8 passes, and at the end), after 8 passes of
-    warm-up: ms per pass, lane-steps/s and deposited points/s."""
-    import torch
-
-    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
-
-    log(f"== phase 7b: engine passes, host clock over {passes} passes "
-        f"({card})")
-    for name, scatter in STUDY_CELLS:
-        eng = CudaEngine(cell_config(name, scatter), device=dev)
-        state = eng.init_state(None)
-        for p in range(8):
-            eng.run_pass(state, p)
-        eng.synchronize()
-        hits0 = int(state["dev_hits"])
-        t0 = time.perf_counter()
-        for p in range(passes):
-            eng.run_pass(state, 100 + p)
-            if (p + 1) % 8 == 0:
-                eng.synchronize()
-        eng.synchronize()
-        sec = time.perf_counter() - t0
-        hits = int(state["dev_hits"]) - hits0
-        log(f"  {name} --scatter {scatter}: {1e3 * sec / passes:.4f} ms per "
-            f"pass, {eng.steps_per_pass * passes / sec:.4e} lane-steps/s, "
-            f"{hits / sec:.4e} deposited points/s")
-        del eng, state
-        torch.cuda.empty_cache()
 
 
 def phase_overlap(dev):
@@ -4525,18 +2978,10 @@ MULTI_DP_CELLS = ("default", "zoom", "mhcrop")
 MULTI_ROWS_CELLS = (("default", "auto"), ("zoom", "auto"),
                     ("bigcanvas", "bigtiles"))
 MULTI_PASSES = 3
-#: The two fused replays' times at their cells before the row window
-#: (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W), which the window
-#: must not slow; and the rounds phase 10 re-times them in.
-RECORDED_REPLAY_MS = {"replay_deposit": 1.5695, "replay_deposit_ext": 1.8665}
-RETIME_ROUNDS = 5
 
 #: The cell, and shards, of phase 10's memory check.
 MULTI_MEMORY_CELL, MULTI_MEMORY_SHARDS = "northstar", 4
 
-#: Study flags that need the package's libraries alone.
-PACKAGE_ONLY = {"--multi", "--replay-retime", "--cards", "--host",
-                "--sanitize", "--routes", "--deposit-study"}
 
 MULTI_CHILD = """
 import sys
@@ -4589,36 +3034,6 @@ def counted_run(eng, passes, kernels, what):
           f", no plain version")
     return out, counts
 
-
-def retime_replays(dev, card):
-    """The two fused replays on the replicated histogram (the window
-    (0, height)) at the cells and shapes of phase 5, RETIME_ROUNDS rounds
-    of 10 calls, beside RECORDED_REPLAY_MS."""
-    import torch
-
-    from cudabrot_tpu_torch.ops import binning
-
-    out = {}
-    for name, kname, warm in (("default", "replay_deposit", 4),
-                              ("zoom", "replay_deposit_ext", 8)):
-        eng, _, (xr, xi, it) = kept_batch(dev, name, warm=warm)
-        cfg = eng.cfg
-        hist = torch.zeros(cfg.canvas.num_pixels, dtype=torch.int32,
-                           device=dev)
-        kw = dict(canvas=cfg.canvas, fractal=eng.fractal)
-        if eng.extended:
-            kw["sample_domain"] = cfg.sample_domain
-        fn = (binning.replay_deposit_ext if eng.extended
-              else binning.replay_deposit)
-        rounds = [time_ms(lambda: fn(hist, xr, xi, it, **kw), 10)
-                  for _ in range(RETIME_ROUNDS)]
-        out[kname] = rounds
-        log(f"  {kname} at {name}, replicated window: rounds "
-            f"{', '.join(f'{r:.4f}' for r in rounds)} ms (least "
-            f"{min(rounds):.4f}, spread {max(rounds) - min(rounds):.4f}); "
-            f"before the window: {RECORDED_REPLAY_MS[kname]:.4f} ms "
-            f"[{card}]")
-    return out
 
 
 def longest_first_engine():
@@ -4750,9 +3165,9 @@ def phase_multi(dev, card):
     the row-sharded engine over 2 and 3 shards of cuda:0 against the
     data-parallel engine over the same ordinals (default and zoom on the
     fused route, bigcanvas on the bigtiles route); two processes against
-    one; each bitwise. Then the times: the replicated fused replays
-    against their recorded times, a pass of DP x2 against a single engine's, and the
-    row-sharded pass with and without re-sorting the gathered batch."""
+    one; each bitwise. Then the times: a pass of DP x2 against a single
+    engine's, and the row-sharded pass with and without re-sorting the
+    gathered batch."""
     import io
     import tempfile
 
@@ -4817,8 +3232,7 @@ def phase_multi(dev, card):
     log(f"  phase 10 checks took {time.monotonic() - t0:.1f} s")
 
     log(f"-- phase 10 times [{card}]")
-    retime = retime_replays(dev, card)
-    times = {"replay_rounds_ms": retime}
+    times = {}
     for name in ("default", "zoom"):
         cfg = cell_config(name)
         single = CudaEngine(cfg, device=dev)
@@ -4845,154 +3259,7 @@ def phase_multi(dev, card):
     return counts
 
 
-#: The multi-card study's cells: name, --scatter route, passes timed.
-CARDS_CELLS = (("default", "auto", 10), ("zoom", "auto", 10),
-               ("bigcanvas", "auto", 10), ("northstar", "auto", 5))
 
-
-def host_pass_ms(eng, state, first: int, reps: int) -> float:
-    """Milliseconds per engine pass on the host clock over ``reps`` passes
-    after one warm pass, the engine synchronizing every device it runs on
-    before and after (CUDA events would time one device's stream)."""
-    eng.run_pass(state, first)
-    eng.synchronize()
-    t0 = time.perf_counter()
-    for p in range(reps):
-        eng.run_pass(state, first + 1 + p)
-    eng.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps
-
-
-def cards_study(card):
-    """--cards: the multi-device engines over every card of the host (run
-    it with several cards). The data-parallel engine against single
-    engines, each on its own card at its own ordinal, summed; the row
-    shards (the gathered batches copied between cards) against the
-    replicas; two processes with half the cards each against one process;
-    each bitwise. Then ms a pass on the host clock of one card's engine, of
-    the data-parallel engine over all cards and of the row shards, at the
-    default, zoom, bigcanvas and northstar cells."""
-    import tempfile
-
-    import numpy as np
-    import torch
-
-    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
-    from cudabrot_tpu_torch.io import checkpoint as ckpt
-    from cudabrot_tpu_torch.parallel.data_parallel import (
-        DataParallelEngine,
-        sum_stats,
-    )
-    from cudabrot_tpu_torch.parallel.sharded_hist import (
-        ShardedHistogramEngine,
-    )
-
-    n = torch.cuda.device_count()
-    log(f"== multi-card study: {n} cards [{card}]")
-    check(n >= 2 and n % 2 == 0, f"{n} cards: an even number of at least 2")
-    devs = [torch.device("cuda", i) for i in range(n)]
-    for name in ("default", "zoom"):
-        cfg = cell_config(name)
-        hd, sd, _ = engine_run(DataParallelEngine(cfg, devices=devs),
-                               MULTI_PASSES)
-        total, stats = np.zeros(cfg.canvas.shape, np.uint32), []
-        for i, dev in enumerate(devs):
-            eng = CudaEngine(cfg, device=dev)
-            st = eng.init_state(None)
-            for p in range(MULTI_PASSES):
-                eng.core(st, p, i)
-            total += eng.histogram(st)
-            stats.append(eng.stats(st))
-        check(np.array_equal(hd, total) and sd == sum_stats(stats),
-              f"{name}: DP over {n} cards == {n} single engines, each on "
-              f"its own card at its ordinal, summed; bitwise")
-    for name, scatter in (("default", "auto"), ("zoom", "auto"),
-                          ("bigcanvas", "bigtiles")):
-        cfg = cell_config(name, scatter)
-        hr, sr, _ = engine_run(ShardedHistogramEngine(cfg, devices=devs),
-                               MULTI_PASSES)
-        hd, sd, _ = engine_run(DataParallelEngine(cfg, devices=devs),
-                               MULTI_PASSES)
-        sr.pop("histogram_sharding")
-        check(np.array_equal(hr, hd) and sr == sd
-              and int(hr.sum(dtype=np.uint64)) == sr["on_canvas_points"],
-              f"{name} {scatter}: rows over {n} cards == replicas, bitwise")
-    os.makedirs(OUT, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
-        import socket
-
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-
-        def args(d, tag):
-            return [*cell_args("default"), "-d", str(d), "--devices",
-                    str(n), "--passes", "4", "-t", "-1",
-                    "-s", os.path.join(tmp, f"{tag}.ckpt"),
-                    "-o", os.path.join(tmp, f"{tag}.pgm")]
-
-        single = subprocess.run(
-            [sys.executable, "-c", MULTI_CHILD, ROOT, *args(0, "one")],
-            capture_output=True, text=True, timeout=300)
-        check(single.returncode == 0, f"one process over {n} cards exits 0")
-        procs = []
-        for pid in range(2):
-            env = dict(os.environ,
-                       CUDABROT_COORDINATOR=f"127.0.0.1:{port}",
-                       CUDABROT_NUM_PROCESSES="2",
-                       CUDABROT_PROCESS_ID=str(pid))
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", MULTI_CHILD, ROOT,
-                 *args(pid * n // 2, "two")], env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        try:
-            outs = [p.communicate(timeout=300) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        check(all(p.returncode == 0 for p in procs),
-              f"two processes, {n // 2} cards each, exit 0")
-        cfg = cell_config("default")
-        h1, _ = ckpt.load(os.path.join(tmp, "one.ckpt"), cfg)
-        h2, _ = ckpt.load(os.path.join(tmp, "two.ckpt"), cfg)
-        with open(os.path.join(tmp, "one.pgm"), "rb") as a, \
-                open(os.path.join(tmp, "two.pgm"), "rb") as b:
-            same_pgm = a.read() == b.read()
-        check(np.array_equal(h1, h2) and same_pgm and outs[1][0] == "",
-              f"two processes x {n // 2} cards == one process x {n} cards: "
-              f"checkpoint and PGM bitwise, process 1 silent")
-
-    times = {}
-    for name, scatter, reps in CARDS_CELLS:
-        cfg = cell_config(name, scatter)
-        one = CudaEngine(cfg, device=devs[0])
-        t1 = host_pass_ms(one, one.init_state(None), 0, reps)
-        del one
-        dp = DataParallelEngine(cfg, devices=devs)
-        tn = host_pass_ms(dp, dp.init_state(None), 0, reps)
-        del dp
-        for d in devs:
-            torch.cuda.synchronize(d)
-            torch.cuda.reset_peak_memory_stats(d)
-        base = max(torch.cuda.memory_allocated(d) for d in devs)
-        rows = ShardedHistogramEngine(cfg, devices=devs)
-        tr = host_pass_ms(rows, rows.init_state(None), 0, reps)
-        # Each card's peak while the rows engine was built and run: its
-        # shard, its engine's buffers and the gathered batch.
-        peak = (max(torch.cuda.max_memory_allocated(d) for d in devs)
-                - base) / (1 << 20)
-        shard = rows.rows_per_shard * cfg.canvas.width * 4 / (1 << 20)
-        del rows
-        times[name] = dict(one_card_ms=t1, dp_ms=tn, rows_ms=tr,
-                           rows_peak_mib=peak, shard_mib=shard)
-        log(f"  {name}: ms a pass (host clock, {reps} passes): one card "
-            f"{t1:.4f}; DP x{n} {tn:.4f} ({n * t1 / tn:.3f}x one card's "
-            f"throughput); rows x{n} {tr:.4f} ({n * t1 / tr:.3f}x); rows' "
-            f"peak a card {peak:.1f} MiB, its shard {shard:.1f} MiB "
-            f"[{card}]")
-    log(f"multi-card record: {json.dumps(times)}")
 
 
 #: Phase 11's runs through cli.main: tag, cell, extra arguments, passes.
@@ -5298,33 +3565,6 @@ def phase_host(dev, card):
     return {tag: v["launches"] for tag, v in record.items()
             if isinstance(v, dict) and "launches" in v}
 
-
-def ext_budget_sweep(dev):
-    """Deep-zoom engine passes at 2^27..2^30 lane-steps per pass: ms per
-    pass and lane-steps per second (CUDA events over 8 passes, after
-    2^15 warm-up steps at each length)."""
-    import dataclasses
-    import itertools
-
-    from cudabrot_tpu_torch.engines.cuda_engine import CudaEngine
-
-    base = cell_config("zoom")
-    for log2 in (27, 28, 29, 30):
-        steps = (1 << log2) // (base.options.lane_rows * 128)
-        cfg = dataclasses.replace(base, options=dataclasses.replace(
-            base.options, steps_per_pass=steps))
-        eng = CudaEngine(cfg, device=dev)
-        state = eng.init_state(None)
-        warm = 32768 // steps
-        for p in range(warm):
-            eng.run_pass(state, p)
-        ids = itertools.count(warm)
-        ms = time_ms(lambda: eng.run_pass(state, next(ids)), 8)
-        st = eng.stats(state)
-        log(f"  2^{log2} lane-steps per pass ({steps} steps, capacity "
-            f"{eng.replay_capacity}): {ms:.3f} ms per pass, "
-            f"{(1 << log2) / ms * 1e3:.4e} lane-steps/s, dropped "
-            f"{st['replay_dropped']} of {st['in_band']} in band")
 
 
 # ----------------------------------------------------------------------
@@ -5965,39 +4205,28 @@ def main() -> int:
     ).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi: no output"
     t0 = time.monotonic()
-    studies = {
-        "--ext-budget-sweep": lambda: ext_budget_sweep(dev),
+    flags = {
         "--replay-study": lambda: (phase_replay_floor(dev, card),
-                                   phase_replay_floor_f32(dev, card),
-                                   phase_ids_study(dev, card),
-                                   phase_pass_times(dev, card)),
-        "--classify-study": lambda: classify_study(dev, card),
-        "--mh-study": lambda: (mh_deposit_study(dev, card),
-                               mh_study(dev, card)),
-        "--mh-deposit-study": lambda: mh_deposit_study(dev, card),
-        "--ext-study": lambda: ext_study(dev, card),
+                                   phase_replay_floor_f32(dev, card)),
         "--multi": lambda: phase_multi(dev, card),
-        "--replay-retime": lambda: retime_replays(dev, card),
-        "--cards": lambda: cards_study(card),
         "--host": lambda: phase_host(dev, card),
         "--repeat": lambda: (phase_classify(dev), phase_repeat(dev)),
         "--sanitize": lambda: phase_sanitize(dev, card),
         "--routes": lambda: (phase_routes(dev, card),
                              phase_deposit_ids(dev, card)),
-        "--deposit-study": lambda: phase_deposit_ids(dev, card, designs=True),
     }
     if sys.argv[1:] == ["--sanitize-target"]:
         return sanitize_target(dev)
     if sys.argv[1:]:
-        unknown = [a for a in sys.argv[1:] if a not in studies]
+        unknown = [a for a in sys.argv[1:] if a not in flags]
         if unknown:
-            print(f"chip_smoke: unknown flags {unknown}; the studies are "
-                  f"{', '.join(studies)}", file=sys.stderr)
+            print(f"chip_smoke: unknown flags {unknown}; the flags are "
+                  f"{', '.join(flags)}", file=sys.stderr)
             return 2
         try:
             phase_build(sys.argv[1:])
             for flag in sys.argv[1:]:
-                studies[flag]()
+                flags[flag]()
         except SmokeFailure as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1

@@ -129,15 +129,6 @@ def save_rgb(path: str, rgb_unit: np.ndarray) -> None:
         png_io.write_png(path, np.round(rgb_unit * 255.0).astype(np.uint8))
 
 
-def _load_gray(path: str) -> np.ndarray:
-    if path.endswith(".png"):
-        img = png_io.read_png(path)
-        if img.ndim != 2:
-            raise ValueError(f"{path}: expected grayscale")
-        return img
-    return pgm_io.read_pgm(path)
-
-
 @dataclasses.dataclass(frozen=True)
 class BandSpec:
     """One banded render of the color recipe."""

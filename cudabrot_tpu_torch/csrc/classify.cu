@@ -68,16 +68,9 @@ constexpr int kBlock = 128;  // 4 warps
 constexpr int kWarps = kBlock / 32;
 
 // Lanes per thread. 2 was the fastest of 1, 2 and 4 on an H100 at the
-// default cell and level with 4 at the deep one (chip_smoke.py
-// --classify-study, which builds the others with -DCB_LANES_PER_THREAD);
+// default cell and level with 4 at the deep one (measured in PR 6);
 // S = 4 leaves too few warps resident to hide the draws' scattered loads.
-#ifndef CB_LANES_PER_THREAD
-#define CB_LANES_PER_THREAD 2
-#endif
-constexpr int kLanesPerThread = CB_LANES_PER_THREAD;
-static_assert(kLanesPerThread == 1 || kLanesPerThread == 2 ||
-                  kLanesPerThread == 4,
-              "CB_LANES_PER_THREAD must be 1, 2 or 4");
+constexpr int kLanesPerThread = 2;
 
 template <int FR, bool THIN, bool VISIT, int S, int U>
 __global__ void __launch_bounds__(kBlock) classify_kernel(cb::ClassifyArgs a) {

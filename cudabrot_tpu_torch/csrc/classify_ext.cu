@@ -53,15 +53,9 @@ constexpr int kBlock = 128;  // 4 warps
 // of 5 passes, PERF.md section 6): 3.83 against 4.01 ms a pass at U = 1,
 // and than 2 held to 64 registers (8 blocks an SM, spilling; 3.84) or to
 // 4 blocks an SM (3.88); at U = 2, 3.38-3.42 against 3.42-3.57
-// (chip_smoke.py --ext-study, which builds the other with
-// -DCB_EXT_LANES_PER_THREAD): the resident warps hide the df32 chain's
-// latency better than a second chain in the thread.
-#ifndef CB_EXT_LANES_PER_THREAD
-#define CB_EXT_LANES_PER_THREAD 1
-#endif
-constexpr int kLanesPerThread = CB_EXT_LANES_PER_THREAD;
-static_assert(kLanesPerThread == 1 || kLanesPerThread == 2,
-              "CB_EXT_LANES_PER_THREAD must be 1 or 2");
+// (measured in PR 9): the resident warps hide the df32 chain's latency
+// better than a second chain in the thread.
+constexpr int kLanesPerThread = 1;
 
 template <int FR, bool VISIT, int S, int U>
 __global__ void __launch_bounds__(kBlock)

@@ -78,73 +78,45 @@ using cb::mh::OrbitF32;
 constexpr int kBlock = 128;  // 4 warps
 constexpr int kWarps = kBlock / 32;
 
-// Each kernel's build, chosen by measurement (chip_smoke.py --mh-study for
-// the f32 kernel at the mhcrop cell, --ext-study for the df32 one at
-// mhzoom; the study builds set the macros with -D).
-//  * Lanes per thread: CB_MH_LANES_PER_THREAD (f32) and
-//    CB_MH_EXT_LANES_PER_THREAD (df32), 1 or 2. At f32, 1 was faster than
+// Each kernel's build, chosen by measurement (the f32 kernel at the
+// mhcrop cell in PR 7, the df32 one at mhzoom in PR 9).
+//  * Lanes per thread, S: 1 for both kernels. At f32, 1 was faster than
 //    2 at mhcrop.
-//  * Where a lane's three V-word reservoirs live, CB_MH_SHARED_SLOTS and
-//    CB_MH_EXT_SHARED_SLOTS: 0 all in registers (mh.cuh RegSlots, the
-//    run-time slot's write an unrolled predicated select); 1 the chain's
+//  * Where a lane's three V-word reservoirs live, `shared`: 1 the chain's
 //    xb and p_b, which only a boundary touches, in shared memory
-//    (SharedSlots) and the visit reservoir vb in registers; 2 all three in
-//    shared memory, so record_visit's write is one indexed store. At f32, 1
-//    was the fastest at V = 8 by 1-2% (64 registers, against 80 and 54-56),
-//    2 at V = 32. At df32, 2 was the fastest at mhzoom at both widths (on
-//    an NVIDIA H100 80GB HBM3, 700.00 W, least of 2 rounds of 3 passes in
-//    each of two runs, PERF.md section 6): V = 8 14.61 and 14.70 ms a pass
-//    against 15.41-15.51 with 1 and 15.75-15.86 with 0; V = 32
-//    16.39-16.46 against 18.93-19.02 and 19.68-19.78. The df32 orbit's
-//    registers leave the reservoirs none (80 registers with 1 at V = 8,
-//    158 at V = 32). Two lanes a thread spilled (255 registers) and took
-//    19.67-19.68 ms at V = 8, 20.88-21.01 at V = 32.
-//  * The window, CB_MH_WINDOW_UNROLL (both kernels): 1 unrolls it at
-//    compile time for U in {4, 8, 16, 32} (6-8% faster a pass at mhcrop,
-//    U = 16; at mhzoom, the same card and runs, 14.61-14.70 ms against
-//    15.87-15.96 as a loop at V = 8, and level at V = 32, 16.31-16.39 as
-//    a loop); 0 runs the loop at the run-time U.
-#ifndef CB_MH_LANES_PER_THREAD
-#define CB_MH_LANES_PER_THREAD 1
-#endif
-#ifndef CB_MH_SHARED_SLOTS
-#define CB_MH_SHARED_SLOTS 1
-#endif
-#ifndef CB_MH_EXT_LANES_PER_THREAD
-#define CB_MH_EXT_LANES_PER_THREAD 1
-#endif
-#ifndef CB_MH_EXT_SHARED_SLOTS
-#define CB_MH_EXT_SHARED_SLOTS 2
-#endif
-#ifndef CB_MH_WINDOW_UNROLL
-#define CB_MH_WINDOW_UNROLL 1
-#endif
-
+//    (mh.cuh SharedSlots) and the visit reservoir vb in registers
+//    (RegSlots, the run-time slot's write an unrolled predicated select);
+//    2 all three in shared memory, so record_visit's write is one indexed
+//    store. At f32, 1 was the fastest at V = 8 by 1-2% (64 registers,
+//    against 80 and 54-56 with 0, all in registers, and 2), 2 at V = 32.
+//    At df32, 2 was the fastest at mhzoom at both widths (on an NVIDIA
+//    H100 80GB HBM3, 700.00 W, least of 2 rounds of 3 passes in each of
+//    two runs, PERF.md section 6): V = 8 14.61 and 14.70 ms a pass against
+//    15.41-15.51 with 1 and 15.75-15.86 with 0; V = 32 16.39-16.46 against
+//    18.93-19.02 and 19.68-19.78. The df32 orbit's registers leave the
+//    reservoirs none (80 registers with 1 at V = 8, 158 at V = 32). Two
+//    lanes a thread spilled (255 registers) and took 19.67-19.68 ms at
+//    V = 8, 20.88-21.01 at V = 32.
+//  * The window is unrolled at compile time for U in {4, 8, 16, 32}
+//    (launch below; 6-8% faster a pass at mhcrop, U = 16; at mhzoom, the
+//    same card and runs, 14.61-14.70 ms against 15.87-15.96 as a loop at
+//    V = 8, and level at V = 32, 16.31-16.39 as a loop); any other U runs
+//    the loop.
 template <class Orbit>
 struct Build;
 template <>
 struct Build<OrbitF32> {
-  static constexpr int S = CB_MH_LANES_PER_THREAD;
-  static constexpr int shared = CB_MH_SHARED_SLOTS;
+  static constexpr int S = 1;
+  static constexpr int shared = 1;
 };
 template <>
 struct Build<OrbitDf> {
-  static constexpr int S = CB_MH_EXT_LANES_PER_THREAD;
-  static constexpr int shared = CB_MH_EXT_SHARED_SLOTS;
+  static constexpr int S = 1;
+  static constexpr int shared = 2;
 };
-static_assert(Build<OrbitF32>::S == 1 || Build<OrbitF32>::S == 2,
-              "CB_MH_LANES_PER_THREAD must be 1 or 2");
-static_assert(Build<OrbitDf>::S == 1 || Build<OrbitDf>::S == 2,
-              "CB_MH_EXT_LANES_PER_THREAD must be 1 or 2");
-static_assert(Build<OrbitF32>::shared >= 0 && Build<OrbitF32>::shared <= 2,
-              "CB_MH_SHARED_SLOTS must be 0, 1 or 2");
-static_assert(Build<OrbitDf>::shared >= 0 && Build<OrbitDf>::shared <= 2,
-              "CB_MH_EXT_SHARED_SLOTS must be 0, 1 or 2");
 
-template <class Orbit, int V>
-using ChainSlots = std::conditional_t<(Build<Orbit>::shared >= 1),
-                                      cb::mh::SharedSlots,
-                                      cb::mh::RegSlots<V>>;
+// The chain's reservoirs are in shared memory in both builds.
+using ChainSlots = cb::mh::SharedSlots;
 template <class Orbit, int V>
 using VisitSlots = std::conditional_t<(Build<Orbit>::shared >= 2),
                                       cb::mh::SharedSlots,
@@ -153,9 +125,7 @@ using VisitSlots = std::conditional_t<(Build<Orbit>::shared >= 2),
 // The bytes of a block's shared reservoirs.
 template <class Orbit>
 constexpr size_t slot_bytes(int V) {
-  constexpr int arrays = Build<Orbit>::shared == 0   ? 0
-                         : Build<Orbit>::shared == 1 ? 2
-                                                     : 3;
+  constexpr int arrays = Build<Orbit>::shared == 1 ? 2 : 3;
   return size_t(arrays) * V * kBlock * Build<Orbit>::S * sizeof(int32_t);
 }
 
@@ -177,7 +147,7 @@ __device__ __forceinline__ void mh_pass(const Args& a) {
   const int warp = (blockIdx.x * kBlock + threadIdx.x) >> 5;
   if (warp * S * 32 >= a.lanes) return;  // warp-uniform
 
-  using CS = ChainSlots<Orbit, V>;
+  using CS = ChainSlots;
   using VS = VisitSlots<Orbit, V>;
   int lane[S];
   bool live[S];
@@ -188,10 +158,8 @@ __device__ __forceinline__ void mh_pass(const Args& a) {
     live[j] = lane[j] < a.lanes;
     const int stride = kBlock * S;
     int32_t* col = slots_s + j * kBlock + threadIdx.x;
-    if constexpr (std::is_same_v<CS, cb::mh::SharedSlots>) {
-      L[j].ch.xb = {col, stride};
-      L[j].ch.p_b = {col + V * stride, stride};
-    }
+    L[j].ch.xb = {col, stride};
+    L[j].ch.p_b = {col + V * stride, stride};
     if constexpr (std::is_same_v<VS, cb::mh::SharedSlots>)
       L[j].vb = {col + 2 * V * stride, stride};
     cb::mh::load_mh_lane(a, live[j] ? lane[j] : 0, L[j]);
@@ -278,14 +246,12 @@ cudaError_t launch_u(const Args& a, cudaStream_t stream) {
 
 template <class Orbit, int FR, int V>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-#if CB_MH_WINDOW_UNROLL
   switch (a.unroll) {
     case 4: return launch_u<Orbit, FR, V, 4>(a, stream);
     case 8: return launch_u<Orbit, FR, V, 8>(a, stream);
     case 16: return launch_u<Orbit, FR, V, 16>(a, stream);
     case 32: return launch_u<Orbit, FR, V, 32>(a, stream);
   }
-#endif
   return launch_u<Orbit, FR, V, 0>(a, stream);
 }
 

@@ -20,8 +20,8 @@
 //    bytes an id, 8 a bin). Where the stream is nearly all sentinels (the
 //    deep zoom: 99.3%) the loads bound it, and there the 16-byte loads
 //    took it from 0.243 to 0.157 ms against a byte bound of 0.147. Tried
-//    and dropped (phase 3c times them): summing a warp's
-//    equal ids before one RED (__match_any_sync over 32 consecutive ids:
+//    and dropped (measured in PR 13): summing a warp's equal ids before
+//    one RED (__match_any_sync over 32 consecutive ids:
 //    they repeat at most 1.5% of the time, at deep) and privatizing a band
 //    of the histogram in a thread-block cluster's distributed shared
 //    memory (16 blocks of 128 KB, the stream read once a band: 2.6x
@@ -47,8 +47,7 @@
 //    warps. With one warp per group in place of the queue (its ~190
 //    groups placed by the block scheduler) the northstar batch took 9-10%
 //    longer in both kernels; the deep and default batches were level, and
-//    replay_ids' bigcanvas batch 4-5% faster (chip_smoke.py
-//    --replay-study).
+//    replay_ids' bigcanvas batch 4-5% faster (measured in PR 7).
 //
 //  * Both replays bin into a row window of the canvas (orbit.cuh CanvasQ):
 //    the whole canvas, or the rows of one shard of a row-sharded histogram
@@ -150,19 +149,6 @@ __global__ void __launch_bounds__(kBlock)
 constexpr int kQueueBlock = 128;  // 4 warps: one per SM sub-partition
 constexpr int kQueueWarps = kQueueBlock / 32;
 
-// Variant builds, for the measurement study only (chip_smoke.py builds them
-// with -D; the package loads the plain build). CB_REPLAY_QUEUE 0: warp g
-// replays group g, one warp launched per group, in place of the queue.
-// CB_IDS_STORE, replay_ids' stores: 0 the staged tile; 1 a store per point
-// (orbit.cuh IdSink); 2 on-canvas ids only (CanvasIdSink), into a stream
-// the caller fills with the sentinel first.
-#ifndef CB_REPLAY_QUEUE
-#define CB_REPLAY_QUEUE 1
-#endif
-#ifndef CB_IDS_STORE
-#define CB_IDS_STORE 0
-#endif
-
 // The queue: each warp takes the next `take` groups of 32 emissions until
 // none is left, and runs body(e, n, steps) on each: lane j of group g has
 // emission e = 32 g + j, its n (-1 past the batch's end, where e is the
@@ -187,7 +173,6 @@ __device__ __forceinline__ uint32_t replay_queue(const int32_t* iters, int k,
     const int steps = __reduce_max_sync(0xffffffffu, n) + 1;
     if (steps > 0) local += body(e, n, steps);
   };
-#if CB_REPLAY_QUEUE
   for (;;) {
     unsigned long long first = 0;
     if (lane == 0) first = atomicAdd(next, (unsigned long long)take);
@@ -196,10 +181,6 @@ __device__ __forceinline__ uint32_t replay_queue(const int32_t* iters, int k,
     const int end = int(first) + take < groups ? int(first) + take : groups;
     for (int g = int(first); g < end; ++g) group(g);
   }
-#else
-  const int g = int((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  if (g < groups) group(g);
-#endif
   return local;
 }
 
@@ -224,7 +205,6 @@ __global__ void __launch_bounds__(kQueueBlock)
                       cb::CanvasQ q, int take, unsigned long long* next,
                       unsigned long long* hits) {
   const int32_t nbins = q.width * q.row_count;  // the sentinel
-#if CB_IDS_STORE == 0
   // Per warp: the tile, and each row's orbit (its first slot and length).
   __shared__ int32_t tile[kQueueWarps][cb::kTile * cb::kTileStride];
   __shared__ int32_t* row_out[kQueueWarps][32];
@@ -248,17 +228,6 @@ __global__ void __launch_bounds__(kQueueBlock)
     }
     return h;
   };
-#elif CB_IDS_STORE == 1
-  auto body = [&](int e, int n, int steps) {
-    return cb::replay_orbit<FR>(cr[e], ci[e], n, steps, q,
-                                cb::IdSink{ids + off[e], nbins, n});
-  };
-#else
-  auto body = [&](int e, int n, int steps) {
-    return cb::replay_orbit<FR>(cr[e], ci[e], n, steps, q,
-                                cb::CanvasIdSink{ids + off[e]});
-  };
-#endif
   cb::warp_sum_add(hits, replay_queue(iters, k, take, next, body));
 }
 
@@ -341,16 +310,11 @@ __global__ void __launch_bounds__(kMhBlock)
 }
 
 // The queue's blocks: `warps` resident warps in all (iargs of the C
-// functions), no more than the batch has takes; one warp per group without
-// the queue.
+// functions), no more than the batch has takes.
 int queue_blocks(int k, int warps, int take) {
   const int groups = (k + 31) / 32;
-#if CB_REPLAY_QUEUE
   const int takes = (groups + take - 1) / take;
   const int w = warps < takes ? warps : takes;
-#else
-  const int w = groups;
-#endif
   return (w + kQueueWarps - 1) / kQueueWarps;
 }
 

@@ -162,7 +162,7 @@ CB_HD float grid_offset(float k, float step) {
 // alone (the window is then (0, height)). The df32 replays run at their
 // lone orbit's issue floor, where the window's two integer operations a
 // point made the deep-zoom cell's replay_deposit_ext 4% slower on an H100
-// (chip_smoke.py --replay-retime), so the kernels take the window's
+// (measured in PR 10), so the kernels take the window's
 // instantiation for a shard only (deposit_ext.cu dispatch).
 struct CanvasQDf {
   F2 min_re, min_im;

@@ -44,10 +44,10 @@ namespace {
 // 2F boundary blocks are computed in passes of 32 (entry q: lane q / 2's
 // block q % 2, as thread q takes entries q, q + 32, ...), and each
 // finished lane resolves with its own four words (mh_resolve). SH places the
-// reservoirs as the kernel's CB_MH_SHARED_SLOTS (CB_MH_EXT_SHARED_SLOTS)
-// does: 0 registers, 1 xb and p_b in columns of a shared array, 2 vb too;
-// UC > 0 runs the window unrolled for U = UC, as the kernel's
-// CB_MH_WINDOW_UNROLL build does.
+// reservoirs as the kernel's Build<Orbit>::shared does: 0 registers, 1 xb
+// and p_b in columns of a shared array, 2 vb too; UC > 0 runs the window
+// unrolled for U = UC, as the kernel's launcher does for U in {4, 8, 16,
+// 32}.
 template <int FR, int V, int S, int SH, int UC, class Orbit>
 void mh_warps(const cb::mh::ClassifyMhArgs& a) {
   using CS = std::conditional_t<(SH >= 1), cb::mh::SharedSlots,
@@ -126,7 +126,7 @@ struct MhBuild {
 };
 
 // The builds each kernel's tests emulate: the f32 kernel's package build
-// and its study builds, and the df32 kernel's.
+// and the builds PR 7 measured against it, and the df32 kernel's.
 using F32Builds = std::tuple<MhBuild<1, 1, 4>, MhBuild<2, 1, 0>,
                              MhBuild<1, 0, 0>, MhBuild<1, 2, 0>,
                              MhBuild<1, 1, 0>>;
@@ -383,7 +383,7 @@ int classify_ext_warps_pick(int fractal, int visit, int per_thread, int unroll,
 extern "C" {
 
 // The interface of cb_classify, the kernel's warps emulated on the CPU
-// with iargs[10] lanes per thread (the kernel's CB_LANES_PER_THREAD).
+// with iargs[10] lanes per thread (the kernel's kLanesPerThread, 2).
 int cbh_classify(void** ptrs, const int* iargs, const float* fargs,
                  uint32_t k0, uint32_t k1) {
   const cb::ClassifyArgs a = cb::classify_args(ptrs, iargs, fargs, k0, k1);
@@ -561,8 +561,8 @@ int cbh_classify_ext(void** ptrs, const int* iargs, const float* fargs,
   return classify_ext_warps_pick(iargs[0], iargs[1], 1, 0, a);
 }
 
-// The same with iargs[9] lanes per thread (the kernel's
-// CB_EXT_LANES_PER_THREAD, 1 or 2) and, where iargs[10] is set, the window
+// The same with iargs[9] lanes per thread, 1 or 2 (the kernel's
+// kLanesPerThread is 1) and, where iargs[10] is set, the window
 // unrolled at compile time for a.unroll (1 or 4, as the kernel's launcher
 // picks it; the package unrolls 1, 2, 4, 8, 16 and 32).
 int cbh_classify_ext_warps(void** ptrs, const int* iargs, const float* fargs,
@@ -819,9 +819,8 @@ int cbh_classify_mh(int ext, void** ptrs, const int* iargs,
 // The interface of cb_classify_mh (ext = 0) and cb_classify_ext_mh
 // (ext = 1), the kernel's warps emulated on the CPU in one of its builds:
 // iargs[13] lanes per thread, iargs[14] reservoirs in shared memory,
-// iargs[15] the window unrolled (the kernel's CB_MH_LANES_PER_THREAD or
-// CB_MH_EXT_LANES_PER_THREAD, CB_MH_SHARED_SLOTS or
-// CB_MH_EXT_SHARED_SLOTS, and CB_MH_WINDOW_UNROLL), at reservoir widths 2,
+// iargs[15] the window unrolled (the kernel's Build<Orbit>::S and
+// Build<Orbit>::shared, and its launcher's unrolled U), at reservoir widths 2,
 // 8 and 32 (the narrowest, the default, the widest); the unrolled window
 // at U = 4. F32Builds and DfBuilds list the builds.
 int cbh_classify_mh_warps(int ext, void** ptrs, const int* iargs,

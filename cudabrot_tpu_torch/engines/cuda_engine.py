@@ -105,7 +105,7 @@ _SELECT_FOLD = 0x7711
 #: precision keeps it: a deep-zoom pass pays ~3 ms for its longest
 #: replayed orbit whatever its length, and on an H100 passes of 2^27, 2^28,
 #: 2^29 and 2^30 lane-steps ran at 3.5, 5.5, 8.1 and 10.5e10 lane-steps/s
-#: (10 ms a pass at 2^30; chip_smoke.py --ext-budget-sweep).
+#: (10 ms a pass at 2^30; measured in PR 2).
 LANE_STEP_BUDGET = 1 << 30
 #: Largest auto replay capacity: 2^23 emissions (~100 MB of c/iters).
 MAX_REPLAY_CAPACITY = 1 << 23
@@ -120,8 +120,8 @@ REPLAY_STREAMS = 2
 INNER_STEP_OPS = 9.0
 BOUNDARY_OPS = 40.0
 #: The same two counts for the extended-precision kernel, SASS
-#: instructions of csrc/classify_ext.cu for sm_90a (chip_smoke.py
-#: --ext-study, OPS_STEP_EXT and OPS_BOUNDARY_EXT + OPS_FINISH_EXT there):
+#: instructions of csrc/classify_ext.cu for sm_90a (counted in PR 9;
+#: chip_smoke.py's OPS_STEP_EXT and OPS_BOUNDARY_EXT + OPS_FINISH_EXT):
 #: a df32 step with three FFMA two-products is 67; a window's boundary is
 #: 6 where no lane of the warp finished and 6 + 110 (band filter, stats,
 #: refill draw) where one did, which at the rate model's lifetimes (under
@@ -261,7 +261,7 @@ class Tuning:
             # df32 bands, whose warps pay the whole boundary only where a
             # lane finished: the score picks U = 4 at the deep-zoom cell,
             # the most deposited points a second of U = 1, 2, 4 and 8 on
-            # an NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py --ext-study.)
+            # an NVIDIA H100 80GB HBM3, 700.00 W; measured in PR 9.)
             self.inner_unroll = 1
         else:
             candidates = (

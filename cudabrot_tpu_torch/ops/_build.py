@@ -8,11 +8,7 @@ source rebuilds, an unchanged one loads. Flags: ``sm_90a`` (Hopper),
 instances compile on every core), and ``-fmad=false`` — the orbit
 arithmetic must round every product and sum once, as the plain PyTorch
 versions do (the kernels also spell their arithmetic with
-``__fmul_rn``/``__fadd_rn``). No fast-math. A build may add macro
-definitions (``defines``, e.g. ``("CB_LANES_PER_THREAD=4",)``): a
-variant of a source, built beside the library and named by its own
-digest, for the measurement study and the kernel tests; the package
-loads the plain build.
+``__fmul_rn``/``__fadd_rn``). No fast-math.
 A failed build raises ``BuildError``; nothing falls back.
 """
 
@@ -38,7 +34,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_loaded: dict[tuple, ctypes.CDLL] = {}
+_loaded: dict[str, ctypes.CDLL] = {}
 
 
 class BuildError(RuntimeError):
@@ -59,34 +55,30 @@ def nvcc_path() -> str:
     )
 
 
-def _flags(defines=()) -> tuple:
-    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-
-
-def lib_path(name: str, defines=()) -> Path:
-    h = hashlib.sha256(" ".join(_flags(defines)).encode())
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (f"{name}.cu", *_HEADERS):
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _log_path(name: str, defines=()) -> Path:
-    return lib_path(name, defines).with_suffix(".log")
+def _log_path(name: str) -> Path:
+    return lib_path(name).with_suffix(".log")
 
 
-def start_build(name: str, defines=()):
+def start_build(name: str):
     """Start nvcc for one library; returns the process, or None when the
     library is already built."""
-    out = lib_path(name, defines)
+    out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-    cmd = [nvcc_path(), *_flags(defines), "-o", str(tmp),
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
-    log = open(_log_path(name, defines), "w")
+    log = open(_log_path(name), "w")
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
-    proc._cb_lib, proc._cb_tmp, proc._cb_log = (name, defines), tmp, log
+    proc._cb_lib, proc._cb_tmp, proc._cb_log = name, tmp, log
     return proc
 
 
@@ -95,21 +87,18 @@ def finish_build(proc) -> None:
         return
     rc = proc.wait()
     proc._cb_log.close()
-    name, defines = proc._cb_lib
+    name = proc._cb_lib
     if rc != 0:
         raise BuildError(
-            f"nvcc failed on {name}.cu {' '.join(defines)} (exit {rc}):\n"
-            f"{ptxas_report(name, defines)}"
+            f"nvcc failed on {name}.cu (exit {rc}):\n{ptxas_report(name)}"
         )
-    os.replace(proc._cb_tmp, lib_path(name, defines))
+    os.replace(proc._cb_tmp, lib_path(name))
 
 
-def build_all(names=LIBS, variants=()) -> None:
-    """Build every library at once, and each (name, defines) of
-    ``variants`` beside them (one nvcc per build, all started together),
-    and wait for all of them."""
+def build_all(names=LIBS) -> None:
+    """Build every library at once (one nvcc per library, all started
+    together), and wait for all of them."""
     procs = [start_build(n) for n in names]
-    procs += [start_build(n, d) for n, d in variants]
     errors = []
     for p in procs:
         try:
@@ -120,21 +109,20 @@ def build_all(names=LIBS, variants=()) -> None:
         raise BuildError("\n".join(errors))
 
 
-def ptxas_report(name: str, defines=()) -> str:
+def ptxas_report(name: str) -> str:
     """nvcc's output from the last build of ``name`` (``-Xptxas -v``:
     registers, shared memory and spills per kernel)."""
-    p = _log_path(name, defines)
+    p = _log_path(name)
     return p.read_text() if p.exists() else ""
 
 
-def load(name: str, defines=()) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """The built library (building it first if needed)."""
-    key = (name, tuple(defines))
-    lib = _loaded.get(key)
+    lib = _loaded.get(name)
     if lib is None:
-        finish_build(start_build(name, key[1]))
-        lib = ctypes.CDLL(str(lib_path(name, key[1])))
-        _loaded[key] = lib
+        finish_build(start_build(name))
+        lib = ctypes.CDLL(str(lib_path(name)))
+        _loaded[name] = lib
     return lib
 
 

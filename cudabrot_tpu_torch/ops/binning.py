@@ -2,8 +2,7 @@
 
 Port of ``cudabrot_tpu/ops/binning.py`` (``points_to_bin_ids``,
 ``points_to_bin_ids_df`` and their row-sharded forms, ``scatter_xla``,
-``scatter_pallas``, ``bigtiles_layout``, ``scatter_bigtiles``, ``scatter_bigtiles_padded``,
-``select_scatter_backend``, ``mh_deposit_weights``, ``mh_scatter``) and of
+``scatter_pallas``, ``scatter_bigtiles``, ``select_scatter_backend``, ``mh_deposit_weights``, ``mh_scatter``) and of
 the replay semantics of ``engines/pallas_engine.py`` (``_batched_replay``/
 ``_blocked_replay``, and ``_blocked_replay_ext`` for df32 orbits).
 
@@ -206,8 +205,8 @@ def deposit_ids_plain(hist_flat: torch.Tensor, ids: torch.Tensor):
 #: Resident warps per SM of the queue of the two f32 replay kernels,
 #: replay_deposit and replay_ids (csrc/deposit.cu): on an H100 the fastest
 #: at the default batch and level with 4..64 at the deep and northstar ones
-#: (chip_smoke.py --replay-study, which sweeps it). No result depends on
-#: it.
+#: (chip_smoke.py --replay-study, phase 7c, sweeps it). No result depends
+#: on it.
 REPLAY_WARPS_PER_SM = 16
 #: Takes from the queue each resident warp should get at least: a warp
 #: takes max(1, groups / (warps * REPLAY_TAKES_PER_WARP)) groups of 32 at
@@ -483,9 +482,6 @@ def orbit_bins_ext(kr, ki, iters, *, canvas: Canvas, fractal: FractalMap,
 # The bigtiles route (--scatter bigtiles): replay to an id stream, sort it,
 # count it.
 
-#: Histogram tile of the JAX kernel, (8192, 128) int32: only its layout
-#: (``bigtiles_layout``) carries over, for the padded entry point.
-BIGTILES_TILE_ROWS = 8192
 #: Sorted ids one block of the bigtiles_deposit kernel counts (at most
 #: 8192, csrc/bigtiles.cuh kMaxChunk), as the JAX kernel's chunk.
 BIGTILES_CHUNK = 8192
@@ -495,15 +491,6 @@ BIGTILES_ID_BUDGET = 1 << 27
 #: Most points one orbit can record: the configuration keeps
 #: max_escape_iterations below 2^24.
 MAX_ORBIT_LEN = 1 << 24
-
-
-def bigtiles_layout(nbins: int, tile_rows: int = 0) -> tuple[int, int]:
-    """(ntiles, padded_rows) covering nbins bins + the sentinel cell."""
-    if tile_rows <= 0:
-        tile_rows = BIGTILES_TILE_ROWS
-    rows = (nbins + 1 + 127) // 128
-    ntiles = (rows + tile_rows - 1) // tile_rows
-    return ntiles, ntiles * tile_rows
 
 
 def select_scatter_backend(name: str) -> str:
@@ -581,25 +568,6 @@ def scatter_bigtiles(hist_flat: torch.Tensor, ids: torch.Tensor, *,
     return bigtiles_deposit(hist_flat, ids, chunk=chunk)
 
 
-def scatter_bigtiles_padded(hist_pad: torch.Tensor, ids: torch.Tensor,
-                            nbins: int, *, chunk: int = 0) -> torch.Tensor:
-    """``scatter_bigtiles`` into a histogram in the ``bigtiles_layout``
-    padding (cells >= nbins are pad that is never read): the first nbins
-    cells are deposited in place and the padded tensor returned."""
-    _, rows = bigtiles_layout(nbins)
-    if hist_pad.numel() != rows * 128:
-        raise ValueError(f"padded histogram must hold {rows * 128} cells")
-    scatter_bigtiles(hist_pad[:nbins], ids, chunk=chunk)
-    return hist_pad
-
-
-def scatter_bigtiles_plain(hist_flat: torch.Tensor, ids: torch.Tensor):
-    """``scatter_bigtiles`` in plain PyTorch: ``torch.sort``, then
-    ``bigtiles_deposit_plain``."""
-    return bigtiles_deposit_plain(hist_flat,
-                                  torch.sort(ids.reshape(-1)).values)
-
-
 def id_offsets(iters):
     """``(off, ends)``, int64: each emission's first and one-past-last
     slot in the id stream of ``replay_ids``, the exclusive and inclusive
@@ -640,24 +608,15 @@ def replay_ids(cr, ci, iters, off, n_ids: int, *, canvas: Canvas,
     if cr.device.type == "cpu":
         return replay_ids_plain(cr, ci, iters, off, n_ids, canvas=canvas,
                                 fractal=fractal, rows=rows)
-    ids = torch.empty(n_ids, dtype=torch.int32, device=cr.device)
-    return ids, _replay_ids_launch(_lib(), ids, cr, ci, iters, off,
-                                   canvas=canvas, fractal=fractal, rows=rows)
-
-
-def _replay_ids_launch(lib, ids, cr, ci, iters, off, *, canvas: Canvas,
-                       fractal: FractalMap, rows=None) -> torch.Tensor:
-    """Launches ``lib``'s replay_ids kernel into ``ids`` (checked,
-    contiguous inputs on one CUDA device); returns the on-canvas count.
-    chip_smoke.py's study passes the variant builds of csrc/deposit.cu."""
     dev = cr.device
+    ids = torch.empty(n_ids, dtype=torch.int32, device=dev)
     hits = torch.zeros((), dtype=torch.int64, device=dev)
     if cr.numel() == 0:
-        return hits
+        return ids, hits
     warps, take = replay_launch(cr.numel(), dev)
     queue = torch.zeros(1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.cb_replay_ids(
+        rc = _lib().cb_replay_ids(
             fractal.kernel_id, _build.ptr(cr), _build.ptr(ci),
             _build.ptr(iters), _build.ptr(off), cr.numel(), _build.ptr(ids),
             canvas.min_real, canvas.min_imag, canvas.delta_real,
@@ -667,7 +626,7 @@ def _replay_ids_launch(lib, ids, cr, ci, iters, off, *, canvas: Canvas,
         )
     _build.check(rc, "replay_ids kernel")
     launches.COUNTS["replay_ids"] += 1
-    return hits
+    return ids, hits
 
 
 def replay_ids_plain(cr, ci, iters, off, n_ids: int, *, canvas: Canvas,
@@ -917,8 +876,8 @@ def mh_scatter(hist_flat, bins, t, rep):
 
 #: Blocks per SM of the mh_deposit kernel's grid (256 threads each; its
 #: warps walk the emission slots 32 at a time): on an H100 the fastest of
-#: 1..16 at the mhcrop and mhzoom cells (chip_smoke.py --mh-deposit-study,
-#: which sweeps it). No result depends on it.
+#: 1..16 at the mhcrop and mhzoom cells (measured in PR 8). No result
+#: depends on it.
 MH_DEPOSIT_BLOCKS_PER_SM = 8
 
 
@@ -1024,11 +983,8 @@ def _lib_bigtiles():
     return lib
 
 
-def _lib(defines=()):
-    """The deposit library; ``defines`` selects a variant build (e.g.
-    ``("CB_IDS_STORE=1",)``, csrc/deposit.cu), which only the kernel tests
-    and chip_smoke.py's study load."""
-    lib = _build.load("deposit", defines)
+def _lib():
+    lib = _build.load("deposit")
     if lib.cb_deposit_ids.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cb_deposit_ids.argtypes = [vp, ctypes.c_longlong, vp, i, vp]

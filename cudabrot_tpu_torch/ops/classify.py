@@ -175,11 +175,8 @@ def _classify_cuda(state, k0, k1, bits, *, fractal, min_it, max_it, chunks,
     return ClassifyResult(state, emit_c, emit_it, stats)
 
 
-def _lib(defines=()):
-    """The classify library; ``defines`` selects a variant build (e.g.
-    ``("CB_LANES_PER_THREAD=4",)``, csrc/classify.cu), which only the
-    kernel tests and chip_smoke.py's study load."""
-    lib = _build.load("classify", defines)
+def _lib():
+    lib = _build.load("classify")
     if lib.cb_classify.argtypes is None:
         lib.cb_classify.argtypes = [
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),

@@ -235,11 +235,8 @@ def _classify_ext_cuda(state, k0, k1, bits, *, fractal, min_it, max_it,
     return ExtClassifyResult(state, emit_c, emit_it, stats)
 
 
-def _lib(defines=()):
-    """The df32 classify library; ``defines`` selects a variant build
-    (e.g. ``("CB_EXT_LANES_PER_THREAD=1",)``, csrc/classify_ext.cu), which
-    only the kernel tests and chip_smoke.py's study load."""
-    lib = _build.load("classify_ext", defines)
+def _lib():
+    lib = _build.load("classify_ext")
     if lib.cb_classify_ext.argtypes is None:
         lib.cb_classify_ext.argtypes = [
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),

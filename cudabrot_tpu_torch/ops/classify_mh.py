@@ -474,12 +474,9 @@ def _classify_mh_cuda(ext, state, k0, k1, bits, *, fractal, min_it, max_it,
     return MhClassifyResult(state, emit_it, emit_rep, emit_v, emit_b, stats)
 
 
-def _lib(name: str, defines=()):
-    """The MH classify library with ``cb_<name>`` bound; ``defines``
-    selects a variant build (e.g. ``("CB_MH_LANES_PER_THREAD=2",)``,
-    csrc/classify_mh.cu), which only the kernel tests and chip_smoke.py's
-    study load."""
-    lib = _build.load("classify_mh", defines)
+def _lib(name: str):
+    """The MH classify library with ``cb_<name>`` bound."""
+    lib = _build.load("classify_mh")
     fn = getattr(lib, f"cb_{name}")
     if fn.argtypes is None:
         fn.argtypes = [

@@ -107,15 +107,6 @@ def any_flag(value: bool) -> bool:
     return bool(t.item())
 
 
-def broadcast_flag(value: bool) -> bool:
-    """The primary's ``value`` on every process."""
-    if process_count() == 1:
-        return value
-    t = torch.tensor([int(bool(value))], dtype=torch.int32)
-    dist.broadcast(t, src=0)
-    return bool(t.item())
-
-
 def allgather_ints(values) -> np.ndarray:
     """Every process's int64 ``values`` (one row per process, in rank
     order)."""

@@ -80,7 +80,7 @@ def test_classify_kernel_matches_plain(cuda, name, thin, visit, use_bits):
     assert _same(ra.stats, rb.stats)
 
 
-#: The classify kernel's variants for the lanes-per-thread cases: fractal,
+#: The classify kernel's variants for the unrolled-window cases: fractal,
 #: thin tracking, band, visit window.
 CLASSIFY_VARIANTS = {
     "buddhabrot-thin": ("buddhabrot", True, (20, 100), None),
@@ -93,17 +93,9 @@ CLASSIFY_VARIANTS = {
 
 @pytest.mark.parametrize("variant", sorted(CLASSIFY_VARIANTS))
 @pytest.mark.parametrize("unroll", [1, 8])
-@pytest.mark.parametrize("per_thread", [1, 2, 4])
-def test_classify_kernel_lanes_per_thread_match_plain(cuda, monkeypatch,
-                                                      variant, unroll,
-                                                      per_thread):
-    """The compacted-refill kernel built with every lanes-per-thread S
-    (-DCB_LANES_PER_THREAD; 2 is the package's build) and an unrolled
-    window of 1 and 8, on 640 lanes (the last warp of S = 4 half full),
-    against the plain version bitwise."""
-    if per_thread != 2:
-        lib = cls._lib((f"CB_LANES_PER_THREAD={per_thread}",))
-        monkeypatch.setattr(cls, "_lib", lambda: lib)
+def test_classify_kernel_unrolled_windows_match_plain(cuda, variant, unroll):
+    """The compacted-refill kernel with an unrolled window of 1 and 8, on
+    640 lanes, against the plain version bitwise."""
     name, thin, band, visit = CLASSIFY_VARIANTS[variant]
     rows, flush = 5, 16 * unroll
     kw = dict(fractal=FRACTALS[name], min_it=band[0], max_it=band[1],
@@ -375,11 +367,6 @@ def test_engine_pass_on_card_matches_cpu(cuda, extended):
         assert _same(x, y)
 
 
-#: The df32 classify kernel's builds (csrc/classify_ext.cu): lanes per
-#: thread; the package's is 1.
-EXT_BUILDS = {1: (), 2: ("CB_EXT_LANES_PER_THREAD=2",)}
-
-
 @pytest.mark.parametrize("name,domain,band,visit", [
     ("buddhabrot", DEEP, (50, 3000), False),
     ("buddhabrot", FAST, (20, 400), True),
@@ -387,15 +374,11 @@ EXT_BUILDS = {1: (), 2: ("CB_EXT_LANES_PER_THREAD=2",)}
     ("anti-buddhabrot", config.SAMPLE_DOMAIN, (0, 64), True),
 ])
 @pytest.mark.parametrize("unroll", [1, 2, 4, 8])
-@pytest.mark.parametrize("per_thread", sorted(EXT_BUILDS))
-def test_classify_ext_builds_match_plain(cuda, monkeypatch, per_thread,
-                                         unroll, name, domain, band, visit):
-    """classify_ext built with one and two lanes a thread, its window
-    unrolled at U = 1, 2, 4 and 8, against the plain version, bitwise, on
-    640 lanes (at two lanes a thread the last warp's second lanes are half
-    live), from a carried state."""
-    lib = cx._lib(EXT_BUILDS[per_thread])
-    monkeypatch.setattr(cx, "_lib", lambda: lib)
+def test_classify_ext_kernel_unrolled_windows_match_plain(cuda, unroll, name,
+                                                          domain, band,
+                                                          visit):
+    """classify_ext with its window unrolled at U = 1, 2, 4 and 8 against
+    the plain version, bitwise, on 640 lanes, from a carried state."""
     rows, flush = 5, 16 * unroll
     kw = dict(fractal=FRACTALS[name], min_it=band[0], max_it=band[1],
               steps_per_pass=4 * flush, steps_per_flush=flush,
@@ -495,26 +478,11 @@ def test_classify_mh_kernels_match_plain(cuda, ext, name, domain, window,
     assert int(ra.stats[cmh.STAT_MH_ACCEPT].sum()) > 0
 
 
-#: The df32 MH classify kernel's builds (csrc/classify_mh.cu): the
-#: package's (all reservoirs in shared memory), two lanes a thread, the
-#: reservoirs all in registers, the chain's two in shared memory, the
-#: window as a run-time loop.
-EXT_MH_BUILDS = {"package": (),
-                 "two-lanes": ("CB_MH_EXT_LANES_PER_THREAD=2",),
-                 "registers": ("CB_MH_EXT_SHARED_SLOTS=0",),
-                 "chain-shared": ("CB_MH_EXT_SHARED_SLOTS=1",),
-                 "window-loop": ("CB_MH_WINDOW_UNROLL=0",)}
-
-
 @pytest.mark.parametrize("slots", [2, 4, 8, 16, 32])
-@pytest.mark.parametrize("build", sorted(EXT_MH_BUILDS))
-def test_classify_ext_mh_builds_match_plain(cuda, monkeypatch, build, slots):
-    """classify_ext_mh in each build at every reservoir width against the
-    plain version, bitwise, on 640 lanes from a carried state at a
-    seahorse-valley zoom (U = 16, as at the mhzoom cell)."""
-    if EXT_MH_BUILDS[build]:
-        lib = cmh._lib("classify_ext_mh", EXT_MH_BUILDS[build])
-        monkeypatch.setattr(cmh, "_lib", lambda n: lib)
+def test_classify_ext_mh_kernel_at_every_width_matches_plain(cuda, slots):
+    """classify_ext_mh at every reservoir width against the plain version,
+    bitwise, on 640 lanes from a carried state at a seahorse-valley zoom
+    (U = 16, as at the mhzoom cell)."""
     domain, window = _deep_mh(1e-3)
     rows, steps, flush, unroll = 5, 2048, 256, 16
     fr = FRACTALS["buddhabrot"]
@@ -1091,43 +1059,6 @@ def test_bigtiles_route_equals_fused_route_at_the_big_cells(cuda, cell):
     assert sb == sa and sb["on_canvas_points"] > 0
 
 
-#: The variant builds of the f32 replay_ids kernel that chip_smoke.py's
-#: study loads (csrc/deposit.cu): a store per point, on-canvas stores into
-#: a stream filled with the sentinel, and one warp per group in place of
-#: the queue.
-IDS_VARIANTS = {"store-per-point": ("CB_IDS_STORE=1",),
-                "on-canvas-only": ("CB_IDS_STORE=2",),
-                "no-queue": ("CB_REPLAY_QUEUE=0",)}
-
-
-@pytest.mark.parametrize("kind", ["ragged", "long", "many"])
-@pytest.mark.parametrize("variant", sorted(IDS_VARIANTS))
-def test_replay_ids_variant_builds_match_plain(cuda, variant, kind):
-    """Each study build of replay_ids against replay_ids_plain, word for
-    word, with the fused replay_deposit's variant build beside it."""
-    defines = IDS_VARIANTS[variant]
-    canvas = config.Canvas(width=300, height=200, min_real=-2.0,
-                           max_real=1.0, min_imag=-1.2, max_imag=1.2)
-    cr, ci, it = _replay_batch(cuda, kind)
-    off, n = _offsets(it)
-    kw = dict(canvas=canvas, fractal=FRACTALS["buddhabrot"])
-    lib = binning._lib(defines)
-    fill = "CB_IDS_STORE=2" in defines
-    ids = (torch.full((n,), canvas.num_pixels, dtype=torch.int32, device=cuda)
-           if fill else torch.empty(n, dtype=torch.int32, device=cuda))
-    hits = binning._replay_ids_launch(lib, ids, cr, ci, it, off, **kw)
-    ids_p, hits_p = binning.replay_ids_plain(cr, ci, it, off, n, **kw)
-    assert torch.equal(ids, ids_p)
-    assert int(hits) == int(hits_p) > 0
-    hk = torch.zeros(canvas.num_pixels, dtype=torch.int32, device=cuda)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(binning, "_lib", lambda: lib)
-        binning.replay_deposit(hk, cr, ci, it, **kw)
-    hp = torch.zeros_like(hk)
-    binning.replay_deposit_plain(hp, cr, ci, it, **kw)
-    assert torch.equal(hk, hp)
-
-
 @pytest.fixture(scope="module")
 def big_batches():
     """One pass's kept batch at the bigcanvas and northstar cells, from a
@@ -1228,56 +1159,6 @@ def test_mh_classify_at_the_mh_cells_matches_plain(cuda, cell, slots):
     for f in ("emit_it", "emit_rep", "emit_v", "emit_bins", "stats"):
         assert _same(getattr(ra, f), getattr(rb, f)), f
     assert int((ra.emit_it >= 0).sum()) > 0
-
-
-#: The study builds of the f32 MH classify kernel (csrc/classify_mh.cu):
-#: two lanes a thread, all reservoirs in registers, all three in shared
-#: memory, the window as a run-time loop.
-MH_BUILDS = {"two-lanes": ("CB_MH_LANES_PER_THREAD=2",),
-             "registers": ("CB_MH_SHARED_SLOTS=0",),
-             "shared-all": ("CB_MH_SHARED_SLOTS=2",),
-             "window-loop": ("CB_MH_WINDOW_UNROLL=0",)}
-
-
-@pytest.mark.parametrize("slots", [2, 8, 32])
-@pytest.mark.parametrize("name", sorted(FRACTALS))
-@pytest.mark.parametrize("build", sorted(MH_BUILDS))
-def test_classify_mh_study_builds_match_plain(cuda, monkeypatch, build,
-                                              name, slots):
-    """classify_mh's study builds against the plain version, bitwise, on
-    640 lanes (at two lanes a thread the last warp's second lanes are half
-    live)."""
-    lib = cmh._lib("classify_mh", MH_BUILDS[build])
-    monkeypatch.setattr(cmh, "_lib", lambda n: lib)
-    window = {"buddhabrot": (-0.78, -0.72, 0.05, 0.11),
-              "burning-ship": (-1.8, -1.6, -0.1, 0.1),
-              "anti-buddhabrot": (-0.6, 0.1, -0.4, 0.3)}[name]
-    band = (0, 64) if name == "anti-buddhabrot" else (20, 300)
-    rows, steps, flush, unroll = 5, 1024, 128, 4
-    fr = FRACTALS[name]
-    kw = dict(fractal=fr, min_it=band[0], max_it=band[1],
-              steps_per_pass=steps, steps_per_flush=flush,
-              inner_unroll=unroll, sample_domain=config.SAMPLE_DOMAIN,
-              window=window, restart256=16, rep_cap=24, canvas_wh=(40, 37))
-    state = cmh.init_mh_lane_state(rows, slots, cuda)
-    cmh.classify_pass_mh(state, (5, 6), **kw)
-    a = type(state)(*(t.clone() for t in state))
-    b = type(state)(*(t.clone() for t in state))
-    launches.reset()
-    ra = cmh.classify_pass_mh(a, (7, 8), **kw)
-    assert launches.COUNTS["classify_mh"] == 1
-    wx0, wx1, wy0, wy1 = window
-    rb = cmh.classify_pass_mh_plain(
-        False, b, 7, 8, None, fractal=fr, min_it=band[0], max_it=band[1],
-        chunks=steps // flush, windows=flush // unroll, unroll=unroll,
-        detect=fr.cycle_detect, sample_domain=config.SAMPLE_DOMAIN,
-        window=(wx0, wx1, wy0, wy1, 40 / (wx1 - wx0), 37 / (wy1 - wy0)),
-        restart256=16, rep_cap=24, canvas_wh=(40, 37))
-    for f, x, y in zip(state._fields, ra.state, rb.state):
-        assert _same(x, y), f
-    for f in ("emit_it", "emit_rep", "emit_v", "emit_bins", "stats"):
-        assert _same(getattr(ra, f), getattr(rb, f)), f
-    assert int(ra.stats[cmh.STAT_MH_ACCEPT].sum()) > 0
 
 
 # -- the replay kernels' row window, and the multi-device engines -----------

@@ -247,7 +247,6 @@ def test_single_process_helpers(monkeypatch):
     assert not distributed.initialize_from_env(lambda *_: None)
     assert distributed.process_count() == 1 and distributed.is_primary()
     assert distributed.any_flag(True) and not distributed.any_flag(False)
-    assert distributed.broadcast_flag(True)
     h = np.arange(6, dtype=np.uint32).reshape(2, 3)
     np.testing.assert_array_equal(distributed.allgather_sum_u32(h), h)
     np.testing.assert_array_equal(distributed.allgather_ints([3, 4]),
