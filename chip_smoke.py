@@ -126,7 +126,7 @@ Phases (each fails the run on any mismatch):
      zoom and bigcanvas, the worker's fetch and replay seconds, host
      replay points/s, payload bytes a pass, and a host-mode pass's device
      busy share (torch.profiler), with the host's CPU and cores.
-  12. Repeatability: the first call of each of the thirteen kernels in
+  12. Repeatability: the first call of each of the fourteen kernels in
      one main-path pass of its cell (default, zoom, mhcrop, mhzoom;
      bigcanvas and bigzoom on the bigtiles route; deposit_ids on the
      default cell's pallas route; threefry_bits at deep, whose capacity
@@ -171,7 +171,7 @@ Phases (each fails the run on any mismatch):
 
 ``--repeat`` builds and runs phase 2's classify checks (the first work
 on the card, as in the default run) and phase 12. ``--sanitize`` runs a small
-target of the thirteen kernels (``--sanitize-target``: phase 12's capture at
+target of the fourteen kernels (``--sanitize-target``: phase 12's capture at
 a 64x48 canvas and 2,048 lanes, SANITIZE_CELLS) under compute-sanitizer
 (found beside nvcc; its absence fails the run) with each of its memcheck,
 racecheck, synccheck and initcheck tools, ``--error-exitcode 1`` and
@@ -357,6 +357,10 @@ KERNELS = {
                     "none: the argsorts of cudabrot_tpu/engines/"
                     "pallas_engine.py _classify_and_compact where nothing "
                     "is dropped", "default"),
+    "pass_counters": ("cudabrot_tpu_torch/csrc/classify.cu",
+                      "none: the stat sums of cudabrot_tpu/engines/"
+                      "pallas_engine.py:1431 _classify_and_compact (XLA)",
+                      "default"),
 }
 
 
@@ -494,7 +498,8 @@ def path_kernels(name, scatter="auto"):
     ext = o.precision == "extended"
     route = ce.compact_route(ce.Tuning(cell_config(name, scatter)))
     head = ("classify_ext" if ext else "classify",
-            "length_sort" if route == "length" else "threefry_bits")
+            "length_sort" if route == "length" else "threefry_bits",
+            "pass_counters")
     route = binning.select_scatter_backend(scatter)
     if route == "fused":
         return (*head, "replay_deposit_ext" if ext else "replay_deposit")
@@ -1635,17 +1640,132 @@ def mh_cell_times(dev, name, rate):
 
 
 
+#: The plans pass_counters is timed at in phase 5: canvas1k.default's and
+#: hires15k.coarse's band (the counters' inputs do not depend on the
+#: canvas).
+COUNTER_PLANS = {"default": [], "coarse": ["-m", "500", "-c", "20"]}
+
+
+def old_counters(stats, n_valid, iters, totals, steps_per_pass, capacity):
+    """The counters as the engine added them before pass_counters: about
+    seventeen PyTorch launches, the points summed over the whole batch."""
+    import torch
+
+    from cudabrot_tpu_torch.ops import classify as cls
+
+    st = stats.reshape(cls.STATS_ROWS, -1).sum(dim=1)
+    wasted = st[cls.STAT_WASTED]
+    emitted = torch.clamp(n_valid, max=capacity)
+    for k, v in (
+        ("samples", st[cls.STAT_DRAWN]),
+        ("culled", st[cls.STAT_CULLED]),
+        ("in_band", st[cls.STAT_IN_BAND]),
+        ("cycles", st[cls.STAT_CYCLES]),
+        ("wasted", wasted),
+        ("iters", steps_per_pass - wasted),
+        ("emitted", emitted),
+        ("replay_dropped", n_valid - emitted),
+    ):
+        totals[k] += v
+    totals["points"] += torch.where(iters >= 0, iters + 1, 0).sum()
+
+
+def counters_times(dev, name, with_plain):
+    """pass_counters at a plan of COUNTER_PLANS, on a pass's stat rows and
+    its compaction's own batch (from lanes carried 4 passes): bitwise
+    against the plain version, which reads the kept prefix, and against
+    old_counters, which reads the whole batch (library_ms); the kernel's
+    device ms alone (torch.profiler) and by CUDA events over back-to-back
+    calls, beside its byte bound and old_counters' device ms."""
+    from cudabrot_tpu_torch import cli
+    from cudabrot_tpu_torch.engines import cuda_engine as ce
+    from cudabrot_tpu_torch.ops import length_sort as ls
+    from cudabrot_tpu_torch.ops import pass_counters as pc
+    from cudabrot_tpu_torch.utils import counters
+
+    cfg = cli.parse_args(["-w", "1000", "-h", "1000",
+                          *COUNTER_PLANS[name]])[0]
+    eng = ce.CudaEngine(cfg, device=dev)
+    tn = eng.tuning
+    state = eng.init_state(None)
+    for p in range(4):
+        eng.run_pass(state, p)
+    eng.synchronize()
+    res = eng.classify(state, 4)
+    if eng.compact_route == "length":
+        _, _, it, n_valid = ls.length_sort(res.emit_c, res.emit_it,
+                                           tn.min_it, tn.max_it)
+    else:
+        _, _, it, n_valid = ce.compact(
+            res.emit_c, res.emit_it, (5, 6), tn.replay_capacity, tn.max_it)
+    kw = dict(steps_per_pass=eng.steps_per_pass,
+              capacity=eng.replay_capacity)
+    runs = {}
+    for tag, fn in (("kernel", pc.pass_counters),
+                    ("plain", pc.pass_counters_plain),
+                    ("old", old_counters)):
+        tot = counters.zeros(dev)
+        fn(res.stats, n_valid, it, tot, **kw)
+        runs[tag] = tot
+    err = max_abs_err((runs["kernel"][k], runs[ref][k])
+                      for ref in ("plain", "old") for k in pc.TOTALS)
+    kept = pc.prefix_bound(it.numel(), int(n_valid), eng.replay_capacity)
+    check(all(same_bits(runs["kernel"][k], runs[ref][k])
+              for ref in ("plain", "old") for k in pc.TOTALS),
+          f"pass_counters at the {name} plan: {kept} of {it.numel()} slots "
+          f"read, totals bitwise equal to the plain version and the old "
+          f"expression")
+    tot = counters.zeros(dev)
+
+    def kernel():
+        pc.pass_counters(res.stats, n_valid, it, tot, **kw)
+
+    def old():
+        old_counters(res.stats, n_valid, it, tot, **kw)
+
+    prof = profile_calls(kernel, 50, only="pass_counters")
+    prof_old = profile_calls(old, 20)
+    events_ms = time_ms(kernel, 50)
+    old_events_ms = time_ms(old, 20)
+    ms = prof["ms_each"] if isinstance(prof, dict) else events_ms
+    old_ms = (prof_old["ms_per_call"] if isinstance(prof_old, dict)
+              else old_events_ms)
+    # The stat rows and the read prefix of the batch, each word once.
+    bound, by = bound_ms(0, 4 * res.stats.numel() + 4 * kept)
+    how = "profiler" if isinstance(prof, dict) else f"events: {prof}"
+    launched = (prof_old["per_call"] if isinstance(prof_old, dict)
+                else prof_old)
+    log(f"  pass_counters at the {name} plan: {res.stats.numel()} stat "
+        f"words, {kept} of {it.numel()} batch slots read; kernel "
+        f"{ms:.4f} ms device ({how}), {events_ms:.4f} ms a call by events "
+        f"over 50 calls; bound {bound:.4f} ms ({by}); the old expression "
+        f"{old_ms:.4f} ms device a pass ({launched} activities a pass), "
+        f"{old_events_ms:.4f} ms by events")
+    rec = dict(ms=ms, bound_ms=bound, bound_by=by, library_ms=old_ms,
+               max_abs_err=err, events_ms=events_ms, kept=kept)
+    if with_plain:
+        rec["plain_ms"] = time_ms(
+            lambda: pc.pass_counters_plain(res.stats, n_valid, it, tot,
+                                           **kw), 5)
+    return rec
+
+
 def phase_kernel_times(dev, rate):
     """Phase 5: the SASS counts that OPS_STEP, OPS_BOUNDARY and OPS_DRAW
     rest on (sass_study), then every cell's kernel times at its main-path
-    shapes, by cell and kernel. ``rate``: the histogram atomics per ms
-    deposit_ids reaches on phase 3's 1000x1000 stream."""
+    shapes, by cell and kernel, and pass_counters at COUNTER_PLANS.
+    ``rate``: the histogram atomics per ms deposit_ids reaches on phase 3's
+    1000x1000 stream."""
     sass_study()
     times = {name: (mh_cell_times(dev, name, rate) if "--sampler" in args
                     else cell_times(dev, name, name == "default"))
              for name, args, _ in CELLS}
     times.update({name: big_cell_times(dev, name, name == "bigcanvas")
                   for name, _, _ in BIG_CELLS})
+    counter_recs = {name: counters_times(dev, name, name == "default")
+                    for name in COUNTER_PLANS}
+    log(f"pass_counters records: {json.dumps(counter_recs)}")
+    times["default"]["pass_counters"] = counter_recs["default"]
     return times
 
 
@@ -3610,6 +3730,7 @@ WRAPPERS = {
     "replay_ids_ext": ("binning", "replay_ids_ext"),
     "bigtiles_deposit": ("binning", "bigtiles_deposit"),
     "length_sort": ("length_sort", "length_sort"),
+    "pass_counters": ("pass_counters", "pass_counters"),
 }
 #: Where a mismatch saves its inputs and runs (listed in .gitignore).
 DUMP_DIR = os.path.join(ROOT, "chiprun_out")
@@ -4134,7 +4255,7 @@ def phase_sanitize(dev, card):
     --error-exitcode 1. Prints each tool's verdict per kernel and fails on
     any error, on a kernel the target did not launch, or where the
     sanitizer cannot run on this card."""
-    log("== phase 12b: compute-sanitizer sweep of the thirteen kernels")
+    log("== phase 12b: compute-sanitizer sweep of the fourteen kernels")
     cs = sanitizer_path()
     version = subprocess.run([cs, "--version"], capture_output=True,
                              text=True, check=False).stdout.strip()

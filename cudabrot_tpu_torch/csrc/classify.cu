@@ -57,10 +57,12 @@
 // the plain PyTorch version (ops/classify.classify_pass_plain) bitwise.
 //
 // The file also holds threefry_bits, the compaction's selection words
-// (the JAX engine draws them with jax.random.bits in XLA).
+// (the JAX engine draws them with jax.random.bits in XLA), and
+// pass_counters, the pass's counter sums over this kernel's stat rows.
 #include <cuda_runtime.h>
 
 #include "classify.cuh"
+#include "counters.cuh"
 
 namespace {
 
@@ -178,7 +180,103 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// The counters of one pass (counters.cuh), in one launch on the stream
+// the counters run on.
+//
+// Replaces no TPU kernel: the JAX engine sums the stat rows in XLA
+// (cudabrot_tpu/engines/pallas_engine.py _classify_and_compact, "stats")
+// and the port ran about seventeen PyTorch launches a pass for the same
+// sums and adds, over the whole kept batch. Bound: bytes, the stat rows
+// (5 x lanes words) and the counted batch slots (4 bytes each) read once,
+// over the HBM rate. The kernel reads each input once, in 16-byte vectors,
+// eight in flight a thread, and only the kept prefix of the batch, whose
+// kept emissions come first (its count is n_valid on the device, read by
+// every thread, with no host round trip). Each thread sums
+// into 64-bit registers, a block through warp shuffles and shared memory,
+// and one thread a total adds the block's sum with a 64-bit atomicAdd:
+// integer adds commute modulo 2^64, so the totals are the plain version's
+// bit for bit in any order of the blocks. The grid is a few blocks
+// (ops/pass_counters.py BLOCKS): the kernel runs while the pass's replay
+// holds the multiprocessors, and a grid that needs room on all of them
+// waits for the replay's blocks, holding back the next classify.
+struct CountersArgs {
+  const int32_t* stats;  // kRows x width
+  long long width;
+  const int32_t* iters;  // n
+  long long n;
+  const long long* n_valid;
+  long long capacity, steps;
+  unsigned long long* totals[cb::counters::kTotals];
+};
+
+__device__ long long warp_sum(long long v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(cb::counters::kThreads)
+    pass_counters_kernel(CountersArgs a) {
+  namespace pc = cb::counters;
+  constexpr int kSums = pc::kRows + 1, kWarps = pc::kThreads / 32;
+  __shared__ long long part[kSums][kWarps];
+  const long long nv = *a.n_valid;
+  const long long k = pc::batch_bound(a.n, nv, a.capacity);
+  long long s[kSums];
+  pc::thread_sums(a.stats, a.width, a.iters, k,
+                  (long long)blockIdx.x * blockDim.x + threadIdx.x,
+                  (long long)gridDim.x * blockDim.x, s);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kSums; ++i) {
+    const long long v = warp_sum(s[i]);
+    if (lane == 0) part[i][w] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x >= pc::kTotals) return;
+  long long sum[kSums];
+#pragma unroll
+  for (int i = 0; i < kSums; ++i) {
+    sum[i] = 0;
+    for (int j = 0; j < kWarps; ++j) sum[i] += part[i][j];
+  }
+  long long add[pc::kTotals];
+  pc::block_adds(blockIdx.x, sum, nv, a.capacity, a.steps, add);
+  const long long v = add[threadIdx.x];
+  if (v != 0)
+    atomicAdd(a.totals[threadIdx.x], (unsigned long long)v);
+}
+
 }  // namespace
+
+// The counters of a pass into the render's int64 totals. stats: kRows x
+// width int32 words (classify's stat rows); iters: n int32 slots of the
+// kept batch (n = 0: none), of which the first min(n_valid, capacity, n)
+// are read; n_valid: one int64
+// on the device; steps: the pass's lane-steps; totals: kTotals pointers to
+// one int64 each, in counters.cuh's order; blocks: the grid (a
+// grid-stride loop). Returns the cudaError_t of the launch (0 = launched).
+extern "C" int cb_pass_counters(const void* stats, long long width,
+                                const void* iters, long long n,
+                                const void* n_valid, long long capacity,
+                                long long steps, void* const* totals,
+                                int blocks, void* stream) {
+  namespace pc = cb::counters;
+  if (width < 0 || n < 0 || blocks <= 0 || (n > 0 && iters == nullptr))
+    return int(cudaErrorInvalidValue);
+  CountersArgs a;
+  a.stats = static_cast<const int32_t*>(stats);
+  a.width = width;
+  a.iters = static_cast<const int32_t*>(iters);
+  a.n = n;
+  a.n_valid = static_cast<const long long*>(n_valid);
+  a.capacity = capacity;
+  a.steps = steps;
+  for (int i = 0; i < pc::kTotals; ++i)
+    a.totals[i] = static_cast<unsigned long long*>(totals[i]);
+  pass_counters_kernel<<<blocks, pc::kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a);
+  return int(cudaGetLastError());
+}
 
 // n < 2^32 words into out (int64). Returns the cudaError_t of the launch.
 extern "C" int cb_threefry_bits(uint32_t k0, uint32_t k1, long long n,

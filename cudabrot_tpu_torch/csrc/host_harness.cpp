@@ -10,8 +10,9 @@
 // mh_deposit in an emulation of its warps' spread), the orbit loop of the
 // replay kernels with its id sinks (orbit.cuh: replay_ids' staged tile in
 // an emulation of its warps, and replay_ids_ext through classify_ext.cuh)
-// the run-length deposit of the bigtiles kernel (bigtiles.cuh) and the tile
-// logic of the length sort (length_sort.cuh) are
+// the run-length deposit of the bigtiles kernel (bigtiles.cuh), the tile
+// logic of the length sort (length_sort.cuh) and the per-thread sums of the
+// pass counters (counters.cuh) are
 // __host__ __device__; this file loops them over lanes on the CPU behind
 // the same C interface as the CUDA launchers, so a machine without a GPU
 // can hold them bitwise against the plain PyTorch versions. Build:
@@ -30,6 +31,7 @@
 #include "bigtiles.cuh"
 #include "classify.cuh"
 #include "classify_ext.cuh"
+#include "counters.cuh"
 #include "length_sort.cuh"
 #include "mh.cuh"
 
@@ -917,6 +919,36 @@ void cbh_bin_id_df(const float* reh, const float* rel, const float* imh,
   q.row_count = iargs[3];
   for (int i = 0; i < n; ++i)
     ids[i] = cb::df::bin_id_df<true>(q, {reh[i], rel[i]}, {imh[i], iml[i]});
+}
+
+// The interface of cb_pass_counters, without the stream: every thread of
+// the grid of `blocks` blocks sums its share (counters.cuh thread_sums),
+// each block adds its threads' sums, and the blocks' adds land in the
+// totals in the order of their atomics, here the last block's first.
+int cbh_pass_counters(const void* stats, long long width, const void* iters,
+                      long long n, const void* n_valid,
+                      long long capacity, long long steps,
+                      void* const* totals, int blocks) {
+  namespace pc = cb::counters;
+  if (width < 0 || n < 0 || blocks <= 0 || (n > 0 && iters == nullptr))
+    return 1;
+  const long long nv = *static_cast<const long long*>(n_valid);
+  const long long k = pc::batch_bound(n, nv, capacity);
+  const long long T = (long long)blocks * pc::kThreads;
+  for (int b = blocks - 1; b >= 0; --b) {
+    long long sum[pc::kRows + 1] = {}, s[pc::kRows + 1], add[pc::kTotals];
+    for (int t = 0; t < pc::kThreads; ++t) {
+      pc::thread_sums(static_cast<const int32_t*>(stats), width,
+                      static_cast<const int32_t*>(iters), k,
+                      (long long)b * pc::kThreads + t, T, s);
+      for (int i = 0; i <= pc::kRows; ++i) sum[i] += s[i];
+    }
+    pc::block_adds(b, sum, nv, capacity, steps, add);
+    for (int i = 0; i < pc::kTotals; ++i)
+      *static_cast<unsigned long long*>(totals[i]) +=
+          (unsigned long long)add[i];
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -91,7 +91,8 @@ from cudabrot_tpu_torch.config import (
     RenderConfig,
 )
 from cudabrot_tpu_torch.models import fractals
-from cudabrot_tpu_torch.ops import binning, df32, length_sort, prng
+from cudabrot_tpu_torch.ops import (
+    binning, df32, length_sort, pass_counters, prng)
 from cudabrot_tpu_torch.ops import classify as cls
 from cudabrot_tpu_torch.ops import classify_ext as cls_ext
 from cudabrot_tpu_torch.ops import classify_mh as cls_mh
@@ -766,28 +767,18 @@ class CudaEngine:
 
     def add_pass_stats(self, state: dict, result, n_valid,
                        iters: torch.Tensor | None) -> None:
-        """Adds a uniform pass's counters to ``state``: the classify
-        result's stat rows, the kept and dropped emissions and the orbit
-        points of the ``iters`` replayed on the device (None: none; the host
-        worker counts its own)."""
+        """Adds a uniform pass's counters to ``state`` (``ops/pass_counters``,
+        one kernel on the card): the classify result's stat rows, the kept
+        and dropped emissions and the orbit points of the ``iters`` replayed
+        on the device (None: none; the host worker counts its own). Only
+        the kept prefix of ``iters``, whose emissions come first, is
+        read."""
         with trace.span("cb.counters", device=self.device):
-            st = result.stats.reshape(cls.STATS_ROWS, -1).sum(dim=1)
-            wasted = st[cls.STAT_WASTED]
-            emitted = torch.clamp(n_valid, max=self.replay_capacity)
-            for k, v in (
-                ("samples", st[cls.STAT_DRAWN]),
-                ("culled", st[cls.STAT_CULLED]),
-                ("in_band", st[cls.STAT_IN_BAND]),
-                ("cycles", st[cls.STAT_CYCLES]),
-                ("wasted", wasted),
-                ("iters", self.steps_per_pass - wasted),
-                ("emitted", emitted),
-                ("replay_dropped", n_valid - emitted),
-            ):
-                state[k] += v
-            if iters is not None:
-                replayed = torch.where(iters >= 0, iters + 1, 0)
-                state["points"] += replayed.sum()
+            pass_counters.pass_counters(
+                result.stats, n_valid, iters,
+                {k: state[k] for k in pass_counters.TOTALS},
+                steps_per_pass=self.steps_per_pass,
+                capacity=self.replay_capacity)
 
     def host_pass(self, state: dict, pass_index: int, ordinal: int = 0):
         """The card's half of a host-replay pass: classify, compact and
@@ -824,6 +815,8 @@ class CudaEngine:
             self.replay(state, pass_index, (cr, ci, dev_it))
             ks = self.host_payload_slots
             cr, ci, it = cr[:ks], ci[:ks], torch.where(to_dev, -1, it)[:ks]
+        # The split's device batch has -1 holes where the host's orbits
+        # were, all inside the kept prefix that the counters read.
         self.add_pass_stats(state, result, n_valid, dev_it)
         return (it >= 0).sum(), self.pack_payload(cr, ci, it)
 

@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cudabrot_tpu_torch"
 LIBS = ("classify", "deposit", "classify_ext", "deposit_ext", "classify_mh",
         "bigtiles", "length_sort")
 _HEADERS = ("orbit.cuh", "classify.cuh", "df32.cuh", "classify_ext.cuh",
-            "mh.cuh", "bigtiles.cuh", "length_sort.cuh")
+            "mh.cuh", "bigtiles.cuh", "length_sort.cuh", "counters.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "--split-compile=0",

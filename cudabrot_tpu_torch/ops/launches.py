@@ -13,7 +13,7 @@ import collections
 KERNELS = ("classify", "threefry_bits", "deposit_ids", "replay_deposit",
            "classify_ext", "replay_deposit_ext", "classify_mh",
            "classify_ext_mh", "mh_deposit", "replay_ids", "replay_ids_ext",
-           "bigtiles_deposit", "length_sort")
+           "bigtiles_deposit", "length_sort", "pass_counters")
 
 COUNTS: collections.Counter = collections.Counter()
 

@@ -1498,3 +1498,101 @@ def test_length_sort_route_renders_as_the_selection(cuda, monkeypatch, cell):
     assert sl == ss
     for x, y in zip(ll, lsel):
         assert _same(x, y)
+
+
+#: (lanes, batch slots, kept, layout, capacity, offset of the views, large
+#: values): valid-first batches as each compaction route leaves them, the
+#: hybrid split's holes inside the kept prefix, emissions past the
+#: capacity, no batch, an empty one, unaligned views and totals past 2^32.
+COUNTER_CASES = {
+    "length": (262144, 1 << 20, 400_000, "first", 1 << 20, 0, False),
+    "select": (262144, 1 << 16, 1 << 16, "first", 1 << 16, 0, False),
+    "holes": (262144, 1 << 20, 400_000, "holes", 1 << 20, 0, False),
+    "over-capacity": (4096, 8192, 8192, "first", 8192, 0, False),
+    "no-batch": (262144, 0, 5000, None, 1 << 20, 0, False),
+    "empty": (262144, 0, 0, "first", 1 << 20, 0, False),
+    "unaligned": (262143, 100_003, 50_001, "first", 1 << 20, 3, False),
+    "past-2^32": (262144, 1 << 20, 400_000, "first", 1 << 20, 1, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COUNTER_CASES))
+def test_pass_counters_kernel_matches_plain(cuda, case):
+    """The counters' kernel against the plain version, bitwise, on random
+    stat rows and batches, in one launch, and against the expression the
+    engine ran before the kernel, which reads the whole batch."""
+    from cudabrot_tpu_torch.ops import pass_counters as pc
+    from cudabrot_tpu_torch.utils import counters
+    from tests.test_torch_pass_counters import _old_expression
+
+    lanes, n, kept, layout, capacity, off, large = COUNTER_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    high = (1 << 31) - 1 if large else 1 << 16
+    flat = torch.randint(0, high, (cls.STATS_ROWS * lanes + off,),
+                         generator=gen, device=cuda, dtype=torch.int32)
+    stats = flat[off:].view(cls.STATS_ROWS, lanes)
+    iters = None
+    if layout is not None:
+        it = torch.full((n + off,), -1, dtype=torch.int32, device=cuda)
+        lo = (1 << 31) - 70_000 if large else 20
+        it[off:off + min(kept, n)] = torch.randint(
+            lo, lo + 60_000, (min(kept, n),), generator=gen, device=cuda,
+            dtype=torch.int32)
+        if layout == "holes":
+            holes = torch.rand((n + off,), generator=gen, device=cuda) < 0.3
+            it[holes] = -1
+            assert (it[off + min(kept, n):] == -1).all()
+        iters = it[off:]
+    n_valid = torch.tensor(kept + (5000 if case == "over-capacity" else 0),
+                           dtype=torch.int64, device=cuda)
+    start = (1 << 34) if large else 0
+    runs = []
+    for fn in (pc.pass_counters, pc.pass_counters_plain):
+        tot = {k: v + start for k, v in counters.zeros(cuda).items()}
+        launches.reset()
+        fn(stats, n_valid, iters, tot, steps_per_pass=4096 * lanes,
+           capacity=capacity)
+        runs.append({k: int(tot[k]) for k in pc.TOTALS})
+        if fn is pc.pass_counters:
+            assert launches.COUNTS["pass_counters"] == 1
+            assert launches.COUNTS["pass_counters_plain"] == 0
+    assert runs[0] == runs[1]
+    old = {k: v + start for k, v in counters.zeros(cuda).items()}
+    _old_expression(old, stats, n_valid, iters, 4096 * lanes, capacity)
+    assert runs[0] == {k: int(old[k]) for k in pc.TOTALS}
+    if large:
+        assert runs[0]["samples"] - start > 1 << 32
+        assert runs[0]["points"] - start > 1 << 32
+    if case == "over-capacity":
+        assert runs[0]["replay_dropped"] == 5000
+
+
+def test_pass_counters_at_the_default_plan(cuda):
+    """canvas1k.default's plan: an engine pass launches the counters'
+    kernel once and no plain version, and a pass's counters through the
+    kernel (the kept prefix of the length sort's batch) equal the
+    expression the engine ran before the kernel over the whole batch, bit
+    for bit."""
+    from cudabrot_tpu_torch.ops import pass_counters as pc
+    from tests.test_torch_pass_counters import _old_expression
+
+    eng = CudaEngine(_cell(SORT_CELLS["default"]), device=cuda)
+    state = eng.init_state(None)
+    for p in range(2):
+        eng.run_pass(state, p)
+    launches.reset()
+    eng.run_pass(state, 2)
+    eng.synchronize()
+    assert launches.COUNTS["pass_counters"] == 1
+    assert launches.COUNTS["pass_counters_plain"] == 0
+    batch, result, n_valid = eng.classify_and_compact(state, 3)
+    assert 0 < int(n_valid) < batch[2].numel()
+    got = {k: state[k].clone() for k in pc.TOTALS}
+    want = {k: state[k].clone() for k in pc.TOTALS}
+    pc.pass_counters(result.stats, n_valid, batch[2], got,
+                     steps_per_pass=eng.steps_per_pass,
+                     capacity=eng.replay_capacity)
+    _old_expression(want, result.stats, n_valid, batch[2],
+                    eng.steps_per_pass, eng.replay_capacity)
+    assert {k: int(v) for k, v in got.items()} == \
+        {k: int(v) for k, v in want.items()}

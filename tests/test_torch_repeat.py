@@ -84,16 +84,17 @@ def test_repeat_call_catches_each_fault(tmp_path, monkeypatch, fault,
 
 def test_capture_records_the_main_path_calls():
     """One pass of the default cell at a small geometry records classify,
-    length_sort and replay_deposit, one on the --scatter pallas route
-    replay_ids and deposit_ids, and one of the deep cell, whose capacity
-    there is below its slots, threefry_bits; each recorded call repeats
-    bitwise, its inputs untouched by the recording."""
+    length_sort, replay_deposit and pass_counters, one on the --scatter
+    pallas route replay_ids and deposit_ids, and one of the deep cell,
+    whose capacity there is below its slots, threefry_bits; each recorded
+    call repeats bitwise, its inputs untouched by the recording."""
     store = cs.capture_calls("cpu", (("default", "auto"),
                                      ("default", "pallas"),
                                      ("deep", "auto")), warm=1,
                              cfg_of=cs.sanitize_config)
     assert set(store) == {"classify", "threefry_bits", "replay_deposit",
-                          "replay_ids", "deposit_ids", "length_sort"}
+                          "replay_ids", "deposit_ids", "length_sort",
+                          "pass_counters"}
     for name, (fn, args, kw) in store.items():
         before = [t.clone() for _, t in cs.tree_leaves((args, kw))]
 

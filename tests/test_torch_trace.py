@@ -2,6 +2,8 @@
 off without a profiler, one span of each layer a pass under one, on the
 profiler's clock, and never a change to what the render computes."""
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -135,6 +137,40 @@ def test_compaction_route_is_counted_and_on_the_span(capacity, route):
     assert launches.COUNTS[ran[route]] == PASSES
     assert all(launches.COUNTS[k] == 0 for k in ran.values()
                if k != ran[route])
+
+
+@pytest.mark.parametrize("options", [
+    dict(),
+    dict(replay="host", replay_device_share=0.5),
+], ids=["device", "hybrid"])
+def test_counters_span_every_pass_and_equal_the_old_expression(
+        options, monkeypatch):
+    """The counters run once a pass under their span, through the plain
+    version, and reading only the kept prefix they total what the
+    expression the engine ran before them totals over the whole batch: on
+    the device replay's batch and on the hybrid split's, whose holes lie
+    inside the prefix."""
+    from cudabrot_tpu_torch.ops import pass_counters as pc
+    from tests.test_torch_pass_counters import _old_expression
+
+    if options and shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the host replay library")
+    launches.reset()
+    result, _ = _profiled(_cfg(**options))
+    assert result.stats["trace"]["spans"]["cb.counters"]["count"] == PASSES
+    assert launches.COUNTS["pass_counters_plain"] == PASSES
+    assert launches.COUNTS["pass_counters"] == 0
+
+    def old(stats, n_valid, iters, totals, *, steps_per_pass, capacity):
+        _old_expression(totals, stats, n_valid, iters, steps_per_pass,
+                        capacity)
+
+    monkeypatch.setattr(pc, "pass_counters", old)
+    want = _render(_cfg(**options))
+    keys = UNTRACED_KEYS - {"replay"}
+    assert {k: result.stats[k] for k in keys} == \
+        {k: want.stats[k] for k in keys}
+    assert want.stats["orbit_points"] > 0
 
 
 def test_data_parallel_records_each_replica():
