@@ -13,14 +13,34 @@
 //
 // Layout. The TPU runs the lanes as (R, 128) vectors and the chunks as a
 // sequential grid. Here each thread carries S = kLanesPerThread lanes:
-// thread t of global warp g holds lanes (g * S + j) * 32 + t, j < S, so
-// every load and store of a warp is 32 consecutive lanes of a
-// lane-contiguous ([..., lane]) array, one coalesced 128-byte transaction.
-// The lanes' state lives in registers, is loaded once and stored once per
-// pass, and the chunk grid is a loop inside the thread, flushing the
-// emission slots after each chunk. The window of U orbit updates is
-// unrolled for U in {1, 2, 4, 8, 16, 32} (a runtime loop otherwise), and
-// its boundary is selects: the S lanes' windows run without a branch.
+// thread t of the warp that runs lane group g holds lanes
+// (g * S + j) * 32 + t, j < S, so every load and store of a warp is 32
+// consecutive lanes of a lane-contiguous ([..., lane]) array, one coalesced
+// 128-byte transaction. The lanes' state lives in registers through a
+// slice of the pass (below), and the chunk grid is a loop inside the
+// thread, flushing the emission slots after each chunk. The window of U
+// orbit updates is unrolled for U in {1, 2, 4, 8, 16, 32} (a runtime loop
+// otherwise), and its boundary is selects: the S lanes' windows run
+// without a branch.
+//
+// The slice queue. The pass runs beside the previous pass's replay, whose
+// high-priority blocks take the SMs first; blocks of this kernel that find
+// no room start only when replay blocks exit (the room is the replay's
+// shared-memory carveout, deposit.cu kReplayCarveout, and the registers).
+// With a pass's work tied to each block, a block that started late
+// finished late, and the pass waited for it. So the work is a queue of
+// items (lane group, slice), a slice being a run of whole windows
+// (classify.cuh slice_plan: up to 64 a pass, a short pass whole), taken in
+// slice-major order from a ticket counter by whichever warps are resident:
+// a warp that arrives late takes what is left, or nothing. At a slice's ends the lanes go through the arrays they are loaded
+// from and stored to once a pass without the queue (classify.cuh load_lane,
+// store_lane): the state, the stat rows (read-added), and, where a slice
+// ends inside a chunk, the pending emission in that chunk's slot. Item
+// (g, s) starts once (g, s - 1) has released its lanes: one progress word a
+// (group, thread), stored with release order by the thread that stored those
+// lanes and read with acquire order by the thread that loads them (the same
+// thread index: a lane's thread is fixed by its id). The draws stay
+// Threefry(key, (lane, window)), so the cut changes no result.
 //
 // Bound. Operations: ~9 f32 operations per inner lane-step, ~40 per window
 // boundary, and per refill draw the Threefry-2x32 block (integer adds,
@@ -68,32 +88,52 @@ namespace {
 
 constexpr int kBlock = 128;  // 4 warps
 constexpr int kWarps = kBlock / 32;
+constexpr int kMinBlocks = 8;
 
 // Lanes per thread. 2 was the fastest of 1, 2 and 4 on an H100 at the
 // default cell and level with 4 at the deep one (measured in PR 6);
 // S = 4 leaves too few warps resident to hide the draws' scattered loads.
 constexpr int kLanesPerThread = 2;
 
-template <int FR, bool THIN, bool VISIT, int S, int U>
-__global__ void __launch_bounds__(kBlock) classify_kernel(cb::ClassifyArgs a) {
-  __shared__ int q_lane[kWarps][32 * S];
-  __shared__ cb::Draw q_draw[kWarps][32 * S];
-  const int t = threadIdx.x & 31, wb = threadIdx.x >> 5;
-  const int warp = (blockIdx.x * kBlock + threadIdx.x) >> 5;
-  if (warp * S * 32 >= a.lanes) return;  // warp-uniform
+constexpr unsigned kFull = 0xffffffffu;
 
+__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Windows [w0, w1) of the pass for lane group g, the warp's item: the
+// lanes' state, counters and pending emissions loaded at w0, the windows
+// run chunk by chunk with a flush at each chunk's end (or, where the slice
+// ends inside a chunk, the hand-over into the chunk's slot), and the state
+// and counters stored at w1.
+template <int FR, bool THIN, bool VISIT, int S, int U>
+__device__ void classify_slice(const cb::ClassifyArgs& a, int g, int w0,
+                               int w1, int* q_lane, cb::Draw* q_draw) {
+  const int t = threadIdx.x & 31;
   int lane[S];
   bool live[S];
   cb::Lane L[S];
 #pragma unroll
   for (int j = 0; j < S; ++j) {
-    lane[j] = (warp * S + j) * 32 + t;
+    lane[j] = (g * S + j) * 32 + t;
     live[j] = lane[j] < a.lanes;
-    L[j] = cb::load_lane(a, live[j] ? lane[j] : 0);
+    L[j] = cb::load_lane(a, live[j] ? lane[j] : 0, w0);
   }
 
-  for (int chunk = 0; chunk < a.chunks; ++chunk) {
-    for (int w = 0; w < a.windows; ++w) {
+  for (int chunk = w0 / a.windows; chunk * a.windows < w1; ++chunk) {
+    const int c0 = chunk * a.windows;
+    const int wz = w1 - c0 < a.windows ? w1 - c0 : a.windows;
+    for (int w = w0 > c0 ? w0 - c0 : 0; w < wz; ++w) {
       bool fin[S];
       uint32_t mask[S];
       int F = 0;
@@ -102,24 +142,24 @@ __global__ void __launch_bounds__(kBlock) classify_kernel(cb::ClassifyArgs a) {
         fin[j] = cb::lane_window<FR, THIN, VISIT, U>(a, L[j]) && live[j];
 #pragma unroll
       for (int j = 0; j < S; ++j) {
-        mask[j] = __ballot_sync(0xffffffffu, fin[j]);
+        mask[j] = __ballot_sync(kFull, fin[j]);
         F += __popc(mask[j]);
       }
       if (F == 0) continue;  // warp-uniform
-      const int gwin = chunk * a.windows + w;
+      const int gwin = c0 + w;
       int slot[S];
 #pragma unroll
       for (int j = 0; j < S; ++j) {
         slot[j] = cb::refill_slot<S>(mask, t, j);
-        if (fin[j]) q_lane[wb][slot[j]] = lane[j];
+        if (fin[j]) q_lane[slot[j]] = lane[j];
       }
       __syncwarp();
       for (int q = t; q < F; q += 32)
-        q_draw[wb][q] = cb::draw_sample<FR>(a, q_lane[wb][q], gwin);
+        q_draw[q] = cb::draw_sample<FR>(a, q_lane[q], gwin);
       __syncwarp();
 #pragma unroll
       for (int j = 0; j < S; ++j)
-        if (fin[j]) cb::refill<VISIT>(L[j], q_draw[wb][slot[j]]);
+        if (fin[j]) cb::refill<VISIT>(L[j], q_draw[slot[j]]);
     }
 #pragma unroll
     for (int j = 0; j < S; ++j)
@@ -130,6 +170,73 @@ __global__ void __launch_bounds__(kBlock) classify_kernel(cb::ClassifyArgs a) {
     if (live[j]) cb::store_lane(a, L[j], lane[j]);
 }
 
+// kMinBlocks a SM: a full SM holds the grid's share (1,024 blocks over 132
+// SMs at 262,144 lanes), which caps a thread at 64 registers.
+template <int FR, bool THIN, bool VISIT, int S, int U>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+    classify_kernel(cb::ClassifyArgs a) {
+  __shared__ int q_lane[kWarps][32 * S];
+  __shared__ cb::Draw q_draw[kWarps][32 * S];
+  const int t = threadIdx.x & 31, wb = threadIdx.x >> 5;
+  const int warp = (blockIdx.x * kBlock + threadIdx.x) >> 5;
+  const int groups = (a.lanes + 32 * S - 1) / (32 * S);
+  if (warp >= groups) return;  // warp-uniform
+
+  // Items (lane group, slice) in slice-major order: every group's slice 0,
+  // then every group's slice 1, and so on. A warp takes the next item from
+  // the ticket counter until none is left, so warps that become resident
+  // late (behind another kernel's blocks) take fewer items, or none.
+  uint32_t* const head = a.queue;
+  const uint32_t base = ld_acquire(head + cb::kBase);
+  const cb::Slices sl = cb::slice_plan(a.chunks, a.windows);
+  const int windows = a.chunks * a.windows;
+  const uint32_t items = uint32_t(groups) * uint32_t(sl.count);
+  uint32_t first = items;
+  int taken = 0;
+  for (;; ++taken) {
+    uint32_t item = 0;
+    if (t == 0) item = atomicAdd(head + cb::kTicket, 1u);
+    item = __shfl_sync(kFull, item, 0);
+    if (taken == 0) first = item;
+    if (item >= items) break;
+    const int s = int(item / uint32_t(groups));
+    const int g = int(item - uint32_t(s) * uint32_t(groups));
+    // Thread t of the warp that ran (g, s - 1) stored the lanes thread t
+    // loads here, then released its progress word: acquiring it orders
+    // those stores before these loads. (g, s - 1) was taken before (g, s)
+    // by a running warp, so the wait ends.
+    uint32_t* const progress =
+        head + cb::kQueueHead + size_t(g) * 32 + t;
+    if (s > 0) {
+      const uint32_t need = base + uint32_t(s);
+      while (!__all_sync(kFull, int(ld_acquire(progress) - need) >= 0))
+        __nanosleep(256);
+    }
+    const int w0 = s * sl.len;
+    const int w1 = w0 + sl.len < windows ? w0 + sl.len : windows;
+    classify_slice<FR, THIN, VISIT, S, U>(a, g, w0, w1, q_lane[wb],
+                                          q_draw[wb]);
+    st_release(progress, base + uint32_t(s) + 1u);
+  }
+
+  if (t != 0) return;
+  // A late warp: its first take came after every warp of the grid could
+  // have taken one, so it was not resident at the launch.
+  if (a.late != nullptr && first >= uint32_t(groups)) {
+    atomicAdd(a.late, 1ull);
+    atomicAdd(a.late + 1, (unsigned long long)taken);
+  }
+  // The last warp to find the queue empty: every item has finished and no
+  // warp reads the queue again, so it resets the counters for the next
+  // launch and moves the base past this launch's progress values.
+  if (atomicAdd(head + cb::kExited, 1u) == uint32_t(groups) - 1u) {
+    head[cb::kTicket] = 0u;
+    head[cb::kExited] = 0u;
+    head[cb::kBase] = base + uint32_t(sl.count);
+  }
+}
+
+// One warp a lane group, as many as the queue can give work at once.
 template <int FR, bool THIN, bool VISIT, int S, int U>
 cudaError_t launch(const cb::ClassifyArgs& a, cudaStream_t stream) {
   const int warps = (a.lanes + 32 * S - 1) / (32 * S);
@@ -308,7 +415,7 @@ extern "C" int cb_classify(void** ptrs, const int* iargs, const float* fargs,
       fn = pick<cb::kAntiBuddhabrot>(thin, visit, a.unroll);
       break;
   }
-  if (fn == nullptr || a.lanes <= 0 || a.unroll <= 0)
+  if (fn == nullptr || a.lanes <= 0 || a.unroll <= 0 || a.queue == nullptr)
     return int(cudaErrorInvalidValue);
   return int(fn(a, static_cast<cudaStream_t>(stream)));
 }

@@ -1,9 +1,11 @@
 // One lane of the f32 classify pass as __host__ __device__ functions: the
 // window (U orbit steps and the boundary), the refill draw, the refill, and
-// the slot a finished lane's draw takes in its warp's compacted refill.
-// classify.cu runs them with S lanes per thread; host_harness.cpp runs them
-// in a host emulation of the same warps, so a CPU build can be held bitwise
-// against the plain PyTorch version (ops/classify.classify_pass_plain).
+// the slot a finished lane's draw takes in its warp's compacted refill; and
+// the pass's slices, the runs of windows a warp takes from the queue, with
+// the lane's load and store at a slice's ends. classify.cu runs them with S
+// lanes per thread; host_harness.cpp runs them in a host emulation of the
+// same warps, so a CPU build can be held bitwise against the plain PyTorch
+// version (ops/classify.classify_pass_plain).
 #pragma once
 
 #include "orbit.cuh"
@@ -14,6 +16,15 @@ constexpr float kBig = 1.0e30f;  // Brent "never matches" saved point
 constexpr int kSave0 = 16;       // first Brent save index, doubling
 constexpr int kStats = 5;        // drawn, culled, in_band, cycles, wasted
 
+// The queue's words (ClassifyArgs::queue, uint32): the ticket counter, the
+// warps that found the queue empty, and the base of this launch's progress
+// values, then from word kQueueHead one progress word a (lane group,
+// thread). The last warp to find the queue empty resets the first two and
+// moves the base past every progress value the launch wrote, so the words
+// need no clearing between launches: zero-filled once, they serve every
+// launch on one stream.
+constexpr int kTicket = 0, kExited = 1, kBase = 2, kQueueHead = 32;
+
 struct ClassifyArgs {
   float *cr, *ci, *zr, *zi, *sr, *si;
   int32_t *it, *sv, *dead, *vis;
@@ -21,6 +32,8 @@ struct ClassifyArgs {
   int32_t* emit_it;       // (chunks, lanes), -1 = empty slot
   int32_t* stats;         // (5, lanes)
   const uint32_t* bits;   // (chunks, windows, 2, lanes) or null: threefry
+  uint32_t* queue;        // kQueueHead + 32 x lane groups words
+  unsigned long long* late;  // 2 words or null: late warps, their items
   uint32_t k0, k1;
   int lanes, chunks, windows, unroll, min_it, max_it, detect;
   float dom_r0, dom_rspan, dom_i0, dom_ispan;
@@ -29,7 +42,7 @@ struct ClassifyArgs {
 
 // The C interface's arguments (classify.cu, host_harness.cpp).
 // ptrs: cr, ci, zr, zi, sr, si, it, sv, dead, vis, emit_c, emit_it, stats,
-//       bits (null for threefry).
+//       bits (null for threefry), queue, late (null: not counted).
 // iargs: fractal, thin, visit, lanes, chunks, windows, unroll, min_it,
 //        max_it, detect (fractal, thin, visit and the unroll select the
 //        instantiation).
@@ -48,6 +61,8 @@ inline ClassifyArgs classify_args(void** ptrs, const int* iargs,
   a.emit_it = static_cast<int32_t*>(ptrs[11]);
   a.stats = static_cast<int32_t*>(ptrs[12]);
   a.bits = static_cast<const uint32_t*>(ptrs[13]);
+  a.queue = static_cast<uint32_t*>(ptrs[14]);
+  a.late = static_cast<unsigned long long*>(ptrs[15]);
   a.k0 = k0;
   a.k1 = k1;
   a.lanes = iargs[3];
@@ -78,26 +93,89 @@ struct Lane {
   int n_drawn, n_cull, n_band, n_cyc, n_waste;
 };
 
-CB_HD Lane load_lane(const ClassifyArgs& a, int lane) {
+// The pass's windows (chunks x windows of it, chunk-major) cut into slices
+// of `len` whole windows, `count` of them; a slice is the unit of work a
+// warp takes from the queue for one lane group. The cut is a constant of
+// the design, read from the plan. A slice's ends move its lanes through
+// memory (~72 bytes a lane each way), so a slice holds at least
+// kSliceWindows windows; the queue's tail is about one slice, so a pass is
+// cut into up to kMaxSlices (on an H100 at 262,144 lanes: 0.13 ms a slice
+// at canvas1k.default's plan, 0.3 ms at hires15k.fine's). A pass of fewer
+// than kCutWindows windows is one slice: at the 512 of hires15k.medium's
+// plan, 4 or 8 slices slowed the replay beside the pass by half and the
+// pass with it, and one did not.
+constexpr int kSliceWindows = 64, kMaxSlices = 64, kCutWindows = 2048;
+
+struct Slices {
+  int len, count;
+};
+
+CB_HD Slices slice_plan(int chunks, int windows) {
+  const int total = chunks * windows;
+  if (total < kCutWindows) return {total, 1};
+  const int fewest = (total + kMaxSlices - 1) / kMaxSlices;
+  const int len = fewest > kSliceWindows ? fewest : kSliceWindows;
+  return {len, (total + len - 1) / len};
+}
+
+// A load that reads what another warp of the launch stored, from the L2
+// (where that warp's stores and its release went), not from a stale L1 line.
+template <class T>
+CB_HD T ld_cg(const T* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldcg(p);
+#else
+  return *p;
+#endif
+}
+
+// A lane at the start of the slice that begins at window w0 of the pass:
+// its sampler state from the arrays, and its counters and pending emission
+// as the slice before left them. At the pass's start the counters are zero
+// and no emission is pending. Inside a chunk, the pending emission is the
+// one the slice before wrote into the chunk's slot; at a chunk's start it
+// is the slot of the chunk before, cleared as flush_lane clears it.
+CB_HD Lane load_lane(const ClassifyArgs& a, int lane, int w0) {
   Lane l;
-  l.cr = a.cr[lane];
-  l.ci = a.ci[lane];
-  l.zr = a.zr[lane];
-  l.zi = a.zi[lane];
-  l.sr = a.sr[lane];
-  l.si = a.si[lane];
-  l.it = a.it[lane];
-  l.sv = a.sv[lane];
-  l.dead = a.dead[lane];
-  l.vis = a.vis[lane];
-  l.p_cr = 0.0f;
-  l.p_ci = 0.0f;
-  l.p_it = -1;
-  l.n_drawn = l.n_cull = l.n_band = l.n_cyc = l.n_waste = 0;
+  l.cr = ld_cg(a.cr + lane);
+  l.ci = ld_cg(a.ci + lane);
+  l.zr = ld_cg(a.zr + lane);
+  l.zi = ld_cg(a.zi + lane);
+  l.sr = ld_cg(a.sr + lane);
+  l.si = ld_cg(a.si + lane);
+  l.it = ld_cg(a.it + lane);
+  l.sv = ld_cg(a.sv + lane);
+  l.dead = ld_cg(a.dead + lane);
+  l.vis = ld_cg(a.vis + lane);
+  if (w0 == 0) {
+    l.p_cr = 0.0f;
+    l.p_ci = 0.0f;
+    l.p_it = -1;
+    l.n_drawn = l.n_cull = l.n_band = l.n_cyc = l.n_waste = 0;
+    return l;
+  }
+  const size_t L = size_t(a.lanes);
+  int* const counts[kStats] = {&l.n_drawn, &l.n_cull, &l.n_band, &l.n_cyc,
+                               &l.n_waste};
+  for (int s = 0; s < kStats; ++s)
+    *counts[s] = ld_cg(a.stats + size_t(s) * L + lane);
+  const int chunk = w0 / a.windows;
+  if (w0 % a.windows != 0) {
+    l.p_cr = ld_cg(a.emit_c + (size_t(chunk) * 2) * L + lane);
+    l.p_ci = ld_cg(a.emit_c + (size_t(chunk) * 2 + 1) * L + lane);
+    l.p_it = ld_cg(a.emit_it + size_t(chunk) * L + lane);
+  } else {
+    l.p_cr = fmul(ld_cg(a.emit_c + (size_t(chunk - 1) * 2) * L + lane), 0.0f);
+    l.p_ci =
+        fmul(ld_cg(a.emit_c + (size_t(chunk - 1) * 2 + 1) * L + lane), 0.0f);
+    l.p_it = -1;
+  }
   return l;
 }
 
-// Writes the chunk's pending emission slot and clears it.
+// Writes the chunk's pending emission slot and clears it: at the chunk's
+// end its flush, at a slice's end inside the chunk the hand-over to the
+// next slice.
 CB_HD void flush_lane(const ClassifyArgs& a, Lane& l, int chunk, int lane) {
   const size_t L = size_t(a.lanes);
   a.emit_c[(size_t(chunk) * 2) * L + lane] = l.p_cr;
@@ -108,6 +186,7 @@ CB_HD void flush_lane(const ClassifyArgs& a, Lane& l, int chunk, int lane) {
   l.p_it = -1;
 }
 
+// Stores the lane's state and its counters so far at a slice's end.
 CB_HD void store_lane(const ClassifyArgs& a, const Lane& l, int lane) {
   const size_t L = size_t(a.lanes);
   a.cr[lane] = l.cr;

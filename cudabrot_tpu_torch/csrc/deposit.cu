@@ -318,15 +318,46 @@ int queue_blocks(int k, int warps, int take) {
   return (w + kQueueWarps - 1) / kQueueWarps;
 }
 
+// The replay's share of an SM's shared memory, in percent, where its grid
+// fills its resident warps. The replay uses none, so with no preference an
+// SM that takes its blocks first is set up for the most L1, where one block
+// of the next pass's classify (4 KB) fits beside them and not the six its
+// registers allow: at canvas1k.default's plan 896 of classify's 1,024
+// blocks started only once the replay had left (measured on an H100). A
+// partial grid (a few thousand orbits, hires15k.medium's) leaves SMs free
+// and keeps no preference: there the replay sets the pass, and classify
+// blocks beside it cost 8% of the rate (measured on an H100).
+constexpr int kReplayCarveout = 25;
+
+// Sets replay_deposit_kernel<FR>'s preferred carveout (-1: none) on the
+// current device where it differs from the one set there last.
+template <int FR>
+cudaError_t carve(int percent) {
+  constexpr int kDevices = 64;
+  static int last[kDevices];  // percent + 2; 0: not set yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kDevices && last[dev] == percent + 2) return cudaSuccess;
+  e = cudaFuncSetAttribute(replay_deposit_kernel<FR>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           percent);
+  if (e == cudaSuccess && dev < kDevices) last[dev] = percent + 2;
+  return e;
+}
+
 template <int FR>
 cudaError_t launch_replay(const float* cr, const float* ci,
                           const int32_t* iters, int k, uint32_t* hist,
                           const cb::CanvasQ& q, int warps, int take,
                           unsigned long long* next, unsigned long long* hits,
                           cudaStream_t stream) {
-  replay_deposit_kernel<FR><<<queue_blocks(k, warps, take), kQueueBlock, 0,
-                              stream>>>(cr, ci, iters, k, hist, q, take, next,
-                                        hits);
+  const int blocks = queue_blocks(k, warps, take);
+  const cudaError_t e =
+      carve<FR>(blocks * kQueueWarps >= warps ? kReplayCarveout : -1);
+  if (e != cudaSuccess) return e;
+  replay_deposit_kernel<FR><<<blocks, kQueueBlock, 0, stream>>>(
+      cr, ci, iters, k, hist, q, take, next, hits);
   return cudaGetLastError();
 }
 

@@ -1,10 +1,11 @@
 // CPU build of the kernels' per-lane functions.
 //
 // The f32 classify lane functions (classify.cuh) in an emulation of the
-// kernel's warps with their compacted refill, the fused f32 replay's orbit
-// loop as the kernel's queue runs it (orbit.cuh replay_orbit), the
-// df32 arithmetic (df32.cuh), the lane and emission functions of the
-// classify_ext and replay_deposit_ext kernels (classify_ext.cuh), the
+// kernel's warps with their compacted refill and its slice queue's items,
+// the fused f32 replay's orbit loop as the kernel's queue runs it
+// (orbit.cuh replay_orbit), the df32 arithmetic (df32.cuh), the lane and
+// emission functions of the classify_ext and replay_deposit_ext kernels
+// (classify_ext.cuh), the
 // Metropolis-Hastings lane functions and deposit (mh.cuh: classify_mh in an
 // emulation of its warps with their compacted draws, classify_ext_mh,
 // mh_deposit in an emulation of its warps' spread), the orbit loop of the
@@ -24,6 +25,7 @@
 // __fmul_rn/__fadd_rn do on the device.) Nothing in the package loads it;
 // tests/test_torch_df32.py builds it when g++ is present.
 #include <algorithm>
+#include <random>
 #include <tuple>
 #include <type_traits>
 #include <vector>
@@ -223,79 +225,109 @@ int replay_ext_all(int fractal, const cb::ReplayExtArgs& a,
   return 0;
 }
 
-// One pass of the f32 classify kernel (classify.cu) with S lanes per
-// thread, its warps emulated in turn: each warp's 32 threads run their S
-// lanes' windows, the finished pairs queue their lane ids at the slots
-// refill_slot gives them, the queued draws are computed in passes of 32 (as
-// thread q takes slots q, q + 32, ...), and each finished lane takes its
-// own slot's draw. The window loop runs at the runtime unroll (U = 0).
+// One item of the f32 classify kernel (classify.cu classify_slice): windows
+// [w0, w1) of the pass for lane group g, its warp emulated with S lanes per
+// thread: the 32 threads load their S lanes at w0, run each window (the
+// finished pairs queue their lane ids at the slots refill_slot gives them,
+// the queued draws are computed in passes of 32, as thread q takes slots
+// q, q + 32, ..., and each finished lane takes its own slot's draw), flush
+// at each chunk's end or hand the pending emission over in the chunk's slot
+// where the slice ends inside it, and store their lanes at w1. The window
+// loop runs at the runtime unroll (U = 0).
 template <int FR, bool THIN, bool VISIT, int S>
-void classify_warps(const cb::ClassifyArgs& a) {
-  const int warps = (a.lanes + 32 * S - 1) / (32 * S);
+void classify_slice(const cb::ClassifyArgs& a, int g, int w0, int w1) {
   std::vector<cb::Lane> L(32 * S);
   std::vector<int> q_lane(32 * S);
   std::vector<cb::Draw> q_draw(32 * S);
-  for (int g = 0; g < warps; ++g) {
-    auto lane = [&](int t, int j) { return (g * S + j) * 32 + t; };
-    auto live = [&](int t, int j) { return lane(t, j) < a.lanes; };
-    for (int t = 0; t < 32; ++t)
-      for (int j = 0; j < S; ++j)
-        L[t * S + j] = cb::load_lane(a, live(t, j) ? lane(t, j) : 0);
-    for (int chunk = 0; chunk < a.chunks; ++chunk) {
-      for (int w = 0; w < a.windows; ++w) {
-        uint32_t mask[S] = {};
-        bool fin[32][S];
-        int F = 0;
-        for (int t = 0; t < 32; ++t)
-          for (int j = 0; j < S; ++j) {
-            fin[t][j] = cb::lane_window<FR, THIN, VISIT, 0>(a, L[t * S + j])
-                        && live(t, j);
-            mask[j] |= uint32_t(fin[t][j]) << t;
-          }
-        for (int j = 0; j < S; ++j) F += cb::popc32(mask[j]);
-        const int gwin = chunk * a.windows + w;
-        for (int t = 0; t < 32; ++t)
-          for (int j = 0; j < S; ++j)
-            if (fin[t][j]) q_lane[cb::refill_slot<S>(mask, t, j)] = lane(t, j);
-        for (int pass = 0; pass * 32 < F; ++pass)
-          for (int t = 0; t < 32; ++t) {
-            const int q = pass * 32 + t;
-            if (q < F) q_draw[q] = cb::draw_sample<FR>(a, q_lane[q], gwin);
-          }
-        for (int t = 0; t < 32; ++t)
-          for (int j = 0; j < S; ++j)
-            if (fin[t][j])
-              cb::refill<VISIT>(L[t * S + j],
-                                q_draw[cb::refill_slot<S>(mask, t, j)]);
-      }
+  auto lane = [&](int t, int j) { return (g * S + j) * 32 + t; };
+  auto live = [&](int t, int j) { return lane(t, j) < a.lanes; };
+  for (int t = 0; t < 32; ++t)
+    for (int j = 0; j < S; ++j)
+      L[t * S + j] = cb::load_lane(a, live(t, j) ? lane(t, j) : 0, w0);
+  for (int chunk = w0 / a.windows; chunk * a.windows < w1; ++chunk) {
+    const int c0 = chunk * a.windows;
+    const int wz = std::min(w1 - c0, a.windows);
+    for (int w = std::max(w0 - c0, 0); w < wz; ++w) {
+      uint32_t mask[S] = {};
+      bool fin[32][S];
+      int F = 0;
+      for (int t = 0; t < 32; ++t)
+        for (int j = 0; j < S; ++j) {
+          fin[t][j] = cb::lane_window<FR, THIN, VISIT, 0>(a, L[t * S + j])
+                      && live(t, j);
+          mask[j] |= uint32_t(fin[t][j]) << t;
+        }
+      for (int j = 0; j < S; ++j) F += cb::popc32(mask[j]);
+      const int gwin = c0 + w;
       for (int t = 0; t < 32; ++t)
         for (int j = 0; j < S; ++j)
-          if (live(t, j)) cb::flush_lane(a, L[t * S + j], chunk, lane(t, j));
+          if (fin[t][j]) q_lane[cb::refill_slot<S>(mask, t, j)] = lane(t, j);
+      for (int pass = 0; pass * 32 < F; ++pass)
+        for (int t = 0; t < 32; ++t) {
+          const int q = pass * 32 + t;
+          if (q < F) q_draw[q] = cb::draw_sample<FR>(a, q_lane[q], gwin);
+        }
+      for (int t = 0; t < 32; ++t)
+        for (int j = 0; j < S; ++j)
+          if (fin[t][j])
+            cb::refill<VISIT>(L[t * S + j],
+                              q_draw[cb::refill_slot<S>(mask, t, j)]);
     }
     for (int t = 0; t < 32; ++t)
       for (int j = 0; j < S; ++j)
-        if (live(t, j)) cb::store_lane(a, L[t * S + j], lane(t, j));
+        if (live(t, j)) cb::flush_lane(a, L[t * S + j], chunk, lane(t, j));
+  }
+  for (int t = 0; t < 32; ++t)
+    for (int j = 0; j < S; ++j)
+      if (live(t, j)) cb::store_lane(a, L[t * S + j], lane(t, j));
+}
+
+// One pass of the f32 classify kernel: its items (lane group, slice) in
+// slice-major order, as the kernel's queue hands them out, the groups of
+// each slice in an order shuffled by `order` (0: in turn), as the warps
+// that take them may run in any order. The pass is cut as slice_plan cuts
+// it, or, where `len` > 0, into slices of `len` windows (the cut of a
+// longer pass, on a pass short enough for a test).
+template <int FR, bool THIN, bool VISIT, int S>
+void classify_warps(const cb::ClassifyArgs& a, uint32_t order, int len) {
+  const int groups = (a.lanes + 32 * S - 1) / (32 * S);
+  const int windows = a.chunks * a.windows;
+  const cb::Slices sl = len > 0 ? cb::Slices{len, (windows + len - 1) / len}
+                                : cb::slice_plan(a.chunks, a.windows);
+  std::vector<int> perm(groups);
+  std::mt19937 rng(order);
+  for (int s = 0; s < sl.count; ++s) {
+    for (int g = 0; g < groups; ++g) perm[g] = g;
+    if (order != 0) std::shuffle(perm.begin(), perm.end(), rng);
+    for (int g : perm)
+      classify_slice<FR, THIN, VISIT, S>(
+          a, g, s * sl.len, std::min((s + 1) * sl.len, windows));
   }
 }
 
 template <int FR, bool THIN, bool VISIT>
-int classify_warps_by_s(int per_thread, const cb::ClassifyArgs& a) {
+int classify_warps_by_s(int per_thread, uint32_t order, int len,
+                        const cb::ClassifyArgs& a) {
   switch (per_thread) {
-    case 1: classify_warps<FR, THIN, VISIT, 1>(a); return 0;
-    case 2: classify_warps<FR, THIN, VISIT, 2>(a); return 0;
-    case 4: classify_warps<FR, THIN, VISIT, 4>(a); return 0;
+    case 1: classify_warps<FR, THIN, VISIT, 1>(a, order, len); return 0;
+    case 2: classify_warps<FR, THIN, VISIT, 2>(a, order, len); return 0;
+    case 4: classify_warps<FR, THIN, VISIT, 4>(a, order, len); return 0;
   }
   return 1;
 }
 
 template <int FR>
 int classify_warps_by_variant(int thin, int visit, int per_thread,
+                              uint32_t order, int len,
                               const cb::ClassifyArgs& a) {
   if (!thin)
     return visit ? 1
-                 : classify_warps_by_s<FR, false, false>(per_thread, a);
-  return visit ? classify_warps_by_s<FR, true, true>(per_thread, a)
-               : classify_warps_by_s<FR, true, false>(per_thread, a);
+                 : classify_warps_by_s<FR, false, false>(per_thread, order,
+                                                         len, a);
+  return visit
+             ? classify_warps_by_s<FR, true, true>(per_thread, order, len, a)
+             : classify_warps_by_s<FR, true, false>(per_thread, order, len,
+                                                    a);
 }
 
 // One pass of the df32 classify kernel (classify_ext.cu) with S lanes per
@@ -385,23 +417,37 @@ int classify_ext_warps_pick(int fractal, int visit, int per_thread, int unroll,
 extern "C" {
 
 // The interface of cb_classify, the kernel's warps emulated on the CPU
-// with iargs[10] lanes per thread (the kernel's kLanesPerThread, 2).
+// with iargs[10] lanes per thread (the kernel's kLanesPerThread, 2), the
+// groups of each slice in the order iargs[11] shuffles them (0: in turn),
+// and slices of iargs[12] windows (0: slice_plan's); ptrs[14] and
+// ptrs[15], the queue and the late counts, are not read.
 int cbh_classify(void** ptrs, const int* iargs, const float* fargs,
                  uint32_t k0, uint32_t k1) {
   const cb::ClassifyArgs a = cb::classify_args(ptrs, iargs, fargs, k0, k1);
   const int thin = iargs[1], visit = iargs[2], per_thread = iargs[10];
+  const uint32_t order = uint32_t(iargs[11]);
+  const int len = iargs[12];
   switch (iargs[0]) {
     case cb::kBuddhabrot:
-      return classify_warps_by_variant<cb::kBuddhabrot>(thin, visit,
-                                                        per_thread, a);
+      return classify_warps_by_variant<cb::kBuddhabrot>(
+          thin, visit, per_thread, order, len, a);
     case cb::kBurningShip:
-      return classify_warps_by_variant<cb::kBurningShip>(thin, visit,
-                                                         per_thread, a);
+      return classify_warps_by_variant<cb::kBurningShip>(
+          thin, visit, per_thread, order, len, a);
     case cb::kAntiBuddhabrot:
-      return classify_warps_by_variant<cb::kAntiBuddhabrot>(thin, visit,
-                                                            per_thread, a);
+      return classify_warps_by_variant<cb::kAntiBuddhabrot>(
+          thin, visit, per_thread, order, len, a);
   }
   return 1;
+}
+
+// The kernel's cut of a pass into slices (classify.cuh slice_plan):
+// out[0] windows a slice, out[1] slices a pass.
+int cbh_slice_plan(int chunks, int windows, int* out) {
+  const cb::Slices sl = cb::slice_plan(chunks, windows);
+  out[0] = sl.len;
+  out[1] = sl.count;
+  return 0;
 }
 
 // refill_slot for every (thread, sub-lane) of one warp: masks holds S

@@ -10,8 +10,12 @@ maps them onto Hopper.
 
 ``classify_pass`` launches the CUDA kernel for CUDA tensors and runs
 ``classify_pass_plain`` for CPU tensors. Both round every operation once,
-so on one input they agree bitwise. The pass updates the lane state in
-place (the JAX version donates it) and returns it with the pass's
+so on one input they agree bitwise. The kernel's warps take the pass as a
+queue of (lane group, slice) items (``csrc/classify.cu``), through queue
+words kept per stream (``_queue``); under tracing it counts the warps that
+became resident too late to take the first items, and the items they took
+(``LATE_FIELDS``, ``utils/trace.device_counts``). The pass updates the lane
+state in place (the JAX version donates it) and returns it with the pass's
 emissions and per-lane stats.
 """
 
@@ -25,6 +29,7 @@ import torch
 from cudabrot_tpu_torch.config import SAMPLE_DOMAIN
 from cudabrot_tpu_torch.models.fractals import FractalMap, cull_mask
 from cudabrot_tpu_torch.ops import _build, launches, prng
+from cudabrot_tpu_torch.utils import trace
 
 #: First Brent checkpoint index; doubles after every save.
 SAVE0 = 16
@@ -35,6 +40,13 @@ STATS_ROWS = 5
 STAT_DRAWN, STAT_CULLED, STAT_IN_BAND, STAT_CYCLES, STAT_WASTED = range(
     STATS_ROWS
 )
+#: Words of the kernel's queue before its progress words
+#: (``csrc/classify.cuh`` kQueueHead).
+QUEUE_HEAD = 32
+#: The kernel's counts under tracing, in ``stats["trace"]``: the warps whose
+#: first take from the queue came after every warp of the grid could have
+#: taken one (not resident at the launch), and the items those warps took.
+LATE_FIELDS = ("classify_late_warps", "classify_late_items")
 
 class LaneState(NamedTuple):
     """Persistent per-lane sampler state, (R, 128) each (the JAX layout)."""
@@ -155,10 +167,13 @@ def _classify_cuda(state, k0, k1, bits, *, fractal, min_it, max_it, chunks,
                         device=dev)
     if bits is not None:
         bits = bits.to(dev).contiguous()
-    ptrs = (ctypes.c_void_p * 14)(
+    late = trace.device_counts("classify_late", dev, LATE_FIELDS)
+    ptrs = (ctypes.c_void_p * 16)(
         *(t.data_ptr() for t in state),
         emit_c.data_ptr(), emit_it.data_ptr(), stats.data_ptr(),
         bits.data_ptr() if bits is not None else None,
+        _queue(dev, lanes).data_ptr(),
+        late.data_ptr() if late is not None else None,
     )
     r0, r1, i0, i1 = sample_domain
     vw = visit_window or (0.0, 0.0, 0.0, 0.0)
@@ -173,6 +188,25 @@ def _classify_cuda(state, k0, k1, bits, *, fractal, min_it, max_it, chunks,
     _build.check(rc, "classify kernel")
     launches.COUNTS["classify"] += 1
     return ClassifyResult(state, emit_c, emit_it, stats)
+
+
+#: (device index, stream) -> the kernel's queue words on that stream.
+_queues: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _queue(dev, lanes: int) -> torch.Tensor:
+    """The classify kernel's queue words for the current stream of
+    ``dev``: zero-filled once, then left by every launch ready for the next
+    (the kernel resets them), so launches on one stream share them and
+    launches on two streams never do. One progress word a (lane group,
+    thread) is at most one a lane."""
+    stream = torch.cuda.current_stream(dev)
+    key = (stream.device_index, stream.cuda_stream)
+    q = _queues.get(key)
+    if q is None or q.numel() < QUEUE_HEAD + lanes:
+        q = torch.zeros(QUEUE_HEAD + lanes, dtype=torch.int32, device=dev)
+        _queues[key] = q
+    return q
 
 
 def _lib():

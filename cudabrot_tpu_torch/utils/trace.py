@@ -46,9 +46,11 @@ spans of attribute ``sampler="mh"`` (``mh_passes``, one a pass and
 device) and those of them with ``burnin`` (``mh_burnin_passes``); the
 group ends (``sync_groups``), those with a replay tail
 (``replay_tails``) and the tails' device ms past the drain
-(``replay_tail_ms``); and the buffer record (the addresses of the
-histogram and of the lane state, and the allocator's reserved bytes),
-taken once, after the first synchronize.
+(``replay_tail_ms``); the device counts that kernels add to while tracing
+is on (``device_counts``: the f32 classify kernel's late warps and their
+items), read once, after the render's last wait; and the buffer record
+(the addresses of the histogram and of the lane state, and the allocator's
+reserved bytes), taken once, after the first synchronize.
 """
 
 from __future__ import annotations
@@ -105,6 +107,8 @@ class Tracer:
         self.replay_tails = 0
         self.replay_tail_ms = 0.0
         self.buffers: dict | None = None
+        #: name -> (fields, {device: int64 words the kernels add to})
+        self.counts: dict[str, tuple[tuple, dict]] = {}
         self._pool: dict[int, list] = {}
         self._pending: list = []  # (name, pass, device index, stream, e0, e1)
         #: (device index, drain event, refill, whether the drain event goes
@@ -207,6 +211,11 @@ class Tracer:
                "replay_tails": self.replay_tails,
                "replay_tail_ms": self.replay_tail_ms,
                "buffers": self.buffers or {}}
+        for fields, words in self.counts.values():
+            sums = [0] * len(fields)
+            for t in words.values():
+                sums = [a + b for a, b in zip(sums, t.tolist())]
+            out.update(zip(fields, sums))
         mh = [r for r in self.records
               if r.name == "cb.classify" and r.attrs.get("sampler") == "mh"]
         if mh:
@@ -275,6 +284,23 @@ def span(name: str, *, device=False, **attrs):
     if tr is None:
         return _NOOP
     return _Span(tr, name, _stream_of(device), attrs)
+
+
+def device_counts(name: str, device, fields: tuple) -> torch.Tensor | None:
+    """While tracing is on, the int64 words (one a field) on ``device`` that
+    a kernel adds its counts ``name`` to, zeroed once a render; else None,
+    and the kernel counts nothing. The words are read when tracing stops,
+    after the render's last wait, into ``stats["trace"]`` under
+    ``fields``, summed over devices."""
+    tr = _tracer
+    if tr is None:
+        return None
+    words = tr.counts.setdefault(name, (tuple(fields), {}))[1]
+    t = words.get(device)
+    if t is None:
+        t = words[device] = torch.zeros(len(fields), dtype=torch.int64,
+                                        device=device)
+    return t
 
 
 def start() -> Tracer:

@@ -121,6 +121,178 @@ def test_classify_kernel_unrolled_windows_match_plain(cuda, variant, unroll):
     assert int(ra.stats[cls.STAT_DRAWN].sum()) > 0
 
 
+#: The f32 cells' bands (BENCHMARK.json) and the plan the engine picks for
+#: each at 262,144 lanes (steps a pass, flush, unroll), which the canvas
+#: does not change; canvas1k.dp4 runs canvas1k.default's on each card.
+F32_CELLS = {
+    "canvas1k.default": ([], (4096, 128, 1)),
+    "canvas1k.cutoff2000": (["-m", "20000", "-c", "2000"], (4096, 4096, 8)),
+    "hires15k.medium": (["-m", "8000", "-c", "1000"], (4096, 4096, 8)),
+    "hires15k.fine": (["-m", "60000", "-c", "45000"], (65536, 65536, 8)),
+    "hires15k.coarse": (["-m", "500", "-c", "20"], (4096, 128, 1)),
+}
+HIRES = ["-w", "20000", "-h", "15000", "--min-imag", "-1.5",
+         "--max-imag", "1.5"]
+
+
+def _classify_spec(eng):
+    """classify_pass's keywords for an engine's uniform f32 pass (as
+    ``CudaEngine.classify`` passes them)."""
+    cfg, tn = eng.cfg, eng.tuning
+    return dict(fractal=eng.fractal, min_it=tn.min_it, max_it=tn.max_it,
+                steps_per_pass=tn.steps_per_pass,
+                steps_per_flush=tn.steps_per_flush,
+                cycle_detection=cfg.options.cycle_detection,
+                inner_unroll=tn.inner_unroll, thin_tracking=tn.thin_tracking,
+                sample_domain=cfg.sample_domain,
+                visit_window=eng.visit_window)
+
+
+def _plain_pass(state, seed, spec):
+    fr = spec["fractal"]
+    return cls.classify_pass_plain(
+        state, *seed, None, fractal=fr, min_it=spec["min_it"],
+        max_it=spec["max_it"],
+        chunks=spec["steps_per_pass"] // spec["steps_per_flush"],
+        windows=spec["steps_per_flush"] // spec["inner_unroll"],
+        unroll=spec["inner_unroll"], thin=spec["thin_tracking"],
+        detect=spec["cycle_detection"] and fr.cycle_detect,
+        sample_domain=spec["sample_domain"],
+        visit_window=spec["visit_window"])
+
+
+def _assert_same_result(ra, rb):
+    for x, y in zip(ra.state, rb.state):
+        assert _same(x, y)
+    assert _same(ra.emit_c, rb.emit_c)
+    assert _same(ra.emit_it, rb.emit_it)
+    assert _same(ra.stats, rb.stats)
+
+
+@pytest.mark.parametrize("cell", sorted(F32_CELLS))
+def test_classify_slices_match_plain_at_the_f32_cells(cuda, cell):
+    """The kernel's slice queue at each f32 cell's band and plan (64
+    slices of 64 windows at default's and coarse's, cutting their chunks
+    in two, 64 of 128 inside the one chunk of fine's, cutoff2000's and
+    medium's 512 windows whole), on 16,384 of the cell's 262,144 lanes
+    carried 2 passes, against the plain version bitwise."""
+    argv, plan = F32_CELLS[cell]
+    eng = CudaEngine(_cell(["-w", "1000", "-h", "1000", *argv]), device=cuda)
+    tn = eng.tuning
+    assert (tn.steps_per_pass, tn.steps_per_flush, tn.inner_unroll) == plan
+    assert eng.lanes == 262144
+    state = eng.init_state(None)
+    for p in range(2):
+        state = eng.run_pass(state, p)
+    eng.synchronize()
+    spec, seed = _classify_spec(eng), (0x5EED, 2 ** 31 + len(cell))
+    # The plain version draws a chunk's words for every lane at once: 256
+    # groups of the carried lanes keep fine's 8,192-window chunk in memory.
+    a = cls.LaneState(*(t[:128].clone() for t in state["lanes"]))
+    b = cls.LaneState(*(t[:128].clone() for t in state["lanes"]))
+    launches.reset()
+    ra = cls.classify_pass(a, seed, **spec)
+    assert launches.COUNTS["classify"] == 1
+    _assert_same_result(ra, _plain_pass(b, seed, spec))
+    assert int(ra.stats[cls.STAT_DRAWN].sum()) > 0
+
+
+def test_classify_slices_match_plain_behind_the_replay(cuda):
+    """hires15k.coarse: the kernel launched right behind a pass whose
+    replay (the fused replay on a high-priority side stream, ~10 ms into
+    the 1.2 GB histogram) holds the SMs' registers, so part of its grid
+    becomes resident late. The late warps are counted (tracing on: some,
+    taking part of the items or none), and the pass equals the plain
+    version bitwise."""
+    from cudabrot_tpu_torch.utils import trace
+
+    eng = CudaEngine(_cell([*HIRES, *F32_CELLS["hires15k.coarse"][0]]),
+                     device=cuda)
+    state = eng.init_state(None)
+    for p in range(4):
+        state = eng.run_pass(state, p)
+    # Pass 3's replay runs on: the clones and the kernel queue behind pass
+    # 3's main-stream work only.
+    assert eng.replay_streams and not all(s.query()
+                                          for s in eng.replay_streams)
+    a = cls.LaneState(*(t.clone() for t in state["lanes"]))
+    b = cls.LaneState(*(t.clone() for t in state["lanes"]))
+    spec, seed = _classify_spec(eng), (77, 2 ** 32 - 5)
+    trace.start()
+    try:
+        ra = cls.classify_pass(a, seed, **spec)
+    finally:
+        counts = trace.stop()
+    eng.synchronize()
+    assert counts["classify_late_warps"] > 0
+    # 4,096 lane groups, 64 slices each at coarse's plan.
+    assert 0 <= counts["classify_late_items"] < 4096 * 64
+    _assert_same_result(ra, _plain_pass(b, seed, spec))
+
+
+def test_classify_slices_repeat_bit_for_bit(cuda):
+    """One pass at canvas1k.default's plan, 262,144 lanes, run 8 times on
+    clones of one state, its outputs and their margins poisoned with
+    another byte each run (chip_smoke.Guard, as its phase 12 does), and on
+    one stream: every run equals the first bitwise, and the queue's words
+    carried from launch to launch give the same pass each time."""
+    import chip_smoke as cs
+
+    eng = CudaEngine(_cell(["-w", "1000", "-h", "1000"]), device=cuda)
+    state = eng.init_state(None)
+    for p in range(2):
+        state = eng.run_pass(state, p)
+    eng.synchronize()
+    spec, lanes = _classify_spec(eng), state["lanes"]
+
+    def run(g):
+        return cls.classify_pass(cs.tree_map(g.clone, lanes), (9, 10),
+                                 **spec)
+
+    first = cs.repeat_call("classify", run, 8, cuda, lanes=eng.lanes,
+                           per_thread=2)
+    b = cls.LaneState(*(t.clone() for t in lanes))
+    want = cs.tree_leaves(_plain_pass(b, (9, 10), spec))
+    assert cs.leaves_equal(first, want)
+
+
+def test_classify_late_counts_only_under_tracing(cuda):
+    """Untraced, the kernel counts nothing and its pass makes no host
+    synchronisation (CUDA's sync debug mode raises on one); a traced
+    render reports the late warps and their items in stats["trace"], an
+    untraced one has no trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudabrot_tpu_torch.utils import trace
+
+    argv = ["-w", "64", "-h", "48", "--lane-rows", "64",
+            "--steps-per-pass", "512", "--steps-per-flush", "64",
+            "--passes", "4", "-t", "-1"]
+    cfg = _cell(argv)
+    eng = CudaEngine(cfg, device=cuda)
+    state = eng.init_state(None)
+    eng.run_pass(state, 0)
+    eng.synchronize()
+    spec = _classify_spec(eng)
+    assert trace.device_counts("classify_late", cuda, cls.LATE_FIELDS) is None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cls.classify_pass(state["lanes"], (1, 2), **spec)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.synchronize()
+    plain = driver.run_render(cfg, engine=CudaEngine(cfg, device=cuda),
+                              log=lambda msg: None)
+    assert "trace" not in plain.stats
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        traced = driver.run_render(cfg, engine=CudaEngine(cfg, device=cuda),
+                                   log=lambda msg: None)
+    t = traced.stats["trace"]
+    assert set(cls.LATE_FIELDS) <= set(t)
+    assert 0 <= t["classify_late_warps"] <= 64 * 128 // 64
+    assert t["classify_late_items"] >= 0
+
+
 @pytest.mark.parametrize("n", [1, 1000, 1 << 23])
 def test_threefry_bits_kernel_matches_plain(cuda, n):
     key = prng.fold_in(prng.key(1337), 0x7711)

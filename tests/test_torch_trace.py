@@ -16,6 +16,7 @@ from cudabrot_tpu_torch.config import (
     IterationBand,
     RenderConfig,
 )
+from cudabrot_tpu_torch.ops import classify as cls
 from cudabrot_tpu_torch.ops import launches
 from cudabrot_tpu_torch.utils import trace
 
@@ -353,6 +354,39 @@ def test_side_stream_spans_are_read_once_a_wait_completes_them(
     assert t["sync_groups"] == 3 and t["replay_tails"] == 3
     assert t["replay_tail_ms"] > 0
     assert t["sync_bubbles"] == 2 and t["sync_bubble_ms"] > 0
+
+
+def test_device_counts_are_made_and_read_only_under_tracing(monkeypatch):
+    """A kernel's device counts (``trace.device_counts``, as the f32
+    classify kernel's late warps and their items): without a profiler none
+    are made and the stats have none; under one, the plain version reports
+    none (it has no warps), and a kernel that adds to them each pass has
+    its words made once a device, read when tracing stops and reported
+    under their fields."""
+    real, asked = cls.classify_pass_plain, []
+
+    def counting(state, *args, **kw):
+        words = trace.device_counts("classify_late", state.cr.device,
+                                    cls.LATE_FIELDS)
+        asked.append(words)
+        if words is not None:
+            words += torch.tensor([1, 3])
+        return real(state, *args, **kw)
+
+    result, _ = _profiled(_cfg())
+    assert not set(cls.LATE_FIELDS) & set(result.stats["trace"])
+    monkeypatch.setattr(cls, "classify_pass_plain", counting)
+    result = _render(_cfg())
+    assert asked == [None] * PASSES
+    assert set(result.stats) == UNTRACED_KEYS
+    asked.clear()
+    result, _ = _profiled(_cfg())
+    t = result.stats["trace"]
+    assert len(asked) == PASSES and all(w is asked[0] for w in asked)
+    assert t["classify_late_warps"] == PASSES
+    assert t["classify_late_items"] == 3 * PASSES
+    assert trace.device_counts("classify_late", torch.device("cpu"),
+                               cls.LATE_FIELDS) is None
 
 
 def test_tracer_turns_off_when_the_render_fails():
