@@ -929,7 +929,8 @@ class CudaEngine:
         classify = (cls_mh.classify_pass_ext_mh if self.extended
                     else cls_mh.classify_pass_mh)
         with trace.span("cb.classify", device=self.device, sampler="mh",
-                        burnin=pass_index < o.mh_burnin_passes):
+                        burnin=pass_index < o.mh_burnin_passes,
+                        precision=o.precision):
             result = classify(state["lanes"], seed, **self.mh_pass_spec())
             if pass_index == o.mh_burnin_passes - 1:
                 state["lanes"].rep.zero_()

@@ -43,7 +43,9 @@ p90; the sync bubbles; the compactions by their ``route`` attribute
 (``compact_routes``: "length" or "select", one a pass and device); the
 Metropolis-Hastings passes, where there were any, by the ``cb.classify``
 spans of attribute ``sampler="mh"`` (``mh_passes``, one a pass and
-device) and those of them with ``burnin`` (``mh_burnin_passes``); the
+device), those of them with ``burnin`` (``mh_burnin_passes``) and those
+of ``precision="float32"`` (``mh_f32_passes``; "extended" is the df32
+orbit); the
 group ends (``sync_groups``), those with a replay tail
 (``replay_tails``) and the tails' device ms past the drain
 (``replay_tail_ms``); the device counts that kernels add to while tracing
@@ -221,6 +223,8 @@ class Tracer:
         if mh:
             out["mh_passes"] = len(mh)
             out["mh_burnin_passes"] = sum(r.attrs["burnin"] for r in mh)
+            out["mh_f32_passes"] = sum(r.attrs["precision"] == "float32"
+                                       for r in mh)
         return out
 
 

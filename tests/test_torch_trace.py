@@ -131,24 +131,29 @@ _MH = {"sampler": "mh", "lane_rows": 4, "steps_per_pass": 256,
     ({**_MH, "mh_burnin_passes": 0}, 0),
     ({**_MH, "mh_burnin_passes": 3}, 3),
     ({**_MH, "mh_burnin_passes": 1, "replay": "host"}, 1),
-], ids=["uniform", "mh", "mh-burnin", "mh-host"])
+    ({**_MH, "mh_burnin_passes": 1, "precision": "extended"}, 1),
+], ids=["uniform", "mh", "mh-burnin", "mh-host", "mh-df32"])
 def test_mh_passes_and_the_tail_flush_are_traced(options, burnin):
-    """An MH pass's cb.classify span says so (``sampler``, and ``burnin``
-    on a burn-in pass), the snapshot counts them, and the readback's tail
-    flush has its span (device or host mode); a uniform render traces as
-    before, with none of them."""
+    """An MH pass's cb.classify span says so (``sampler``, ``burnin`` on a
+    burn-in pass, and the orbit's ``precision``), the snapshot counts them
+    (``mh_f32_passes``: those of the float32 orbit), and the readback's
+    tail flush has its span (device or host mode); a uniform render
+    traces as before, with none of them."""
     result, _ = _profiled(_cfg(**options))
     tr = result.stats["trace"]
     recs = [r for r in trace.last().records if r.name == "cb.classify"]
     if burnin is None:
-        assert "mh_passes" not in tr and "mh_burnin_passes" not in tr
+        assert not {"mh_passes", "mh_burnin_passes", "mh_f32_passes"} & set(tr)
         assert "cb.mh_tail" not in tr["spans"]
         assert all(r.attrs == {} for r in recs)
         return
+    precision = options.get("precision", "float32")
     assert (tr["mh_passes"], tr["mh_burnin_passes"]) == (PASSES, burnin)
+    assert tr["mh_f32_passes"] == (PASSES if precision == "float32" else 0)
     assert [r.attrs for r in recs] == (
-        [{"sampler": "mh", "burnin": True}] * burnin
-        + [{"sampler": "mh", "burnin": False}] * (PASSES - burnin))
+        [{"sampler": "mh", "burnin": True, "precision": precision}] * burnin
+        + [{"sampler": "mh", "burnin": False, "precision": precision}]
+        * (PASSES - burnin))
     assert tr["spans"]["cb.mh_tail"]["count"] == 1
     tail = [r for r in trace.last().records if r.name == "cb.mh_tail"]
     assert tail[0].parent is None and tail[0].pass_index == PASSES - 1
